@@ -1,0 +1,315 @@
+// Single-query GQA decode attention over the dense KV cache window.
+//
+// Replaces: calfkit_tpu/inference/pallas_attention.py:60
+//   decode_attention_pallas (kernel body _decode_attn_kernel, :33).
+//
+// Computes, for every (batch row b, kv head k) and each of its G query heads:
+//   s[w] = (q . k[w]) * scale, masked to -1e30 where w >= base_lens[b]
+//   m    = max(max_w s[w], -1e29)          (the floor keeps fresh rows finite)
+//   z    = sum_w exp(s[w] - m)
+//   o    = sum_w exp(s[w] - m) * v[w]      (UNnormalized, f32)
+// and returns (o, m, z), the contract logsumexp_merge folds with the
+// fresh-token ring.
+//
+// What bounds it on an H100: bytes.  Each query head does 4*hd operations
+// per cached position while the position costs 2*hd*sizeof(T) bytes of K/V,
+// far below the ~295 operations per byte where the tensor cores would be
+// the limit.  The least time is the K/V bytes of the valid positions over
+// the 3.35 TB/s of device memory.
+//
+// What the design does about it:
+// - The TPU kernel holds the whole [W, hd] slice in VMEM.  At W=2048,
+//   hd=128, bf16 that is 512 KB per operand, above the 227 KB of shared
+//   memory a block may use, so this kernel streams the window in tiles of
+//   64 positions with a running max and sum (flash accumulation).
+// - One block per (b, kv head) serves all G query heads of the group from
+//   each K/V tile, so every cache byte is read from device memory once.
+// - A block has one SM to itself, so what bounds it is the bytes it keeps
+//   in flight: tiles arrive by cp.async, 16 bytes a copy, in a ring of
+//   three stages, two tiles loading while the third is computed on.
+// - Tiles past base_lens[b] are all masked and change nothing, so the block
+//   stops at the row's length; the ragged tail of the last tile is
+//   zero-filled, not read: the bytes read are those of valid positions.
+// - The cache is read through its strides: the engine passes a window view
+//   of [L, B, K, S, hd] and nothing is copied.
+// Left for later: splitting the window across blocks (flash-decoding; B*K
+// blocks leave SMs idle at small batch), TMA.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// 8 warps: at serving batch sizes a block is alone on its SM, and its own
+// warps are all there are to hide the latency of shared memory and the FMAs
+constexpr int kThreads = 256;
+constexpr int kTile = 64;      // kv positions per tile
+constexpr int kStages = 3;     // tiles in the cp.async ring
+constexpr int kMaxG = 8;       // query heads per kv head
+constexpr int kScoreStep = kThreads / kTile;  // heads between one thread's scores
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// 16 bytes of shared memory as f32: 8 bf16 or 4 f32 values
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load16(const float* p, float* out) {
+  const float4 raw = *reinterpret_cast<const float4*>(p);
+  out[0] = raw.x;
+  out[1] = raw.y;
+  out[2] = raw.z;
+  out[3] = raw.w;
+}
+
+// 16-byte global -> shared copy; with valid == false it writes zeros and
+// reads nothing
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int src_bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <typename T, int HD>
+struct Layout {
+  static constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte copy
+  // +16 bytes a row: lanes reading one column of successive rows with
+  // 16-byte loads fall on distinct banks
+  static constexpr int kRow = HD + kVec;
+  static constexpr size_t kTileBytes = sizeof(T) * kTile * kRow;
+  static constexpr size_t kBytes =
+      kStages * 2 * kTileBytes + sizeof(float) * (kMaxG * HD + kMaxG * kTile + 3 * kMaxG);
+};
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads) decode_attn_kernel(
+    const float* __restrict__ q,  // [B, K, G, HD] contiguous
+    const T* __restrict__ kc, const T* __restrict__ vc,
+    const int* __restrict__ lens,  // [B]
+    float* __restrict__ o,         // [B, K, G, HD]
+    float* __restrict__ m_out,     // [B, K, G]
+    float* __restrict__ z_out,     // [B, K, G]
+    int K, int G, int W,
+    int64_t k_sb, int64_t k_sk, int64_t k_sw,
+    int64_t v_sb, int64_t v_sk, int64_t v_sw,
+    float scale) {
+  using L = Layout<T, HD>;
+  constexpr int kVec = L::kVec;
+  constexpr int kRow = L::kRow;
+  constexpr int kChunksPerRow = HD / kVec;
+  constexpr int kPvStep = kThreads / HD;  // heads between one thread's accumulators
+  constexpr int kAcc = kMaxG / kPvStep;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tiles = reinterpret_cast<T*>(smem);  // [kStages][K, V][kTile][kRow]
+  float* q_s = reinterpret_cast<float*>(smem + kStages * 2 * L::kTileBytes);  // [kMaxG][HD]
+  float* p_s = q_s + kMaxG * HD;  // [kMaxG][kTile] scores, then probabilities
+  float* m_s = p_s + kMaxG * kTile;
+  float* z_s = m_s + kMaxG;
+  float* alpha_s = z_s + kMaxG;
+
+  const int k = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t head = static_cast<int64_t>(b) * K + k;
+
+  for (int idx = tid; idx < G * HD; idx += kThreads) q_s[idx] = q[head * G * HD + idx];
+  if (tid < G) {
+    m_s[tid] = -1e30f;
+    z_s[tid] = 0.0f;
+  }
+
+  const int len = max(0, min(lens[b], W));
+  const int n_tiles = (len + kTile - 1) / kTile;
+  const T* kb = kc + b * k_sb + k * k_sk;
+  const T* vb = vc + b * v_sb + k * v_sk;
+
+  auto load_tile = [&](int tile, int stage) {
+    T* ks = tiles + stage * 2 * kTile * kRow;
+    T* vs = ks + kTile * kRow;
+    for (int c = tid; c < kTile * kChunksPerRow; c += kThreads) {
+      const int j = c / kChunksPerRow, col = (c % kChunksPerRow) * kVec;
+      const int pos = tile * kTile + j;
+      const bool valid = pos < len;
+      const int64_t src = valid ? pos : 0;
+      cp_async16(ks + j * kRow + col, kb + src * k_sw + col, valid);
+      cp_async16(vs + j * kRow + col, vb + src * v_sw + col, valid);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) load_tile(s, s);
+    cp_async_commit();  // one group per tile slot, empty or not
+  }
+
+  const int j_own = tid % kTile;           // score: this thread's kv position
+  const int g_score = tid / kTile;         // and its first head
+  const int d_own = tid % HD;              // output: this thread's column
+  const int g_pv = tid / HD;               // and its first head
+  float acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t has landed
+    __syncthreads();               // for every thread; and tile t-1 is done with
+    {
+      const int next = t + kStages - 1;  // into the stage tile t-1 used
+      if (next < n_tiles) load_tile(next, next % kStages);
+      cp_async_commit();
+    }
+    const T* ks = tiles + (t % kStages) * 2 * kTile * kRow;
+    const T* vs = ks + kTile * kRow;
+
+    // scores: thread (j_own, g_score) -> heads g_score, g_score + kScoreStep
+    float dots[kMaxG / kScoreStep];
+#pragma unroll
+    for (int i = 0; i < kMaxG / kScoreStep; ++i) dots[i] = 0.0f;
+#pragma unroll 4
+    for (int c = 0; c < HD; c += kVec) {
+      float kv[kVec];
+      load16(ks + j_own * kRow + c, kv);
+#pragma unroll
+      for (int i = 0; i < kMaxG / kScoreStep; ++i) {
+        const int g = g_score + i * kScoreStep;
+        if (g < G) {
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) dots[i] += q_s[g * HD + c + e] * kv[e];
+        }
+      }
+    }
+    const bool keep = t * kTile + j_own < len;
+#pragma unroll
+    for (int i = 0; i < kMaxG / kScoreStep; ++i) {
+      const int g = g_score + i * kScoreStep;
+      if (g < G) p_s[g * kTile + j_own] = keep ? dots[i] * scale : -1e30f;
+    }
+    __syncthreads();
+
+    // online softmax: warp w -> head w; lane -> positions lane, lane + 32
+    for (int g = warp; g < G; g += kThreads / 32) {
+      float* row = p_s + g * kTile;
+      const float s0 = row[lane], s1 = row[lane + 32];
+      const float m_old = m_s[g];
+      const float m_new = fmaxf(fmaxf(m_old, warp_max(fmaxf(s0, s1))), -1e29f);
+      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+      row[lane] = p0;
+      row[lane + 32] = p1;
+      const float tile_sum = warp_sum(p0 + p1);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        alpha_s[g] = alpha;
+        m_s[g] = m_new;
+        z_s[g] = z_s[g] * alpha + tile_sum;
+      }
+    }
+    __syncthreads();
+
+    // o += p v: thread (d_own, g_pv) -> heads g_pv, g_pv + kPvStep, ...
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) {
+      const int g = g_pv + i * kPvStep;
+      if (g < G) acc[i] *= alpha_s[g];
+    }
+#pragma unroll 2
+    for (int j = 0; j < kTile; j += 4) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = to_f32(vs[(j + e) * kRow + d_own]);
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) {
+        const int g = g_pv + i * kPvStep;
+        if (g < G) {
+          const float4 p = *reinterpret_cast<const float4*>(p_s + g * kTile + j);
+          acc[i] += p.x * v[0] + p.y * v[1] + p.z * v[2] + p.w * v[3];
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) {
+    const int g = g_pv + i * kPvStep;
+    if (g < G) o[(head * G + g) * HD + d_own] = acc[i];
+  }
+  if (tid < G) {
+    m_out[head * G + tid] = fmaxf(m_s[tid], -1e29f);
+    z_out[head * G + tid] = z_s[tid];
+  }
+}
+
+template <typename T, int HD>
+int launch(const void* q, const void* kc, const void* vc, const int* lens, void* o,
+           void* m, void* z, int B, int K, int G, int W, int64_t k_sb, int64_t k_sk,
+           int64_t k_sw, int64_t v_sb, int64_t v_sk, int64_t v_sw, float scale,
+           cudaStream_t stream) {
+  constexpr size_t bytes = Layout<T, HD>::kBytes;
+  // above 48 KB only after the opt-in, which holds for the current device
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_attn_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(K, B);
+  decode_attn_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
+      lens, static_cast<float*>(o), static_cast<float*>(m), static_cast<float*>(z), K, G, W,
+      k_sb, k_sk, k_sw, v_sb, v_sk, v_sw, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// kv_dtype: 0 = float32, 1 = bfloat16.  The cache pointers and every cache
+// stride must be 16-byte multiples (the wrapper checks).  Returns 0 on
+// success, the CUDA error code of a refused launch, or -1 for a shape or
+// type the kernel does not take.
+extern "C" int calfkit_decode_attention(
+    int kv_dtype, int hd, const void* q, const void* kc, const void* vc, const int* lens,
+    void* o, void* m, void* z, int B, int K, int G, int W, long long k_sb, long long k_sk,
+    long long k_sw, long long v_sb, long long v_sk, long long v_sw, float scale,
+    void* stream) {
+  if (G < 1 || G > kMaxG || B < 0 || K < 0 || W < 0) return -1;
+  if (B == 0 || K == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CALFKIT_DECODE(T, HD) \
+  return launch<T, HD>(q, kc, vc, lens, o, m, z, B, K, G, W, k_sb, k_sk, k_sw, v_sb, v_sk, v_sw, scale, s)
+  if (kv_dtype == 0 && hd == 64) CALFKIT_DECODE(float, 64);
+  if (kv_dtype == 0 && hd == 128) CALFKIT_DECODE(float, 128);
+  if (kv_dtype == 1 && hd == 64) CALFKIT_DECODE(__nv_bfloat16, 64);
+  if (kv_dtype == 1 && hd == 128) CALFKIT_DECODE(__nv_bfloat16, 128);
+#undef CALFKIT_DECODE
+  return -1;
+}

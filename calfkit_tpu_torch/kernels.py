@@ -1,0 +1,116 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` exports a plain C function and is compiled by
+``nvcc`` for ``sm_90a`` into its own shared library under ``_build/``
+(listed in ``.gitignore``), then loaded with ``ctypes``.  Nothing is built
+when this module is imported: the first wrapper that launches a kernel
+builds it, or :func:`build_all` builds every source at once, one ``nvcc``
+per source, all started together.  A library is named by the hash of its
+source, so an edited source rebuilds and an unchanged one loads as is.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+# the C signature of each source's exported function
+SIGNATURES: dict[str, tuple[str, list]] = {
+    "decode_attention": (
+        "calfkit_decode_attention",
+        [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+         _L, _L, _L, _L, _L, _L, _F, _P],
+    ),
+    "prefill_attention": (
+        "calfkit_prefill_attention",
+        [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+         _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+    ),
+}
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes._CFuncPtr] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(found).exists():
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start_build(name: str) -> "tuple[Path, subprocess.Popen | None]":
+    out = _library_path(name)
+    if out.exists():
+        return out, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return out, proc
+
+
+def _finish_build(name: str, out: Path, proc: "subprocess.Popen | None") -> None:
+    if proc is None:
+        return
+    log, _ = proc.communicate()
+    tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every kernel source that has no current library, one ``nvcc``
+    per source in parallel → {name: library path}."""
+    with _lock:
+        started = {name: _start_build(name) for name in SIGNATURES}
+        for name, (out, proc) in started.items():
+            _finish_build(name, out, proc)
+        return {name: out for name, (out, _) in started.items()}
+
+
+def function(name: str) -> "ctypes._CFuncPtr":
+    """The loaded C entry point of ``csrc/<name>.cu``, built at first use."""
+    fn = _loaded.get(name)
+    if fn is not None:
+        return fn
+    with _lock:
+        fn = _loaded.get(name)
+        if fn is None:
+            out, proc = _start_build(name)
+            _finish_build(name, out, proc)
+            symbol, argtypes = SIGNATURES[name]
+            fn = getattr(ctypes.CDLL(str(out)), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[name] = fn
+    return fn

@@ -1,0 +1,148 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's serving time goes, on one CUDA card.
+
+    python3 scripts/torch_profile_serving.py [--out PATH] [--preset NAME] [--device cuda|cpu]
+
+Serves ``chip_smoke.py``'s serving workload (``serving_jobs``: the
+``llama-3-8b`` preset in bf16 with random weights from seed 0; 6 concurrent
+requests of 17–1500 prompt tokens, 32 new tokens each, one sampled) twice on
+one engine: the first round warms up, the second runs under
+``torch.profiler``.  Prints one JSON object: the profiled window's wall
+time, the device's busy time (union of kernel intervals) and idle share,
+launches and device time per kernel family, the top kernels by device time,
+and the round's decode dispatches and tokens.  ``--device cpu --preset debug`` rehearses the
+script on the CPU (no device metrics then).
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from calfkit_tpu_torch.inference.config import preset  # noqa: E402
+from calfkit_tpu_torch.inference.engine import InferenceEngine  # noqa: E402
+from chip_smoke import SERVING_RUNTIME, serving_jobs  # noqa: E402
+
+FAMILIES = (  # kernel-name substring → family, first match wins
+    ("decode_attn", "decode attention kernel"),
+    ("prefill_attn", "prefill attention kernel"),
+    ("nvjet", "matmul (cuBLAS)"),
+    ("gemm", "matmul (cuBLAS)"),
+    ("xmma", "matmul (cuBLAS)"),
+    ("cutlass", "matmul (cuBLAS)"),
+    ("Memcpy", "copies"),
+    ("Memset", "copies"),
+)
+
+
+def family(name: str) -> str:
+    for key, fam in FAMILIES:
+        if key.lower() in name.lower():
+            return fam
+    return "other elementwise/reduction"
+
+
+def busy_us(intervals: "list[tuple[float, float]]") -> float:
+    """Length of the union of [start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total
+
+
+async def serve(engine, jobs):
+    async def one(p, n, kw):
+        return [t async for t in engine.generate(p, max_new_tokens=n, **kw)]
+    return await asyncio.gather(*[one(p, n, kw) for p, n, kw in jobs])
+
+
+async def run(args) -> dict:
+    dev = torch.device(args.device)
+    cuda = dev.type == "cuda"
+    cfg = preset(args.preset)
+    rt = SERVING_RUNTIME
+    engine = InferenceEngine(cfg, rt, seed=0, device=dev)
+    _, jobs = serving_jobs(cfg.vocab_size)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    await engine.start()
+    try:
+        await serve(engine, jobs)  # warm-up round
+        engine.stats = type(engine.stats)()
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            await serve(engine, jobs)
+            if cuda:
+                torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        stats = engine.stats
+    finally:
+        await engine.stop()
+    kernels = [
+        e for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    by_family: dict[str, list] = {}
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        dt = e.time_range.end - e.time_range.start
+        for table, key in ((by_family, family(e.name)), (by_name, e.name)):
+            entry = table.setdefault(key, [0, 0.0])
+            entry[0] += 1
+            entry[1] += dt
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e6
+    steps = stats.decode_dispatches * rt.decode_steps_per_dispatch
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    return dict(
+        device=torch.cuda.get_device_name(0) if cuda else "cpu (no device metrics)",
+        card=subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip() if cuda else None,
+        preset=args.preset, wall_s=wall_s,
+        device_busy_s=busy if cuda else None,
+        device_idle_share=(1.0 - busy / wall_s) if cuda else None,
+        by_family={
+            k: dict(launches=c, device_s=t / 1e6) for k, (c, t) in sorted(by_family.items())
+        },
+        top_kernels=[dict(name=n[:90], calls=c, device_s=t / 1e6) for n, (c, t) in top],
+        kernel_launches=len(kernels),
+        decode_dispatches=stats.decode_dispatches, decode_steps=steps,
+        decode_time_s=stats.decode_time_s, decode_tokens=stats.decode_tokens,
+        decode_tok_s=stats.tokens_per_second, prefill_waves=stats.prefill_waves,
+        prefill_time_s=stats.prefill_time_s,
+    )
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out")
+    parser.add_argument("--preset", default="llama-3-8b")
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args()
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("torch_profile_serving: no CUDA device", file=sys.stderr)
+        return 2
+    result = asyncio.run(run(args))
+    line = json.dumps(result, default=str)
+    if args.out:
+        Path(args.out).write_text(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

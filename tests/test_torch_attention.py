@@ -1,0 +1,124 @@
+"""The PyTorch port's attention against the JAX package's Pallas kernels.
+
+On the CPU each wrapper runs its plain version; the Pallas kernels run in
+interpret mode, as the JAX package's own tests run them.  Inputs are numpy
+arrays from a seed, handed to both.  Tolerances are f32 ``atol=rtol=1e-5``:
+both sides compute the same f32 expressions and differ only in the order of
+the sums (over at most a few hundred terms of magnitude ~1), which moves
+results by a few f32 ulps.
+
+The hand-written kernels are held against these plain versions on the card
+in ``test_torch_kernels_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from calfkit_tpu.inference.pallas_attention import (  # noqa: E402
+    decode_attention_pallas,
+    merged_decode_attention_pallas,
+    prefill_attention_pallas,
+)
+from calfkit_tpu_torch.inference import attention as A  # noqa: E402
+from tests._torch_port import j, n, t  # noqa: E402
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _decode_inputs(B, K, G, W, hd, lens, seed=0, T=4):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    return dict(
+        q=f(B, K, G, hd), k=f(B, K, W, hd), v=f(B, K, W, hd),
+        rk=f(T, B, K, hd), rv=f(T, B, K, hd), lens=np.asarray(lens, np.int32),
+    )
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_decode_plain_matches_pallas(G):
+    x = _decode_inputs(B=3, K=2, G=G, W=40, hd=16, lens=[0, 7, 40], seed=G)
+    ref = decode_attention_pallas(
+        j(x["q"]), j(x["k"]), j(x["v"]), j(x["lens"]), interpret=True
+    )
+    out = A.decode_attention(t(x["q"]), t(x["k"]), t(x["v"]), t(x["lens"]))
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(n(a), n(b), **TOL)
+    # the fresh row (len 0): nothing attended, the -1e29 floor, z = 0
+    assert np.all(n(out[1])[0] == -1e29) and np.all(n(out[2])[0] == 0.0)
+
+
+@pytest.mark.parametrize("step", [0, 2, 3])
+def test_merged_decode_matches_pallas(step):
+    B, K, G, hd = 3, 2, 2, 16
+    x = _decode_inputs(B, K, G, W=32, hd=hd, lens=[0, 9, 31], seed=10 + step)
+    q = x["q"].reshape(B, 1, K * G, hd)
+    ref = merged_decode_attention_pallas(
+        j(q), j(x["k"]), j(x["v"]), j(x["rk"]), j(x["rv"]), j(x["lens"]),
+        jnp.int32(step), interpret=True,
+    )
+    out = A.merged_decode_attention(
+        t(q), t(x["k"]), t(x["v"]), t(x["rk"]), t(x["rv"]), t(x["lens"]), step
+    )
+    np.testing.assert_allclose(n(out), n(ref), **TOL)
+
+
+def _prefill_inputs(B, Sq, H, K, Skv, hd, lens, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    q_pos = np.broadcast_to(np.arange(Skv - Sq, Skv, dtype=np.int32), (B, Sq))
+    return dict(
+        q=f(B, Sq, H, hd), k=f(B, K, Skv, hd), v=f(B, K, Skv, hd),
+        q_pos=np.ascontiguousarray(q_pos), lens=np.asarray(lens, np.int32),
+    )
+
+
+@pytest.mark.parametrize(
+    "G,Sq,Skv,lens,blocks",
+    [
+        (1, 24, 24, [24, 24], {}),  # Sq below one q block
+        (2, 24, 40, [40, 31], {}),  # a chunk at an offset, seq_len < Skv
+        (4, 64, 64, [64, 50], dict(block_q=16, kv_chunk=32)),  # many blocks
+        (2, 64, 96, [96, 70], dict(block_q=32, kv_chunk=32)),
+    ],
+)
+def test_prefill_plain_matches_pallas(G, Sq, Skv, lens, blocks):
+    K, hd = 2, 16
+    x = _prefill_inputs(2, Sq, K * G, K, Skv, hd, lens, seed=Sq + Skv + G)
+    ref = prefill_attention_pallas(
+        j(x["q"]), j(x["k"]), j(x["v"]), j(x["q_pos"]), j(x["lens"]),
+        interpret=True, **blocks,
+    )
+    out = A.prefill_attention(
+        t(x["q"]), t(x["k"]), t(x["v"]), t(x["q_pos"]), t(x["lens"])
+    )
+    assert out.shape == (2, Sq, K * G, hd) and out.dtype == torch.float32
+    np.testing.assert_allclose(n(out), n(ref), **TOL)
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_nothing():
+    A.reset_launch_counts()
+    x = _decode_inputs(B=2, K=1, G=2, W=8, hd=8, lens=[3, 8])
+    A.decode_attention(t(x["q"]), t(x["k"]), t(x["v"]), t(x["lens"]))
+    assert A.launch_counts == {"decode_attention": 0, "prefill_attention": 0}
+
+
+def test_no_kernel_for_other_devices():
+    q = torch.zeros((1, 1, 1, 8), device="meta")
+    with pytest.raises(ValueError, match="no attention kernel"):
+        A.decode_attention(q, q, q, torch.zeros((1,), device="meta"))
+
+
+def test_strided_window_view_is_read_in_place():
+    """The engine hands the kernels a [:, :, :W] view of its cache; the
+    wrappers take it through its strides."""
+    x = _decode_inputs(B=2, K=2, G=2, W=16, hd=8, lens=[5, 12])
+    big = np.zeros((2, 2, 32, 8), np.float32)
+    big[:, :, :16] = x["k"]
+    out = A.decode_attention(t(x["q"]), t(big)[:, :, :16], t(x["v"]), t(x["lens"]))
+    ref = A.decode_attention(t(x["q"]), t(x["k"]), t(x["v"]), t(x["lens"]))
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(n(a), n(b), **TOL)

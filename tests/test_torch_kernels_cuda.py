@@ -1,0 +1,81 @@
+"""The PyTorch port's hand-written CUDA kernels against their plain
+versions, on the card.  These tests need a CUDA device and skip without one
+(run them there with ``python -m pytest tests/test_torch_kernels_cuda.py
+-m cuda``); they import neither JAX nor the JAX package, so they run where
+only PyTorch is installed."""
+
+import pytest
+import torch
+
+from calfkit_tpu_torch.inference import attention as A
+
+# evaluated at test setup, not at import: every worker collects the same tests
+cuda_only = pytest.mark.skipif(
+    "not torch.cuda.is_available()", reason="needs a CUDA device"
+)
+
+# f32 accumulation in both versions; the tolerances cover the sum order over
+# up to a few hundred positions, plus, for a bf16 prefill, the kernel's bf16
+# rounding of the probabilities (2**-9 relative each) and one bf16 rounding
+# of the output (2**-8 relative)
+DECODE_TOL = dict(atol=2e-5, rtol=2e-5)
+PREFILL_TOL = {
+    torch.float32: dict(atol=2e-5, rtol=2e-5),
+    torch.bfloat16: dict(atol=1e-2, rtol=1e-2),
+}
+
+
+GEOMETRIES = [(128, 4), (64, 8), (128, 1), (64, 2)]  # (hd, G)
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,G", GEOMETRIES)
+def test_decode_kernel_matches_plain(dtype, hd, G):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(hd + G)
+    B, K, W = 8, 8, 256
+    q = torch.randn((B, K, G, hd), generator=g, device=dev)
+    cache = torch.randn((2, B, K, 512, hd), generator=g, device=dev).to(dtype)
+    k, v = cache[0, :, :, :W], cache[1, :, :, :W]
+    lens = torch.tensor([0, 1, 31, 32, 33, 100, 255, 256], dtype=torch.int32, device=dev)
+    out = A.decode_attention(q, k, v, lens)
+    ref = A.decode_attention_reference(q, k, v, lens)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, **DECODE_TOL)
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,G", GEOMETRIES)
+@pytest.mark.parametrize("Sq", [300, 77])  # a whole prompt; a chunk at an offset
+def test_prefill_kernel_matches_plain(dtype, hd, G, Sq):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(hd * G + Sq)
+    B, K, Skv = 2, 4, 300
+    q = torch.randn((B, Sq, K * G, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, K, Skv, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, K, Skv, hd), generator=g, device=dev).to(dtype)
+    pos = torch.arange(Skv - Sq, Skv, dtype=torch.int32, device=dev).expand(B, Sq).contiguous()
+    lens = torch.tensor([Skv, 211], dtype=torch.int32, device=dev)
+    out = A.prefill_attention(q, k, v, pos, lens)
+    ref = A.prefill_attention_reference(q, k, v, pos, lens)
+    torch.testing.assert_close(out.float(), ref.float(), **PREFILL_TOL[dtype])
+
+
+@pytest.mark.cuda
+@cuda_only
+def test_misaligned_inputs_raise_instead_of_launching():
+    dev = torch.device("cuda")
+    flat = torch.zeros(2 * 4 * 64 * 128 + 1, dtype=torch.bfloat16, device=dev)
+    k = flat[1:].view(2, 4, 64, 128)  # 2 bytes past a 16-byte boundary
+    q = torch.zeros((2, 4, 4, 128), device=dev)
+    lens = torch.full((2,), 64, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        A.decode_attention(q, k, k, lens)
+    qp = torch.zeros((2, 64, 16, 128), dtype=torch.bfloat16, device=dev)
+    pos = torch.arange(64, dtype=torch.int32, device=dev).expand(2, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        A.prefill_attention(qp, k, k, pos, lens)
