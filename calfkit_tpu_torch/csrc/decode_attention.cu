@@ -1,7 +1,11 @@
-// Single-query GQA decode attention over the dense KV cache window.
+// Single-query GQA decode attention over the KV cache: the dense window, and
+// the paged pool read through block tables.
 //
 // Replaces: calfkit_tpu/inference/pallas_attention.py:60
-//   decode_attention_pallas (kernel body _decode_attn_kernel, :33).
+//   decode_attention_pallas (kernel body _decode_attn_kernel, :33), entry
+//   point calfkit_decode_attention; and pallas_attention.py:153
+//   paged_decode_attention_pallas (kernel body _paged_attn_kernel, :99),
+//   entry point calfkit_paged_decode_attention.  Both share one body.
 //
 // Computes, for every (batch row b, kv head k) and each of its G query heads:
 //   s[w] = (q . k[w]) * scale, masked to -1e30 where w >= base_lens[b]
@@ -9,19 +13,24 @@
 //   z    = sum_w exp(s[w] - m)
 //   o    = sum_w exp(s[w] - m) * v[w]      (UNnormalized, f32)
 // and returns (o, m, z), the contract logsumexp_merge folds with the
-// fresh-token ring.
+// fresh-token ring.  In the paged form, position w of row b lives in page
+// tables[b, w / page] of the pool's layer, at offset w % page.
 //
 // What bounds it on an H100: bytes.  Each query head does 4*hd operations
 // per cached position while the position costs 2*hd*sizeof(T) bytes of K/V,
 // far below the ~295 operations per byte where the tensor cores would be
-// the limit.  The least time is the K/V bytes of the valid positions over
-// the 3.35 TB/s of device memory.
+// the limit.  The least time is the K/V bytes of the valid positions
+// (valid positions x K x hd x 2 x sizeof(T)) over the 3.35 TB/s of device
+// memory.
 //
 // What the design does about it:
 // - The TPU kernel holds the whole [W, hd] slice in VMEM.  At W=2048,
 //   hd=128, bf16 that is 512 KB per operand, above the 227 KB of shared
 //   memory a block may use, so this kernel streams the window in tiles of
-//   64 positions with a running max and sum (flash accumulation).
+//   64 positions with a running max and sum (flash accumulation).  The
+//   paged TPU kernel runs its page axis as a sequential grid dimension with
+//   the statistics in VMEM scratch; here the same running statistics live
+//   in the block's shared memory across its own loop over tiles.
 // - One block per (b, kv head) serves all G query heads of the group from
 //   each K/V tile, so every cache byte is read from device memory once.
 // - A block has one SM to itself, so what bounds it is the bytes it keeps
@@ -30,8 +39,18 @@
 // - Tiles past base_lens[b] are all masked and change nothing, so the block
 //   stops at the row's length; the ragged tail of the last tile is
 //   zero-filled, not read: the bytes read are those of valid positions.
-// - The cache is read through its strides: the engine passes a window view
-//   of [L, B, K, S, hd] and nothing is copied.
+//   The paged TPU kernel visits all wpages pages, but a page past
+//   ceil(len / page) adds exact zeros: its scores are -1e30, and with the
+//   running max m >= -1e29, exp(-1e30 - m) is 0 in f32, while the rescale
+//   factor exp(m - m) is 1.  So stopping at the last valid page gives the
+//   same (o, m, z); table entries past it (the trash page) are never read.
+// - The dense cache is read through its strides: the engine passes a window
+//   view of [L, B, K, S, hd] and nothing is copied.  The paged form takes a
+//   layer of the whole pool as a strided view (base pointer plus page, head
+//   and position strides); TPU scalar prefetch of the block table has no
+//   counterpart, so the block copies its row of the table (the pages its
+//   length needs) into shared memory once, and each 16-byte copy works out
+//   its own page, w / page.  No window is gathered and no layer is copied.
 // Left for later: splitting the window across blocks (flash-decoding; B*K
 // blocks leave SMs idle at small batch), TMA.
 
@@ -111,17 +130,41 @@ struct Layout {
       kStages * 2 * kTileBytes + sizeof(float) * (kMaxG * HD + kMaxG * kTile + 3 * kMaxG);
 };
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) decode_attn_kernel(
+// K/V rows of one (batch row, kv head) in the dense cache: position pos at
+// base + pos * stride
+template <typename T>
+struct DenseRows {
+  const T* base;
+  int64_t stride;
+  __device__ __forceinline__ const T* at(int pos) const { return base + pos * stride; }
+};
+
+// K/V rows of one (batch row, kv head) in a layer of the paged pool:
+// position pos in page pages[pos / page], at offset pos % page
+template <typename T>
+struct PagedRows {
+  const T* base;     // the layer's pool at this kv head
+  const int* pages;  // this row's block table, staged in shared memory
+  int page;
+  int64_t page_stride, pos_stride;
+  __device__ __forceinline__ const T* at(int pos) const {
+    const int p = pos / page;
+    return base + static_cast<int64_t>(pages[p]) * page_stride +
+           static_cast<int64_t>(pos - p * page) * pos_stride;
+  }
+};
+
+// The shared body: the block of (batch row, kv head) `head` attends the
+// first `len` positions of its K/V rows.  Uses Layout<T, HD>::kBytes of
+// shared memory from `smem`.
+template <typename T, int HD, typename Rows>
+__device__ __forceinline__ void attend(
+    unsigned char* smem,
     const float* __restrict__ q,  // [B, K, G, HD] contiguous
-    const T* __restrict__ kc, const T* __restrict__ vc,
-    const int* __restrict__ lens,  // [B]
-    float* __restrict__ o,         // [B, K, G, HD]
-    float* __restrict__ m_out,     // [B, K, G]
-    float* __restrict__ z_out,     // [B, K, G]
-    int K, int G, int W,
-    int64_t k_sb, int64_t k_sk, int64_t k_sw,
-    int64_t v_sb, int64_t v_sk, int64_t v_sw,
+    const Rows& krows, const Rows& vrows, int len, int64_t head, int G,
+    float* __restrict__ o,      // [B, K, G, HD]
+    float* __restrict__ m_out,  // [B, K, G]
+    float* __restrict__ z_out,  // [B, K, G]
     float scale) {
   using L = Layout<T, HD>;
   constexpr int kVec = L::kVec;
@@ -130,7 +173,6 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(
   constexpr int kPvStep = kThreads / HD;  // heads between one thread's accumulators
   constexpr int kAcc = kMaxG / kPvStep;
 
-  extern __shared__ __align__(16) unsigned char smem[];
   T* tiles = reinterpret_cast<T*>(smem);  // [kStages][K, V][kTile][kRow]
   float* q_s = reinterpret_cast<float*>(smem + kStages * 2 * L::kTileBytes);  // [kMaxG][HD]
   float* p_s = q_s + kMaxG * HD;  // [kMaxG][kTile] scores, then probabilities
@@ -138,12 +180,9 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(
   float* z_s = m_s + kMaxG;
   float* alpha_s = z_s + kMaxG;
 
-  const int k = blockIdx.x;
-  const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int64_t head = static_cast<int64_t>(b) * K + k;
 
   for (int idx = tid; idx < G * HD; idx += kThreads) q_s[idx] = q[head * G * HD + idx];
   if (tid < G) {
@@ -151,10 +190,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(
     z_s[tid] = 0.0f;
   }
 
-  const int len = max(0, min(lens[b], W));
   const int n_tiles = (len + kTile - 1) / kTile;
-  const T* kb = kc + b * k_sb + k * k_sk;
-  const T* vb = vc + b * v_sb + k * v_sk;
 
   auto load_tile = [&](int tile, int stage) {
     T* ks = tiles + stage * 2 * kTile * kRow;
@@ -163,9 +199,8 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(
       const int j = c / kChunksPerRow, col = (c % kChunksPerRow) * kVec;
       const int pos = tile * kTile + j;
       const bool valid = pos < len;
-      const int64_t src = valid ? pos : 0;
-      cp_async16(ks + j * kRow + col, kb + src * k_sw + col, valid);
-      cp_async16(vs + j * kRow + col, vb + src * v_sw + col, valid);
+      cp_async16(ks + j * kRow + col, valid ? krows.at(pos) + col : krows.base, valid);
+      cp_async16(vs + j * kRow + col, valid ? vrows.at(pos) + col : vrows.base, valid);
     }
   };
 
@@ -272,21 +307,83 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(
 }
 
 template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads) decode_attn_kernel(
+    const float* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+    const int* __restrict__ lens, float* __restrict__ o, float* __restrict__ m_out,
+    float* __restrict__ z_out, int K, int G, int W,
+    int64_t k_sb, int64_t k_sk, int64_t k_sw,
+    int64_t v_sb, int64_t v_sk, int64_t v_sw,
+    float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int k = blockIdx.x;
+  const int b = blockIdx.y;
+  const DenseRows<T> krows{kc + b * k_sb + k * k_sk, k_sw};
+  const DenseRows<T> vrows{vc + b * v_sb + k * v_sk, v_sw};
+  attend<T, HD>(smem, q, krows, vrows, max(0, min(lens[b], W)),
+                static_cast<int64_t>(b) * K + k, G, o, m_out, z_out, scale);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads) paged_decode_attn_kernel(
+    const float* __restrict__ q,
+    const T* __restrict__ pk, const T* __restrict__ pv,  // one layer: [N, K, page, HD]
+    const int* __restrict__ tables,  // [B, table_stride]
+    const int* __restrict__ lens, float* __restrict__ o, float* __restrict__ m_out,
+    float* __restrict__ z_out, int K, int G, int wpages, int page, int64_t table_stride,
+    int64_t k_sn, int64_t k_sk, int64_t k_sp,
+    int64_t v_sn, int64_t v_sk, int64_t v_sp,
+    float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* pages = reinterpret_cast<int*>(smem + Layout<T, HD>::kBytes);  // [wpages]
+  const int k = blockIdx.x;
+  const int b = blockIdx.y;
+  const int len = max(0, min(lens[b], wpages * page));
+  const int n_pages = (len + page - 1) / page;
+  for (int p = threadIdx.x; p < n_pages; p += kThreads) pages[p] = tables[b * table_stride + p];
+  __syncthreads();  // the table row is read by every thread's copies
+  const PagedRows<T> krows{pk + k * k_sk, pages, page, k_sn, k_sp};
+  const PagedRows<T> vrows{pv + k * v_sk, pages, page, v_sn, v_sp};
+  attend<T, HD>(smem, q, krows, vrows, len, static_cast<int64_t>(b) * K + k, G, o, m_out,
+                z_out, scale);
+}
+
+// above 48 KB of shared memory only after the opt-in, which holds for the
+// current device
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <typename T, int HD>
 int launch(const void* q, const void* kc, const void* vc, const int* lens, void* o,
            void* m, void* z, int B, int K, int G, int W, int64_t k_sb, int64_t k_sk,
            int64_t k_sw, int64_t v_sb, int64_t v_sk, int64_t v_sw, float scale,
            cudaStream_t stream) {
   constexpr size_t bytes = Layout<T, HD>::kBytes;
-  // above 48 KB only after the opt-in, which holds for the current device
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_attn_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+  cudaError_t err = allow_smem(decode_attn_kernel<T, HD>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(K, B);
   decode_attn_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
       lens, static_cast<float*>(o), static_cast<float*>(m), static_cast<float*>(z), K, G, W,
       k_sb, k_sk, k_sw, v_sb, v_sk, v_sw, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int HD>
+int launch_paged(const void* q, const void* pk, const void* pv, const int* tables,
+                 const int* lens, void* o, void* m, void* z, int B, int K, int G, int wpages,
+                 int page, int64_t table_stride, int64_t k_sn, int64_t k_sk, int64_t k_sp,
+                 int64_t v_sn, int64_t v_sk, int64_t v_sp, float scale, cudaStream_t stream) {
+  const size_t bytes = Layout<T, HD>::kBytes + sizeof(int) * static_cast<size_t>(wpages);
+  cudaError_t err = allow_smem(paged_decode_attn_kernel<T, HD>, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(K, B);
+  paged_decode_attn_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const T*>(pk), static_cast<const T*>(pv),
+      tables, lens, static_cast<float*>(o), static_cast<float*>(m), static_cast<float*>(z), K,
+      G, wpages, page, table_stride, k_sn, k_sk, k_sp, v_sn, v_sk, v_sp, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -311,5 +408,28 @@ extern "C" int calfkit_decode_attention(
   if (kv_dtype == 1 && hd == 64) CALFKIT_DECODE(__nv_bfloat16, 64);
   if (kv_dtype == 1 && hd == 128) CALFKIT_DECODE(__nv_bfloat16, 128);
 #undef CALFKIT_DECODE
+  return -1;
+}
+
+// The paged form: pk/pv point at one layer of the pool [L, N, K, page, hd]
+// (k_sn/k_sk/k_sp: its page, head and position strides, in elements);
+// tables is [B, table_stride] int32 with at least wpages entries a row.
+// Any page size >= 1; the same return codes as above.
+extern "C" int calfkit_paged_decode_attention(
+    int kv_dtype, int hd, const void* q, const void* pk, const void* pv, const int* tables,
+    const int* lens, void* o, void* m, void* z, int B, int K, int G, int wpages, int page,
+    long long table_stride, long long k_sn, long long k_sk, long long k_sp, long long v_sn,
+    long long v_sk, long long v_sp, float scale, void* stream) {
+  if (G < 1 || G > kMaxG || B < 0 || K < 0 || wpages < 0 || page < 1) return -1;
+  if (B == 0 || K == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CALFKIT_PAGED(T, HD)                                                                     \
+  return launch_paged<T, HD>(q, pk, pv, tables, lens, o, m, z, B, K, G, wpages, page,          \
+                             table_stride, k_sn, k_sk, k_sp, v_sn, v_sk, v_sp, scale, s)
+  if (kv_dtype == 0 && hd == 64) CALFKIT_PAGED(float, 64);
+  if (kv_dtype == 0 && hd == 128) CALFKIT_PAGED(float, 128);
+  if (kv_dtype == 1 && hd == 64) CALFKIT_PAGED(__nv_bfloat16, 64);
+  if (kv_dtype == 1 && hd == 128) CALFKIT_PAGED(__nv_bfloat16, 128);
+#undef CALFKIT_PAGED
   return -1;
 }

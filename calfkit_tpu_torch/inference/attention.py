@@ -1,11 +1,15 @@
 """Attention kernels of the serving path and their plain PyTorch versions.
 
-Two hand-written CUDA kernels (sources in ``calfkit_tpu_torch/csrc/``)
-take the place of the JAX package's Pallas kernels on this path:
+Hand-written CUDA kernels (sources in ``calfkit_tpu_torch/csrc/``) take the
+place of the JAX package's Pallas kernels on this path:
 
 - :func:`decode_attention` ← ``pallas_attention.decode_attention_pallas``:
   single-query GQA decode over the dense cache window → (o unnormalized,
   m, z), folded with the fresh-token ring by :func:`merged_decode_attention`;
+- :func:`paged_decode_attention` ←
+  ``pallas_attention.paged_decode_attention_pallas``: the same contract,
+  with K/V read page by page through block tables out of the whole pool,
+  folded with the ring by :func:`merged_paged_decode_attention`;
 - :func:`prefill_attention` ← ``pallas_attention.prefill_attention_pallas``:
   causal GQA flash attention → normalized output in q's dtype.
 
@@ -23,7 +27,9 @@ import torch
 
 from calfkit_tpu_torch import kernels
 
-launch_counts: dict[str, int] = {"decode_attention": 0, "prefill_attention": 0}
+launch_counts: dict[str, int] = {
+    "decode_attention": 0, "paged_decode_attention": 0, "prefill_attention": 0,
+}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -82,6 +88,49 @@ def _check_status(name: str, status: int) -> None:
 # --------------------------------------------------------------------------- #
 
 
+def _launch_decode(name: str, q: torch.Tensor, call) -> tuple:
+    """The launch shared by the decode kernels: ``call(qf, o, m, z, scale,
+    stream)`` runs the C entry point on q in f32 and three fresh f32
+    outputs, on the current stream → (o [B,K,G,hd], m [B,K,G], z [B,K,G])."""
+    B, K, G, hd = q.shape
+    qf = q.to(torch.float32).contiguous()
+    o = torch.empty((B, K, G, hd), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, K, G), dtype=torch.float32, device=q.device)
+    z = torch.empty((B, K, G), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):  # the launching thread's current device
+        status = call(
+            qf, o, m, z, 1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream
+        )
+    _check_status(name, status)
+    launch_counts[name] += 1
+    return o, m, z
+
+
+def _grouped(q: torch.Tensor, K: int) -> torch.Tensor:
+    """[B, 1, H, hd] decode queries → [B, K, G, hd] by kv head."""
+    B, _, H, hd = q.shape
+    return q.reshape(B, K, H // K, hd)
+
+
+def _merge_with_ring(
+    q: torch.Tensor,  # [B, 1, H, hd]
+    qg: torch.Tensor,  # q as [B, K, G, hd]
+    source: tuple[torch.Tensor, torch.Tensor, torch.Tensor],  # (o, m, z) of the main cache
+    ring_k: torch.Tensor,  # [T, B, K, hd]
+    ring_v: torch.Tensor,
+    t: int,
+) -> torch.Tensor:
+    """Fold the (tiny) fresh-token ring into a main-cache source with the
+    shared logsumexp merge → [B, 1, H, hd] in q's dtype."""
+    from calfkit_tpu_torch.inference.model import logsumexp_merge, ring_attention_source
+
+    o1, m1, z1 = source
+    out = logsumexp_merge(
+        (o1, m1[..., None], z1[..., None]), ring_attention_source(qg, ring_k, ring_v, t)
+    )
+    return out.reshape(q.shape).to(q.dtype)
+
+
 def decode_attention_reference(
     q: torch.Tensor,  # [B, K, G, hd]
     k_cache: torch.Tensor,  # [B, K, W, hd]
@@ -125,23 +174,14 @@ def decode_attention(
         raise ValueError(f"decode_attention: hd={hd}, G={G} not supported")
     _check_aligned16("decode_attention", k_cache, v_cache)
     fn = kernels.function("decode_attention")
-    qf = q.to(torch.float32).contiguous()
     lens = base_lens.to(torch.int32).contiguous()
-    o = torch.empty((B, K, G, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, K, G), dtype=torch.float32, device=q.device)
-    z = torch.empty((B, K, G), dtype=torch.float32, device=q.device)
     ks, vs = k_cache.stride(), v_cache.stride()
-    with torch.cuda.device(q.device):  # the launching thread's current device
-        status = fn(
-            _DTYPE_CODES[k_cache.dtype], hd,
-            qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-            o.data_ptr(), m.data_ptr(), z.data_ptr(),
-            B, K, G, W, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-            1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _check_status("decode_attention", status)
-    launch_counts["decode_attention"] += 1
-    return o, m, z
+    return _launch_decode("decode_attention", q, lambda qf, o, m, z, scale, stream: fn(
+        _DTYPE_CODES[k_cache.dtype], hd,
+        qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
+        o.data_ptr(), m.data_ptr(), z.data_ptr(),
+        B, K, G, W, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale, stream,
+    ))
 
 
 def merged_decode_attention(
@@ -156,15 +196,112 @@ def merged_decode_attention(
     """Softmax over (main cache ⊕ ring): the main-cache source from
     :func:`decode_attention`, the (tiny) ring folded in with the shared
     logsumexp merge → [B, 1, H, hd] in q's dtype."""
-    from calfkit_tpu_torch.inference.model import logsumexp_merge, ring_attention_source
+    qg = _grouped(q, k_cache.shape[1])
+    return _merge_with_ring(
+        q, qg, decode_attention(qg, k_cache, v_cache, base_lens), ring_k, ring_v, t
+    )
 
-    B, _, H, hd = q.shape
-    K = k_cache.shape[1]
-    qg = q.reshape(B, K, H // K, hd)
-    o1, m1, z1 = decode_attention(qg, k_cache, v_cache, base_lens)
-    o2, m2, z2 = ring_attention_source(qg, ring_k, ring_v, t)
-    out = logsumexp_merge((o1, m1[..., None], z1[..., None]), (o2, m2, z2))
-    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+# --------------------------------------------------------------------------- #
+# paged decode
+# --------------------------------------------------------------------------- #
+
+
+def paged_decode_attention_reference(
+    q: torch.Tensor,  # [B, K, G, hd]
+    pool_k: torch.Tensor,  # [L, N, K, page, hd] the whole pool
+    pool_v: torch.Tensor,
+    layer: int,
+    tables: torch.Tensor,  # [B, Pmax] block tables
+    base_lens: torch.Tensor,  # [B]
+    *,
+    wpages: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the paged decode kernel: gather each row's
+    window of ``wpages`` pages, then the plain decode attention in f32
+    → (o [B,K,G,hd] unnormalized, m [B,K,G], z [B,K,G])."""
+    from calfkit_tpu_torch.inference.model import gather_window_paged
+
+    return decode_attention_reference(
+        q,
+        gather_window_paged(pool_k[layer], tables, wpages),
+        gather_window_paged(pool_v[layer], tables, wpages),
+        base_lens,
+    )
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # [B, K, G, hd]
+    pool_k: torch.Tensor,  # [L, N, K, page, hd] the whole pool (never sliced)
+    pool_v: torch.Tensor,
+    layer: int,  # which layer's pages to read
+    tables: torch.Tensor,  # [B, Pmax] int32 block tables
+    base_lens: torch.Tensor,  # [B] valid kv per row
+    *,
+    wpages: int,  # pages per attention window
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Paged decode attention, the contract of :func:`decode_attention` over
+    the window of ``wpages`` pages that ``tables[b]`` names in layer
+    ``layer`` of the pool → (o f32 unnormalized, m, z).
+
+    On CUDA the kernel reads each page in place through the block table:
+    the layer is a strided view of the pool and no window is gathered."""
+    if _on_cpu(q, pool_k, pool_v, tables, base_lens):
+        return paged_decode_attention_reference(
+            q, pool_k, pool_v, layer, tables, base_lens, wpages=wpages
+        )
+    B, K, G, hd = q.shape
+    _check_kv("paged_decode_attention", pool_k, pool_v)
+    L, N, _, page = pool_k.shape[:4]
+    if (
+        pool_k.shape != (L, N, K, page, hd) or tables.dim() != 2
+        or tables.shape[0] != B or base_lens.shape != (B,)
+    ):
+        raise ValueError(
+            f"paged_decode_attention: q {tuple(q.shape)}, pool {tuple(pool_k.shape)}, "
+            f"tables {tuple(tables.shape)}, lens {tuple(base_lens.shape)} do not agree"
+        )
+    if not 0 <= layer < L or not 1 <= wpages <= tables.shape[1]:
+        raise ValueError(
+            f"paged_decode_attention: layer {layer} of {L}, wpages {wpages} of "
+            f"{tables.shape[1]} table entries"
+        )
+    if hd not in _HEAD_DIMS or not 1 <= G <= _MAX_DECODE_GROUP:
+        raise ValueError(f"paged_decode_attention: hd={hd}, G={G} not supported")
+    k_layer, v_layer = pool_k[layer], pool_v[layer]  # views: nothing is copied
+    _check_aligned16("paged_decode_attention", k_layer, v_layer)
+    fn = kernels.function("paged_decode_attention")
+    tab = tables.to(torch.int32).contiguous()
+    lens = base_lens.to(torch.int32).contiguous()
+    ks, vs = k_layer.stride(), v_layer.stride()
+    return _launch_decode("paged_decode_attention", q, lambda qf, o, m, z, scale, stream: fn(
+        _DTYPE_CODES[pool_k.dtype], hd,
+        qf.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(), tab.data_ptr(),
+        lens.data_ptr(), o.data_ptr(), m.data_ptr(), z.data_ptr(),
+        B, K, G, wpages, page, tab.stride(0),
+        ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale, stream,
+    ))
+
+
+def merged_paged_decode_attention(
+    q: torch.Tensor,  # [B, 1, H, hd]
+    pool_k: torch.Tensor,  # [L, N, K, page, hd]
+    pool_v: torch.Tensor,
+    layer: int,
+    tables: torch.Tensor,  # [B, Pmax]
+    ring_k: torch.Tensor,  # [T, B, K, hd] this layer's ring
+    ring_v: torch.Tensor,
+    base_lens: torch.Tensor,  # [B]
+    t: int,  # current ring step (slots 0..t valid)
+    *,
+    wpages: int,
+) -> torch.Tensor:
+    """The paged counterpart of :func:`merged_decode_attention`: the
+    main-cache source from :func:`paged_decode_attention`, the ring folded in
+    with the shared logsumexp merge → [B, 1, H, hd] in q's dtype."""
+    qg = _grouped(q, pool_k.shape[2])
+    source = paged_decode_attention(qg, pool_k, pool_v, layer, tables, base_lens, wpages=wpages)
+    return _merge_with_ring(q, qg, source, ring_k, ring_v, t)
 
 
 # --------------------------------------------------------------------------- #

@@ -88,14 +88,15 @@ class SpecConfig:
 class RuntimeConfig:
     """Serving-engine knobs, field for field as in the JAX package.
 
-    The PyTorch engine serves the dense layout with single-shot prefill
-    waves and (overlapped or lockstep) decode; fields that select a part
-    not ported yet raise ``ValueError`` at engine construction."""
+    The PyTorch engine serves the dense and paged layouts, single-shot or
+    chunked prefill (with ragged unified waves and the prefix cache), and
+    (overlapped or lockstep) decode; fields that select a part not ported
+    yet raise ``ValueError`` at engine construction."""
 
     max_batch_size: int = 32
     max_seq_len: int = 2048
     # "dense" = [L, B, K, max_seq, hd] per-slot rows; "paged" = block-table
-    # pool (not served by the PyTorch engine yet)
+    # pool [L, N, K, page, hd]
     kv_layout: str = "dense"
     page_size: int = 64  # tokens per KV page (paged layout)
     max_pages_per_seq: int = 0  # 0 → derived from max_seq_len
@@ -156,6 +157,17 @@ class RuntimeConfig:
     capacity_samples: int = 0  # occupancy-timeline ring capacity; 0 = off
     # weight-only quantization: "int8" | "int4" | None (native dtype)
     quantization: str | None = None
+
+    def pages_per_seq(self) -> int:
+        if self.max_pages_per_seq:
+            return self.max_pages_per_seq
+        return -(-self.max_seq_len // self.page_size)
+
+    def pool_pages(self) -> int:
+        """Total pages in the paged pool (page 0 is the trash page)."""
+        if self.num_kv_pages:
+            return self.num_kv_pages
+        return self.max_batch_size * self.pages_per_seq() + 1
 
 
 # --------------------------------------------------------------------------- #

@@ -1,12 +1,21 @@
-"""The continuous-batching inference engine on PyTorch: the dense path.
+"""The continuous-batching inference engine on PyTorch.
 
-The counterpart of ``calfkit_tpu.inference.engine.InferenceEngine`` for the
-default configuration: dense KV layout, single-shot prefill waves, and
-overlapped (or lockstep) multi-step decode dispatches, without speculation.
+The counterpart of ``calfkit_tpu.inference.engine.InferenceEngine``, without
+speculation: dense or paged KV, single-shot or chunked prefill (with ragged
+unified waves and the prefix cache), and overlapped (or lockstep)
+multi-step decode dispatches.
 
 - a fixed pool of ``max_batch_size`` slots backed by ONE device-resident KV
-  cache [L, B, K, S, hd]; admission = a batched prefill wave that lands in
-  free slots' rows;
+  cache: dense [L, B, K, S, hd] rows, or a paged pool [L, N, K, page, hd]
+  read and written through per-slot block tables; admission = a batched
+  prefill wave that lands in free slots' rows (or reserved pages);
+- paged KV reserves each request's whole page footprint at admission; with
+  the prefix cache, a prompt's full pages are shared between requests
+  that repeat them (an agent re-sending its instructions every turn), and
+  idle cached pages are evicted when admission runs dry;
+- chunked prefill advances an admission wave one ``prefill_chunk`` per
+  scheduler pass; with ragged waves (the default when chunked prefill and
+  overlap are on) the chunk rides the decode dispatch of the same tick;
 - decode runs for all active slots together: one dispatch generates
   ``decode_steps_per_dispatch`` tokens per slot; the host syncs once per
   dispatch through :meth:`InferenceEngine._sync_host`, nowhere else on the
@@ -16,7 +25,9 @@ overlapped (or lockstep) multi-step decode dispatches, without speculation.
   device never idles while the host fans tokens out.  The one stream of
   the device orders every dispatch after the one before it; the host waits
   on a CUDA event recorded after dispatch N's outputs were copied to pinned
-  host memory, so waiting for N never waits for N+1.
+  host memory, so waiting for N never waits for N+1.  A slot that retires
+  while a dispatch still covers it keeps its pages (and its references to
+  shared prefix pages) until that dispatch lands.
 
 Parts of the reference engine not ported yet raise instead of pretending:
 ``ValueError`` at construction for their configuration, ``InferenceError``
@@ -29,6 +40,7 @@ import asyncio
 import heapq
 import itertools
 import logging
+import math
 import threading
 import time
 from collections import deque
@@ -40,7 +52,16 @@ import torch
 
 from calfkit_tpu_torch.exceptions import InferenceError
 from calfkit_tpu_torch.inference import model as M
+from calfkit_tpu_torch.inference import ragged as ragged_math
 from calfkit_tpu_torch.inference.config import ModelConfig, RuntimeConfig
+from calfkit_tpu_torch.inference.paged import (
+    TRASH_PAGE,
+    PageAllocator,
+    PrefixCache,
+    chain_hashes,
+    pages_needed,
+    table_row,
+)
 from calfkit_tpu_torch.inference.sampler import (
     SamplingParams,
     fold_in,
@@ -61,8 +82,8 @@ def _deliver_batch(deliveries: "list[tuple[asyncio.Queue, list]]") -> None:
 
 
 def _finalize_wave_math(
-    sampled: bool,
-    k: torch.Tensor, v: torch.Tensor,  # [L, B, K, S, hd] engine cache (in place)
+    sampled: bool, paged: bool,
+    k: torch.Tensor, v: torch.Tensor,  # engine cache or pool (in place)
     sk: torch.Tensor, sv: torch.Tensor,  # [L, R, K, P, hd] wave scratch
     last: torch.Tensor, lens: torch.Tensor,  # [B] engine state (in place)
     slots: torch.Tensor, true_lens: torch.Tensor,  # [R]
@@ -71,14 +92,23 @@ def _finalize_wave_math(
     top_k: torch.Tensor, top_p: torch.Tensor,
     seeds: torch.Tensor, w_temp: torch.Tensor,  # [R] wave values
     w_top_k: torch.Tensor, w_top_p: torch.Tensor,
+    tables: "torch.Tensor | None" = None,  # [B, Pmax] (paged, in place)
+    page_rows: "torch.Tensor | None" = None,  # [R, Pmax] the wave's table rows
+    scatter_ids: "torch.Tensor | None" = None,  # [R, P // page] destination pages
 ) -> torch.Tensor:
-    """The wave landing on the device: copy the scratch K/V into the wave's
-    cache rows, install per-slot sampling state, sample each row's first
-    token from its last-position logits and scatter the wave's last/lens
-    rows.  Updates the engine tensors in place → firsts [R] int32."""
-    P = sk.shape[3]
-    k[:, slots, :, :P] = sk
-    v[:, slots, :, :P] = sv
+    """The wave landing on the device, shared by single-shot and chunked
+    prefill: copy the scratch K/V into the wave's cache rows (or scatter its
+    pages into the pool and install its block-table rows), install per-slot
+    sampling state, sample each row's first token from its last-position
+    logits and scatter the wave's last/lens rows.  Updates the engine
+    tensors in place → firsts [R] int32."""
+    if paged:
+        M.write_prefill_pages((k, v), (sk, sv), scatter_ids)
+        tables[slots] = page_rows
+    else:
+        P = sk.shape[3]
+        k[:, slots, :, :P] = sk
+        v[:, slots, :, :P] = sv
     slot_seeds[slots] = seeds
     temp[slots] = w_temp
     top_k[slots] = w_top_k
@@ -101,6 +131,12 @@ class GenRequest:
     sampling: SamplingParams | None = None  # None → engine default
     seed: int | None = None  # None → engine-derived per-admission stream
     out: asyncio.Queue = field(default_factory=asyncio.Queue)
+    pages: list[int] = field(default_factory=list)  # paged-KV reservation
+    # prefix caching: reused token count, the shared (cache-owned) page
+    # prefix of ``pages``, and the prompt's full-page chain hashes
+    reuse_len: int = 0
+    shared_pages: list[int] = field(default_factory=list)
+    page_hashes: list = field(default_factory=list)
     slot: int = -1
     generated: int = 0
     cancelled: bool = False
@@ -127,6 +163,17 @@ class EngineStats:
     overlap_wasted_tokens: int = 0
     cancelled_requests: int = 0  # consumer-cancelled requests reaped
     cancel_propagated: int = 0  # cancels that arrived via cancel_correlation
+    prefix_hits: int = 0  # admissions that reused cached prefix pages
+    prefix_reused_tokens: int = 0  # prompt tokens NOT re-prefilled
+    # pages reclaimed from the prefix cache under allocation pressure, and
+    # admissions whose page alloc came up short on the first try
+    prefix_evictions: int = 0
+    alloc_stalls: int = 0
+    # ragged unified waves: prefill chunk tokens absorbed into decode
+    # dispatches, and how many dispatches carried both kinds of work (the
+    # absorbed chunk rows count as dispatch participants in the occupancy)
+    prefill_absorbed_tokens: int = 0
+    unified_dispatches: int = 0
 
     @property
     def tokens_per_second(self) -> float:
@@ -141,15 +188,12 @@ class EngineStats:
 
 def _check_runtime(rt: RuntimeConfig) -> None:
     """Refuse what this engine does not serve yet, naming the later part of
-    the port that will."""
+    the port that will, and the configurations the reference refuses."""
     later = {
-        "kv_layout='paged'": (rt.kv_layout == "paged", "paged KV"),
-        "chunked_prefill": (rt.chunked_prefill, "chunked/ragged lane"),
         "speculative": (rt.speculative is not None, "speculative decoding"),
         "long_context": (rt.long_context, "multi-device"),
         "quantization": (rt.quantization is not None, "quantization/loader"),
         "tp/dp > 1": (rt.tp > 1 or rt.dp > 1, "multi-device"),
-        "prefix_cache": (rt.prefix_cache, "paged KV"),
         "max_pending": (rt.max_pending > 0, "scheduler robustness"),
         "max_out_blocks": (rt.max_out_blocks > 0, "scheduler robustness"),
         "watchdog_stall_s": (rt.watchdog_stall_s > 0, "scheduler robustness"),
@@ -161,8 +205,38 @@ def _check_runtime(rt: RuntimeConfig) -> None:
                 f"{knob} is not served by the PyTorch engine yet "
                 f"(a later slice of the port: {part})"
             )
-    if rt.kv_layout != "dense":
-        raise ValueError(f"unsupported kv_layout {rt.kv_layout!r} (dense)")
+    if rt.chunked_prefill and rt.max_seq_len % rt.prefill_chunk:
+        # buckets cap at max_seq_len; chunked admission needs every bucket
+        # to be a whole number of chunks
+        raise ValueError(
+            "chunked_prefill requires prefill_chunk to divide "
+            f"max_seq_len ({rt.prefill_chunk} vs {rt.max_seq_len})"
+        )
+    if rt.kv_layout not in ("dense", "paged"):
+        raise ValueError(f"unsupported kv_layout {rt.kv_layout!r} (dense | paged)")
+    if rt.kv_layout == "paged":
+        if rt.prefill_chunk % rt.page_size:
+            raise ValueError(
+                "page_size must divide prefill_chunk "
+                f"({rt.page_size} vs {rt.prefill_chunk})"
+            )
+        if rt.max_seq_len % rt.page_size:
+            # a prefill bucket capped at max_seq_len must still be a whole
+            # number of pages (page-granular scatter)
+            raise ValueError(
+                "page_size must divide max_seq_len "
+                f"({rt.page_size} vs {rt.max_seq_len})"
+            )
+        if rt.prefix_cache and not rt.chunked_prefill:
+            raise ValueError(
+                "prefix_cache=True requires chunked_prefill=True "
+                "(reuse seeds the chunk lane's scratch)"
+            )
+    elif rt.prefix_cache:
+        raise ValueError(
+            "prefix_cache=True requires kv_layout='paged' "
+            "(reuse shares pages between requests)"
+        )
     if rt.attention_impl != "auto":
         raise ValueError(
             f"unsupported attention_impl {rt.attention_impl!r}: the PyTorch "
@@ -174,6 +248,13 @@ def _check_runtime(rt: RuntimeConfig) -> None:
         )
     if rt.max_stop_tokens < 1:
         raise ValueError("max_stop_tokens must be >= 1")
+
+
+def _pow2_floor(n: int) -> int:
+    keep = 1
+    while keep * 2 <= n:
+        keep *= 2
+    return keep
 
 
 class InferenceEngine:
@@ -215,7 +296,23 @@ class InferenceEngine:
         self.params = self.model.params()
 
         B, S = rt.max_batch_size, rt.max_seq_len
-        self._k, self._v = M.make_empty_cache(config, B, S, device=dev)
+        self._paged = rt.kv_layout == "paged"
+        self._prefix: "PrefixCache | None" = None
+        if self._paged:
+            n_pages = rt.pool_pages()
+            self._k, self._v = M.make_page_pool(config, n_pages, rt.page_size, device=dev)
+            self._tables = torch.zeros(
+                (B, rt.pages_per_seq()), dtype=torch.int32, device=dev
+            )
+            self._page_alloc = PageAllocator(n_pages)
+            if rt.prefix_cache:
+                self._prefix = PrefixCache()
+            logger.info(
+                "paged KV pool: %d pages x %d tokens (%.2f GB)", n_pages,
+                rt.page_size, 2 * self._k.numel() * self._k.element_size() / 1e9,
+            )
+        else:
+            self._k, self._v = M.make_empty_cache(config, B, S, device=dev)
         self._last = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._lens = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._host_lens = np.zeros((B,), np.int64)  # host mirror for windows
@@ -253,10 +350,20 @@ class InferenceEngine:
         # cancels whose snapshot lost the race with the decode thread:
         # re-matched on the next scheduler pass
         self._deferred_cancels: set[str] = set()
-        # requests whose admission prefill is running in the worker thread
+        # requests whose single-shot admission prefill runs in the worker thread
         self._admitting: list[GenRequest] = []
+        self._inflight: "dict | None" = None  # chunked-prefill wave in flight
         self._carry: list[GenRequest] = []  # wave-trimmed, ahead of the queue
         self._pending: deque[GenRequest] = deque()
+        # ragged unified waves: effective only where the fused dispatch has
+        # both of its substrates, the chunk lane to absorb from and the
+        # overlap launch path to ride; anything else runs the bifurcated
+        # schedule (the parity oracle at ragged_waves=False)
+        self._ragged = bool(rt.ragged_waves and rt.chunked_prefill and rt.overlap_dispatch)
+        self._ragged_budget = ragged_math.token_budget(
+            rt.ragged_token_budget, B, rt.decode_steps_per_dispatch,
+            rt.prefill_chunk, rt.max_prefill_wave,
+        )
         self._wake = asyncio.Event()
         self._task: asyncio.Task[None] | None = None
         self._running = False
@@ -286,7 +393,7 @@ class InferenceEngine:
         (a queued request left without _DONE hangs its generate() forever)."""
         if self._pend is not None:
             # abandon the in-flight dispatch; its deferred frees must
-            # still run or the slots leak into the next start()
+            # still run or the slots/pages leak into the next start()
             self._free_deferred(self._pend)
             self._pend = None
         for request in list(self._active.values()):
@@ -295,6 +402,10 @@ class InferenceEngine:
         for request in self._carry:
             request.out.put_nowait(_DONE)
         self._carry.clear()
+        if self._inflight is not None:
+            for request in self._inflight["wave"]:
+                request.out.put_nowait(_DONE)
+            self._inflight = None
         while self._pending:
             self._pending.popleft().out.put_nowait(_DONE)
 
@@ -357,6 +468,16 @@ class InferenceEngine:
             seed=seed,
             corr=corr,
         )
+        if self._paged:
+            # reject what the pool could NEVER serve: re-queueing it would
+            # wait (and starve everything behind it) forever
+            reserve = self._reserve_pages(request, self._bucket_of(len(prompt)))
+            usable = self._page_alloc.num_pages - 1
+            if reserve > usable:
+                raise InferenceError(
+                    f"request needs {reserve} KV pages but the pool only has "
+                    f"{usable}; lower max_new_tokens or raise num_kv_pages"
+                )
         self._pending.append(request)
         self._wake.set()
         inner = self._consume(request)
@@ -389,6 +510,8 @@ class InferenceEngine:
             self._deferred_cancels.add(corr)
             self._wake.set()
             return 0
+        if self._inflight is not None:
+            candidates += self._inflight["wave"]
         matched = 0
         for request in candidates:
             if request.corr == corr and not request.cancelled:
@@ -427,14 +550,26 @@ class InferenceEngine:
             while self._running:
                 self._drain_deferred_cancels()
                 self._reap_cancelled()
-                progressed = await self._admit()
+                if self._ragged:
+                    # ragged unified waves: ONE scheduler lane — the pass
+                    # forms/advances the admission wave and the decode rows
+                    # through a single fused dispatch per tick
+                    if not await self._ragged_pass():
+                        self._wake.clear()
+                        if not self._pending and not self._carry:
+                            await self._wake.wait()
+                    continue
+                if self.runtime.chunked_prefill:
+                    progressed = await self._admit_chunked()
+                else:
+                    progressed = await self._admit()
                 if self._active:
                     await asyncio.to_thread(self._decode_tick)
                 elif self._pend is not None:
                     # every participant retired/cancelled while a dispatch
                     # was in flight: land it so the deferred frees happen
                     await asyncio.to_thread(self._drain_decode)
-                elif not progressed:
+                elif not progressed and self._inflight is None:
                     self._wake.clear()
                     if not self._pending and not self._carry:
                         await self._wake.wait()
@@ -453,10 +588,23 @@ class InferenceEngine:
     def _reap_cancelled(self) -> None:
         """Drain cancelled requests: active slots AND still-queued entries
         (event loop, between dispatches; cancellation itself only sets a
-        flag).  O(1) unless some flag was set since the last reap."""
+        flag).  A chunked inflight wave whose members ALL cancelled is
+        aborted outright (slots, page reservations and prefix references
+        released, remaining chunks skipped); a partly cancelled wave
+        finishes its flight and sheds its cancelled members at activation.
+        O(1) unless some flag was set since the last reap."""
         if not self._cancel_dirty:
             return
         self._cancel_dirty = False
+        if self._inflight is not None and all(
+            r.cancelled for r in self._inflight["wave"]
+        ):
+            for request in self._inflight["wave"]:
+                self.stats.cancelled_requests += 1
+                if request.slot != -1:
+                    self._retire_slot(request)
+                request.out.put_nowait(_DONE)
+            self._inflight = None
         for request in list(self._active.values()):
             if request.cancelled:
                 self.stats.cancelled_requests += 1
@@ -503,31 +651,157 @@ class InferenceEngine:
             -(-prompt_len // rt.prefill_chunk) * rt.prefill_chunk, rt.max_seq_len
         )
 
+    # ------------------------------------------------------ page reservation
+    def _reserve_pages(self, request: GenRequest, bucket: int) -> int:
+        """Pages a request needs for its whole life: the prefill writes whole
+        bucket pages, decode grows to (prompt + max_new), capped by the
+        sequence limit."""
+        rt = self.runtime
+        total = min(len(request.prompt) + request.max_new_tokens + 1, rt.max_seq_len)
+        return min(
+            max(pages_needed(bucket, rt.page_size), pages_needed(total, rt.page_size)),
+            rt.pages_per_seq(),
+        )
+
+    def _plan_prefix_reuse(self, request: GenRequest, bucket: int) -> int:
+        """Longest cached, alignment-safe prompt prefix for ``request``
+        (0 when caching is off or nothing matches).  Sets reuse_len /
+        shared_pages / page_hashes on the request; recomputed fresh on
+        every attempt (a carried-back request must not keep stale pages).
+
+        Alignment: reuse must be whole PAGES (sharing granularity) and a
+        whole number of CHUNKS (the chunk lane resumes at the reused
+        offset), and at least the final chunk always recomputes (the first
+        token samples from the last chunk's logits)."""
+        request.reuse_len = 0
+        request.shared_pages = []
+        if self._prefix is None:
+            return 0
+        rt = self.runtime
+        ps = rt.page_size
+        if not request.page_hashes:  # the prompt is immutable: hash ONCE
+            request.page_hashes = chain_hashes(request.prompt, ps)
+        if not request.page_hashes:
+            return 0
+        matched = self._prefix.lookup(request.page_hashes)
+        if not matched:
+            return 0
+        chunk = min(rt.prefill_chunk, bucket)
+        align = ps * chunk // math.gcd(ps, chunk)
+        candidate = min(
+            len(matched) * ps,
+            len(request.prompt) - 1,  # never reuse the final position
+            bucket - chunk,           # at least one chunk recomputes
+        )
+        reuse = (candidate // align) * align
+        if reuse <= 0:
+            return 0
+        request.reuse_len = reuse
+        request.shared_pages = matched[: reuse // ps]
+        return reuse
+
+    def _drop_reuse_plan(self, request: GenRequest) -> None:
+        """Undo a formation-time acquisition for a request that will NOT be
+        served this pass (alloc failure / wave trim); re-admission replans
+        from scratch."""
+        if self._prefix is not None and request.shared_pages:
+            self._prefix.release(request.shared_pages)
+        request.reuse_len = 0
+        request.shared_pages = []
+
+    def _alloc_with_eviction(self, slot: int, n: int) -> "list[int] | None":
+        pages = self._page_alloc.alloc(slot, n)
+        if pages is None:
+            self.stats.alloc_stalls += 1
+            if self._prefix is not None:
+                # idle cache entries are reclaimable capacity, not a leak
+                freed = self._prefix.evict(
+                    n - self._page_alloc.free_pages, self._page_alloc
+                )
+                self.stats.prefix_evictions += freed
+                pages = self._page_alloc.alloc(slot, n)
+        return pages
+
+    # --------------------------------------------------------- wave formation
     def _form_wave(self) -> "tuple[list[GenRequest], int] | None":
         """Scheduling only (no device work): pop a same-bucket wave and
-        assign slots.  None when nothing can be admitted right now."""
+        assign slots (and, when paged, reserve each request's whole page
+        footprint: admission control, no mid-flight OOM).  None when
+        nothing can be admitted right now."""
         first = self._next_pending() if self._free else None
         if first is None:
             return None
+        rt = self.runtime
         wave = [first]
         wave_bucket = self._bucket_of(len(first.prompt))
+        # ragged mode: the wave may grow only as wide as the token budget
+        # lets a dispatch absorb alongside the CURRENT decode load
+        width_cap = self._ragged_wave_cap(wave_bucket)
+        head_reuse = self._plan_prefix_reuse(first, wave_bucket)
+        if head_reuse:
+            # acquire at FORMATION: a later member's _alloc_with_eviction
+            # must never reclaim pages an earlier member still needs
+            self._prefix.acquire(first.shared_pages)
         while (
             len(wave) < len(self._free)
-            and len(wave) < self.runtime.max_prefill_wave
+            and len(wave) < rt.max_prefill_wave
+            and len(wave) < width_cap
             and (peeked := self._peek_pending()) is not None
             and self._bucket_of(len(peeked.prompt)) == wave_bucket
         ):
+            # one offset per wave: only requests whose reuse TRIMS to the
+            # head's length batch together
+            planned = self._plan_prefix_reuse(peeked, wave_bucket)
+            if head_reuse == 0 and planned != 0:
+                break
+            if head_reuse > 0:
+                if planned < head_reuse:
+                    break
+                peeked.reuse_len = head_reuse
+                peeked.shared_pages = peeked.shared_pages[: head_reuse // rt.page_size]
+                self._prefix.acquire(peeked.shared_pages)
             wave.append(self._next_pending())
         # power-of-two waves; trimmed requests go to the FRONT carry list,
         # preserving arrival order
-        keep = 1
-        while keep * 2 <= len(wave):
-            keep *= 2
+        keep = _pow2_floor(len(wave))
+        for trimmed in wave[keep:]:  # balance formation-time acquisitions
+            self._drop_reuse_plan(trimmed)
         self._carry = wave[keep:] + self._carry
         wave = wave[:keep]
-        for request in wave:
-            request.slot = self._free.pop()
-        return wave, wave_bucket
+        if not self._paged:
+            for request in wave:
+                request.slot = self._free.pop()
+            return wave, wave_bucket
+        # the tail of an unservable wave waits at the queue front
+        granted: list[GenRequest] = []
+        for i, request in enumerate(wave):
+            slot = self._free.pop()
+            shared = request.shared_pages  # acquired at formation
+            need = self._reserve_pages(request, wave_bucket) - len(shared)
+            pages = self._alloc_with_eviction(slot, need)
+            if pages is None:
+                self._free.append(slot)
+                # EVERY carried member's acquisition is undone, or its
+                # refcount leaks and the pages become unevictable forever
+                for carried in wave[i:]:
+                    self._drop_reuse_plan(carried)
+                self._carry = wave[i:] + self._carry
+                break
+            request.slot = slot
+            request.pages = shared + pages
+            granted.append(request)
+        if not granted:
+            return None  # pool exhausted: wait for retirements
+        # keep waves power-of-two after page trimming too
+        keep = _pow2_floor(len(granted))
+        for request in granted[keep:]:
+            self._page_alloc.free(request.slot)
+            self._free.append(request.slot)
+            request.slot = -1
+            request.pages = []
+            self._drop_reuse_plan(request)
+        self._carry = granted[keep:] + self._carry
+        return granted[:keep], wave_bucket
 
     def _activate_wave(self, wave: list[GenRequest]) -> None:
         for request in wave:
@@ -599,7 +873,7 @@ class InferenceEngine:
         return request.sampling if request.sampling is not None else self.sampling
 
     def _wave_arrays(self, wave: list[GenRequest], bucket: int) -> dict:
-        """Host-side array prep of a prefill wave."""
+        """Host-side array prep shared by single-shot and chunked prefill."""
         R = len(wave)
         tokens = np.zeros((R, bucket), np.int32)
         true_lens = np.zeros((R,), np.int32)
@@ -627,29 +901,68 @@ class InferenceEngine:
             w_temp=w_temp, w_top_k=w_top_k, w_top_p=w_top_p, sampled=sampled,
         )
 
-    def _prefill(self, arrays: dict) -> torch.Tensor:
-        """Batched prefill: R admissions run as one [R, bucket] forward on a
-        scratch cache, then land in the slot rows → firsts [R] (device)."""
-        cfg = self.config
-        dev = self.device
+    def _paged_wave_args(
+        self, wave: list[GenRequest], bucket: int
+    ) -> "tuple[np.ndarray, np.ndarray]":
+        """The wave's block-table rows [R, Pmax] and the pages its prefill
+        scatter writes [R, bucket // page]."""
+        rt = self.runtime
+        pmax = rt.pages_per_seq()
+        npg = bucket // rt.page_size
+        page_rows = np.zeros((len(wave), pmax), np.int32)
+        scatter_ids = np.zeros((len(wave), npg), np.int64)
+        for r, request in enumerate(wave):
+            page_rows[r] = table_row(request.pages, pmax)
+            # prefill writes whole bucket pages; reservation covers them
+            scatter_ids[r] = page_rows[r, :npg]
+            # reused pages are SHARED read-only: their scatter writes go to
+            # the trash page (the scratch holds a copy of them anyway)
+            scatter_ids[r, : request.reuse_len // rt.page_size] = TRASH_PAGE
+        return page_rows, scatter_ids
+
+    def _land_math(
+        self, wave: list[GenRequest], bucket: int, arrays: dict,
+        scratch: "tuple[torch.Tensor, torch.Tensor]", logits: torch.Tensor,
+    ) -> torch.Tensor:
+        """Enqueue a wave's landing from its scratch and its final chunk's
+        logits [R, chunk, V] (the whole bucket for single-shot prefill) →
+        firsts [R] (device).  Every row's last prompt position lives in the
+        final chunk: the wave shares one bucket."""
+        chunk = logits.shape[1]
+        idx = np.clip(arrays["true_lens"] - 1 - (bucket - chunk), 0, chunk - 1)
+        last_logits = logits[
+            torch.arange(len(wave), device=logits.device), self._to_device(idx.astype(np.int64))
+        ]
         d = {name: self._to_device(arrays[name]) for name in (
-            "tokens", "slots", "true_lens", "seeds", "w_temp", "w_top_k", "w_top_p",
+            "slots", "true_lens", "seeds", "w_temp", "w_top_k", "w_top_p",
         )}
+        paged: dict = {}
+        if self._paged:
+            page_rows, scatter_ids = self._paged_wave_args(wave, bucket)
+            paged = dict(
+                tables=self._tables, page_rows=self._to_device(page_rows),
+                scatter_ids=self._to_device(scatter_ids),
+            )
+        return _finalize_wave_math(
+            arrays["sampled"], self._paged, self._k, self._v, *scratch,
+            self._last, self._lens, d["slots"], d["true_lens"], last_logits,
+            self._slot_seeds, self._temp, self._top_k, self._top_p,
+            d["seeds"], d["w_temp"], d["w_top_k"], d["w_top_p"], **paged,
+        )
+
+    def _prefill(self, wave: list[GenRequest], bucket: int, arrays: dict) -> torch.Tensor:
+        """Batched prefill: R admissions run as one [R, bucket] forward on a
+        scratch cache, then land in the slot rows (or reserved pages) →
+        firsts [R] (device)."""
+        dev = self.device
         R, P = arrays["tokens"].shape
-        sk, sv = M.make_empty_cache(cfg, R, P, dtype=self._k.dtype, device=dev)
+        scratch = M.make_empty_cache(self.config, R, P, dtype=self._k.dtype, device=dev)
         pos = torch.arange(P, dtype=torch.int32, device=dev).expand(R, P)
-        logits, (sk, sv) = M.forward(
-            self.params, cfg, d["tokens"], pos, (sk, sv),
+        logits, _ = M.forward(
+            self.params, self.config, self._to_device(arrays["tokens"]), pos, scratch,
             torch.full((R,), P, dtype=torch.int32, device=dev),
         )
-        idx = (d["true_lens"].to(torch.int64) - 1).clamp(0, P - 1)
-        last_logits = logits[torch.arange(R, device=dev), idx]
-        return _finalize_wave_math(
-            arrays["sampled"], self._k, self._v, sk, sv, self._last, self._lens,
-            d["slots"], d["true_lens"], last_logits,
-            self._slot_seeds, self._temp, self._top_k, self._top_p,
-            d["seeds"], d["w_temp"], d["w_top_k"], d["w_top_p"],
-        )
+        return self._land_math(wave, bucket, arrays, scratch, logits)
 
     def _land_wave(
         self, wave: list[GenRequest], true_lens: np.ndarray,
@@ -676,11 +989,238 @@ class InferenceEngine:
     def _prefill_wave(self, wave: list[GenRequest], bucket: int) -> None:
         arrays = self._wave_arrays(wave, bucket)
         started = time.perf_counter()
-        firsts = self._prefill(arrays)
+        firsts = self._prefill(wave, bucket, arrays)
         # sync BEFORE timing: the device may still be running the wave
         (firsts,) = self._sync_host(self._stage_host((firsts,)))
         self._land_wave(wave, arrays["true_lens"], firsts, time.perf_counter() - started)
 
+    # --------------------------------------------------- chunked admission
+    async def _admit_chunked(self) -> bool:
+        """One scheduler pass of chunked admission: start an inflight wave
+        if none, then advance it by ONE chunk (finalizing on the last).  A
+        decode tick runs between passes, so active streams' inter-token
+        latency is bounded by one chunk instead of a whole bucket.  This is
+        the bifurcated lane; with ragged waves on, the chunk instead rides
+        the decode dispatch (:meth:`_ragged_pass`)."""
+        if self._inflight is None:
+            formed = self._form_wave()
+            if formed is None:
+                return False
+            self._start_inflight_wave(*formed)
+        if await asyncio.to_thread(self._advance_inflight):
+            wave = self._inflight["wave"]
+            self._inflight = None
+            self._activate_wave(wave)
+        return True
+
+    def _start_inflight_wave(self, wave: list[GenRequest], bucket: int) -> None:
+        """Stage a formed wave for chunked advancement: allocate (or
+        prefix-seed) the scratch and record the chunk cursor.  Shared by
+        the bifurcated chunked lane and the ragged unified lane."""
+        chunk = min(self.runtime.prefill_chunk, bucket)
+        reuse = wave[0].reuse_len  # uniform across the wave
+        if reuse:
+            # seed the scratch with the cached prefix K/V (each row's pages
+            # copied from the pool) and resume the chunk loop at the reused
+            # offset
+            npg = reuse // self.runtime.page_size
+            ids = np.asarray([request.pages[:npg] for request in wave], np.int64)
+            scratch = self._seed_scratch(bucket, ids)
+            self.stats.prefix_hits += len(wave)
+            self.stats.prefix_reused_tokens += reuse * len(wave)
+        else:
+            scratch = M.make_empty_cache(
+                self.config, len(wave), bucket, dtype=self._k.dtype, device=self.device
+            )
+        self._inflight = dict(
+            wave=wave, bucket=bucket, chunk=chunk,
+            n_chunks=-(-bucket // chunk), idx=reuse // chunk,
+            arrays=self._wave_arrays(wave, bucket),
+            scratch=scratch,
+            started=time.perf_counter(),
+        )
+
+    def _seed_scratch(
+        self, bucket: int, ids: np.ndarray
+    ) -> "tuple[torch.Tensor, torch.Tensor]":
+        """A fresh chunk-lane scratch [L, R, K, bucket, hd] whose first
+        ``n`` pages per row are copied from the pool (``ids`` [R, n])."""
+        cfg = self.config
+        R, n = ids.shape
+        span = n * self.runtime.page_size
+        idx = self._to_device(ids)
+        scratch = M.make_empty_cache(cfg, R, bucket, dtype=self._k.dtype, device=self.device)
+        for side, pool in zip(scratch, (self._k, self._v)):
+            pages = pool[:, idx]  # [L, R, n, K, page, hd]
+            side[:, :, :, :span] = pages.permute(0, 1, 3, 2, 4, 5).reshape(
+                cfg.n_layers, R, cfg.n_kv_heads, span, cfg.head_dim
+            )
+        return scratch
+
+    def _chunk(self, inf: dict) -> torch.Tensor:
+        """Enqueue the inflight wave's next prefill chunk: a forward of
+        [R, chunk] tokens at the cursor's offset into the wave's scratch
+        (written in place), then advance the cursor → logits [R, chunk, V]."""
+        chunk, idx = inf["chunk"], inf["idx"]
+        offset = idx * chunk
+        tokens = inf["arrays"]["tokens"][:, offset:offset + chunk]
+        R = tokens.shape[0]
+        dev = self.device
+        pos = (offset + torch.arange(chunk, dtype=torch.int32, device=dev)).expand(R, chunk)
+        logits, _ = M.forward(
+            self.params, self.config, self._to_device(tokens), pos, inf["scratch"],
+            torch.full((R,), offset + chunk, dtype=torch.int32, device=dev),
+        )
+        inf["idx"] = idx + 1
+        return logits
+
+    def _advance_inflight(self) -> bool:
+        """Run one chunk of the inflight wave in its OWN invocation (the
+        bifurcated lane, and the ragged lane when the token budget refuses
+        absorption); finalize after the last.  True when the wave landed."""
+        inf = self._inflight
+        logits = self._chunk(inf)
+        if inf["idx"] < inf["n_chunks"]:
+            return False
+        return self._finalize_inflight(logits)
+
+    def _finalize_inflight(self, logits: torch.Tensor) -> bool:
+        """The chunked wave's landing (last chunk done): the landing math,
+        the first-token sync, prefix registration.  One host sync per WAVE,
+        shared by the bifurcated and ragged lanes."""
+        inf = self._inflight
+        wave, arrays = inf["wave"], inf["arrays"]
+        firsts = self._land_math(wave, inf["bucket"], arrays, inf["scratch"], logits)
+        # the wave's designated landing sync: first tokens must reach the
+        # host for delivery (and real TTFT)
+        (firsts,) = self._sync_host(self._stage_host((firsts,)))
+        self._land_wave(wave, arrays["true_lens"], firsts, time.perf_counter() - inf["started"])
+        if self._prefix is not None:
+            for request in wave:
+                self._register_prefix_pages(request)
+        return True
+
+    def _register_prefix_pages(self, request: GenRequest) -> None:
+        """After landing: publish the request's freshly written full-prompt
+        pages into the prefix cache.  Ownership transfers from the
+        allocator (so retirement cannot free shared pages under later
+        readers); the owning slot holds a reference until it retires.
+        Decode never writes these pages: its first write lands at position
+        prompt_len, past every registered page."""
+        if request.slot == -1:  # retired during its own prefill
+            return
+        ps = self.runtime.page_size
+        full = len(request.prompt) // ps
+        if len(request.page_hashes) < full:
+            request.page_hashes = chain_hashes(request.prompt, ps)
+        fresh: list[int] = []
+        for i in range(len(request.shared_pages), full):
+            page = request.pages[i]
+            if self._prefix.register(request.page_hashes[i], page):
+                fresh.append(page)
+            # else another request registered this chain position first:
+            # this duplicate page stays private (slot-held, freed at
+            # retirement), and LATER positions still register — sessions
+            # sharing only a scaffold page must still cache their own
+            # chains (equal chain hash ⇒ equal page content)
+        if fresh:
+            self._page_alloc.transfer_out(request.slot, fresh)
+            self._prefix.acquire(fresh)
+            request.shared_pages = request.shared_pages + fresh
+
+    # ------------------------------------------------- ragged unified waves
+    async def _ragged_pass(self) -> bool:
+        """One pass of the unified lane: form a wave when none is in flight
+        (its width capped by the token budget), then advance decode and
+        chunk through one fused tick.  False only when there was nothing at
+        all to do."""
+        progressed = False
+        if self._inflight is None:
+            formed = self._form_wave()
+            if formed is not None:
+                self._start_inflight_wave(*formed)
+                progressed = True
+        if self._active or self._inflight is not None or self._pend is not None:
+            if await asyncio.to_thread(self._ragged_tick):
+                wave = self._inflight["wave"]
+                self._inflight = None
+                self._activate_wave(wave)
+            progressed = True
+        return progressed
+
+    def _ragged_tick(self) -> bool:
+        """One tick of the unified lane (decode-thread context): launch the
+        fused (or decode-only) dispatch, then land the previous one — the
+        double-buffered shape of :meth:`_decode_tick`, with the admission
+        wave riding the launch.  True when the inflight wave landed."""
+        pend = self._pend
+        finished = False
+        if self._active:
+            finished = self._launch_ragged()
+        else:
+            self._pend = None
+            if self._inflight is not None:
+                finished = self._advance_inflight()
+        if pend is not None:
+            deliveries = self._land_decode(pend)
+            if not self._active:
+                # the landing retired every participant: drain the
+                # follow-up before a consumer can observe completion
+                self._drain_decode()
+            if deliveries:
+                self._loop.call_soon_threadsafe(_deliver_batch, deliveries)
+        return finished
+
+    def _absorb_fits(self) -> bool:
+        """May THIS dispatch absorb the inflight wave's next chunk?"""
+        inf = self._inflight
+        return inf is not None and ragged_math.fits_budget(
+            self._ragged_budget, len(self._active),
+            self.runtime.decode_steps_per_dispatch, len(inf["wave"]), inf["chunk"],
+        )
+
+    def _ragged_wave_cap(self, bucket: int) -> int:
+        """Admission-width bound at formation: how many prefill rows the
+        budget lets a dispatch absorb alongside the current decode load,
+        charged at the wave's actual chunk, min(prefill_chunk, bucket).
+        Without ragged waves, the batch width (no extra bound)."""
+        if not self._ragged:
+            return self.runtime.max_batch_size
+        return ragged_math.wave_width_cap(
+            self._ragged_budget, len(self._active),
+            self.runtime.decode_steps_per_dispatch,
+            min(self.runtime.prefill_chunk, bucket),
+        )
+
+    def _launch_ragged(self) -> bool:
+        """Enqueue ONE dispatch for this tick: the inflight wave's next
+        chunk and the decode dispatch, in that order on the one stream with
+        no host sync between them, when a wave is in flight and the token
+        budget admits it; else plain decode (with an over-budget chunk
+        advancing in its own invocation, so admission never starves).  The
+        outputs ride ``self._pend`` to the next tick's landing exactly like
+        a plain overlapped launch."""
+        inf = self._inflight
+        if inf is None or not self._absorb_fits():
+            self._launch_decode()
+            return self._advance_inflight() if inf is not None else False
+        active, window, steps, sampled = self._decode_args()
+        if steps < self.runtime.decode_steps_per_dispatch:
+            self.stats.short_dispatches += 1
+        prev = self._pend
+        done_prev = prev["done_dev"] if prev is not None else self._done_zero
+        started = time.perf_counter()
+        logits = self._chunk(inf)
+        toks, n_valid, done = self._dispatch(active, window, steps, sampled, done_prev)
+        R = len(inf["wave"])
+        self.stats.prefill_absorbed_tokens += R * inf["chunk"]
+        self.stats.unified_dispatches += 1
+        self._stage_pend(toks, n_valid, done, steps, started, extra_rows=R)
+        if inf["idx"] == inf["n_chunks"]:
+            return self._finalize_inflight(logits)
+        return False
+
+    # ------------------------------------------------------------- decode
     def _window_bucket(self, needed: int) -> int:
         """Smallest configured window ≥ needed (cap max_seq): the decode
         attention scan only reads this prefix of the cache."""
@@ -690,36 +1230,47 @@ class InferenceEngine:
                 return w
         return cap
 
-    def _decode_fn_dense(
+    def _decode_fn(
         self, window: int, steps: int, sampled: bool,
         active: torch.Tensor, done_prev: torch.Tensor,
         stop_table: torch.Tensor, hard_end: torch.Tensor,
     ) -> "tuple[torch.Tensor, ...]":
-        """The dense decode dispatch body: ``steps`` ring-buffer decode
-        steps over the read-only cache window, argmax or ``sample_slots``
-        per step, then ``consolidate_ring`` (in place) and
+        """The decode dispatch body: ``steps`` ring-buffer decode steps over
+        the read-only cache window (dense rows, or ``ceil(window / page)``
+        pages per row through the block tables), argmax or ``sample_slots``
+        per step, then the ring's consolidation (in place) and
         ``retire_mask_slots``.  Enqueues device work only — no host sync.
         → (last, new_lens, toks [steps, B], n_valid, done)."""
         cfg = self.config
-        dev = self.device
         # ``done_prev`` is the PREVIOUS dispatch's device-side done mask:
         # under overlap a row that retired there is frozen here by pure
-        # device dataflow, before the host has seen that block
+        # device dataflow, before the host has seen that block (paged: its
+        # consolidation writes go to the trash page)
         active = active & torch.logical_not(done_prev)
         last, lens = self._last, self._lens
         B = last.shape[0]
-        kw = self._k[:, :, :, :window]
-        vw = self._v[:, :, :, :window]
         ring_shape = (cfg.n_layers, steps, B, cfg.n_kv_heads, cfg.head_dim)
         ring = (
-            torch.zeros(ring_shape, dtype=self._k.dtype, device=dev),
-            torch.zeros(ring_shape, dtype=self._v.dtype, device=dev),
+            torch.zeros(ring_shape, dtype=self._k.dtype, device=self.device),
+            torch.zeros(ring_shape, dtype=self._v.dtype, device=self.device),
         )
+        if self._paged:
+            wpages = -(-window // self.runtime.page_size)
+            pool, tables = (self._k, self._v), self._tables
+
+            def step(tokens, ring, t):
+                return M.decode_step_ring_paged(
+                    self.params, cfg, tokens, pool, tables, ring, t, lens, wpages
+                )
+        else:
+            window_kv = (self._k[:, :, :, :window], self._v[:, :, :, :window])
+
+            def step(tokens, ring, t):
+                return M.decode_step_ring(self.params, cfg, tokens, window_kv, ring, t, lens)
+
         toks = []
         for t in range(steps):
-            logits, ring = M.decode_step_ring(
-                self.params, cfg, last[:, None], (kw, vw), ring, t, lens
-            )
+            logits, ring = step(last[:, None], ring, t)
             if sampled:
                 # per-(request, position) streams: deterministic for a given
                 # seed regardless of batch composition / slot reuse
@@ -733,7 +1284,10 @@ class InferenceEngine:
             last = torch.where(active, nxt, last)
             toks.append(last)
         block = torch.stack(toks)  # [steps, B]
-        M.consolidate_ring((self._k, self._v), ring, lens)
+        if self._paged:
+            M.consolidate_ring_paged((self._k, self._v), ring, self._tables, lens, active)
+        else:
+            M.consolidate_ring((self._k, self._v), ring, lens)
         new_lens = torch.where(active, lens + steps, lens)
         n_valid, done = retire_mask_slots(block.T, stop_table, hard_end - lens, active)
         return last, new_lens, block, n_valid, done
@@ -819,8 +1373,9 @@ class InferenceEngine:
 
     def _decode_args(self) -> "tuple[torch.Tensor, int, int, bool]":
         """Host-side inputs of one decode dispatch (shared by the overlap
-        launch and the lockstep tick) → (active mask, window, steps,
-        sampled).  Pure host work and an asynchronous upload."""
+        launch, the ragged launch and the lockstep tick) → (active mask,
+        window, steps, sampled).  Pure host work and an asynchronous
+        upload."""
         active_mask = np.zeros((self.runtime.max_batch_size,), bool)
         needed = 1
         for slot in self._active:
@@ -856,7 +1411,7 @@ class InferenceEngine:
         """Enqueue one decode dispatch and advance the engine's device state
         → (toks, n_valid, done) device handles."""
         stop_table, hard_end = self._retire_args()
-        last, lens, toks, n_valid, done = self._decode_fn_dense(
+        last, lens, toks, n_valid, done = self._decode_fn(
             window, steps, sampled, active, done_prev, stop_table, hard_end
         )
         self._last, self._lens = last, lens
@@ -866,7 +1421,7 @@ class InferenceEngine:
         """Enqueue the next decode dispatch — NO host sync.  The previous
         dispatch's device-side done mask rides in as ``done_prev``, so a
         row that retired in the still-in-flight block is frozen out of
-        this one (its slot stays held until that block lands)."""
+        this one (its slot and pages stay held until that block lands)."""
         active, window, steps, sampled = self._decode_args()
         if steps < self.runtime.decode_steps_per_dispatch:
             self.stats.short_dispatches += 1
@@ -878,11 +1433,12 @@ class InferenceEngine:
 
     def _stage_pend(
         self, toks: torch.Tensor, n_valid: torch.Tensor, done: torch.Tensor,
-        steps: int, started: float,
+        steps: int, started: float, extra_rows: int = 0,
     ) -> None:
         """Record a just-enqueued dispatch as the in-flight pend: host lens
         advance, the staged host copies of its outputs, and the snapshot its
-        landing fans out against."""
+        landing fans out against.  ``extra_rows`` counts absorbed prefill
+        rows (occupancy participants landed with the dispatch)."""
         for slot in self._active:
             self._host_lens[slot] += steps
         self._pend = dict(
@@ -893,6 +1449,7 @@ class InferenceEngine:
             participants=list(self._active.items()),
             slot_set=set(self._active.keys()),
             deferred=[],
+            extra_rows=extra_rows,
         )
 
     def _land_decode(self, pend: dict) -> "list[tuple[asyncio.Queue, list]]":
@@ -900,8 +1457,8 @@ class InferenceEngine:
         the device-computed retirement arrays, then batched fan-out.  Rows
         whose requests retired or cancelled while this dispatch was in
         flight are pad columns: discarded and counted, with their deferred
-        slot frees released now.  Returns the deliveries — the CALLER posts
-        them, after draining an all-zombie follow-up."""
+        slot/page frees released now.  Returns the deliveries — the CALLER
+        posts them, after draining an all-zombie follow-up."""
         block, n_valid, done = self._sync_host(pend["staged"])
         now = time.perf_counter()
         # exclusive wall: clip to the span this dispatch alone occupied
@@ -910,7 +1467,9 @@ class InferenceEngine:
             start = self._last_sync_t
         self._last_sync_t = now
         steps = pend["steps"]
-        self._note_dispatch(now - start, steps, n_rows=len(pend["participants"]))
+        self._note_dispatch(
+            now - start, steps, n_rows=len(pend["participants"]) + pend["extra_rows"]
+        )
         deliveries: list[tuple[asyncio.Queue, list]] = []
         block_cols = np.ascontiguousarray(block.T)  # [B, steps]
         wasted = 0
@@ -935,9 +1494,14 @@ class InferenceEngine:
         return deliveries
 
     def _free_deferred(self, pend: dict) -> None:
-        """Release the slots of requests that retired while ``pend`` was in
-        flight, now that no in-flight dispatch can write through them."""
-        for slot in pend["deferred"]:
+        """Release the slots, pages and prefix references of requests that
+        retired while ``pend`` was in flight, now that no in-flight dispatch
+        can write through a re-allocated page or read an evicted one."""
+        for slot, shared in pend["deferred"]:
+            if self._prefix is not None and shared:
+                self._prefix.release(shared)
+            if self._paged:
+                self._page_alloc.free(slot)
             self._free.append(slot)
 
     def _decode_tick_lockstep(self) -> None:
@@ -1006,16 +1570,26 @@ class InferenceEngine:
         self.stats.occupancy_hist[min(3, int(occupancy * 4))] += 1
 
     def _retire_slot(self, request: GenRequest) -> None:
-        """Reclaim a request's slot and drop the retire-heap's reference,
-        BEFORE any _DONE reaches the consumer.  When a launched-but-not-
-        landed dispatch still covers the slot, the free-list return defers
-        to that dispatch's landing; everything observable updates now."""
+        """Reclaim a request's slot, page reservation and shared-page
+        references, and drop the retire-heap's reference, BEFORE any _DONE
+        reaches the consumer.  When a launched-but-not-landed dispatch still
+        covers the slot, the resource frees defer to that dispatch's landing
+        (an in-flight dispatch must never find its pages re-allocated under
+        it, nor its shared prefix pages evicted while it still reads them);
+        everything observable updates now."""
         self._active.pop(request.slot, None)
         pend = self._pend
         if pend is not None and request.slot in pend["slot_set"]:
-            pend["deferred"].append(request.slot)
+            pend["deferred"].append((request.slot, request.shared_pages))
         else:
+            if self._prefix is not None and request.shared_pages:
+                # shared pages return to the CACHE (refcount), never to the
+                # free list while other readers may hold them
+                self._prefix.release(request.shared_pages)
+            if self._paged:
+                self._page_alloc.free(request.slot)
             self._free.append(request.slot)
+        request.shared_pages = []
         request.slot = -1
         self._untrack_retirement(request)
 

@@ -1,12 +1,13 @@
-"""Llama-family decoder on PyTorch tensors: the dense serving path.
+"""Llama-family decoder on PyTorch tensors: the dense and paged serving paths.
 
 The counterpart of ``calfkit_tpu.inference.model``: the same function names,
 argument order and tensor layouts, so the two packages compute the same
 function on the same weights.  Differences that follow from PyTorch:
 
 - layers run as a Python loop over the stacked ``[L, ...]`` parameters;
-- KV caches are updated IN PLACE (``forward``, ``consolidate_ring``,
-  ``_insert_chunk``) where the JAX package donates buffers to a pure
+- KV caches and page pools are updated IN PLACE (``forward``,
+  ``consolidate_ring``, ``_insert_chunk``, ``consolidate_ring_paged``,
+  ``write_prefill_pages``) where the JAX package donates buffers to a pure
   function — memory stays at one cache copy either way;
 - attention goes through :mod:`calfkit_tpu_torch.inference.attention`: the
   hand-written kernels on CUDA tensors, their plain versions on CPU
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 
 from calfkit_tpu_torch.inference.attention import (
     merged_decode_attention,
+    merged_paged_decode_attention,
     prefill_attention as _prefill_attention_kernel,
 )
 from calfkit_tpu_torch.inference.config import ModelConfig
@@ -444,3 +446,118 @@ def make_empty_cache(
         torch.zeros(shape, dtype=dtype, device=device),
         torch.zeros(shape, dtype=dtype, device=device),
     )
+
+
+# --------------------------------------------------------------------------- #
+# paged KV cache (block-table indirection; see inference/paged.py)
+# --------------------------------------------------------------------------- #
+
+
+def make_page_pool(
+    config: ModelConfig, num_pages: int, page_size: int, dtype: Any = None,
+    device: "torch.device | str" = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """KV page pool [L, N, K, page, hd]; page 0 is the trash page."""
+    dtype = torch_dtype(dtype or config.dtype)
+    shape = (
+        config.n_layers, num_pages, config.n_kv_heads, page_size, config.head_dim
+    )
+    return (
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
+def gather_window_paged(
+    pool_layer: torch.Tensor,  # [N, K, page, hd] one layer's pages
+    tables: torch.Tensor,  # [B, Pmax] int block tables
+    wpages: int,  # pages per attention window
+) -> torch.Tensor:
+    """Materialize each row's window from its pages → [B, K, wpages·page, hd].
+
+    The plain read path, a copy of the window: the plain version of the
+    paged decode kernel and the tests use it.  The engine never calls it on
+    a CUDA tensor, where the kernel reads the pages in place."""
+    B = tables.shape[0]
+    N, K, page, hd = pool_layer.shape
+    gathered = pool_layer[tables[:, :wpages].to(torch.int64)]  # [B, wp, K, page, hd]
+    return gathered.permute(0, 2, 1, 3, 4).reshape(B, K, wpages * page, hd)
+
+
+def decode_step_ring_paged(
+    params: Params,
+    config: ModelConfig,
+    tokens: torch.Tensor,  # [B, 1]
+    pool: tuple[torch.Tensor, torch.Tensor],  # [L, N, K, page, hd] READ-ONLY here
+    tables: torch.Tensor,  # [B, Pmax] block tables
+    ring: tuple[torch.Tensor, torch.Tensor],  # [L, T, B, K, hd], written in place
+    t: int,  # this dispatch's step index (ring write slot)
+    base_lens: torch.Tensor,  # [B]
+    wpages: int,  # window bucket in pages
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """One decode step reading KV through the block tables.
+
+    Shares the transformer body with :func:`decode_step_ring`; only the
+    main-cache read differs.  Each layer hands the WHOLE pool and its layer
+    index to :func:`merged_paged_decode_attention`: no layer or window is
+    copied."""
+    pool_k, pool_v = pool
+    return _decode_step_with_ring(
+        params, config, tokens, ring, t, base_lens,
+        lambda i, q, rk, rv: merged_paged_decode_attention(
+            q, pool_k, pool_v, i, tables, rk, rv, base_lens, t, wpages=wpages
+        ),
+    )
+
+
+def consolidate_ring_paged(
+    pool: tuple[torch.Tensor, torch.Tensor],  # [L, N, K, page, hd], updated in place
+    ring: tuple[torch.Tensor, torch.Tensor],  # [L, T, B, K, hd]
+    tables: torch.Tensor,  # [B, Pmax]
+    base_lens: torch.Tensor,  # [B]
+    active: torch.Tensor,  # [B] bool — inactive rows scatter to the trash page
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write the dispatch's ring tokens through the block tables, IN PLACE
+    (the JAX package donates the pool instead), one scatter per dispatch.
+
+    Inactive rows go to page 0, the trash page: a retired slot's pages may
+    already belong to a new request, so its stale row must not write
+    through its old table entries.  The engine folds ``done_prev`` into
+    ``active`` first, so a row that retired inside the previous, still
+    in-flight dispatch writes to the trash page too.  Positions past the
+    table's ``Pmax`` entries (a dispatch overshooting a retiring row's cap)
+    also go to the trash page."""
+    pool_k, pool_v = pool
+    ring_k, ring_v = ring
+    T = ring_k.shape[1]
+    page = pool_k.shape[3]
+    pmax = tables.shape[1]
+    pos = base_lens.to(torch.int64)[:, None] + torch.arange(T, device=tables.device)[None, :]
+    logical = pos // page  # [B, T] which table entry
+    in_range = logical < pmax
+    page_ids = torch.gather(tables.to(torch.int64), 1, logical.clamp(max=pmax - 1))
+    page_ids = torch.where(active[:, None] & in_range, page_ids, 0)
+    offsets = pos % page
+    for side, r in ((pool_k, ring_k), (pool_v, ring_v)):
+        # non-adjacent index tensors put their [B, T] dims first: [B, T, L, K, hd]
+        side[:, page_ids, :, offsets] = r.permute(2, 1, 0, 3, 4).to(side.dtype)
+    return pool_k, pool_v
+
+
+def write_prefill_pages(
+    pool: tuple[torch.Tensor, torch.Tensor],  # [L, N, K, page, hd], updated in place
+    scratch: tuple[torch.Tensor, torch.Tensor],  # [L, R, K, P, hd] prefill K/V
+    page_ids: torch.Tensor,  # [R, P // page] int destination pages
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter whole prefill pages into the pool, IN PLACE (page-granular
+    writes; the JAX package donates the pool instead)."""
+    pool_k, pool_v = pool
+    sk, sv = scratch
+    L, R, K, P, hd = sk.shape
+    page = pool_k.shape[3]
+    npg = P // page
+    ids = page_ids.reshape(-1).to(torch.int64)
+    for side, s in ((pool_k, sk), (pool_v, sv)):
+        blocks = s.reshape(L, R, K, npg, page, hd).permute(0, 1, 3, 2, 4, 5)
+        side[:, ids] = blocks.reshape(L, R * npg, K, page, hd).to(side.dtype)
+    return pool_k, pool_v

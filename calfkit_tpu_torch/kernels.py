@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-Each ``csrc/<name>.cu`` exports a plain C function and is compiled by
-``nvcc`` for ``sm_90a`` into its own shared library under ``_build/``
-(listed in ``.gitignore``), then loaded with ``ctypes``.  Nothing is built
+Each ``csrc/<source>.cu`` exports plain C functions (one per kernel, listed
+in :data:`SIGNATURES`) and is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library under ``_build/`` (listed in ``.gitignore``), then
+loaded with ``ctypes``.  Nothing is built
 when this module is imported: the first wrapper that launches a kernel
 builds it, or :func:`build_all` builds every source at once, one ``nvcc``
 per source, all started together.  A library is named by the hash of its
@@ -32,15 +33,20 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
-# the C signature of each source's exported function
-SIGNATURES: dict[str, tuple[str, list]] = {
+# kernel → (the source that exports it, its C symbol, its C signature)
+SIGNATURES: dict[str, tuple[str, str, list]] = {
     "decode_attention": (
-        "calfkit_decode_attention",
+        "decode_attention", "calfkit_decode_attention",
         [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
          _L, _L, _L, _L, _L, _L, _F, _P],
     ),
+    "paged_decode_attention": (
+        "decode_attention", "calfkit_paged_decode_attention",
+        [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+         _L, _L, _L, _L, _L, _L, _L, _F, _P],
+    ),
     "prefill_attention": (
-        "calfkit_prefill_attention",
+        "prefill_attention", "calfkit_prefill_attention",
         [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
          _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
     ),
@@ -60,55 +66,57 @@ def _nvcc() -> str:
     return found
 
 
-def _library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def _library_path(source: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{source}.cu").read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source}-{digest}.so"
 
 
-def _start_build(name: str) -> "tuple[Path, subprocess.Popen | None]":
-    out = _library_path(name)
+def _start_build(source: str) -> "tuple[Path, subprocess.Popen | None]":
+    out = _library_path(source)
     if out.exists():
         return out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{source}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
     return out, proc
 
 
-def _finish_build(name: str, out: Path, proc: "subprocess.Popen | None") -> None:
+def _finish_build(source: str, out: Path, proc: "subprocess.Popen | None") -> None:
     if proc is None:
         return
     log, _ = proc.communicate()
     tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed to build {source}.cu:\n{log}")
     os.replace(tmp, out)
 
 
 def build_all() -> dict[str, Path]:
     """Compile every kernel source that has no current library, one ``nvcc``
-    per source in parallel → {name: library path}."""
+    per source in parallel → {source: library path}."""
     with _lock:
-        started = {name: _start_build(name) for name in SIGNATURES}
-        for name, (out, proc) in started.items():
-            _finish_build(name, out, proc)
-        return {name: out for name, (out, _) in started.items()}
+        sources = dict.fromkeys(source for source, _, _ in SIGNATURES.values())
+        started = {source: _start_build(source) for source in sources}
+        for source, (out, proc) in started.items():
+            _finish_build(source, out, proc)
+        return {source: out for source, (out, _) in started.items()}
 
 
 def function(name: str) -> "ctypes._CFuncPtr":
-    """The loaded C entry point of ``csrc/<name>.cu``, built at first use."""
+    """The loaded C entry point of kernel ``name``, its source built at first
+    use."""
     fn = _loaded.get(name)
     if fn is not None:
         return fn
     with _lock:
         fn = _loaded.get(name)
         if fn is None:
-            out, proc = _start_build(name)
-            _finish_build(name, out, proc)
-            symbol, argtypes = SIGNATURES[name]
+            source, symbol, argtypes = SIGNATURES[name]
+            out, proc = _start_build(source)
+            _finish_build(source, out, proc)
             fn = getattr(ctypes.CDLL(str(out)), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -9,17 +9,31 @@ the final ``ok`` line is never printed:
 1. print the card's name and power limit; build the hand-written kernels
    from ``calfkit_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
 2. kernel phase: every kernel against its plain PyTorch version on the card
-   at the serving path's shapes, with its time, the plain version's time,
+   at the serving paths' shapes (the prefill kernel on whole prompts and on
+   the chunk lane's 512-token chunks at offsets 0, 512 and 1024 of a
+   bucket's scratch), with its time, the plain version's time,
    one PyTorch library call computing the same function
-   (``scaled_dot_product_attention``) and the least time the card could
-   take (bytes over 3.35 TB/s or operations over the type's peak rate);
+   (``scaled_dot_product_attention``; for the paged kernel, which no single
+   call matches, SDPA on a window gathered beforehand and gather + SDPA) and
+   the least time the card could take (bytes over 3.35 TB/s or operations
+   over the type's peak rate);
 3. exactness phase: the engine at Llama-3-8B widths, f32, 4 layers, greedy:
-   overlapped and lockstep streams are identical and equal a step-by-step
-   greedy recompute through ``model.forward`` with the plain attention;
+   dense overlapped and lockstep streams are identical and equal a
+   step-by-step greedy recompute through ``model.forward`` with the plain
+   attention; then the paged engine (page 64, chunk 128, chunked prefill,
+   prefix cache, ragged waves) serves requests sharing a 256-token prefix in
+   two bursts, the second reusing the first's pages, and its streams equal
+   the dense lockstep engine's and the recompute;
 4. serving phase: the full ``llama-3-8b`` preset in bf16 with random weights
-   from a seed, 6 concurrent requests through both kernels (launch counts
-   reset just before and read just after), then the same 6 with a stop
-   token on one; prints TTFT and decode tokens/s.
+   from a seed, dense KV: 6 concurrent requests through the dense decode and
+   prefill kernels (launch counts reset just before and read just after),
+   then the same 6 with a stop token on one; prints TTFT and decode tokens/s;
+5. paged serving phase: the same model, paged KV with the prefix cache and
+   chunked ragged admission, agent-shaped traffic: 4 requests of one shared
+   1024-token instruction prefix, then, while those decode, 4 more of it and
+   2 unrelated prompts; the paged decode and prefill kernels run (counts
+   reset just before, read just after), the second burst reuses the prefix
+   pages, and after ``stop()`` every page is free or cached.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 ``kernels`` JSON line precedes it; the last line is the ``ok`` JSON object.
@@ -44,7 +58,7 @@ from calfkit_tpu_torch import kernels
 from calfkit_tpu_torch.inference import attention as A
 from calfkit_tpu_torch.inference import model as M
 from calfkit_tpu_torch.inference.config import RuntimeConfig, preset
-from calfkit_tpu_torch.inference.engine import InferenceEngine
+from calfkit_tpu_torch.inference.engine import EngineStats, InferenceEngine
 from calfkit_tpu_torch.inference.sampler import SamplingParams
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -53,6 +67,10 @@ SOURCES = {
     "decode_attention": (
         "calfkit_tpu_torch/csrc/decode_attention.cu",
         "calfkit_tpu/inference/pallas_attention.py:60",
+    ),
+    "paged_decode_attention": (
+        "calfkit_tpu_torch/csrc/decode_attention.cu",
+        "calfkit_tpu/inference/pallas_attention.py:153",
     ),
     "prefill_attention": (
         "calfkit_tpu_torch/csrc/prefill_attention.cu",
@@ -145,65 +163,183 @@ def decode_case(dev, dtype, B, K, G, hd, W, lens, seed):
     )
 
 
-def prefill_case(dev, dtype, R, S, H, K, hd, seed):
+def paged_decode_case(dev, dtype, B, K, G, hd, page, lens, wpages, seed, layer=1):
+    """The paged kernel on a 2-layer pool whose rows' pages are shuffled,
+    non-contiguous ids (the trash page past each row's pages), at layer 1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = 1 + B * wpages
+    q = torch.randn((B, K, G, hd), generator=g, device=dev)
+    pool_k = torch.randn((2, n_pages, K, page, hd), generator=g, device=dev).to(dtype)
+    pool_v = torch.randn((2, n_pages, K, page, hd), generator=g, device=dev).to(dtype)
+    ids = np.random.default_rng(seed).permutation(np.arange(1, n_pages))
+    tables_np = np.zeros((B, wpages), np.int32)
+    for b, n in enumerate(lens):
+        need = -(-n // page)
+        tables_np[b, :need] = ids[b * wpages:b * wpages + need]
+    tables = torch.from_numpy(tables_np).to(dev)
+    base = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    def kernel():
+        return A.paged_decode_attention(q, pool_k, pool_v, layer, tables, base, wpages=wpages)
+
+    def plain():
+        return A.paged_decode_attention_reference(
+            q, pool_k, pool_v, layer, tables, base, wpages=wpages
+        )
+
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, **DECODE_TOL)
+    W = wpages * page
+    valid = sum(min(n, W) for n in lens)
+    table_bytes = 4 * sum(-(-min(n, W) // page) for n in lens)
+    nbytes = 2 * valid * K * hd * pool_k.element_size() + table_bytes + _nbytes(q, base, *out)
+    ops = 4 * hd * G * K * valid
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS[dtype] * 1e3
+    mask = (torch.arange(W, device=dev)[None, :] < base[:, None])[:, None, None, :]
+    qs = q.reshape(B, 1, K * G, hd).transpose(1, 2).to(dtype)
+
+    def gather():
+        return (
+            M.gather_window_paged(pool_k[layer], tables, wpages),
+            M.gather_window_paged(pool_v[layer], tables, wpages),
+        )
+
+    kw, vw = gather()
+    return dict(
+        name="paged_decode_attention",
+        shape=dict(B=B, K=K, G=G, hd=hd, page=page, wpages=wpages, pool_pages=n_pages,
+                   dtype=str(dtype)),
+        max_abs_err=err, tol=DECODE_TOL,
+        ms=time_ms(kernel), plain_ms=time_ms(plain, iters=5),
+        # no single PyTorch call reads K/V through block tables
+        library_ms=None,
+        sdpa_gathered_ms=_sdpa_ms(qs, kw, vw, mask=mask),  # gather excluded
+        gather_sdpa_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qs, *gather(), attn_mask=mask, enable_gqa=True
+        )),
+        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+    )
+
+
+def prefill_case(dev, dtype, R, S, H, K, hd, seed, offset=0, Skv=None):
+    """``R`` rows of ``S`` queries at positions ``offset``.. against a cache
+    of ``Skv`` positions (default ``S``), ``offset + S`` of them valid: a
+    whole prompt from position 0, or a chunk of the chunk lane, whose
+    scratch holds the wave's whole bucket."""
+    Skv = S if Skv is None else Skv
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((R, S, H, hd), generator=g, device=dev).to(dtype)
-    k = torch.randn((R, K, S, hd), generator=g, device=dev).to(dtype)
-    v = torch.randn((R, K, S, hd), generator=g, device=dev).to(dtype)
-    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(R, S).contiguous()
-    lens = torch.full((R,), S, dtype=torch.int32, device=dev)
+    k = torch.randn((R, K, Skv, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((R, K, Skv, hd), generator=g, device=dev).to(dtype)
+    pos = (offset + torch.arange(S, dtype=torch.int32, device=dev)).expand(R, S).contiguous()
+    lens = torch.full((R,), offset + S, dtype=torch.int32, device=dev)
     out = A.prefill_attention(q, k, v, pos, lens)
     ref = A.prefill_attention_reference(q, k, v, pos, lens)
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
     torch.testing.assert_close(out.float(), ref.float(), **PREFILL_TOL[dtype])
-    kept = R * S * (S + 1) // 2  # causal (query, key) pairs
+    n = offset + S  # valid kv positions
+    kept = R * (S * offset + S * (S + 1) // 2)  # causal (query, key) pairs
     ops = 4 * hd * H * kept
-    bytes_ms = _nbytes(q, k, v, pos, lens, out) / HBM_BYTES_PER_S * 1e3
+    kv_bytes = 2 * R * K * n * hd * k.element_size()
+    bytes_ms = (kv_bytes + _nbytes(q, pos, lens, out)) / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_OPS[dtype] * 1e3
+    # SDPA over the valid positions; its causal flag aligns the diagonal
+    # top-left, so a chunk at an offset takes an explicit mask
+    mask = None if offset == 0 else (
+        torch.arange(n, device=dev)[None, :] <= pos[0, :, None]
+    )[None, None]
     return dict(
-        name="prefill_attention", shape=dict(R=R, S=S, H=H, K=K, hd=hd, dtype=str(dtype)),
+        name="prefill_attention",
+        shape=dict(R=R, S=S, q_pos0=offset, Skv=Skv, H=H, K=K, hd=hd, dtype=str(dtype)),
         max_abs_err=err, tol=PREFILL_TOL[dtype],
         ms=time_ms(lambda: A.prefill_attention(q, k, v, pos, lens), iters=5),
         plain_ms=time_ms(lambda: A.prefill_attention_reference(q, k, v, pos, lens), iters=3),
-        library_ms=_sdpa_ms(q.transpose(1, 2), k, v, causal=True),
+        library_ms=_sdpa_ms(q.transpose(1, 2), k[:, :, :n], v[:, :, :n], mask=mask,
+                            causal=offset == 0),
         bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
     )
 
 
-def kernel_phase(dev) -> "tuple[list[dict], dict]":
-    """→ (every measured case, the case of each kernel at a shape the
-    serving phase gives it: its decode batch and window, its largest
-    prefill wave)."""
+# the paged serving shape: B=16 rows, lens 17-2048 and one fresh row
+PAGED_LENS = [0, 17, 100, 255, 256, 300, 511, 640, 777, 1024, 1300, 1500, 1600, 1800, 2000,
+              2048]
+# the case of each kernel that the line of ``kernels`` reports: the dense
+# decode kernel at the dense serving phase's batch and window; the paged
+# decode kernel and the prefill kernel at the paged serving phase's (this
+# slice's path) decode batch and last chunk of a 1536-token bucket
+MAIN_SHAPES = {
+    "decode_attention": dict(B=8, K=8, G=4, hd=128, W=2048, dtype="torch.bfloat16"),
+    "paged_decode_attention": dict(B=16, K=8, G=4, hd=128, page=64, wpages=32, pool_pages=513,
+                                   dtype="torch.bfloat16"),
+    "prefill_attention": dict(R=4, S=512, q_pos0=1024, Skv=1536, H=32, K=8, hd=128,
+                              dtype="torch.bfloat16"),
+}
+
+
+def kernel_plan() -> "list[tuple[str, object, tuple]]":
+    """Every kernel-phase case as (kernel name, case function, its
+    arguments after the device)."""
     ragged = {256: [0, 1, 31, 64, 100, 200, 255, 256],
               2048: [17, 300, 777, 1024, 1500, 1600, 2000, 2048]}
-    cases = []
+    plan = []
     for dtype in (torch.bfloat16, torch.float32):
         for W in (256, 2048):
-            cases.append(decode_case(dev, dtype, 8, 8, 4, 128, W, ragged[W], seed=W))
-    cases.append(decode_case(dev, torch.bfloat16, 8, 4, 8, 64, 2048, ragged[2048], seed=7))
+            plan.append(("decode_attention", decode_case, (dtype, 8, 8, 4, 128, W, ragged[W], W)))
+    plan.append(("decode_attention", decode_case,
+                 (torch.bfloat16, 8, 4, 8, 64, 2048, ragged[2048], 7)))
+    for dtype, K, G, hd, page, seed in (
+        (torch.bfloat16, 8, 4, 128, 64, 11), (torch.bfloat16, 8, 4, 128, 16, 12),
+        (torch.float32, 8, 4, 128, 64, 13), (torch.bfloat16, 4, 8, 64, 64, 14),
+    ):
+        plan.append(("paged_decode_attention", paged_decode_case,
+                     (dtype, 16, K, G, hd, page, PAGED_LENS, 2048 // page, seed)))
     for dtype in (torch.bfloat16, torch.float32):
         for R in (1, 4):
             for S in (512, 2048):
-                cases.append(prefill_case(dev, dtype, R, S, 32, 8, 128, seed=R * S))
-    cases.append(prefill_case(dev, torch.bfloat16, 4, 2048, 32, 4, 64, seed=3))
-    # the serving phase's largest prefill wave: two prompts in the 1536 bucket
-    cases.append(prefill_case(dev, torch.bfloat16, 2, 1536, 32, 8, 128, seed=5))
-    for c in cases:
+                plan.append(("prefill_attention", prefill_case,
+                             (dtype, R, S, 32, 8, 128, R * S)))
+    plan.append(("prefill_attention", prefill_case, (torch.bfloat16, 4, 2048, 32, 4, 64, 3)))
+    # the dense serving phase's largest prefill wave: two prompts in the 1536 bucket
+    plan.append(("prefill_attention", prefill_case, (torch.bfloat16, 2, 1536, 32, 8, 128, 5)))
+    # the paged serving phase's chunks of 512: a wave of 4 in the 1536
+    # bucket at each offset, and one row in the 1024 bucket at offset 512
+    for R, offset, Skv in ((4, 0, 1536), (4, 512, 1536), (4, 1024, 1536), (1, 512, 1024)):
+        plan.append(("prefill_attention", prefill_case,
+                     (torch.bfloat16, R, 512, 32, 8, 128, 20 + offset, offset, Skv)))
+    return plan
+
+
+def run_cases(dev, plan) -> "list[dict]":
+    """Run and print each case of ``plan`` (as :func:`kernel_plan` gives)."""
+    cases = []
+    for _, case_fn, args in plan:
+        c = case_fn(dev, *args)
+        sdpa = (
+            f"sdpa_ms {c['library_ms']:.4f}" if c["library_ms"] is not None else
+            f"sdpa_gathered_ms {c['sdpa_gathered_ms']:.4f} "
+            f"gather_sdpa_ms {c['gather_sdpa_ms']:.4f}"
+        )
         print(
             f"  {c['name']} {c['shape']}: max_abs_err {c['max_abs_err']:.3e} "
             f"(tol {c['tol']}) ms {c['ms']:.4f} plain_ms {c['plain_ms']:.4f} "
-            f"sdpa_ms {c['library_ms']:.4f} bound_ms {c['bound_ms']:.4f} ({c['bound_by']})"
+            f"{sdpa} bound_ms {c['bound_ms']:.4f} ({c['bound_by']})"
         )
+        cases.append(c)
+    return cases
+
+
+def kernel_phase(dev) -> "tuple[list[dict], dict]":
+    """→ (every measured case, the case of each kernel at its
+    ``MAIN_SHAPES`` shape)."""
+    cases = run_cases(dev, kernel_plan())
     main = {
-        "decode_attention": next(
-            c for c in cases if c["name"] == "decode_attention"
-            and c["shape"] == dict(B=8, K=8, G=4, hd=128, W=2048, dtype="torch.bfloat16")
-        ),
-        "prefill_attention": next(
-            c for c in cases if c["name"] == "prefill_attention"
-            and c["shape"] == dict(R=2, S=1536, H=32, K=8, hd=128, dtype="torch.bfloat16")
-        ),
+        name: next(c for c in cases if c["name"] == name and c["shape"] == shape)
+        for name, shape in MAIN_SHAPES.items()
     }
     return cases, main
 
@@ -232,29 +368,11 @@ async def serve(engine, jobs) -> "tuple[list[list[int]], list[float], float]":
     return streams, ttft, time.perf_counter() - t0
 
 
-async def exactness_phase(dev) -> dict:
-    cfg = preset("llama-3-8b", n_layers=4, dtype="float32")
-    g = torch.Generator(device=dev).manual_seed(1)
-    params = M.init_params(cfg, g)
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 77, 300)]
-    jobs = [(p, 12, {}) for p in prompts]
-    streams = {}
-    for overlap in (True, False):
-        rt = RuntimeConfig(
-            max_batch_size=4, max_seq_len=1024, prefill_chunk=128,
-            decode_steps_per_dispatch=8, overlap_dispatch=overlap,
-        )
-        engine = InferenceEngine(cfg, rt, params=params, device=dev)
-        await engine.start()
-        try:
-            streams[overlap], _, _ = await serve(engine, jobs)
-        finally:
-            await engine.stop()
-        del engine
-    assert streams[True] == streams[False], "overlapped and lockstep streams differ"
-    for prompt, stream in zip(prompts, streams[True]):
-        assert len(stream) == 12
+def _check_recompute(cfg, params, prompts, streams, dev) -> None:
+    """Each greedy stream equals a step-by-step recompute: a fresh forward
+    over prompt + tokens so far with the plain attention, argmax of the
+    last position."""
+    for prompt, stream in zip(prompts, streams):
         seq = list(prompt)
         for step, token in enumerate(stream):
             n = len(seq)
@@ -270,8 +388,69 @@ async def exactness_phase(dev) -> dict:
                 f"prompt of {len(prompt)}: step {step} engine {token} vs recompute {expect}"
             )
             seq.append(token)
+
+
+async def _serve_fresh(cfg, rt, params, dev, bursts) -> "tuple[list[list[int]], EngineStats]":
+    """A fresh engine serves ``bursts`` (lists of jobs) one after the other
+    → (streams in job order, the engine's stats)."""
+    engine = InferenceEngine(cfg, rt, params=params, device=dev)
+    await engine.start()
+    try:
+        streams = []
+        for jobs in bursts:
+            streams += (await serve(engine, jobs))[0]
+    finally:
+        await engine.stop()
+    return streams, engine.stats
+
+
+async def exactness_phase(dev) -> dict:
+    cfg = preset("llama-3-8b", n_layers=4, dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(1)
+    params = M.init_params(cfg, g)
+    rng = np.random.default_rng(1)
+    dense_rt = dict(
+        max_batch_size=4, max_seq_len=1024, prefill_chunk=128, decode_steps_per_dispatch=8
+    )
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 77, 300)]
+    jobs = [(p, 12, {}) for p in prompts]
+    streams = {}
+    for overlap in (True, False):
+        rt = RuntimeConfig(**dense_rt, overlap_dispatch=overlap)
+        streams[overlap], _ = await _serve_fresh(cfg, rt, params, dev, [jobs])
+    assert streams[True] == streams[False], "overlapped and lockstep streams differ"
+    assert [len(s) for s in streams[True]] == [12] * 3
+    _check_recompute(cfg, params, prompts, streams[True], dev)
     print("  exactness: 3 greedy streams x 12 tokens, overlap == lockstep == recompute")
-    return dict(streams=streams[True])
+
+    # the paged path: requests sharing a 256-token prefix in two bursts;
+    # the second burst reuses the first's pages, and an unrelated prompt's
+    # chunks ride the decode dispatches
+    prefix = rng.integers(0, cfg.vocab_size, 256).tolist()
+    tail = lambda n: rng.integers(0, cfg.vocab_size, n).tolist()  # noqa: E731
+    bursts = [
+        [(prefix + tail(40), 12, {}), (prefix + tail(90), 12, {})],
+        [(prefix + tail(60), 12, {}), (prefix + tail(20), 12, {}), (tail(50), 12, {})],
+    ]
+    paged_rt = RuntimeConfig(
+        **dense_rt, kv_layout="paged", page_size=64, chunked_prefill=True,
+        prefix_cache=True,
+    )
+    paged, stats = await _serve_fresh(cfg, paged_rt, params, dev, bursts)
+    lockstep, _ = await _serve_fresh(
+        cfg, RuntimeConfig(**dense_rt, overlap_dispatch=False), params, dev, bursts
+    )
+    assert paged == lockstep, "paged streams differ from the dense lockstep engine's"
+    assert [len(s) for s in paged] == [12] * 5
+    assert stats.prefix_hits == 2 and stats.prefix_reused_tokens == 2 * 256, stats
+    assert stats.unified_dispatches >= 1, stats
+    _check_recompute(cfg, params, [p for jobs in bursts for p, _, _ in jobs], paged, dev)
+    print(
+        "  exactness, paged: 5 greedy streams x 12 tokens over two bursts, paged == "
+        f"dense lockstep == recompute; prefix hits {stats.prefix_hits} "
+        f"({stats.prefix_reused_tokens} tokens), unified dispatches {stats.unified_dispatches}"
+    )
+    return dict(streams=streams[True], paged_streams=paged, paged_stats=vars(stats))
 
 
 SERVING_RUNTIME = RuntimeConfig(
@@ -313,7 +492,8 @@ async def serving_phase(dev) -> dict:
             prefill_time_s=stats.prefill_time_s,
         )
         assert [len(s) for s in streams] == [32] * 6, [len(s) for s in streams]
-        assert all(n > 0 for n in launches.values()), launches
+        assert launches["decode_attention"] > 0 and launches["prefill_attention"] > 0, launches
+        assert launches["paged_decode_attention"] == 0, launches  # not on the dense path
         assert len(engine._free) == rt.max_batch_size and not engine._active
         # the same six again, request 3 with a stop token from its own stream:
         # identical schedule up to the stop, so its stream ends right there
@@ -342,6 +522,113 @@ async def serving_phase(dev) -> dict:
     return result
 
 
+PAGED_RUNTIME = RuntimeConfig(
+    max_batch_size=16, max_seq_len=2048, kv_layout="paged", page_size=64,
+    prefill_chunk=512, chunked_prefill=True, prefix_cache=True,
+    decode_steps_per_dispatch=8,
+)
+
+
+def paged_serving_jobs(vocab_size: int) -> "tuple[list[list[int]], list[list[int]]]":
+    """Agent-shaped traffic, from seed 2: burst A is 4 requests of one shared
+    1024-token instruction prefix plus unique 100-400-token suffixes; burst
+    B is 4 more of the same prefix with other suffixes, plus 2 unrelated
+    prompts of 17 and 700 tokens → (burst A prompts, burst B prompts)."""
+    rng = np.random.default_rng(2)
+    prefix = rng.integers(0, vocab_size, 1024).tolist()
+
+    def agent(n):
+        return prefix + rng.integers(0, vocab_size, n).tolist()
+
+    burst_a = [agent(n) for n in (100, 250, 330, 400)]
+    burst_b = [agent(n) for n in (120, 200, 310, 380)]
+    burst_b += [rng.integers(0, vocab_size, n).tolist() for n in (17, 700)]
+    return burst_a, burst_b
+
+
+async def paged_serving_phase(dev) -> dict:
+    cfg = preset("llama-3-8b")
+    rt = PAGED_RUNTIME
+    new_tokens = 48
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, rt, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    burst_a, burst_b = paged_serving_jobs(cfg.vocab_size)
+
+    async def stream(prompt, t_submit, ttft, out):
+        async for tok in engine.generate(prompt, max_new_tokens=new_tokens):
+            if not out:
+                ttft.append(time.perf_counter() - t_submit)
+            out.append(tok)
+
+    await engine.start()
+    try:
+        await serve(engine, [([1, 2, 3, 4, 5, 6, 7, 8], 2, {})])  # warm-up
+        engine.stats = EngineStats()
+        A.reset_launch_counts()
+        started = time.perf_counter()
+        ttft_a: list[float] = []
+        ttft_b: list[float] = []
+        out_a: list[list[int]] = [[] for _ in burst_a]
+        out_b: list[list[int]] = [[] for _ in burst_b]
+        tasks = [
+            asyncio.create_task(stream(p, started, ttft_a, o)) for p, o in zip(burst_a, out_a)
+        ]
+        while not all(len(o) >= 2 for o in out_a):  # burst A is decoding
+            if any(t.done() for t in tasks):
+                await asyncio.gather(*tasks)  # surfaces a failure; else a stream ended early
+                raise AssertionError("a burst-A stream ended before burst B arrived")
+            await asyncio.sleep(0.002)
+        at_b = time.perf_counter()
+        tasks += [
+            asyncio.create_task(stream(p, at_b, ttft_b, o)) for p, o in zip(burst_b, out_b)
+        ]
+        await asyncio.gather(*tasks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - started
+        launches = dict(A.launch_counts)
+        stats = engine.stats
+    finally:
+        await engine.stop()
+    assert [len(o) for o in out_a + out_b] == [new_tokens] * 10
+    assert all(0 <= tok < cfg.vocab_size for o in out_a + out_b for tok in o)
+    assert launches["paged_decode_attention"] > 0 and launches["prefill_attention"] > 0, launches
+    assert launches["decode_attention"] == 0, launches  # the dense kernel is not on this path
+    assert stats.prefix_hits >= 4 and stats.prefix_reused_tokens >= 4096, vars(stats)
+    assert stats.unified_dispatches >= 1, vars(stats)
+    # the no-leak law: every page free or held by the prefix cache, every slot free
+    free_pages, cached = engine._page_alloc.free_pages, engine._prefix.size
+    assert free_pages + cached == rt.pool_pages() - 1, (free_pages, cached)
+    assert len(engine._free) == rt.max_batch_size and not engine._active
+    result = dict(
+        init_s=init_s, wall_s=wall,
+        ttft_a_ms=sorted(x * 1e3 for x in ttft_a), ttft_b_ms=sorted(x * 1e3 for x in ttft_b),
+        ttft_a_median_ms=statistics.median(ttft_a) * 1e3, ttft_a_max_ms=max(ttft_a) * 1e3,
+        ttft_b_median_ms=statistics.median(ttft_b) * 1e3, ttft_b_max_ms=max(ttft_b) * 1e3,
+        decode_tokens=stats.decode_tokens, decode_time_s=stats.decode_time_s,
+        decode_tok_s=stats.tokens_per_second, decode_dispatches=stats.decode_dispatches,
+        mean_occupancy=stats.mean_occupancy, prefill_waves=stats.prefill_waves,
+        prefill_time_s=stats.prefill_time_s, prefix_hits=stats.prefix_hits,
+        prefix_reused_tokens=stats.prefix_reused_tokens,
+        prefix_evictions=stats.prefix_evictions, alloc_stalls=stats.alloc_stalls,
+        prefill_absorbed_tokens=stats.prefill_absorbed_tokens,
+        unified_dispatches=stats.unified_dispatches, launches=launches,
+        pages_free=free_pages, pages_cached=cached,
+    )
+    print(
+        f"  paged serving llama-3-8b bf16, 10 requests x {new_tokens} tokens: init "
+        f"{init_s:.2f} s, TTFT burst A median {result['ttft_a_median_ms']:.1f} ms max "
+        f"{result['ttft_a_max_ms']:.1f} ms, burst B median {result['ttft_b_median_ms']:.1f} "
+        f"ms max {result['ttft_b_max_ms']:.1f} ms, decode {result['decode_tok_s']:.1f} tok/s "
+        f"over {result['decode_dispatches']} dispatches, prefix hits {stats.prefix_hits} "
+        f"({stats.prefix_reused_tokens} tokens), unified dispatches "
+        f"{stats.unified_dispatches}, launches {launches}, pages free {free_pages} + "
+        f"cached {cached} of {rt.pool_pages() - 1}"
+    )
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -365,20 +652,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("serving phase")
     serving = asyncio.run(serving_phase(dev))
+    torch.cuda.empty_cache()
+    print("paged serving phase")
+    paged = asyncio.run(paged_serving_phase(dev))
 
+    # each kernel's launches from the path it serves, beside its case at a
+    # shape of that path (MAIN_SHAPES): the dense decode kernel from the
+    # dense serving phase; the paged decode and prefill kernels from the
+    # paged serving phase, this slice's path
+    launch_source = {"decode_attention": serving, "paged_decode_attention": paged,
+                     "prefill_attention": paged}
     line = {"kernels": []}
     for name, c in main_cases.items():
         source, replaces = SOURCES[name]
-        line["kernels"].append(dict(
+        entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=serving["launches"][name], max_abs_err=c["max_abs_err"],
+            launches=launch_source[name]["launches"][name], max_abs_err=c["max_abs_err"],
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"], library_ms=c["library_ms"],
-        ))
+            bound_by=c["bound_by"], library_ms=c["library_ms"], shape=c["shape"],
+        )
+        if name == "paged_decode_attention":
+            entry.update(sdpa_gathered_ms=c["sdpa_gathered_ms"], gather_sdpa_ms=c["gather_sdpa_ms"])
+        line["kernels"].append(entry)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, cases=cases, exactness=exact, serving=serving,
-                           kernels=line["kernels"]), f, indent=1, default=str)
+                           paged_serving=paged, kernels=line["kernels"]), f, indent=1,
+                      default=str)
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

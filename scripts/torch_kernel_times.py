@@ -5,8 +5,9 @@
 
 Imports ``calfkit_tpu_torch`` from ``DIR`` (default: this checkout), builds
 its kernels, and runs THIS checkout's ``chip_smoke.py`` kernel phase against
-them: every kernel against its plain version, timed with CUDA events
-beside the plain version, ``scaled_dot_product_attention`` and the bound.
+them, for the kernels the tree has: every kernel against its plain version,
+timed with CUDA events beside the plain version,
+``scaled_dot_product_attention`` and the bound.
 Two trees (e.g. a parent commit unpacked with ``git archive`` into a
 git-ignored directory) are thus timed by the same code: run parent, change,
 change, parent in one call to compare them on one card.  Prints one JSON
@@ -16,6 +17,7 @@ line: the card's name and power limit, the label and every case.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import sys
@@ -44,7 +46,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # as chip_smoke.py: f32 in full f32
     torch.backends.cudnn.allow_tf32 = False
     smoke.kernels.build_all()
-    cases, _ = smoke.kernel_phase(torch.device("cuda", 0))
+    # a tree of an earlier slice lacks the later kernels: time what it has
+    plan = [case for case in smoke.kernel_plan() if hasattr(smoke.A, case[0])]
+    with contextlib.redirect_stdout(sys.stderr):  # the per-case lines; stdout keeps the JSON
+        cases = smoke.run_cases(torch.device("cuda", 0), plan)
     print(json.dumps(dict(
         card=smoke.card_line(), label=args.label, tree=str(Path(args.tree).resolve()),
         cases=cases,

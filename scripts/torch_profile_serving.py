@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's serving time goes, on one CUDA card.
 
-    python3 scripts/torch_profile_serving.py [--out PATH] [--preset NAME] [--device cuda|cpu]
+    python3 scripts/torch_profile_serving.py [--out PATH] [--preset NAME]
+        [--device cuda|cpu] [--workload dense|paged]
 
-Serves ``chip_smoke.py``'s serving workload (``serving_jobs``: the
-``llama-3-8b`` preset in bf16 with random weights from seed 0; 6 concurrent
-requests of 17–1500 prompt tokens, 32 new tokens each, one sampled) twice on
-one engine: the first round warms up, the second runs under
-``torch.profiler``.  Prints one JSON object: the profiled window's wall
+Serves one of ``chip_smoke.py``'s serving workloads twice on one engine: the
+first round warms up, the second runs under ``torch.profiler``.  ``dense``
+(the default) is ``serving_jobs`` on ``SERVING_RUNTIME``: the ``llama-3-8b``
+preset in bf16 with random weights from seed 0, 6 concurrent requests of
+17–1500 prompt tokens, 32 new tokens each, one sampled.  ``paged`` is
+``paged_serving_jobs`` on ``PAGED_RUNTIME`` (paged KV, prefix cache, chunked
+ragged admission): both bursts at once, 48 new tokens each; the warm-up
+round fills the prefix cache, so in the profiled round every prompt
+reuses its cached pages.  Prints one JSON object: the profiled window's wall
 time, the device's busy time (union of kernel intervals) and idle share,
 launches and device time per kernel family, the top kernels by device time,
 and the round's decode dispatches and tokens.  ``--device cpu --preset debug`` rehearses the
@@ -30,9 +35,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from calfkit_tpu_torch.inference.config import preset  # noqa: E402
 from calfkit_tpu_torch.inference.engine import InferenceEngine  # noqa: E402
-from chip_smoke import SERVING_RUNTIME, serving_jobs  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    PAGED_RUNTIME,
+    SERVING_RUNTIME,
+    paged_serving_jobs,
+    serving_jobs,
+)
 
 FAMILIES = (  # kernel-name substring → family, first match wins
+    ("paged_decode_attn", "paged decode attention kernel"),
     ("decode_attn", "decode attention kernel"),
     ("prefill_attn", "prefill attention kernel"),
     ("nvjet", "matmul (cuBLAS)"),
@@ -72,9 +83,14 @@ async def run(args) -> dict:
     dev = torch.device(args.device)
     cuda = dev.type == "cuda"
     cfg = preset(args.preset)
-    rt = SERVING_RUNTIME
+    if args.workload == "paged":
+        rt = PAGED_RUNTIME
+        burst_a, burst_b = paged_serving_jobs(cfg.vocab_size)
+        jobs = [(p, 48, {}) for p in burst_a + burst_b]
+    else:
+        rt = SERVING_RUNTIME
+        _, jobs = serving_jobs(cfg.vocab_size)
     engine = InferenceEngine(cfg, rt, seed=0, device=dev)
-    _, jobs = serving_jobs(cfg.vocab_size)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -112,7 +128,7 @@ async def run(args) -> dict:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True, timeout=60,
         ).stdout.strip() if cuda else None,
-        preset=args.preset, wall_s=wall_s,
+        preset=args.preset, workload=args.workload, wall_s=wall_s,
         device_busy_s=busy if cuda else None,
         device_idle_share=(1.0 - busy / wall_s) if cuda else None,
         by_family={
@@ -123,7 +139,8 @@ async def run(args) -> dict:
         decode_dispatches=stats.decode_dispatches, decode_steps=steps,
         decode_time_s=stats.decode_time_s, decode_tokens=stats.decode_tokens,
         decode_tok_s=stats.tokens_per_second, prefill_waves=stats.prefill_waves,
-        prefill_time_s=stats.prefill_time_s,
+        prefill_time_s=stats.prefill_time_s, prefix_hits=stats.prefix_hits,
+        unified_dispatches=stats.unified_dispatches,
     )
 
 
@@ -132,6 +149,7 @@ def main() -> int:
     parser.add_argument("--out")
     parser.add_argument("--preset", default="llama-3-8b")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--workload", default="dense", choices=("dense", "paged"))
     args = parser.parse_args()
     if args.device == "cuda" and not torch.cuda.is_available():
         print("torch_profile_serving: no CUDA device", file=sys.stderr)

@@ -21,6 +21,8 @@ import jax.numpy as jnp  # noqa: E402
 from calfkit_tpu.inference.pallas_attention import (  # noqa: E402
     decode_attention_pallas,
     merged_decode_attention_pallas,
+    merged_paged_decode_attention_pallas,
+    paged_decode_attention_pallas,
     prefill_attention_pallas,
 )
 from calfkit_tpu_torch.inference import attention as A  # noqa: E402
@@ -103,7 +105,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     A.reset_launch_counts()
     x = _decode_inputs(B=2, K=1, G=2, W=8, hd=8, lens=[3, 8])
     A.decode_attention(t(x["q"]), t(x["k"]), t(x["v"]), t(x["lens"]))
-    assert A.launch_counts == {"decode_attention": 0, "prefill_attention": 0}
+    assert A.launch_counts == {
+        "decode_attention": 0, "paged_decode_attention": 0, "prefill_attention": 0,
+    }
 
 
 def test_no_kernel_for_other_devices():
@@ -122,3 +126,66 @@ def test_strided_window_view_is_read_in_place():
     ref = A.decode_attention(t(x["q"]), t(x["k"]), t(x["v"]), t(x["lens"]))
     for a, b in zip(out, ref):
         np.testing.assert_allclose(n(a), n(b), **TOL)
+
+
+def _paged_inputs(B, K, G, hd, page, n_pages, lens, wpages, pmax, seed, T=4):
+    """A pool [L=2, N, K, page, hd] and block tables of shuffled, distinct
+    page ids; entries past a row's pages are the trash page (0)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    ids = rng.permutation(np.arange(1, n_pages))
+    tables = np.zeros((B, pmax), np.int32)
+    for b, n_tok in enumerate(lens):
+        need = -(-n_tok // page)
+        tables[b, :need] = ids[:need]
+        ids = ids[need:]
+    return dict(
+        q=f(B, K, G, hd), pk=f(2, n_pages, K, page, hd), pv=f(2, n_pages, K, page, hd),
+        rk=f(T, B, K, hd), rv=f(T, B, K, hd), tables=tables,
+        lens=np.asarray(lens, np.int32), wpages=wpages,
+    )
+
+
+@pytest.mark.parametrize(
+    "page,G,lens,wpages,pmax",
+    [
+        (8, 2, [0, 5, 8, 40], 5, 6),   # len 0, unaligned lens, wpages < Pmax
+        (16, 4, [17, 1, 31, 48], 3, 4),
+        (4, 1, [9, 0, 12, 3], 4, 8),
+    ],
+)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_paged_decode_plain_matches_pallas(page, G, lens, wpages, pmax, dtype):
+    x = _paged_inputs(4, 2, G, 16, page, 40, lens, wpages, pmax, seed=page * G)
+    tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    for layer in (0, 1):
+        ref = paged_decode_attention_pallas(
+            j(x["q"]), j(x["pk"], dtype), j(x["pv"], dtype), jnp.int32(layer),
+            j(x["tables"]), j(x["lens"]), wpages=wpages, interpret=True,
+        )
+        out = A.paged_decode_attention(
+            t(x["q"]), t(x["pk"], tdtype), t(x["pv"], tdtype), layer,
+            t(x["tables"]), t(x["lens"]), wpages=wpages,
+        )
+        for a, b in zip(out, ref):
+            np.testing.assert_allclose(n(a), n(b), **TOL)
+    # the fresh row (len 0): nothing attended, the -1e29 floor, z = 0
+    fresh = list(lens).index(0) if 0 in lens else None
+    if fresh is not None:
+        assert np.all(n(out[1])[fresh] == -1e29) and np.all(n(out[2])[fresh] == 0.0)
+
+
+@pytest.mark.parametrize("step", [0, 3])
+def test_merged_paged_decode_matches_pallas(step):
+    B, K, G, hd = 4, 2, 2, 16
+    x = _paged_inputs(B, K, G, hd, 8, 30, [0, 9, 23, 40], 5, 6, seed=20 + step)
+    q = x["q"].reshape(B, 1, K * G, hd)
+    ref = merged_paged_decode_attention_pallas(
+        j(q), j(x["pk"]), j(x["pv"]), jnp.int32(1), j(x["tables"]), j(x["rk"]),
+        j(x["rv"]), j(x["lens"]), jnp.int32(step), wpages=5, interpret=True,
+    )
+    out = A.merged_paged_decode_attention(
+        t(q), t(x["pk"]), t(x["pv"]), 1, t(x["tables"]), t(x["rk"]), t(x["rv"]),
+        t(x["lens"]), step, wpages=5,
+    )
+    np.testing.assert_allclose(n(out), n(ref), **TOL)

@@ -169,10 +169,15 @@ async def test_sampled_stream_independent_of_batch(weights):
 @pytest.mark.parametrize(
     "over",
     [
-        dict(kv_layout="paged"), dict(chunked_prefill=True),
+        dict(kv_layout="paged"), dict(kv_layout="ring"),
         dict(speculative=SpecConfig()), dict(long_context=True),
         dict(quantization="int8"), dict(tp=2), dict(prefix_cache=True),
         dict(attention_impl="xla"),
+    ],
+    ids=[
+        "paged-page64-does-not-divide-chunk16", "unknown-kv-layout",
+        "speculative", "long-context", "int8", "tp2",
+        "prefix-cache-without-paged", "attention-impl-xla",
     ],
 )
 def test_later_slices_raise(weights, over):

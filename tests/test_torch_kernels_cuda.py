@@ -79,3 +79,56 @@ def test_misaligned_inputs_raise_instead_of_launching():
     pos = torch.arange(64, dtype=torch.int32, device=dev).expand(2, 64)
     with pytest.raises(ValueError, match="16-byte aligned"):
         A.prefill_attention(qp, k, k, pos, lens)
+
+
+def _paged_case(dev, dtype, hd, G, page, lens, wpages, seed, K=8, n_pages=200):
+    """A 2-layer pool of random values and block tables of shuffled page
+    ids (trash-padded past each row's pages)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(lens)
+    q = torch.randn((B, K, G, hd), generator=g, device=dev)
+    pool = torch.randn((2, 2, n_pages, K, page, hd), generator=g, device=dev).to(dtype)
+    ids = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
+    tables = torch.zeros((B, wpages + 3), dtype=torch.int32)
+    used = 0
+    for b, n in enumerate(lens):
+        need = -(-n // page)
+        tables[b, :need] = ids[used:used + need]
+        used += need
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, pool[0], pool[1], tables.to(dev), lens_t
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,G", GEOMETRIES)
+@pytest.mark.parametrize("page", [8, 16, 64])
+def test_paged_decode_kernel_matches_plain(dtype, hd, G, page):
+    dev = torch.device("cuda")
+    wpages = 256 // page
+    lens = [0, 1, 31, 64, 65, 100, 255, 256]
+    q, pk, pv, tables, lens_t = _paged_case(dev, dtype, hd, G, page, lens, wpages, hd + G + page)
+    for layer in (0, 1):
+        out = A.paged_decode_attention(q, pk, pv, layer, tables, lens_t, wpages=wpages)
+        ref = A.paged_decode_attention_reference(q, pk, pv, layer, tables, lens_t, wpages=wpages)
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, **DECODE_TOL)
+
+
+@pytest.mark.cuda
+@cuda_only
+def test_paged_decode_kernel_counts_and_refuses_bad_shapes():
+    dev = torch.device("cuda")
+    q, pk, pv, tables, lens_t = _paged_case(dev, torch.bfloat16, 128, 4, 64, [10, 70], 4, 1)
+    A.reset_launch_counts()
+    A.paged_decode_attention(q, pk, pv, 1, tables, lens_t, wpages=4)
+    assert A.launch_counts["paged_decode_attention"] == 1
+    with pytest.raises(ValueError, match="layer"):
+        A.paged_decode_attention(q, pk, pv, 2, tables, lens_t, wpages=4)
+    with pytest.raises(ValueError, match="wpages"):
+        A.paged_decode_attention(q, pk, pv, 0, tables, lens_t, wpages=tables.shape[1] + 1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.zeros(pk.numel() + 1, dtype=pk.dtype, device=dev)
+        shifted = flat[1:].view(pk.shape)
+        A.paged_decode_attention(q, shifted, shifted, 0, tables, lens_t, wpages=4)

@@ -176,3 +176,103 @@ def test_params_from_numpy_keeps_bfloat16_bits():
         ours["layers"]["wq"].float().numpy(),
         np.asarray(ref["layers"]["wq"], np.float32),
     )
+
+
+# --------------------------------------------------------------------------- #
+# paged KV
+# --------------------------------------------------------------------------- #
+
+PAGE, NPAGES, PMAX = 8, 12, 6
+
+
+def _pool_and_tables(seed=5):
+    """A [L, N, K, page, hd] pool of random values and two rows' block tables
+    of shuffled page ids, trash-padded."""
+    rng = np.random.default_rng(seed)
+    L, K, hd = JAX_CFG.n_layers, JAX_CFG.n_kv_heads, JAX_CFG.head_dim
+    pool = rng.standard_normal((2, L, NPAGES, K, PAGE, hd)).astype(np.float32)
+    ids = rng.permutation(np.arange(1, NPAGES))
+    tables = np.zeros((B, PMAX), np.int32)
+    tables[0, :4] = ids[:4]
+    tables[1, :3] = ids[4:7]
+    return pool, tables
+
+
+def test_make_page_pool_layout():
+    ours = TM.make_page_pool(TORCH_CFG, NPAGES, PAGE, device="cpu")
+    ref = JM.make_page_pool(JAX_CFG, NPAGES, PAGE)
+    assert tuple(ours[0].shape) == ref[0].shape and ours[0].dtype == torch.bfloat16
+    assert not ours[0].any() and not ours[1].any()
+
+
+@pytest.mark.parametrize("wpages", [2, 4])
+def test_gather_window_paged_exact(wpages):
+    pool, tables = _pool_and_tables()
+    ref = JM.gather_window_paged(j(pool[0, 1]), j(tables), wpages)
+    out = TM.gather_window_paged(t(pool[0, 1]), t(tables), wpages)
+    np.testing.assert_array_equal(n(out), n(ref))
+
+
+def test_decode_step_ring_paged_matches(both):
+    jp, tp = both
+    pool, tables = _pool_and_tables()
+    base = np.array([29, 17], np.int32)  # row 0 spans 4 pages, row 1 three
+    L, T, K, hd = JAX_CFG.n_layers, 3, JAX_CFG.n_kv_heads, JAX_CFG.head_dim
+    jring = (jnp.zeros((L, T, B, K, hd)), jnp.zeros((L, T, B, K, hd)))
+    tring = (torch.zeros((L, T, B, K, hd)), torch.zeros((L, T, B, K, hd)))
+    tok = np.array([[5], [9]], np.int32)
+    for step in range(T):
+        jl, jring = JM.decode_step_ring_paged(
+            jp, JAX_CFG, j(tok), (j(pool[0]), j(pool[1])), j(tables), jring,
+            jnp.int32(step), j(base), wpages=4, attn_impl="pallas_interpret",
+        )
+        tl, tring = TM.decode_step_ring_paged(
+            tp, TORCH_CFG, t(tok), (t(pool[0]), t(pool[1])), t(tables), tring,
+            step, t(base), 4,
+        )
+        np.testing.assert_allclose(n(tl), n(jl), **TOL)
+        np.testing.assert_allclose(n(tring[0]), n(jring[0]), **TOL)
+        tok = np.argmax(n(jl)[:, -1], axis=-1).astype(np.int32)[:, None]
+
+
+@pytest.mark.parametrize(
+    "base,active",
+    [
+        ([29, 17], [True, True]),
+        ([29, 17], [True, False]),  # the inactive row writes the trash page
+        ([46, 3], [True, True]),  # row 0 overshoots Pmax * page = 48
+    ],
+)
+def test_consolidate_ring_paged_exact(base, active):
+    pool, tables = _pool_and_tables()
+    rng = np.random.default_rng(9)
+    L, T, K, hd = JAX_CFG.n_layers, 4, JAX_CFG.n_kv_heads, JAX_CFG.head_dim
+    ring = rng.standard_normal((2, L, T, B, K, hd)).astype(np.float32)
+    base, active = np.asarray(base, np.int32), np.asarray(active)
+    jk, jv = JM.consolidate_ring_paged(
+        (j(pool[0]), j(pool[1])), (j(ring[0]), j(ring[1])), j(tables), j(base), j(active)
+    )
+    tk, tv = t(pool[0]), t(pool[1])
+    TM.consolidate_ring_paged((tk, tv), (t(ring[0]), t(ring[1])), t(tables), t(base), t(active))
+    # every page but the trash page is exact; the trash page's content is
+    # whichever duplicate write landed last, so it is not compared
+    np.testing.assert_array_equal(n(tk)[:, 1:], n(jk)[:, 1:])
+    np.testing.assert_array_equal(n(tv)[:, 1:], n(jv)[:, 1:])
+    if not active.all():  # the inactive row's own pages are untouched
+        row = tables[~active][0]
+        np.testing.assert_array_equal(n(tk)[:, row[row > 0]], pool[0][:, row[row > 0]])
+
+
+def test_write_prefill_pages_exact():
+    pool, _ = _pool_and_tables()
+    rng = np.random.default_rng(11)
+    L, K, hd = JAX_CFG.n_layers, JAX_CFG.n_kv_heads, JAX_CFG.head_dim
+    scratch = rng.standard_normal((2, L, B, K, 3 * PAGE, hd)).astype(np.float32)
+    ids = np.array([[4, 0, 7], [2, 9, 0]], np.int32)  # 0: a reused page's write
+    jk, jv = JM.write_prefill_pages(
+        (j(pool[0]), j(pool[1])), (j(scratch[0]), j(scratch[1])), j(ids)
+    )
+    tk, tv = t(pool[0]), t(pool[1])
+    TM.write_prefill_pages((tk, tv), (t(scratch[0]), t(scratch[1])), t(ids))
+    np.testing.assert_array_equal(n(tk)[:, 1:], n(jk)[:, 1:])
+    np.testing.assert_array_equal(n(tv)[:, 1:], n(jv)[:, 1:])
