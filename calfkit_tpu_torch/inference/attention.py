@@ -11,7 +11,14 @@ place of the JAX package's Pallas kernels on this path:
   with K/V read page by page through block tables out of the whole pool,
   folded with the ring by :func:`merged_paged_decode_attention`;
 - :func:`prefill_attention` ← ``pallas_attention.prefill_attention_pallas``:
-  causal GQA flash attention → normalized output in q's dtype.
+  causal GQA flash attention → normalized output in q's dtype;
+- :func:`ragged_attention` ← ``pallas_attention.ragged_attention_pallas``:
+  multi-query attention under the ragged mask law over the dense window
+  → (o, m, z), folded with the speculative verify chunk by
+  :func:`verify_attention`;
+- :func:`ragged_attention_paged` ←
+  ``pallas_attention.ragged_attention_paged_pallas``: the same through block
+  tables out of the whole pool, folded by :func:`verify_attention_paged`.
 
 Each wrapper runs its kernel when the tensors lie on a CUDA device and its
 plain version (``*_reference``) when they lie on the CPU; there is no
@@ -29,6 +36,7 @@ from calfkit_tpu_torch import kernels
 
 launch_counts: dict[str, int] = {
     "decode_attention": 0, "paged_decode_attention": 0, "prefill_attention": 0,
+    "ragged_attention": 0, "ragged_attention_paged": 0,
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -88,15 +96,16 @@ def _check_status(name: str, status: int) -> None:
 # --------------------------------------------------------------------------- #
 
 
-def _launch_decode(name: str, q: torch.Tensor, call) -> tuple:
-    """The launch shared by the decode kernels: ``call(qf, o, m, z, scale,
-    stream)`` runs the C entry point on q in f32 and three fresh f32
-    outputs, on the current stream → (o [B,K,G,hd], m [B,K,G], z [B,K,G])."""
-    B, K, G, hd = q.shape
+def _launch_stats(name: str, q: torch.Tensor, call) -> tuple:
+    """The launch shared by the kernels that return (o, m, z) statistics
+    (decode and ragged): ``call(qf, o, m, z, scale, stream)`` runs the C
+    entry point on q in f32 (contiguous) and three fresh f32 outputs, on the
+    current stream → (o shaped like q, m and z shaped like q[..., 0])."""
+    hd = q.shape[-1]
     qf = q.to(torch.float32).contiguous()
-    o = torch.empty((B, K, G, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, K, G), dtype=torch.float32, device=q.device)
-    z = torch.empty((B, K, G), dtype=torch.float32, device=q.device)
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    m = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    z = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):  # the launching thread's current device
         status = call(
             qf, o, m, z, 1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream
@@ -176,7 +185,7 @@ def decode_attention(
     fn = kernels.function("decode_attention")
     lens = base_lens.to(torch.int32).contiguous()
     ks, vs = k_cache.stride(), v_cache.stride()
-    return _launch_decode("decode_attention", q, lambda qf, o, m, z, scale, stream: fn(
+    return _launch_stats("decode_attention", q, lambda qf, o, m, z, scale, stream: fn(
         _DTYPE_CODES[k_cache.dtype], hd,
         qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
         o.data_ptr(), m.data_ptr(), z.data_ptr(),
@@ -274,7 +283,7 @@ def paged_decode_attention(
     tab = tables.to(torch.int32).contiguous()
     lens = base_lens.to(torch.int32).contiguous()
     ks, vs = k_layer.stride(), v_layer.stride()
-    return _launch_decode("paged_decode_attention", q, lambda qf, o, m, z, scale, stream: fn(
+    return _launch_stats("paged_decode_attention", q, lambda qf, o, m, z, scale, stream: fn(
         _DTYPE_CODES[pool_k.dtype], hd,
         qf.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(), tab.data_ptr(),
         lens.data_ptr(), o.data_ptr(), m.data_ptr(), z.data_ptr(),
@@ -372,3 +381,203 @@ def prefill_attention(
     _check_status("prefill_attention", status)
     launch_counts["prefill_attention"] += 1
     return out
+
+
+# --------------------------------------------------------------------------- #
+# ragged multi-query attention (the speculative verify's main-cache source)
+# --------------------------------------------------------------------------- #
+
+
+def ragged_attention_reference(
+    q: torch.Tensor,  # [B, K, S, G, hd]
+    k_cache: torch.Tensor,  # [B, K, W, hd]
+    v_cache: torch.Tensor,
+    q_starts: torch.Tensor,  # [B]
+    kv_lens: torch.Tensor,  # [B]
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the ragged kernel: the ragged source in f32,
+    with f32 probabilities as the kernel keeps them → (o [B,K,S,G,hd]
+    unnormalized, m [B,K,S,G], z [B,K,S,G])."""
+    from calfkit_tpu_torch.inference.model import ragged_attention_source
+
+    o, m, z = ragged_attention_source(
+        q.float().transpose(1, 2), k_cache.float(), v_cache.float(), q_starts, kv_lens
+    )  # the merge layout [B, K, G, S, ·] → the kernel's [B, K, S, G, ·]
+    return o.transpose(2, 3), m[..., 0].transpose(2, 3), z[..., 0].transpose(2, 3)
+
+
+def _check_ragged_q(name: str, q: torch.Tensor, B: int, *rows: torch.Tensor) -> None:
+    if q.dim() != 5 or q.shape[0] != B or any(r.shape != (B,) for r in rows):
+        raise ValueError(
+            f"{name}: q {tuple(q.shape)} must be [B, K, S, G, hd] with B = {B} and "
+            f"starts/lens {[tuple(r.shape) for r in rows]} of shape [B]"
+        )
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"{name}: hd={q.shape[-1]} not supported")
+
+
+def ragged_attention(
+    q: torch.Tensor,  # [B, K, S, G, hd] kv-head-major ragged queries
+    k_cache: torch.Tensor,  # [B, K, W, hd], any strides with a unit last axis
+    v_cache: torch.Tensor,
+    q_starts: torch.Tensor,  # [B] absolute position of each row's query 0
+    kv_lens: torch.Tensor,  # [B] valid kv length each row may attend
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """→ (o [B,K,S,G,hd] f32 unnormalized, m [B,K,S,G] f32, z [B,K,S,G] f32).
+
+    Query j of row b attends kv positions < min(kv_lens[b], q_starts[b] + j
+    + 1), masked to -1e30 otherwise, m floored at -1e29, as the Pallas
+    kernel does.  Any S and G; the window is read through its strides."""
+    if _on_cpu(q, k_cache, v_cache, q_starts, kv_lens):
+        return ragged_attention_reference(q, k_cache, v_cache, q_starts, kv_lens)
+    name = "ragged_attention"
+    _check_kv(name, k_cache, v_cache)
+    _check_ragged_q(name, q, k_cache.shape[0], q_starts, kv_lens)
+    B, K, S, G, hd = q.shape
+    W = k_cache.shape[2]
+    if k_cache.shape != (B, K, W, hd):
+        raise ValueError(f"{name}: q {tuple(q.shape)} and cache {tuple(k_cache.shape)} differ")
+    _check_aligned16(name, k_cache, v_cache)
+    fn = kernels.function(name)
+    starts = q_starts.to(torch.int32).contiguous()
+    lens = kv_lens.to(torch.int32).contiguous()
+    ks, vs = k_cache.stride(), v_cache.stride()
+    return _launch_stats(name, q, lambda qf, o, m, z, scale, stream: fn(
+        _DTYPE_CODES[k_cache.dtype], hd,
+        qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), starts.data_ptr(),
+        lens.data_ptr(), o.data_ptr(), m.data_ptr(), z.data_ptr(),
+        B, K, S, G, W, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale, stream,
+    ))
+
+
+def ragged_attention_paged_reference(
+    q: torch.Tensor,  # [B, K, S, G, hd]
+    pool_k: torch.Tensor,  # [L, N, K, page, hd]
+    pool_v: torch.Tensor,
+    layer: int,
+    tables: torch.Tensor,  # [B, Pmax]
+    q_starts: torch.Tensor,  # [B]
+    kv_lens: torch.Tensor,  # [B]
+    *,
+    wpages: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the paged ragged kernel: gather each row's
+    window of ``wpages`` pages, then :func:`ragged_attention_reference`."""
+    from calfkit_tpu_torch.inference.model import gather_window_paged
+
+    return ragged_attention_reference(
+        q,
+        gather_window_paged(pool_k[layer], tables, wpages),
+        gather_window_paged(pool_v[layer], tables, wpages),
+        q_starts, kv_lens,
+    )
+
+
+def ragged_attention_paged(
+    q: torch.Tensor,  # [B, K, S, G, hd]
+    pool_k: torch.Tensor,  # [L, N, K, page, hd] the whole pool (never sliced)
+    pool_v: torch.Tensor,
+    layer: int,  # which layer's pages to read
+    tables: torch.Tensor,  # [B, Pmax] int32 block tables
+    q_starts: torch.Tensor,  # [B]
+    kv_lens: torch.Tensor,  # [B]
+    *,
+    wpages: int,  # pages per attention window
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Paged ragged attention, the contract of :func:`ragged_attention` over
+    the window of ``wpages`` pages that ``tables[b]`` names in layer
+    ``layer`` of the pool → (o, m, z).  On CUDA the kernel reads each page
+    in place through the block table; no window is gathered."""
+    if _on_cpu(q, pool_k, pool_v, tables, q_starts, kv_lens):
+        return ragged_attention_paged_reference(
+            q, pool_k, pool_v, layer, tables, q_starts, kv_lens, wpages=wpages
+        )
+    name = "ragged_attention_paged"
+    _check_kv(name, pool_k, pool_v)
+    B = tables.shape[0] if tables.dim() == 2 else -1
+    _check_ragged_q(name, q, B, q_starts, kv_lens)
+    _, K, S, G, hd = q.shape
+    L, N, _, page = pool_k.shape[:4]
+    if pool_k.shape != (L, N, K, page, hd):
+        raise ValueError(f"{name}: q {tuple(q.shape)} and pool {tuple(pool_k.shape)} differ")
+    if not 0 <= layer < L or not 1 <= wpages <= tables.shape[1]:
+        raise ValueError(
+            f"{name}: layer {layer} of {L}, wpages {wpages} of {tables.shape[1]} table entries"
+        )
+    k_layer, v_layer = pool_k[layer], pool_v[layer]  # views: nothing is copied
+    _check_aligned16(name, k_layer, v_layer)
+    fn = kernels.function(name)
+    tab = tables.to(torch.int32).contiguous()
+    starts = q_starts.to(torch.int32).contiguous()
+    lens = kv_lens.to(torch.int32).contiguous()
+    ks, vs = k_layer.stride(), v_layer.stride()
+    return _launch_stats(name, q, lambda qf, o, m, z, scale, stream: fn(
+        _DTYPE_CODES[pool_k.dtype], hd,
+        qf.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(), tab.data_ptr(),
+        starts.data_ptr(), lens.data_ptr(), o.data_ptr(), m.data_ptr(), z.data_ptr(),
+        B, K, S, G, wpages, page, tab.stride(0),
+        ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale, stream,
+    ))
+
+
+def _merge_with_chunk(
+    q: torch.Tensor,  # [B, S, H, hd]
+    qg: torch.Tensor,  # q as [B, S, K, G, hd]
+    source: tuple[torch.Tensor, torch.Tensor, torch.Tensor],  # ragged (o, m, z), kernel layout
+    chunk_k: torch.Tensor,  # [S, B, K, hd]
+    chunk_v: torch.Tensor,
+) -> torch.Tensor:
+    """Fold the verify chunk's causal self-attention into a main-cache
+    ragged source with the shared logsumexp merge → [B, S, H, hd] in q's
+    dtype."""
+    from calfkit_tpu_torch.inference.model import logsumexp_merge, verify_chunk_source
+
+    o1, m1, z1 = source  # [B, K, S, G, ·] → merge layout [B, K, G, S, ·]
+    out = logsumexp_merge(
+        (o1.transpose(2, 3), m1.transpose(2, 3)[..., None], z1.transpose(2, 3)[..., None]),
+        verify_chunk_source(qg, chunk_k, chunk_v),
+    )  # [B, K, G, S, hd]
+    return out.permute(0, 3, 1, 2, 4).reshape(q.shape).to(q.dtype)
+
+
+def verify_attention(
+    q: torch.Tensor,  # [B, S, H, hd] the verify chunk's queries
+    k_cache: torch.Tensor,  # [B, K, W, hd] main-cache window (read-only)
+    v_cache: torch.Tensor,
+    chunk_k: torch.Tensor,  # [S, B, K, hd] this layer's chunk K (ring layout)
+    chunk_v: torch.Tensor,
+    base_lens: torch.Tensor,  # [B]
+) -> torch.Tensor:
+    """Multi-query verify attention: ONE :func:`ragged_attention` call
+    scores all S queries against the window (verify rows: start = kv_len =
+    base_lens), and the chunk's causal self-attention folds in with the
+    shared logsumexp merge → [B, S, H, hd] in q's dtype."""
+    B, S, H, hd = q.shape
+    K = k_cache.shape[1]
+    qg = q.reshape(B, S, K, H // K, hd)
+    source = ragged_attention(qg.transpose(1, 2), k_cache, v_cache, base_lens, base_lens)
+    return _merge_with_chunk(q, qg, source, chunk_k, chunk_v)
+
+
+def verify_attention_paged(
+    q: torch.Tensor,  # [B, S, H, hd]
+    pool_k: torch.Tensor,  # [L, N, K, page, hd]
+    pool_v: torch.Tensor,
+    layer: int,
+    tables: torch.Tensor,  # [B, Pmax]
+    chunk_k: torch.Tensor,  # [S, B, K, hd]
+    chunk_v: torch.Tensor,
+    base_lens: torch.Tensor,  # [B]
+    *,
+    wpages: int,
+) -> torch.Tensor:
+    """The paged counterpart of :func:`verify_attention`: one
+    :func:`ragged_attention_paged` call reads each page once for all S
+    queries; the chunk folds in as the second source."""
+    B, S, H, hd = q.shape
+    K = pool_k.shape[2]
+    qg = q.reshape(B, S, K, H // K, hd)
+    source = ragged_attention_paged(
+        qg.transpose(1, 2), pool_k, pool_v, layer, tables, base_lens, base_lens, wpages=wpages
+    )
+    return _merge_with_chunk(q, qg, source, chunk_k, chunk_v)

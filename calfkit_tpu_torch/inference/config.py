@@ -62,7 +62,7 @@ class SpecConfig:
     non-speculative greedy; sampled output keeps the target-model
     distribution via rejection sampling (``sampler.spec_accept_slots``).
 
-    Two drafters behind one seam (:mod:`calfkit_tpu.inference.spec`):
+    Two drafters behind one seam (:mod:`calfkit_tpu_torch.inference.spec`):
 
     - ``draft is None`` → **n-gram prompt lookup**: propose the
       continuation of the most recent earlier occurrence of the sequence
@@ -70,9 +70,8 @@ class SpecConfig:
       device work — the agent-serving workload (tool-call JSON, repeated
       instructions, quoted context) is exactly where it hits.
     - ``draft`` set → a second, smaller **draft model** proposes greedily
-      from its own KV cache; loaded through the same init/loader/sharding
-      path as the target (pass ``draft_params`` to the engine for real
-      checkpoints).
+      from its own KV cache on the engine's device (pass ``draft_params``
+      to the engine for real weights; it may share the target's tensors).
     """
 
     k: int = 4  # drafted tokens per verify wave (verify scores k+1)
@@ -89,9 +88,10 @@ class RuntimeConfig:
     """Serving-engine knobs, field for field as in the JAX package.
 
     The PyTorch engine serves the dense and paged layouts, single-shot or
-    chunked prefill (with ragged unified waves and the prefix cache), and
-    (overlapped or lockstep) decode; fields that select a part not ported
-    yet raise ``ValueError`` at engine construction."""
+    chunked prefill (with ragged unified waves and the prefix cache),
+    (overlapped or lockstep) decode and speculative decoding; fields that
+    select a part not ported yet raise ``ValueError`` at engine
+    construction."""
 
     max_batch_size: int = 32
     max_seq_len: int = 2048

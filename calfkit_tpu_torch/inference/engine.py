@@ -1,9 +1,9 @@
 """The continuous-batching inference engine on PyTorch.
 
-The counterpart of ``calfkit_tpu.inference.engine.InferenceEngine``, without
-speculation: dense or paged KV, single-shot or chunked prefill (with ragged
-unified waves and the prefix cache), and overlapped (or lockstep)
-multi-step decode dispatches.
+The counterpart of ``calfkit_tpu.inference.engine.InferenceEngine``: dense
+or paged KV, single-shot or chunked prefill (with ragged unified waves and
+the prefix cache), overlapped (or lockstep) multi-step decode dispatches,
+and speculative decoding.
 
 - a fixed pool of ``max_batch_size`` slots backed by ONE device-resident KV
   cache: dense [L, B, K, S, hd] rows, or a paged pool [L, N, K, page, hd]
@@ -27,7 +27,13 @@ multi-step decode dispatches.
   on a CUDA event recorded after dispatch N's outputs were copied to pinned
   host memory, so waiting for N never waits for N+1.  A slot that retires
   while a dispatch still covers it keeps its pages (and its references to
-  shared prefix pages) until that dispatch lands.
+  shared prefix pages) until that dispatch lands;
+- speculative decoding (``RuntimeConfig.speculative``) replaces the decode
+  dispatch with a lockstep verify tick: a drafter (n-gram lookup or a draft
+  model) proposes up to ``k`` tokens per active request, one verify forward
+  scores all k+1 positions against the cache through the ragged
+  multi-query attention kernels, and each row accepts a prefix of its
+  drafts plus one correction token.
 
 Parts of the reference engine not ported yet raise instead of pretending:
 ``ValueError`` at construction for their configuration, ``InferenceError``
@@ -67,6 +73,7 @@ from calfkit_tpu_torch.inference.sampler import (
     fold_in,
     retire_mask_slots,
     sample_slots,
+    spec_accept_slots,
 )
 
 logger = logging.getLogger(__name__)
@@ -144,6 +151,10 @@ class GenRequest:
     # the live _retire_heap entry ([bound, seq, request]); cleared at
     # retirement so the heap stops pinning this request's memory
     heap_entry: Any = None
+    # speculative decoding only: prompt + every emitted token, kept by
+    # _record_token and the spec tick; the drafters read it.  None when
+    # speculation is off
+    history: "list[int] | None" = None
 
 
 @dataclass
@@ -174,6 +185,13 @@ class EngineStats:
     # absorbed chunk rows count as dispatch participants in the occupancy)
     prefill_absorbed_tokens: int = 0
     unified_dispatches: int = 0
+    # speculative decoding: drafts offered to verify dispatches, drafts
+    # accepted, tokens the verify dispatches emitted, and the active rows
+    # summed over verify dispatches
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    spec_emitted: int = 0
+    spec_rows: int = 0
 
     @property
     def tokens_per_second(self) -> float:
@@ -185,12 +203,26 @@ class EngineStats:
             return 0.0
         return self.occupancy_sum / self.decode_dispatches
 
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of drafted tokens the verify dispatches accepted."""
+        if not self.spec_proposed:
+            return 0.0
+        return self.spec_accepted / self.spec_proposed
+
+    @property
+    def tokens_per_dispatch(self) -> float:
+        """Tokens emitted per sequence per verify dispatch: 1.0 is the
+        non-speculative ratio, k+1 full acceptance."""
+        if not self.spec_rows:
+            return 0.0
+        return self.spec_emitted / self.spec_rows
+
 
 def _check_runtime(rt: RuntimeConfig) -> None:
     """Refuse what this engine does not serve yet, naming the later part of
     the port that will, and the configurations the reference refuses."""
     later = {
-        "speculative": (rt.speculative is not None, "speculative decoding"),
         "long_context": (rt.long_context, "multi-device"),
         "quantization": (rt.quantization is not None, "quantization/loader"),
         "tp/dp > 1": (rt.tp > 1 or rt.dp > 1, "multi-device"),
@@ -267,12 +299,21 @@ class InferenceEngine:
         sampling: SamplingParams | None = None,
         seed: int = 0,
         device: "torch.device | str" = "cuda",
+        draft_params: Any = None,  # the speculative draft model's weights
     ):
         self.config = config
         self.runtime = runtime or RuntimeConfig()
         self.sampling = sampling or SamplingParams()
         rt = self.runtime
         _check_runtime(rt)
+        self._spec = rt.speculative
+        if self._spec is not None:
+            if self._spec.k < 1:
+                raise ValueError(f"speculative.k must be >= 1 (got {self._spec.k})")
+            if self._spec.draft is None and draft_params is not None:
+                raise ValueError("draft_params given but speculative.draft is unset")
+        elif draft_params is not None:
+            raise ValueError("draft_params given but speculation is off")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -368,6 +409,17 @@ class InferenceEngine:
         self._task: asyncio.Task[None] | None = None
         self._running = False
         self.stats = EngineStats()
+        self._drafter: Any = None
+        if self._spec is not None:
+            from calfkit_tpu_torch.inference.spec import build_drafter
+
+            self._drafter = build_drafter(
+                self._spec, rt, dev, draft_params=draft_params, seed=seed + 3
+            )
+            logger.info(
+                "speculative decoding on: %s drafter, k=%d",
+                "draft-model" if self._spec.draft is not None else "ngram", self._spec.k,
+            )
 
     # ------------------------------------------------------------ lifecycle
     async def start(self) -> None:
@@ -448,17 +500,17 @@ class InferenceEngine:
                 "slice of the port)"
             )
         if (
-            self.runtime.overlap_dispatch
-            and len(stop_tokens) > self.runtime.max_stop_tokens
-        ):
-            # device-side retirement scans a fixed-shape per-slot stop table;
-            # silently truncating the set would MISS stops
+            self.runtime.overlap_dispatch or self._spec is not None
+        ) and len(stop_tokens) > self.runtime.max_stop_tokens:
+            # device-side retirement (overlapped decode, and every verify
+            # dispatch) scans a fixed-shape per-slot stop table; silently
+            # truncating the set would MISS stops
             raise InferenceError(
                 f"request has {len(stop_tokens)} stop tokens but device-side"
                 f" retirement caps the per-slot table at max_stop_tokens="
                 f"{self.runtime.max_stop_tokens}; raise "
                 "RuntimeConfig.max_stop_tokens (or set overlap_dispatch=False "
-                "for the host-side lockstep path)"
+                "with speculation off for the host-side lockstep path)"
             )
         request = GenRequest(
             prompt=list(prompt),
@@ -468,6 +520,8 @@ class InferenceEngine:
             seed=seed,
             corr=corr,
         )
+        if self._drafter is not None:
+            request.history = list(prompt)  # the drafters read prompt + output
         if self._paged:
             # reject what the pool could NEVER serve: re-queueing it would
             # wait (and starve everything behind it) forever
@@ -564,7 +618,10 @@ class InferenceEngine:
                 else:
                     progressed = await self._admit()
                 if self._active:
-                    await asyncio.to_thread(self._decode_tick)
+                    await asyncio.to_thread(
+                        self._spec_decode_tick if self._drafter is not None
+                        else self._decode_tick
+                    )
                 elif self._pend is not None:
                     # every participant retired/cancelled while a dispatch
                     # was in flight: land it so the deferred frees happen
@@ -825,6 +882,8 @@ class InferenceEngine:
                 self.runtime.max_seq_len - 2,
             )
             self._retire_dev = None  # device copies stale: re-upload at launch
+            if self._drafter is not None:
+                self._drafter.admit(request.slot, request.prompt)
 
     async def _admit(self) -> bool:
         admitted = False
@@ -1153,6 +1212,15 @@ class InferenceEngine:
         fused (or decode-only) dispatch, then land the previous one — the
         double-buffered shape of :meth:`_decode_tick`, with the admission
         wave riding the launch.  True when the inflight wave landed."""
+        if self._drafter is not None:
+            # speculation stays lockstep (the drafter proposes from landed
+            # history), so there is no launch to fuse the chunk into: the
+            # wave advances in its own invocation right after the verify
+            if self._active:
+                self._spec_decode_tick()
+            if self._inflight is not None:
+                return self._advance_inflight()
+            return False
         pend = self._pend
         finished = False
         if self._active:
@@ -1291,6 +1359,125 @@ class InferenceEngine:
         new_lens = torch.where(active, lens + steps, lens)
         n_valid, done = retire_mask_slots(block.T, stop_table, hard_end - lens, active)
         return last, new_lens, block, n_valid, done
+
+    # ---------------------------------------------------- speculative verify
+    def _verify_fn(
+        self, window: int, S: int, sampled: bool, active: torch.Tensor,
+        drafts: torch.Tensor, ndraft: torch.Tensor,
+    ) -> "tuple[torch.Tensor, ...]":
+        """The speculative verify dispatch: feed [last, d_0..d_{S-2}] per
+        row, score all S positions in one forward against the cache window
+        (dense rows, or ``ceil(window / page)`` pages per row through the
+        block tables), accept a ragged per-row prefix
+        (``spec_accept_slots``), consolidate the chunk's K/V in place and
+        advance each row by its own ``emitted``.  Rejected positions land
+        past the advanced length and the next wave overwrites them, so
+        nothing rolls back.  Inactive rows emit 0 (paged: their writes go to
+        the trash page).  Enqueues device work only; updates the engine's
+        last/lens → (out_toks [B, S], emitted, n_valid, done)."""
+        cfg = self.config
+        last, lens = self._last, self._lens
+        tokens = torch.cat([last[:, None], drafts], dim=1)
+        if self._paged:
+            wpages = -(-window // self.runtime.page_size)
+            logits, ring = M.verify_step_ring_paged(
+                self.params, cfg, tokens, (self._k, self._v), self._tables, lens, wpages
+            )
+        else:
+            window_kv = (self._k[:, :, :, :window], self._v[:, :, :, :window])
+            logits, ring = M.verify_step_ring(self.params, cfg, tokens, window_kv, lens)
+        out_toks, emitted = spec_accept_slots(
+            logits, drafts, ndraft, lens, self._slot_seeds, self._temp, self._top_k,
+            self._top_p, sampled=sampled,
+        )
+        emitted = torch.where(active, emitted, 0)
+        if self._paged:
+            M.consolidate_ring_paged((self._k, self._v), ring, self._tables, lens, active)
+        else:
+            M.consolidate_ring((self._k, self._v), ring, lens)
+        idx = (emitted - 1).clamp(0, S - 1).to(torch.int64)
+        new_last = torch.where(active, out_toks.gather(1, idx[:, None])[:, 0], last)
+        stop_table, hard_end = self._retire_args()
+        n_valid, done = retire_mask_slots(
+            out_toks, stop_table, hard_end - lens, active, emitted=emitted
+        )
+        self._last, self._lens = new_last, lens + emitted
+        return out_toks, emitted, n_valid, done
+
+    def _spec_decode_tick(self) -> None:
+        """One speculative wave: draft up to k tokens per active request,
+        verify all of them plus the next position in ONE dispatch, deliver
+        each row's accepted prefix and correction token.  Takes the place of
+        :meth:`_decode_tick` when speculation is on.
+
+        It stays lockstep even with ``overlap_dispatch``: the drafter needs
+        the landed tokens of this wave to propose for the next, so nothing
+        correct can be launched ahead.  Stop tokens and bounds are still
+        classified on the device (``retire_mask_slots``), as in overlapped
+        decode."""
+        spec = self._spec
+        B = self.runtime.max_batch_size
+        active_mask = np.zeros((B,), bool)
+        max_len = 1
+        for slot in self._active:
+            active_mask[slot] = True
+            max_len = max(max_len, int(self._host_lens[slot]))
+        window = self._window_bucket(max_len)
+        # k drafts + 1 correction, shrunk so no row's chunk can write past
+        # max_seq_len (a clamped write would slide back over valid history)
+        cap = max(1, min(spec.k + 1, self.runtime.max_seq_len - max_len))
+        # draft first, then size the wave to the longest proposal: a tick
+        # whose drafter finds nothing dispatches a 1-wide verify
+        proposals: dict[int, list[int]] = {}
+        max_nd = 0
+        if cap > 1:
+            entries = [(slot, request.history) for slot, request in self._active.items()]
+            for (slot, _), proposal in zip(entries, self._drafter.propose(entries)):
+                proposal = proposal[: cap - 1]
+                proposals[slot] = proposal
+                max_nd = max(max_nd, len(proposal))
+        S = min(cap, max_nd + 1)
+        drafts = np.zeros((B, S - 1), np.int32)
+        ndraft = np.zeros((B,), np.int32)
+        for slot, proposal in proposals.items():
+            drafts[slot, : len(proposal)] = proposal
+            ndraft[slot] = len(proposal)
+        sampled = any(not self._effective_sampling(r).is_greedy for r in self._active.values())
+        # the dispatch wall starts after drafting, as in the reference:
+        # decode_time_s times the verify dispatches, not the draft model
+        started = time.perf_counter()
+        out_toks, emitted, n_valid, done = self._sync_host(self._stage_host(self._verify_fn(
+            window, S, sampled, self._to_device(active_mask), self._to_device(drafts),
+            self._to_device(ndraft),
+        )))  # [B, S] + the retirement arrays: the tick's landing sync
+        elapsed = time.perf_counter() - started
+        self._last_sync_t = time.perf_counter()
+        # one verify forward advances the retirement clock by one step
+        self._note_dispatch(elapsed, 1)
+        deliveries: list[tuple[asyncio.Queue, list]] = []
+        for slot, request in list(self._active.items()):
+            count = int(emitted[slot])
+            self._host_lens[slot] += count
+            self.stats.spec_proposed += int(ndraft[slot])
+            self.stats.spec_accepted += count - 1
+            self.stats.spec_emitted += count
+            self.stats.spec_rows += 1
+            # the device's retirement classification: deliver the valid
+            # prefix, retire on its done flag
+            valid = int(n_valid[slot])
+            items: list = out_toks[slot, :valid].tolist()
+            request.history.extend(items)
+            request.generated += valid
+            self.stats.decode_tokens += valid
+            if done[slot]:
+                self._retire_slot(request)
+                items.append(_DONE)
+            if items:
+                deliveries.append((request.out, items))
+        if not self._active:
+            self._last_sync_t = None
+        if deliveries:
+            self._loop.call_soon_threadsafe(_deliver_batch, deliveries)
 
     # ------------------------------------------------- retirement horizon
     def _short_steps(self) -> int:
@@ -1578,6 +1765,8 @@ class InferenceEngine:
         it, nor its shared prefix pages evicted while it still reads them);
         everything observable updates now."""
         self._active.pop(request.slot, None)
+        if self._drafter is not None and request.slot != -1:
+            self._drafter.retire(request.slot)
         pend = self._pend
         if pend is not None and request.slot in pend["slot_set"]:
             pend["deferred"].append((request.slot, request.shared_pages))
@@ -1603,6 +1792,8 @@ class InferenceEngine:
         if not hit_stop:
             items.append(token)
             self.stats.decode_tokens += 1
+            if request.history is not None:  # speculation: drafter context
+                request.history.append(token)
         # exhaustion == the retire heap's bound formula reaching zero
         done = hit_stop or self._retirement_bound(request) <= 0
         if done:

@@ -33,6 +33,8 @@ from calfkit_tpu_torch.inference.attention import (
     merged_decode_attention,
     merged_paged_decode_attention,
     prefill_attention as _prefill_attention_kernel,
+    verify_attention,
+    verify_attention_paged,
 )
 from calfkit_tpu_torch.inference.config import ModelConfig
 
@@ -388,6 +390,138 @@ def logsumexp_merge(
     w1 = torch.exp(m1 - m)
     w2 = torch.exp(m2 - m)
     return (o1 * w1 + o2 * w2) / (z1 * w1 + z2 * w2)
+
+
+# --------------------------------------------------------------------------- #
+# ragged multi-query attention and the speculative verify step
+# --------------------------------------------------------------------------- #
+
+
+def ragged_attention_source(
+    qg: torch.Tensor,  # [B, S, K, G, hd] multi-query, kv-grouped (unscaled)
+    k_cache: torch.Tensor,  # [B, K, W, hd]
+    v_cache: torch.Tensor,
+    q_starts: torch.Tensor,  # [B] absolute position of each row's query 0
+    kv_lens: torch.Tensor,  # [B] valid kv length each row may attend
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The ragged multi-query attention source → (o unnormalized
+    [B,K,G,S,hd], m [B,K,G,S,1], z [B,K,G,S,1]).
+
+    One mask law serves every row kind (see :mod:`.ragged`): query ``j`` of
+    row ``b`` attends kv positions ``< min(kv_lens[b], q_starts[b] + j + 1)``.
+    Verify rows (start = kv_len) reduce to the plain length mask;
+    prefill-kind rows (start < kv_len) get the within-row causal triangle.
+    The probabilities are rounded to the cache dtype, as in the JAX
+    package; in f32 (the ragged kernels' plain version) that is a no-op."""
+    W = k_cache.shape[2]
+    S = qg.shape[1]
+    scale = 1.0 / math.sqrt(qg.shape[-1])
+    s1 = _einsum_f32("bskgh,bkwh->bkgsw", qg, k_cache) * scale
+    kv_pos = torch.arange(W, device=qg.device)[None, None, :]  # [1, 1, W]
+    limit = torch.minimum(
+        kv_lens[:, None], q_starts[:, None] + torch.arange(S, device=qg.device)[None, :] + 1
+    )  # [B, S]
+    valid = kv_pos < limit[:, :, None]  # [B, S, W]
+    s1 = torch.where(valid[:, None, None, :, :], s1, -1e30)
+    m1 = s1.amax(dim=-1, keepdim=True).clamp_min(-1e29)
+    p1 = torch.exp(s1 - m1).to(k_cache.dtype)
+    z1 = p1.to(torch.float32).sum(dim=-1, keepdim=True)
+    o1 = _einsum_f32("bkgsw,bkwh->bkgsh", p1, v_cache)
+    return o1, m1, z1
+
+
+def verify_chunk_source(
+    qg: torch.Tensor,  # [B, S, K, G, hd]
+    ring_k: torch.Tensor,  # [S, B, K, hd] this layer's chunk K (ring layout)
+    ring_v: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The verify chunk's self-attention source → (o, m, z) in the merge
+    layout [B,K,G,S,·]: query j attends chunk slots 0..j (slot j is its own
+    token).  The probabilities are rounded to the ring's dtype, as in the
+    JAX package."""
+    S = qg.shape[1]
+    scale = 1.0 / math.sqrt(qg.shape[-1])
+    s2 = _einsum_f32("bskgh,tbkh->bkgst", qg, ring_k) * scale
+    slots = torch.arange(S, device=qg.device)
+    causal = slots[None, :] <= slots[:, None]  # [S(query), S(chunk slot)]
+    s2 = torch.where(causal[None, None, None, :, :], s2, -1e30)
+    m2 = s2.amax(dim=-1, keepdim=True).clamp_min(-1e29)
+    p2 = torch.exp(s2 - m2).to(ring_k.dtype)
+    z2 = p2.to(torch.float32).sum(dim=-1, keepdim=True)
+    o2 = _einsum_f32("bkgst,tbkh->bkgsh", p2, ring_v)
+    return o2, m2, z2
+
+
+def _verify_step_with_ring(
+    params: Params,
+    config: ModelConfig,
+    tokens: torch.Tensor,  # [B, S] fed tokens: [last, d_0, .., d_{S-2}]
+    base_lens: torch.Tensor,  # [B] kv length at dispatch start
+    ring_dtype: torch.dtype,
+    attn_source: Any,  # (i, q [B,S,H,hd], ring_k_i, ring_v_i) -> [B, S, H, hd]
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """The speculative-verify transformer body: the decode step generalized
+    from one query to S = k+1 per row.  The drafted chunk runs as ONE
+    forward; its K/V land densely in a chunk ring [L, S, B, K, hd] (slot j
+    = the token at position ``base_lens + j``, written in place per layer),
+    attention merges (main cache ⊕ causal chunk), and the caller
+    consolidates the ring like a decode dispatch's: rejected slots sit past
+    the advanced length and the next wave overwrites them."""
+    eps = config.norm_eps
+    B, S = tokens.shape
+    positions = base_lens[:, None] + torch.arange(S, device=tokens.device)[None, :]
+    x = params["embed"][tokens]
+    cos, sin = rope_tables(positions, config.head_dim, config.rope_theta)
+    ring_shape = (config.n_layers, S, B, config.n_kv_heads, config.head_dim)
+    ring_k = torch.zeros(ring_shape, dtype=ring_dtype, device=tokens.device)
+    ring_v = torch.zeros(ring_shape, dtype=ring_dtype, device=tokens.device)
+    for i in range(config.n_layers):
+        lp = layer_params(params, i)
+        q, k, v = attn_qkv(x, lp, cos, sin, eps)
+        ring_k[i] = k.transpose(0, 1).to(ring_dtype)  # [B, S, K, hd] -> [S, B, K, hd]
+        ring_v[i] = v.transpose(0, 1).to(ring_dtype)
+        attn = attn_source(i, q, ring_k[i], ring_v[i])
+        x = attn_out_mlp(x, attn, lp, eps)
+    return lm_logits(x, params, eps), (ring_k, ring_v)  # logits [B, S, V]
+
+
+def verify_step_ring(
+    params: Params,
+    config: ModelConfig,
+    tokens: torch.Tensor,  # [B, S] fed tokens
+    kv_cache: tuple[torch.Tensor, torch.Tensor],  # window-sliced, READ-ONLY here
+    base_lens: torch.Tensor,  # [B]
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Speculative verify over the dense cache layout → (logits [B, S, V],
+    chunk ring [L, S, B, K, hd] ×2 for :func:`consolidate_ring`).  Each
+    layer's main-cache read is one :func:`attention.verify_attention`: the
+    ragged kernel reads the window once for all S queries."""
+    k_pages, v_pages = kv_cache
+    return _verify_step_with_ring(
+        params, config, tokens, base_lens, k_pages.dtype,
+        lambda i, q, rk, rv: verify_attention(q, k_pages[i], v_pages[i], rk, rv, base_lens),
+    )
+
+
+def verify_step_ring_paged(
+    params: Params,
+    config: ModelConfig,
+    tokens: torch.Tensor,  # [B, S]
+    pool: tuple[torch.Tensor, torch.Tensor],  # [L, N, K, page, hd] READ-ONLY here
+    tables: torch.Tensor,  # [B, Pmax]
+    base_lens: torch.Tensor,  # [B]
+    wpages: int,  # window bucket in pages
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Speculative verify reading KV through the block tables → (logits,
+    chunk ring for :func:`consolidate_ring_paged`).  Each layer hands the
+    WHOLE pool and its layer index to :func:`attention.verify_attention_paged`."""
+    pool_k, pool_v = pool
+    return _verify_step_with_ring(
+        params, config, tokens, base_lens, pool_k.dtype,
+        lambda i, q, rk, rv: verify_attention_paged(
+            q, pool_k, pool_v, i, tables, rk, rv, base_lens, wpages=wpages
+        ),
+    )
 
 
 def consolidate_ring(

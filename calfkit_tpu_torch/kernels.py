@@ -1,13 +1,15 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
 Each ``csrc/<source>.cu`` exports plain C functions (one per kernel, listed
-in :data:`SIGNATURES`) and is compiled by ``nvcc`` for ``sm_90a`` into its
+in :data:`SIGNATURES`; the ``*.cuh`` headers hold device code they share)
+and is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library under ``_build/`` (listed in ``.gitignore``), then
 loaded with ``ctypes``.  Nothing is built
 when this module is imported: the first wrapper that launches a kernel
 builds it, or :func:`build_all` builds every source at once, one ``nvcc``
 per source, all started together.  A library is named by the hash of its
-source, so an edited source rebuilds and an unchanged one loads as is.
+source and the headers, so an edited source rebuilds and an unchanged one
+loads as is.
 """
 
 from __future__ import annotations
@@ -50,6 +52,16 @@ SIGNATURES: dict[str, tuple[str, str, list]] = {
         [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
          _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
     ),
+    "ragged_attention": (
+        "ragged_attention", "calfkit_ragged_attention",
+        [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+         _L, _L, _L, _L, _L, _L, _F, _P],
+    ),
+    "ragged_attention_paged": (
+        "ragged_attention", "calfkit_ragged_paged_attention",
+        [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+         _L, _L, _L, _L, _L, _L, _L, _F, _P],
+    ),
 }
 
 _lock = threading.Lock()
@@ -67,7 +79,11 @@ def _nvcc() -> str:
 
 
 def _library_path(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{source}.cu").read_bytes()).hexdigest()[:16]
+    # the shared headers count too: an edited header rebuilds every source
+    digest = hashlib.sha256()
+    for path in (CSRC / f"{source}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(path.read_bytes())
+    digest = digest.hexdigest()[:16]
     return BUILD_DIR / f"lib{source}-{digest}.so"
 
 

@@ -33,7 +33,23 @@ the final ``ok`` line is never printed:
    1024-token instruction prefix, then, while those decode, 4 more of it and
    2 unrelated prompts; the paged decode and prefill kernels run (counts
    reset just before, read just after), the second burst reuses the prefix
-   pages, and after ``stop()`` every page is free or cached.
+   pages, and after ``stop()`` every page is free or cached;
+6. speculative serving phases, the same model: the paged phase again with
+   ``SpecConfig(k=4)`` and the target's own weights as the draft model
+   (every verify through the paged ragged kernel, no decode kernel), then
+   dense KV with the n-gram drafter, the serving phase's 6 requests (every
+   verify through the dense ragged kernel); each prints TTFT, tokens/s, the
+   acceptance rate, tokens per verify dispatch and the ragged launches
+   tallied by shape (B, S, window);
+7. each ragged kernel against its plain version again, at the shape its
+   speculative phase launched most, with the kv lengths of that shape's
+   last launch: the case the ``kernels`` line reports.
+
+The kernel phase also holds the ragged multi-query kernels (speculative
+verify shapes S = 5, a mixed-row case with prefill-kind and fresh rows, page
+16, f32) against their plain versions, and the exactness phase serves the
+dense and the paged+prefix configurations again with speculation on (draft
+model = target), whose streams must equal the spec-off streams.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 ``kernels`` JSON line precedes it; the last line is the ``ok`` JSON object.
@@ -44,11 +60,13 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -57,7 +75,7 @@ import torch.nn.functional as F
 from calfkit_tpu_torch import kernels
 from calfkit_tpu_torch.inference import attention as A
 from calfkit_tpu_torch.inference import model as M
-from calfkit_tpu_torch.inference.config import RuntimeConfig, preset
+from calfkit_tpu_torch.inference.config import RuntimeConfig, SpecConfig, preset
 from calfkit_tpu_torch.inference.engine import EngineStats, InferenceEngine
 from calfkit_tpu_torch.inference.sampler import SamplingParams
 
@@ -75,6 +93,14 @@ SOURCES = {
     "prefill_attention": (
         "calfkit_tpu_torch/csrc/prefill_attention.cu",
         "calfkit_tpu/inference/pallas_attention.py:687",
+    ),
+    "ragged_attention": (
+        "calfkit_tpu_torch/csrc/ragged_attention.cu",
+        "calfkit_tpu/inference/pallas_attention.py:357",
+    ),
+    "ragged_attention_paged": (
+        "calfkit_tpu_torch/csrc/ragged_attention.cu",
+        "calfkit_tpu/inference/pallas_attention.py:467",
     ),
 }
 # kernel vs plain version: both accumulate in f32 from the same inputs; the
@@ -163,20 +189,27 @@ def decode_case(dev, dtype, B, K, G, hd, W, lens, seed):
     )
 
 
-def paged_decode_case(dev, dtype, B, K, G, hd, page, lens, wpages, seed, layer=1):
-    """The paged kernel on a 2-layer pool whose rows' pages are shuffled,
-    non-contiguous ids (the trash page past each row's pages), at layer 1."""
-    g = torch.Generator(device=dev).manual_seed(seed)
+def _shuffled_pool(dev, dtype, g, K, hd, page, lens, wpages, seed):
+    """A 2-layer pool of random values whose rows' pages are shuffled,
+    non-contiguous ids (the trash page past each row's pages) → (pool_k,
+    pool_v, tables [B, wpages], n_pages)."""
+    B = len(lens)
     n_pages = 1 + B * wpages
-    q = torch.randn((B, K, G, hd), generator=g, device=dev)
     pool_k = torch.randn((2, n_pages, K, page, hd), generator=g, device=dev).to(dtype)
     pool_v = torch.randn((2, n_pages, K, page, hd), generator=g, device=dev).to(dtype)
     ids = np.random.default_rng(seed).permutation(np.arange(1, n_pages))
-    tables_np = np.zeros((B, wpages), np.int32)
+    tables = np.zeros((B, wpages), np.int32)
     for b, n in enumerate(lens):
         need = -(-n // page)
-        tables_np[b, :need] = ids[b * wpages:b * wpages + need]
-    tables = torch.from_numpy(tables_np).to(dev)
+        tables[b, :need] = ids[b * wpages:b * wpages + need]
+    return pool_k, pool_v, torch.from_numpy(tables).to(dev), n_pages
+
+
+def paged_decode_case(dev, dtype, B, K, G, hd, page, lens, wpages, seed, layer=1):
+    """The paged kernel on a shuffled 2-layer pool, at layer 1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, K, G, hd), generator=g, device=dev)
+    pool_k, pool_v, tables, n_pages = _shuffled_pool(dev, dtype, g, K, hd, page, lens, wpages, seed)
     base = torch.tensor(lens, dtype=torch.int32, device=dev)
 
     def kernel():
@@ -265,13 +298,130 @@ def prefill_case(dev, dtype, R, S, H, K, hd, seed, offset=0, Skv=None):
     )
 
 
+def _ragged_limits(starts, lens, S, W) -> "list[list[int]]":
+    """Each row's visible kv length per query: min(kv_len, start + j + 1),
+    within the window."""
+    return [[max(0, min(n, st + j + 1, W)) for j in range(S)] for st, n in zip(starts, lens)]
+
+
+def _ragged_bound(limits, K, G, hd, kv_size, dtype, io_bytes):
+    """(bound ms, bound_by): the K/V bytes of the positions some query of a
+    row sees, read once, plus ``io_bytes`` (q, the row arrays, the table
+    entries read and the outputs, each once); against 4*hd operations per
+    (query, head, visible position)."""
+    seen = sum(max(row) for row in limits)
+    nbytes = 2 * seen * K * hd * kv_size + io_bytes
+    ops = 4 * hd * K * G * sum(sum(row) for row in limits)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS[dtype] * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _ragged_sdpa_args(q, limits, W, dtype):
+    """q [B, K, S, G, hd] as SDPA's [B, H, S, hd] (head k * G + g) and the
+    explicit mask [B, 1, S, W] of the ragged law."""
+    B, K, S, G, hd = q.shape
+    qs = q.permute(0, 1, 3, 2, 4).reshape(B, K * G, S, hd).to(dtype)
+    lim = torch.tensor(limits, dtype=torch.int32, device=q.device)  # [B, S]
+    return qs, (torch.arange(W, device=q.device)[None, None, :] < lim[:, :, None])[:, None]
+
+
+def ragged_case(dev, dtype, B, K, S, G, hd, W, starts, lens, seed, rows=None):
+    """The dense ragged kernel on a [:, :, :W] view of a longer cache;
+    ``rows`` labels the case's row lengths where they are not plain verify
+    rows of the kernel plan."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, K, S, G, hd), generator=g, device=dev)
+    cache = torch.randn((2, B, K, 2 * W, hd), generator=g, device=dev).to(dtype)
+    k, v = cache[0, :, :, :W], cache[1, :, :, :W]
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    out = A.ragged_attention(q, k, v, st, ln)
+    ref = A.ragged_attention_reference(q, k, v, st, ln)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, **DECODE_TOL)
+    limits = _ragged_limits(starts, lens, S, W)
+    bound_ms, bound_by = _ragged_bound(
+        limits, K, G, hd, cache.element_size(), dtype, _nbytes(q, st, ln, *out)
+    )
+    qs, mask = _ragged_sdpa_args(q, limits, W, dtype)
+    shape = dict(B=B, K=K, S=S, G=G, hd=hd, W=W, dtype=str(dtype))
+    if rows:
+        shape["rows"] = rows
+    return dict(
+        name="ragged_attention", shape=shape, max_abs_err=err, tol=DECODE_TOL,
+        ms=time_ms(lambda: A.ragged_attention(q, k, v, st, ln)),
+        plain_ms=time_ms(lambda: A.ragged_attention_reference(q, k, v, st, ln), iters=5),
+        library_ms=_sdpa_ms(qs, k, v, mask=mask), bound_ms=bound_ms, bound_by=bound_by,
+    )
+
+
+def ragged_paged_case(dev, dtype, B, K, S, G, hd, page, lens, wpages, seed, layer=1, rows=None):
+    """The paged ragged kernel at verify rows (start = kv_len) on a shuffled
+    2-layer pool, at layer 1; ``rows`` labels the row lengths as
+    :func:`ragged_case`'s does."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, K, S, G, hd), generator=g, device=dev)
+    pool_k, pool_v, tables, n_pages = _shuffled_pool(dev, dtype, g, K, hd, page, lens, wpages, seed)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    def kernel():
+        return A.ragged_attention_paged(q, pool_k, pool_v, layer, tables, ln, ln, wpages=wpages)
+
+    def plain():
+        return A.ragged_attention_paged_reference(
+            q, pool_k, pool_v, layer, tables, ln, ln, wpages=wpages
+        )
+
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, **DECODE_TOL)
+    W = wpages * page
+    limits = _ragged_limits(lens, lens, S, W)
+    table_bytes = 4 * sum(-(-max(row) // page) for row in limits)
+    bound_ms, bound_by = _ragged_bound(  # one lens tensor is both starts and kv_lens
+        limits, K, G, hd, pool_k.element_size(), dtype, _nbytes(q, ln, *out) + table_bytes
+    )
+    qs, mask = _ragged_sdpa_args(q, limits, W, dtype)
+
+    def gather():
+        return (
+            M.gather_window_paged(pool_k[layer], tables, wpages),
+            M.gather_window_paged(pool_v[layer], tables, wpages),
+        )
+
+    kw, vw = gather()
+    shape = dict(B=B, K=K, S=S, G=G, hd=hd, page=page, wpages=wpages, pool_pages=n_pages,
+                 dtype=str(dtype))
+    if rows:
+        shape["rows"] = rows
+    return dict(
+        name="ragged_attention_paged", shape=shape,
+        max_abs_err=err, tol=DECODE_TOL,
+        ms=time_ms(kernel), plain_ms=time_ms(plain, iters=5),
+        # no single PyTorch call reads K/V through block tables
+        library_ms=None,
+        sdpa_gathered_ms=_sdpa_ms(qs, kw, vw, mask=mask),  # gather excluded
+        gather_sdpa_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qs, *gather(), attn_mask=mask, enable_gqa=True
+        )),
+        bound_ms=bound_ms, bound_by=bound_by,
+    )
+
+
 # the paged serving shape: B=16 rows, lens 17-2048 and one fresh row
 PAGED_LENS = [0, 17, 100, 255, 256, 300, 511, 640, 777, 1024, 1300, 1500, 1600, 1800, 2000,
               2048]
 # the case of each kernel that the line of ``kernels`` reports: the dense
 # decode kernel at the dense serving phase's batch and window; the paged
-# decode kernel and the prefill kernel at the paged serving phase's (this
-# slice's path) decode batch and last chunk of a 1536-token bucket
+# decode kernel and the prefill kernel at the paged serving phase's decode
+# batch and last chunk of a 1536-token bucket.  The ragged kernels' cases
+# are made after their speculative phases, at the shape those phases
+# launched most (:func:`path_case`).
 MAIN_SHAPES = {
     "decode_attention": dict(B=8, K=8, G=4, hd=128, W=2048, dtype="torch.bfloat16"),
     "paged_decode_attention": dict(B=16, K=8, G=4, hd=128, page=64, wpages=32, pool_pages=513,
@@ -311,6 +461,18 @@ def kernel_plan() -> "list[tuple[str, object, tuple]]":
     for R, offset, Skv in ((4, 0, 1536), (4, 512, 1536), (4, 1024, 1536), (1, 512, 1024)):
         plan.append(("prefill_attention", prefill_case,
                      (torch.bfloat16, R, 512, 32, 8, 128, 20 + offset, offset, Skv)))
+    # verify rows (start = kv_len) at k = 4 with every draft kept: S = 5
+    plan.append(("ragged_attention", ragged_case,
+                 (torch.bfloat16, 8, 8, 5, 4, 128, 2048, ragged[2048], ragged[2048], 30)))
+    # mixed rows: verify, prefill-kind (start < kv_len), fresh, prefill-kind
+    # ending at the window; S*G = 64 query rows, two query tiles
+    plan.append(("ragged_attention", ragged_case,
+                 (torch.bfloat16, 4, 8, 16, 4, 128, 2048, [1000, 300, 0, 2032],
+                  [1000, 316, 0, 2048], 31, "mixed")))
+    for dtype, page, seed in ((torch.bfloat16, 64, 32), (torch.bfloat16, 16, 33),
+                              (torch.float32, 64, 34)):
+        plan.append(("ragged_attention_paged", ragged_paged_case,
+                     (dtype, 16, 8, 5, 4, 128, page, PAGED_LENS, 2048 // page, seed)))
     return plan
 
 
@@ -342,6 +504,54 @@ def kernel_phase(dev) -> "tuple[list[dict], dict]":
         for name, shape in MAIN_SHAPES.items()
     }
     return cases, main
+
+
+@contextlib.contextmanager
+def verify_shapes(name: str):
+    """While the block runs, tally the calls of the ragged wrapper ``A.name``
+    by (B, S, window: W positions dense, wpages paged) and keep a copy of
+    the kv lengths of the last call at each → {key: [calls, kv_lens]}.
+    ``verify_attention(_paged)`` looks the wrapper up at every call, so each
+    verify passes through here; the wrapper and its launch count are
+    unchanged."""
+    inner = getattr(A, name)
+    tally: dict = {}
+
+    def tallied(q, *args, **kw):
+        window = kw["wpages"] if name == "ragged_attention_paged" else args[0].shape[2]
+        entry = tally.setdefault((q.shape[0], q.shape[2], window), [0, None])
+        entry[0] += 1
+        entry[1] = args[-1].clone()  # kv_lens, on the device: no sync
+        return inner(q, *args, **kw)
+
+    setattr(A, name, tallied)
+    try:
+        yield tally
+    finally:
+        setattr(A, name, inner)
+
+
+def _shape_rows(tally) -> "list[dict]":
+    """A :func:`verify_shapes` tally as JSON rows, most calls first."""
+    rows = [dict(B=B, S=S, window=w, launches=n, last_kv_lens=lens.tolist())
+            for (B, S, w), (n, lens) in tally.items()]
+    return sorted(rows, key=lambda r: (-r["launches"], -r["S"]))
+
+
+def path_case(dev, name: str, shapes: "list[dict]") -> dict:
+    """The ragged kernel ``name`` against its plain version at the shape its
+    speculative phase launched most (``shapes`` as :func:`_shape_rows`
+    gives), with the kv lengths of that shape's last launch: verify rows,
+    start = kv_len, the 8B model's K=8, G=4, hd=128, bf16."""
+    top = shapes[0]
+    lens, label = top["last_kv_lens"], f"spec serving, {top['launches']} launches"
+    if name == "ragged_attention":
+        args = (torch.bfloat16, top["B"], 8, top["S"], 4, 128, top["window"], lens, lens, 35,
+                label)
+        return run_cases(dev, [(name, ragged_case, args)])[0]
+    args = (torch.bfloat16, top["B"], 8, top["S"], 4, 128, PAGED_RUNTIME.page_size, lens,
+            top["window"], 36, 1, label)
+    return run_cases(dev, [(name, ragged_paged_case, args)])[0]
 
 
 # --------------------------------------------------------------------------- #
@@ -390,10 +600,12 @@ def _check_recompute(cfg, params, prompts, streams, dev) -> None:
             seq.append(token)
 
 
-async def _serve_fresh(cfg, rt, params, dev, bursts) -> "tuple[list[list[int]], EngineStats]":
+async def _serve_fresh(
+    cfg, rt, params, dev, bursts, draft_params=None
+) -> "tuple[list[list[int]], EngineStats]":
     """A fresh engine serves ``bursts`` (lists of jobs) one after the other
     → (streams in job order, the engine's stats)."""
-    engine = InferenceEngine(cfg, rt, params=params, device=dev)
+    engine = InferenceEngine(cfg, rt, params=params, device=dev, draft_params=draft_params)
     await engine.start()
     try:
         streams = []
@@ -450,7 +662,34 @@ async def exactness_phase(dev) -> dict:
         f"dense lockstep == recompute; prefix hits {stats.prefix_hits} "
         f"({stats.prefix_reused_tokens} tokens), unified dispatches {stats.unified_dispatches}"
     )
-    return dict(streams=streams[True], paged_streams=paged, paged_stats=vars(stats))
+
+    # speculation, the draft model being the target (its own tensors,
+    # shared): the same streams, every verify through the ragged kernels
+    spec = SpecConfig(k=4, draft=cfg)
+    spec_stats = {}
+    for name, rt, served, want, kernel in (
+        ("dense", RuntimeConfig(**dense_rt, speculative=spec), [jobs], streams[True],
+         "ragged_attention"),
+        ("paged", replace(paged_rt, speculative=spec), bursts, paged, "ragged_attention_paged"),
+    ):
+        A.reset_launch_counts()
+        got, st = await _serve_fresh(cfg, rt, params, dev, served, draft_params=params)
+        launches = dict(A.launch_counts)
+        assert got == want, f"{name}: spec-on streams differ from spec-off"
+        assert launches[kernel] > 0 and launches["decode_attention"] == 0, launches
+        assert launches["paged_decode_attention"] == 0, launches
+        assert st.acceptance_rate > 0.9, vars(st)
+        if name == "paged":
+            assert st.prefix_hits == 2, vars(st)
+        spec_stats[name] = dict(vars(st), acceptance_rate=st.acceptance_rate,
+                                tokens_per_dispatch=st.tokens_per_dispatch, launches=launches)
+        print(
+            f"  exactness, spec {name} (k=4, draft = target): spec-on == spec-off; acceptance "
+            f"{st.acceptance_rate:.3f}, tokens/dispatch {st.tokens_per_dispatch:.2f}, "
+            f"launches {launches}"
+        )
+    return dict(streams=streams[True], paged_streams=paged, paged_stats=vars(stats),
+                spec=spec_stats)
 
 
 SERVING_RUNTIME = RuntimeConfig(
@@ -546,12 +785,21 @@ def paged_serving_jobs(vocab_size: int) -> "tuple[list[list[int]], list[list[int
     return burst_a, burst_b
 
 
-async def paged_serving_phase(dev) -> dict:
+async def paged_serving_phase(dev, speculative: bool = False) -> dict:
+    """The paged serving drive; with ``speculative``, ``SpecConfig(k=4)``
+    with the target's own weights as the draft model."""
     cfg = preset("llama-3-8b")
     rt = PAGED_RUNTIME
     new_tokens = 48
     t0 = time.perf_counter()
-    engine = InferenceEngine(cfg, rt, seed=0, device=dev)
+    if speculative:
+        rt = replace(rt, speculative=SpecConfig(k=4, draft=cfg))
+        g = torch.Generator(device=dev).manual_seed(0)
+        params = M.init_params(cfg, g)  # shared by target and draft: one copy
+        engine = InferenceEngine(cfg, rt, params=params, draft_params=params, device=dev)
+        del params
+    else:
+        engine = InferenceEngine(cfg, rt, seed=0, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     burst_a, burst_b = paged_serving_jobs(cfg.vocab_size)
@@ -567,36 +815,47 @@ async def paged_serving_phase(dev) -> dict:
         await serve(engine, [([1, 2, 3, 4, 5, 6, 7, 8], 2, {})])  # warm-up
         engine.stats = EngineStats()
         A.reset_launch_counts()
-        started = time.perf_counter()
-        ttft_a: list[float] = []
-        ttft_b: list[float] = []
-        out_a: list[list[int]] = [[] for _ in burst_a]
-        out_b: list[list[int]] = [[] for _ in burst_b]
-        tasks = [
-            asyncio.create_task(stream(p, started, ttft_a, o)) for p, o in zip(burst_a, out_a)
-        ]
-        while not all(len(o) >= 2 for o in out_a):  # burst A is decoding
-            if any(t.done() for t in tasks):
-                await asyncio.gather(*tasks)  # surfaces a failure; else a stream ended early
-                raise AssertionError("a burst-A stream ended before burst B arrived")
-            await asyncio.sleep(0.002)
-        at_b = time.perf_counter()
-        tasks += [
-            asyncio.create_task(stream(p, at_b, ttft_b, o)) for p, o in zip(burst_b, out_b)
-        ]
-        await asyncio.gather(*tasks)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - started
-        launches = dict(A.launch_counts)
+        with verify_shapes("ragged_attention_paged") as tally:
+            started = time.perf_counter()
+            ttft_a: list[float] = []
+            ttft_b: list[float] = []
+            out_a: list[list[int]] = [[] for _ in burst_a]
+            out_b: list[list[int]] = [[] for _ in burst_b]
+            tasks = [
+                asyncio.create_task(stream(p, started, ttft_a, o))
+                for p, o in zip(burst_a, out_a)
+            ]
+            while not all(len(o) >= 2 for o in out_a):  # burst A is decoding
+                if any(t.done() for t in tasks):
+                    await asyncio.gather(*tasks)  # surfaces a failure; else one ended early
+                    raise AssertionError("a burst-A stream ended before burst B arrived")
+                await asyncio.sleep(0.002)
+            at_b = time.perf_counter()
+            tasks += [
+                asyncio.create_task(stream(p, at_b, ttft_b, o)) for p, o in zip(burst_b, out_b)
+            ]
+            await asyncio.gather(*tasks)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - started
+            launches = dict(A.launch_counts)
         stats = engine.stats
     finally:
         await engine.stop()
     assert [len(o) for o in out_a + out_b] == [new_tokens] * 10
     assert all(0 <= tok < cfg.vocab_size for o in out_a + out_b for tok in o)
-    assert launches["paged_decode_attention"] > 0 and launches["prefill_attention"] > 0, launches
+    assert launches["prefill_attention"] > 0, launches
     assert launches["decode_attention"] == 0, launches  # the dense kernel is not on this path
+    if speculative:  # every token through a verify, none through decode
+        assert launches["ragged_attention_paged"] > 0, launches
+        assert launches["paged_decode_attention"] == 0, launches
+        assert stats.tokens_per_dispatch > 1.5, vars(stats)
+    else:
+        assert launches["paged_decode_attention"] > 0, launches
+        assert launches["ragged_attention_paged"] == 0, launches
+        assert stats.unified_dispatches >= 1, vars(stats)
     assert stats.prefix_hits >= 4 and stats.prefix_reused_tokens >= 4096, vars(stats)
-    assert stats.unified_dispatches >= 1, vars(stats)
+    shapes = _shape_rows(tally)
+    assert sum(r["launches"] for r in shapes) == launches["ragged_attention_paged"], shapes
     # the no-leak law: every page free or held by the prefix cache, every slot free
     free_pages, cached = engine._page_alloc.free_pages, engine._prefix.size
     assert free_pages + cached == rt.pool_pages() - 1, (free_pages, cached)
@@ -615,16 +874,80 @@ async def paged_serving_phase(dev) -> dict:
         prefill_absorbed_tokens=stats.prefill_absorbed_tokens,
         unified_dispatches=stats.unified_dispatches, launches=launches,
         pages_free=free_pages, pages_cached=cached,
+        spec_proposed=stats.spec_proposed, spec_accepted=stats.spec_accepted,
+        spec_emitted=stats.spec_emitted, spec_rows=stats.spec_rows,
+        acceptance_rate=stats.acceptance_rate, tokens_per_dispatch=stats.tokens_per_dispatch,
+        tok_s_wall=stats.decode_tokens / wall, verify_shapes=shapes,
+    )
+    spec_note = (
+        f", spec k=4 draft = target: acceptance {stats.acceptance_rate:.3f}, tokens/dispatch "
+        f"{stats.tokens_per_dispatch:.2f}" if speculative else ""
     )
     print(
-        f"  paged serving llama-3-8b bf16, 10 requests x {new_tokens} tokens: init "
+        f"  paged serving llama-3-8b bf16{spec_note}, 10 requests x {new_tokens} tokens: init "
         f"{init_s:.2f} s, TTFT burst A median {result['ttft_a_median_ms']:.1f} ms max "
         f"{result['ttft_a_max_ms']:.1f} ms, burst B median {result['ttft_b_median_ms']:.1f} "
         f"ms max {result['ttft_b_max_ms']:.1f} ms, decode {result['decode_tok_s']:.1f} tok/s "
-        f"over {result['decode_dispatches']} dispatches, prefix hits {stats.prefix_hits} "
+        f"over {result['decode_dispatches']} dispatches ({result['tok_s_wall']:.1f} tok/s over "
+        f"the run's wall), prefix hits {stats.prefix_hits} "
         f"({stats.prefix_reused_tokens} tokens), unified dispatches "
         f"{stats.unified_dispatches}, launches {launches}, pages free {free_pages} + "
         f"cached {cached} of {rt.pool_pages() - 1}"
+        + (f", ragged launches by (B, S, wpages) "
+           f"{[(r['B'], r['S'], r['window'], r['launches']) for r in shapes]}"
+           if speculative else "")
+    )
+    return result
+
+
+async def spec_serving_phase(dev) -> dict:
+    """Dense serving with the n-gram drafter: the serving phase's six
+    requests (32 new tokens each, request 1 sampled), every token through a
+    verify dispatch and the dense ragged kernel."""
+    cfg = preset("llama-3-8b")
+    rt = replace(SERVING_RUNTIME, speculative=SpecConfig(k=4))
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, rt, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    _, jobs = serving_jobs(cfg.vocab_size)
+    await engine.start()
+    try:
+        await serve(engine, [([1, 2, 3, 4, 5, 6, 7, 8], 2, {})])  # warm-up
+        engine.stats = EngineStats()
+        A.reset_launch_counts()
+        with verify_shapes("ragged_attention") as tally:
+            streams, ttft, wall = await serve(engine, jobs)
+            launches = dict(A.launch_counts)
+        stats = engine.stats
+    finally:
+        await engine.stop()
+    assert [len(s) for s in streams] == [32] * 6, [len(s) for s in streams]
+    shapes = _shape_rows(tally)
+    assert sum(r["launches"] for r in shapes) == launches["ragged_attention"], shapes
+    assert launches["ragged_attention"] > 0 and launches["prefill_attention"] > 0, launches
+    assert launches["decode_attention"] == 0, launches  # every token through a verify
+    assert launches["paged_decode_attention"] == launches["ragged_attention_paged"] == 0
+    assert len(engine._free) == rt.max_batch_size and not engine._active
+    result = dict(
+        init_s=init_s, wall_s=wall, ttft_ms=sorted(x * 1e3 for x in ttft),
+        ttft_median_ms=statistics.median(ttft) * 1e3, ttft_max_ms=max(ttft) * 1e3,
+        decode_tokens=stats.decode_tokens, decode_time_s=stats.decode_time_s,
+        decode_tok_s=stats.tokens_per_second, decode_dispatches=stats.decode_dispatches,
+        spec_proposed=stats.spec_proposed, spec_accepted=stats.spec_accepted,
+        spec_emitted=stats.spec_emitted, spec_rows=stats.spec_rows,
+        acceptance_rate=stats.acceptance_rate, tokens_per_dispatch=stats.tokens_per_dispatch,
+        tok_s_wall=stats.decode_tokens / wall, launches=launches, verify_shapes=shapes,
+    )
+    print(
+        f"  spec serving llama-3-8b bf16, n-gram k=4, 6 requests x 32 tokens: init "
+        f"{init_s:.2f} s, TTFT median {result['ttft_median_ms']:.1f} ms max "
+        f"{result['ttft_max_ms']:.1f} ms, decode {result['decode_tok_s']:.1f} tok/s over "
+        f"{result['decode_dispatches']} verify dispatches ({result['tok_s_wall']:.1f} tok/s "
+        f"over the run's wall), acceptance "
+        f"{stats.acceptance_rate:.3f}, tokens/dispatch {stats.tokens_per_dispatch:.2f}, "
+        f"launches {launches}, ragged launches by (B, S, W) "
+        f"{[(r['B'], r['S'], r['window'], r['launches']) for r in shapes]}"
     )
     return result
 
@@ -655,13 +978,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("paged serving phase")
     paged = asyncio.run(paged_serving_phase(dev))
+    torch.cuda.empty_cache()
+    print("speculative serving phases")
+    spec_paged = asyncio.run(paged_serving_phase(dev, speculative=True))
+    torch.cuda.empty_cache()
+    spec_dense = asyncio.run(spec_serving_phase(dev))
+    torch.cuda.empty_cache()
+    print("ragged kernels at their speculative phases' shapes")
+    for name, phase in (("ragged_attention", spec_dense), ("ragged_attention_paged", spec_paged)):
+        main_cases[name] = path_case(dev, name, phase["verify_shapes"])
+        cases.append(main_cases[name])
 
     # each kernel's launches from the path it serves, beside its case at a
-    # shape of that path (MAIN_SHAPES): the dense decode kernel from the
-    # dense serving phase; the paged decode and prefill kernels from the
-    # paged serving phase, this slice's path
+    # shape of that path (MAIN_SHAPES, path_case): the dense decode kernel
+    # from the dense serving phase; the paged decode and prefill kernels
+    # from the paged serving phase; the ragged kernels from the speculative
+    # phases
     launch_source = {"decode_attention": serving, "paged_decode_attention": paged,
-                     "prefill_attention": paged}
+                     "prefill_attention": paged, "ragged_attention": spec_dense,
+                     "ragged_attention_paged": spec_paged}
     line = {"kernels": []}
     for name, c in main_cases.items():
         source, replaces = SOURCES[name]
@@ -671,13 +1006,14 @@ def main() -> int:
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"], shape=c["shape"],
         )
-        if name == "paged_decode_attention":
+        if name in ("paged_decode_attention", "ragged_attention_paged"):
             entry.update(sdpa_gathered_ms=c["sdpa_gathered_ms"], gather_sdpa_ms=c["gather_sdpa_ms"])
         line["kernels"].append(entry)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, cases=cases, exactness=exact, serving=serving,
-                           paged_serving=paged, kernels=line["kernels"]), f, indent=1,
+                           paged_serving=paged, spec_paged_serving=spec_paged,
+                           spec_serving=spec_dense, kernels=line["kernels"]), f, indent=1,
                       default=str)
     print(json.dumps(line))
     print(card)

@@ -2,7 +2,7 @@
 """Where the PyTorch port's serving time goes, on one CUDA card.
 
     python3 scripts/torch_profile_serving.py [--out PATH] [--preset NAME]
-        [--device cuda|cpu] [--workload dense|paged]
+        [--device cuda|cpu] [--workload dense|paged|spec-paged|spec-dense]
 
 Serves one of ``chip_smoke.py``'s serving workloads twice on one engine: the
 first round warms up, the second runs under ``torch.profiler``.  ``dense``
@@ -12,7 +12,10 @@ preset in bf16 with random weights from seed 0, 6 concurrent requests of
 ``paged_serving_jobs`` on ``PAGED_RUNTIME`` (paged KV, prefix cache, chunked
 ragged admission): both bursts at once, 48 new tokens each; the warm-up
 round fills the prefix cache, so in the profiled round every prompt
-reuses its cached pages.  Prints one JSON object: the profiled window's wall
+reuses its cached pages.  ``spec-paged`` is ``paged`` with
+``SpecConfig(k=4)`` and the target's own weights as the draft model;
+``spec-dense`` is ``dense`` with the n-gram drafter (``SpecConfig(k=4)``).
+Prints one JSON object: the profiled window's wall
 time, the device's busy time (union of kernel intervals) and idle share,
 launches and device time per kernel family, the top kernels by device time,
 and the round's decode dispatches and tokens.  ``--device cpu --preset debug`` rehearses the
@@ -33,7 +36,10 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from calfkit_tpu_torch.inference.config import preset  # noqa: E402
+from dataclasses import replace  # noqa: E402
+
+from calfkit_tpu_torch.inference import model as M  # noqa: E402
+from calfkit_tpu_torch.inference.config import SpecConfig, preset  # noqa: E402
 from calfkit_tpu_torch.inference.engine import InferenceEngine  # noqa: E402
 from chip_smoke import (  # noqa: E402
     PAGED_RUNTIME,
@@ -43,6 +49,8 @@ from chip_smoke import (  # noqa: E402
 )
 
 FAMILIES = (  # kernel-name substring → family, first match wins
+    ("ragged_paged_attn", "paged ragged attention kernel"),
+    ("ragged_attn", "ragged attention kernel"),
     ("paged_decode_attn", "paged decode attention kernel"),
     ("decode_attn", "decode attention kernel"),
     ("prefill_attn", "prefill attention kernel"),
@@ -83,14 +91,22 @@ async def run(args) -> dict:
     dev = torch.device(args.device)
     cuda = dev.type == "cuda"
     cfg = preset(args.preset)
-    if args.workload == "paged":
+    if args.workload in ("paged", "spec-paged"):
         rt = PAGED_RUNTIME
         burst_a, burst_b = paged_serving_jobs(cfg.vocab_size)
         jobs = [(p, 48, {}) for p in burst_a + burst_b]
     else:
         rt = SERVING_RUNTIME
         _, jobs = serving_jobs(cfg.vocab_size)
-    engine = InferenceEngine(cfg, rt, seed=0, device=dev)
+    if args.workload == "spec-paged":  # the draft model reads the target's tensors
+        rt = replace(rt, speculative=SpecConfig(k=4, draft=cfg))
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        engine = InferenceEngine(cfg, rt, params=params, draft_params=params, device=dev)
+        del params
+    else:
+        if args.workload == "spec-dense":
+            rt = replace(rt, speculative=SpecConfig(k=4))
+        engine = InferenceEngine(cfg, rt, seed=0, device=dev)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -120,7 +136,8 @@ async def run(args) -> dict:
             entry[0] += 1
             entry[1] += dt
     busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e6
-    steps = stats.decode_dispatches * rt.decode_steps_per_dispatch
+    # a verify dispatch is one step; a decode dispatch decode_steps_per_dispatch
+    steps = stats.decode_dispatches * (1 if rt.speculative else rt.decode_steps_per_dispatch)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     return dict(
         device=torch.cuda.get_device_name(0) if cuda else "cpu (no device metrics)",
@@ -140,7 +157,8 @@ async def run(args) -> dict:
         decode_time_s=stats.decode_time_s, decode_tokens=stats.decode_tokens,
         decode_tok_s=stats.tokens_per_second, prefill_waves=stats.prefill_waves,
         prefill_time_s=stats.prefill_time_s, prefix_hits=stats.prefix_hits,
-        unified_dispatches=stats.unified_dispatches,
+        unified_dispatches=stats.unified_dispatches, spec_rows=stats.spec_rows,
+        acceptance_rate=stats.acceptance_rate, tokens_per_dispatch=stats.tokens_per_dispatch,
     )
 
 
@@ -149,7 +167,7 @@ def main() -> int:
     parser.add_argument("--out")
     parser.add_argument("--preset", default="llama-3-8b")
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--workload", default="dense", choices=("dense", "paged"))
+    parser.add_argument("--workload", default="dense", choices=("dense", "paged", "spec-paged", "spec-dense"))
     args = parser.parse_args()
     if args.device == "cuda" and not torch.cuda.is_available():
         print("torch_profile_serving: no CUDA device", file=sys.stderr)

@@ -26,6 +26,7 @@ from calfkit_tpu.inference.pallas_attention import (  # noqa: E402
     prefill_attention_pallas,
 )
 from calfkit_tpu_torch.inference import attention as A  # noqa: E402
+from calfkit_tpu_torch.inference import ragged as RG  # noqa: E402
 from tests._torch_port import j, n, t  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -105,8 +106,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     A.reset_launch_counts()
     x = _decode_inputs(B=2, K=1, G=2, W=8, hd=8, lens=[3, 8])
     A.decode_attention(t(x["q"]), t(x["k"]), t(x["v"]), t(x["lens"]))
+    A.ragged_attention(t(x["q"])[:, :, None], t(x["k"]), t(x["v"]), t(x["lens"]), t(x["lens"]))
     assert A.launch_counts == {
         "decode_attention": 0, "paged_decode_attention": 0, "prefill_attention": 0,
+        "ragged_attention": 0, "ragged_attention_paged": 0,
     }
 
 
@@ -187,5 +190,124 @@ def test_merged_paged_decode_matches_pallas(step):
     out = A.merged_paged_decode_attention(
         t(q), t(x["pk"]), t(x["pv"]), 1, t(x["tables"]), t(x["rk"]), t(x["rv"]),
         t(x["lens"]), step, wpages=5,
+    )
+    np.testing.assert_allclose(n(out), n(ref), **TOL)
+
+
+# --------------------------------------------------------------------------- #
+# ragged multi-query attention and the speculative verify
+# --------------------------------------------------------------------------- #
+
+
+def _ragged_inputs(B, K, S, G, W, hd, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    return dict(q=f(B, S, K * G, hd), k=f(B, K, W, hd), v=f(B, K, W, hd),
+                ck=f(S, B, K, hd), cv=f(S, B, K, hd))
+
+
+# each case's rows for S queries a row: the mixed rows of
+# tests/test_ragged_waves.py (a decode row, a prefill-kind row with its
+# within-chunk triangle, a verify row) plus a last chunk shorter than S and
+# a fresh row with nothing to attend; and verify rows alone
+RAGGED_ROWS = {
+    "mixed": lambda S: [
+        RG.RaggedRow(RG.KIND_DECODE, start=9, q_len=1, kv_len=9),
+        RG.RaggedRow(RG.KIND_PREFILL, start=9, q_len=S, kv_len=9 + S),
+        RG.RaggedRow(RG.KIND_PREFILL, start=4, q_len=5, kv_len=9),
+        RG.RaggedRow(RG.KIND_VERIFY, start=12, q_len=S, kv_len=12),
+        RG.RaggedRow(RG.KIND_DECODE, start=0, q_len=1, kv_len=0),
+    ],
+    "verify": lambda S: [
+        RG.RaggedRow(RG.KIND_VERIFY, start=n, q_len=S, kv_len=n) for n in (0, 7, 12, 31)
+    ],
+}
+
+
+def _descriptors(rows):
+    """(q_starts, kv_lens) of ``rows`` as int32 arrays."""
+    starts, _, kv_lens = RG.build_descriptors(rows)
+    return np.asarray(starts, np.int32), np.asarray(kv_lens, np.int32)
+
+
+@pytest.mark.parametrize("rows", list(RAGGED_ROWS))
+@pytest.mark.parametrize("S,G", [(4, 2), (5, 4), (16, 4)])  # S*G 8, 20, 64
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_ragged_plain_matches_pallas(rows, S, G, dtype):
+    from calfkit_tpu.inference.pallas_attention import ragged_attention_pallas
+
+    starts, lens = _descriptors(RAGGED_ROWS[rows](S))
+    B, K, W, hd = len(starts), 2, 32, 16
+    x = _ragged_inputs(B, K, S, G, W, hd, seed=S * G)
+    qg = np.ascontiguousarray(x["q"].reshape(B, S, K, G, hd).transpose(0, 2, 1, 3, 4))
+    tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    ref = ragged_attention_pallas(
+        j(qg), j(x["k"], dtype), j(x["v"], dtype), j(starts), j(lens), interpret=True
+    )
+    out = A.ragged_attention(t(qg), t(x["k"], tdtype), t(x["v"], tdtype), t(starts), t(lens))
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(n(a), n(b), **TOL)
+    fresh = list(lens).index(0)  # nothing attended: the -1e29 floor, z = 0, o = 0
+    assert np.all(n(out[1])[fresh] == -1e29) and np.all(n(out[2])[fresh] == 0.0)
+    assert np.all(n(out[0])[fresh] == 0.0)
+
+
+@pytest.mark.parametrize("page,S,G", [(8, 4, 4), (4, 5, 2), (8, 16, 4)])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_ragged_paged_plain_matches_pallas(page, S, G, dtype):
+    from calfkit_tpu.inference.pallas_attention import ragged_attention_paged_pallas
+
+    B, K, hd, wpages, pmax = 4, 2, 16, 4, 6
+    starts, lens = _descriptors([
+        RG.RaggedRow(RG.KIND_VERIFY, start=7, q_len=S, kv_len=7),
+        RG.RaggedRow(RG.KIND_PREFILL, start=12, q_len=S, kv_len=12 + S),
+        RG.RaggedRow(RG.KIND_DECODE, start=0, q_len=1, kv_len=0),  # fresh
+        RG.RaggedRow(RG.KIND_VERIFY, start=20, q_len=S, kv_len=20),
+    ])
+    x = _paged_inputs(B, K, G, hd, page, 30, list(lens), wpages, pmax, seed=page + S)
+    q = np.random.default_rng(S).standard_normal((B, K, S, G, hd)).astype(np.float32)
+    tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    for layer in (0, 1):
+        ref = ragged_attention_paged_pallas(
+            j(q), j(x["pk"], dtype), j(x["pv"], dtype), jnp.int32(layer), j(x["tables"]),
+            j(starts), j(lens), wpages=wpages, interpret=True,
+        )
+        out = A.ragged_attention_paged(
+            t(q), t(x["pk"], tdtype), t(x["pv"], tdtype), layer, t(x["tables"]),
+            t(starts), t(lens), wpages=wpages,
+        )
+        for a, b in zip(out, ref):
+            np.testing.assert_allclose(n(a), n(b), **TOL)
+
+
+@pytest.mark.parametrize("S", [1, 5])
+def test_verify_attention_matches_pallas(S):
+    from calfkit_tpu.inference.pallas_attention import verify_attention_pallas
+
+    B, K, G, W, hd = 3, 2, 4, 32, 16
+    x = _ragged_inputs(B, K, S, G, W, hd, seed=40 + S)
+    base = np.asarray([7, 0, 25], np.int32)
+    args = (x["q"], x["k"], x["v"], x["ck"], x["cv"], base)
+    ref = verify_attention_pallas(*map(j, args), interpret=True)
+    out = A.verify_attention(*map(t, args))
+    np.testing.assert_allclose(n(out), n(ref), **TOL)
+
+
+@pytest.mark.parametrize("S", [1, 4])
+def test_verify_attention_paged_matches_pallas(S):
+    from calfkit_tpu.inference.pallas_attention import verify_attention_paged_pallas
+
+    B, K, G, hd, page, wpages = 4, 2, 2, 16, 8, 5
+    x = _paged_inputs(B, K, G, hd, page, 30, [0, 9, 23, 40], wpages, 6, seed=50 + S)
+    c = _ragged_inputs(B, K, S, G, 8, hd, seed=60 + S)
+    lens = x["lens"]
+    ref = verify_attention_paged_pallas(
+        j(c["q"]), j(x["pk"]), j(x["pv"]), jnp.int32(1), j(x["tables"]), j(c["ck"]),
+        j(c["cv"]), j(lens), wpages=wpages, interpret=True,
+    )
+    out = A.verify_attention_paged(
+        t(c["q"]), t(x["pk"]), t(x["pv"]), 1, t(x["tables"]), t(c["ck"]), t(c["cv"]),
+        t(lens), wpages=wpages,
     )
     np.testing.assert_allclose(n(out), n(ref), **TOL)

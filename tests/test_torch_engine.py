@@ -170,7 +170,7 @@ async def test_sampled_stream_independent_of_batch(weights):
     "over",
     [
         dict(kv_layout="paged"), dict(kv_layout="ring"),
-        dict(speculative=SpecConfig()), dict(long_context=True),
+        dict(speculative=SpecConfig(k=0)), dict(long_context=True),
         dict(quantization="int8"), dict(tp=2), dict(prefix_cache=True),
         dict(attention_impl="xla"),
     ],
@@ -181,6 +181,8 @@ async def test_sampled_stream_independent_of_batch(weights):
     ],
 )
 def test_later_slices_raise(weights, over):
+    """Configurations of later slices, and the reference's own refusals
+    (speculation is served since the spec slice: k < 1 still raises)."""
     with pytest.raises(ValueError):
         _port(weights, **over)
 

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from calfkit_tpu_torch.inference import attention as A
+from calfkit_tpu_torch.inference import ragged as RG
 
 # evaluated at test setup, not at import: every worker collects the same tests
 cuda_only = pytest.mark.skipif(
@@ -132,3 +133,91 @@ def test_paged_decode_kernel_counts_and_refuses_bad_shapes():
         flat = torch.zeros(pk.numel() + 1, dtype=pk.dtype, device=dev)
         shifted = flat[1:].view(pk.shape)
         A.paged_decode_attention(q, shifted, shifted, 0, tables, lens_t, wpages=4)
+
+
+# ragged rows: verify rows (start = kv_len), prefill-kind rows (start <
+# kv_len: the within-row triangle), a fresh row (kv_len = 0) and a row whose
+# kv_len is past the window
+def _ragged_rows(kind, S, W):
+    """→ (q_starts, kv_lens) of eight rows of ``kind`` with S queries each."""
+    if kind == "verify":
+        rows = [RG.RaggedRow(RG.KIND_VERIFY, n, S, n) for n in (0, 1, 63, 64, 65, 200, W - 1, W)]
+    else:
+        starts = [0, 0, 40, 100, W - S, 5, 0, W]
+        lens = [0, S, 40 + S, 100 + S, W, 5 + S // 2, S, W + 7]
+        rows = [RG.RaggedRow(RG.KIND_PREFILL, st, S, n) for st, n in zip(starts, lens)]
+    starts, _, kv_lens = RG.build_descriptors(rows)
+    return starts, kv_lens
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,G", GEOMETRIES)
+@pytest.mark.parametrize("kind,S", [("verify", 5), ("verify", 1), ("prefill", 20)])
+def test_ragged_kernel_matches_plain(dtype, hd, G, kind, S):
+    """S*G from 1 to 160 query rows: one query tile (32 rows) or several."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(hd * G + S)
+    B, K, W = 8, 4, 256
+    q = torch.randn((B, K, S, G, hd), generator=g, device=dev)
+    cache = torch.randn((2, B, K, 384, hd), generator=g, device=dev).to(dtype)
+    k, v = cache[0, :, :, :W], cache[1, :, :, :W]  # a window view, as the engine passes
+    starts, lens = (torch.tensor(x, dtype=torch.int32, device=dev) for x in _ragged_rows(kind, S, W))
+    out = A.ragged_attention(q, k, v, starts, lens)
+    ref = A.ragged_attention_reference(q, k, v, starts, lens)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, **DECODE_TOL)
+    assert torch.all(out[1][0] == -1e29) and torch.all(out[2][0] == 0) and torch.all(out[0][0] == 0)
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,G", [(128, 4), (64, 8)])
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("kind,S", [("verify", 5), ("prefill", 12)])
+def test_ragged_paged_kernel_matches_plain(dtype, hd, G, page, kind, S):
+    dev = torch.device("cuda")
+    wpages = 256 // page
+    starts, lens = _ragged_rows(kind, S, 256)
+    q, pk, pv, tables, lens_t = _paged_case(
+        dev, dtype, hd, G, page, [min(n, 256) for n in lens], wpages, hd + G + page + S
+    )
+    q = torch.randn((len(lens), 8, S, G, hd), generator=torch.Generator(device=dev).manual_seed(S),
+                    device=dev)
+    starts_t = torch.tensor(starts, dtype=torch.int32, device=dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for layer in (0, 1):
+        out = A.ragged_attention_paged(q, pk, pv, layer, tables, starts_t, lens_t, wpages=wpages)
+        ref = A.ragged_attention_paged_reference(
+            q, pk, pv, layer, tables, starts_t, lens_t, wpages=wpages
+        )
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, **DECODE_TOL)
+
+
+@pytest.mark.cuda
+@cuda_only
+def test_ragged_kernels_count_and_refuse_bad_inputs():
+    dev = torch.device("cuda")
+    q, pk, pv, tables, lens_t = _paged_case(dev, torch.bfloat16, 128, 4, 64, [10, 70], 4, 2)
+    qr = torch.zeros((2, 8, 5, 4, 128), device=dev)
+    A.reset_launch_counts()
+    A.ragged_attention_paged(qr, pk, pv, 1, tables, lens_t, lens_t, wpages=4)
+    cache = torch.zeros((2, 8, 64, 128), dtype=torch.bfloat16, device=dev)
+    A.ragged_attention(qr, cache, cache, lens_t, lens_t)
+    assert A.launch_counts["ragged_attention_paged"] == 1
+    assert A.launch_counts["ragged_attention"] == 1
+    with pytest.raises(ValueError, match="layer"):
+        A.ragged_attention_paged(qr, pk, pv, 2, tables, lens_t, lens_t, wpages=4)
+    with pytest.raises(ValueError, match="hd=96"):
+        A.ragged_attention(torch.zeros((2, 8, 5, 4, 96), device=dev), cache, cache, lens_t, lens_t)
+    flat = torch.zeros(cache.numel() + 1, dtype=cache.dtype, device=dev)
+    shifted = flat[1:].view(cache.shape)  # 2 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        A.ragged_attention(qr, shifted, shifted, lens_t, lens_t)
+    flat = torch.zeros(pk.numel() + 1, dtype=pk.dtype, device=dev)
+    shifted = flat[1:].view(pk.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        A.ragged_attention_paged(qr, shifted, shifted, 0, tables, lens_t, lens_t, wpages=4)

@@ -276,3 +276,75 @@ def test_write_prefill_pages_exact():
     TM.write_prefill_pages((tk, tv), (t(scratch[0]), t(scratch[1])), t(ids))
     np.testing.assert_array_equal(n(tk)[:, 1:], n(jk)[:, 1:])
     np.testing.assert_array_equal(n(tv)[:, 1:], n(jv)[:, 1:])
+
+
+# --------------------------------------------------------------------------- #
+# speculative verify
+# --------------------------------------------------------------------------- #
+
+
+def _verify_tokens(S, seed=13):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, JAX_CFG.vocab_size, (B, S), dtype=np.int32)
+
+
+@pytest.mark.parametrize("S", [1, 5])
+def test_verify_step_ring_matches(both, S):
+    """Logits and the chunk ring of one verify step over the dense window,
+    against the reference on its Pallas lane (interpret mode)."""
+    jp, tp = both
+    (_, jk, jv), _ = _prefill_both(both)
+    k0, v0 = np.asarray(jk)[:, :, :, :32], np.asarray(jv)[:, :, :, :32]
+    base = np.array([24, 17], np.int32)
+    tokens = _verify_tokens(S)
+    jl, (jrk, jrv) = JM.verify_step_ring(
+        jp, JAX_CFG, j(tokens), (j(k0), j(v0)), j(base), attn_impl="pallas_interpret"
+    )
+    tl, (trk, trv) = TM.verify_step_ring(tp, TORCH_CFG, t(tokens), (t(k0), t(v0)), t(base))
+    assert tuple(trk.shape) == (JAX_CFG.n_layers, S, B, JAX_CFG.n_kv_heads, JAX_CFG.head_dim)
+    np.testing.assert_allclose(n(tl), n(jl), **TOL)
+    np.testing.assert_allclose(n(trk), n(jrk), **TOL)
+    np.testing.assert_allclose(n(trv), n(jrv), **TOL)
+
+
+@pytest.mark.parametrize("S", [1, 4])
+def test_verify_step_ring_paged_matches(both, S):
+    jp, tp = both
+    pool, tables = _pool_and_tables()
+    base = np.array([29, 17], np.int32)
+    tokens = _verify_tokens(S, seed=14)
+    jl, (jrk, _) = JM.verify_step_ring_paged(
+        jp, JAX_CFG, j(tokens), (j(pool[0]), j(pool[1])), j(tables), j(base), wpages=4,
+        attn_impl="pallas_interpret",
+    )
+    tl, (trk, _) = TM.verify_step_ring_paged(
+        tp, TORCH_CFG, t(tokens), (t(pool[0]), t(pool[1])), t(tables), t(base), 4
+    )
+    np.testing.assert_allclose(n(tl), n(jl), **TOL)
+    np.testing.assert_allclose(n(trk), n(jrk), **TOL)
+
+
+def test_verify_chunk_source_matches():
+    rng = np.random.default_rng(21)
+    S, K, G, hd = 5, 2, 2, 16
+    qg = rng.standard_normal((B, S, K, G, hd)).astype(np.float32)
+    rk = rng.standard_normal((S, B, K, hd)).astype(np.float32)
+    rv = rng.standard_normal((S, B, K, hd)).astype(np.float32)
+    for dtype, tdtype in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        ref = JM.verify_chunk_source(j(qg), j(rk, dtype), j(rv, dtype))
+        out = TM.verify_chunk_source(t(qg), t(rk, tdtype), t(rv, tdtype))
+        for a, b in zip(out, ref):
+            np.testing.assert_allclose(n(a), n(b), atol=1e-5, rtol=1e-5)
+
+
+def test_ragged_attention_source_matches():
+    rng = np.random.default_rng(22)
+    S, K, G, W, hd = 4, 2, 2, 24, 16
+    qg = rng.standard_normal((3, S, K, G, hd)).astype(np.float32)
+    kc = rng.standard_normal((3, K, W, hd)).astype(np.float32)
+    vc = rng.standard_normal((3, K, W, hd)).astype(np.float32)
+    starts, lens = np.array([4, 9, 0], np.int32), np.array([9, 9 + S, 0], np.int32)
+    ref = JM.ragged_attention_source(j(qg), j(kc), j(vc), j(starts), j(lens))
+    out = TM.ragged_attention_source(t(qg), t(kc), t(vc), t(starts), t(lens))
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(n(a), n(b), atol=1e-5, rtol=1e-5)
