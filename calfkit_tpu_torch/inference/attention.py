@@ -86,9 +86,15 @@ def _check_aligned16(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors must be 16-byte aligned in address and strides")
 
 
+_STATUS = {-1: "shape or type not supported", -2: "a TMA tensor map could not be encoded"}
+
+
 def _check_status(name: str, status: int) -> None:
+    """Raise on a C entry point's non-zero status: a CUDA error code, or
+    one of ``_STATUS``."""
     if status != 0:
-        raise RuntimeError(f"{name} kernel launch failed (status {status})")
+        reason = _STATUS.get(status, "CUDA error")
+        raise RuntimeError(f"{name} kernel launch failed (status {status}: {reason})")
 
 
 # --------------------------------------------------------------------------- #
@@ -326,11 +332,15 @@ def prefill_attention_reference(
     seq_lens: torch.Tensor,  # [B]
 ) -> torch.Tensor:
     """The plain version of the prefill kernel: the plain attention in f32,
-    cast to q's dtype."""
+    cast to q's dtype.  A query that sees no position (seq_lens[b] = 0, or
+    q_pos < 0) gives 0, as the kernels and the Pallas kernel do (the running
+    max floored at -1e29 makes every p 0), where a softmax over nothing but
+    -1e30 scores would give the mean of v."""
     from calfkit_tpu_torch.inference.model import attention_xla
 
     out = attention_xla(q.float(), k_cache.float(), v_cache.float(), q_pos, seq_lens)
-    return out.to(q.dtype)
+    blind = torch.minimum(q_pos + 1, seq_lens[:, None]) <= 0  # [B, Sq]
+    return out.masked_fill(blind[:, :, None, None], 0.0).to(q.dtype)
 
 
 def prefill_attention(
@@ -358,6 +368,8 @@ def prefill_attention(
             f"prefill_attention: q {tuple(q.shape)}, cache {tuple(k_cache.shape)}, "
             f"q_pos {tuple(q_pos.shape)}, lens {tuple(seq_lens.shape)} do not agree"
         )
+    # a block holds 64 query rows (the M of the bf16 kernel's warpgroup
+    # products): 64 / G positions x the G heads of one kv head
     if hd not in _HEAD_DIMS or 64 % (H // K):
         raise ValueError(f"prefill_attention: hd={hd}, G={H // K} not supported")
     if q.stride(-1) != 1:

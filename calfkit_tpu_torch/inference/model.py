@@ -29,10 +29,10 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from calfkit_tpu_torch.inference import attention as _attention
 from calfkit_tpu_torch.inference.attention import (
     merged_decode_attention,
     merged_paged_decode_attention,
-    prefill_attention as _prefill_attention_kernel,
     verify_attention,
     verify_attention_paged,
 )
@@ -245,7 +245,8 @@ def prefill_attention(
         return attention_xla(q, k_cache, v_cache, q_pos, seq_lens)
     if attn_impl != "auto":
         raise ValueError(f"unsupported attn_impl {attn_impl!r} (auto | plain)")
-    return _prefill_attention_kernel(q, k_cache, v_cache, q_pos, seq_lens)
+    # looked up at each call, so a caller may wrap the kernel's wrapper
+    return _attention.prefill_attention(q, k_cache, v_cache, q_pos, seq_lens)
 
 
 # --------------------------------------------------------------------------- #

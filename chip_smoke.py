@@ -9,9 +9,10 @@ the final ``ok`` line is never printed:
 1. print the card's name and power limit; build the hand-written kernels
    from ``calfkit_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
 2. kernel phase: every kernel against its plain PyTorch version on the card
-   at the serving paths' shapes (the prefill kernel on whole prompts and on
+   at the serving paths' shapes (the prefill kernel on whole prompts, on
    the chunk lane's 512-token chunks at offsets 0, 512 and 1024 of a
-   bucket's scratch), with its time, the plain version's time,
+   bucket's scratch, and at the draft model's one-token forwards of 16 rows
+   over its 2048 window), with its time, the plain version's time,
    one PyTorch library call computing the same function
    (``scaled_dot_product_attention``; for the paged kernel, which no single
    call matches, SDPA on a window gathered beforehand and gather + SDPA) and
@@ -33,7 +34,8 @@ the final ``ok`` line is never printed:
    1024-token instruction prefix, then, while those decode, 4 more of it and
    2 unrelated prompts; the paged decode and prefill kernels run (counts
    reset just before, read just after), the second burst reuses the prefix
-   pages, and after ``stop()`` every page is free or cached;
+   pages, and after ``stop()`` every page is free or cached; it prints the
+   prefill kernel's launches tallied by (B, Sq, Skv);
 6. speculative serving phases, the same model: the paged phase again with
    ``SpecConfig(k=4)`` and the target's own weights as the draft model
    (every verify through the paged ragged kernel, no decode kernel), then
@@ -258,42 +260,64 @@ def paged_decode_case(dev, dtype, B, K, G, hd, page, lens, wpages, seed, layer=1
     )
 
 
-def prefill_case(dev, dtype, R, S, H, K, hd, seed, offset=0, Skv=None):
+def prefill_case(dev, dtype, R, S, H, K, hd, seed, offset=0, Skv=None, lens=None):
     """``R`` rows of ``S`` queries at positions ``offset``.. against a cache
     of ``Skv`` positions (default ``S``), ``offset + S`` of them valid: a
     whole prompt from position 0, or a chunk of the chunk lane, whose
-    scratch holds the wave's whole bucket."""
+    scratch holds the wave's whole bucket.  With ``lens`` (one a row), row
+    b's queries end at its len instead (a row of len 0 sees nothing) and
+    K/V are a layer of a [2, R, K, Skv, hd] cache: the draft model's
+    forwards over its window."""
     Skv = S if Skv is None else Skv
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((R, S, H, hd), generator=g, device=dev).to(dtype)
-    k = torch.randn((R, K, Skv, hd), generator=g, device=dev).to(dtype)
-    v = torch.randn((R, K, Skv, hd), generator=g, device=dev).to(dtype)
-    pos = (offset + torch.arange(S, dtype=torch.int32, device=dev)).expand(R, S).contiguous()
-    lens = torch.full((R,), offset + S, dtype=torch.int32, device=dev)
-    out = A.prefill_attention(q, k, v, pos, lens)
-    ref = A.prefill_attention_reference(q, k, v, pos, lens)
+    if lens is None:
+        k = torch.randn((R, K, Skv, hd), generator=g, device=dev).to(dtype)
+        v = torch.randn((R, K, Skv, hd), generator=g, device=dev).to(dtype)
+        pos = (offset + torch.arange(S, dtype=torch.int32, device=dev)).expand(R, S).contiguous()
+        lens_t = torch.full((R,), offset + S, dtype=torch.int32, device=dev)
+    else:
+        cache = torch.randn((2, R, K, Skv, hd), generator=g, device=dev).to(dtype)
+        k, v = cache[0], cache[1]
+        pos = torch.tensor([[max(n, S) - S + j for j in range(S)] for n in lens],
+                           dtype=torch.int32, device=dev)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    out = A.prefill_attention(q, k, v, pos, lens_t)
+    ref = A.prefill_attention_reference(q, k, v, pos, lens_t)
     torch.cuda.synchronize()
-    err = float((out.float() - ref.float()).abs().max())
-    torch.testing.assert_close(out.float(), ref.float(), **PREFILL_TOL[dtype])
-    n = offset + S  # valid kv positions
-    kept = R * (S * offset + S * (S + 1) // 2)  # causal (query, key) pairs
-    ops = 4 * hd * H * kept
-    kv_bytes = 2 * R * K * n * hd * k.element_size()
-    bytes_ms = (kv_bytes + _nbytes(q, pos, lens, out)) / HBM_BYTES_PER_S * 1e3
+    # query (b, s) keeps min(q_pos + 1, len, Skv) positions; row b reads
+    # the K/V of the most any of its queries keeps.  A query that keeps none
+    # gives 0 (the kernels' law; an earlier tree's plain version gave the
+    # mean of v there), so the plain version is held on the others
+    seen = torch.minimum(pos + 1, lens_t.clamp(max=Skv)[:, None]).clamp(min=0)
+    blind = seen == 0
+    assert torch.all(out[blind] == 0), "a query that sees no position must give 0"
+    err = float((out[~blind].float() - ref[~blind].float()).abs().max())
+    torch.testing.assert_close(out[~blind].float(), ref[~blind].float(), **PREFILL_TOL[dtype])
+    ops = 4 * hd * H * int(seen.sum())
+    kv_bytes = 2 * K * int(seen.max(dim=1).values.sum()) * hd * k.element_size()
+    bytes_ms = (kv_bytes + _nbytes(q, pos, lens_t, out)) / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_OPS[dtype] * 1e3
-    # SDPA over the valid positions; its causal flag aligns the diagonal
-    # top-left, so a chunk at an offset takes an explicit mask
-    mask = None if offset == 0 else (
-        torch.arange(n, device=dev)[None, :] <= pos[0, :, None]
-    )[None, None]
+    if lens is None:
+        # SDPA over the valid positions; its causal flag aligns the diagonal
+        # top-left, so a chunk at an offset takes an explicit mask
+        n = offset + S
+        mask = None if offset == 0 else (
+            torch.arange(n, device=dev)[None, :] <= pos[0, :, None]
+        )[None, None]
+        library_ms = _sdpa_ms(q.transpose(1, 2), k[:, :, :n], v[:, :, :n], mask=mask,
+                              causal=offset == 0)
+        shape = dict(R=R, S=S, q_pos0=offset, Skv=Skv, H=H, K=K, hd=hd, dtype=str(dtype))
+    else:
+        w = torch.arange(Skv, device=dev)[None, None, :]
+        mask = ((w <= pos[:, :, None]) & (w < lens_t[:, None, None]))[:, None]
+        library_ms = _sdpa_ms(q.transpose(1, 2), k, v, mask=mask)
+        shape = dict(R=R, S=S, lens=list(lens), Skv=Skv, H=H, K=K, hd=hd, dtype=str(dtype))
     return dict(
-        name="prefill_attention",
-        shape=dict(R=R, S=S, q_pos0=offset, Skv=Skv, H=H, K=K, hd=hd, dtype=str(dtype)),
-        max_abs_err=err, tol=PREFILL_TOL[dtype],
-        ms=time_ms(lambda: A.prefill_attention(q, k, v, pos, lens), iters=5),
-        plain_ms=time_ms(lambda: A.prefill_attention_reference(q, k, v, pos, lens), iters=3),
-        library_ms=_sdpa_ms(q.transpose(1, 2), k[:, :, :n], v[:, :, :n], mask=mask,
-                            causal=offset == 0),
+        name="prefill_attention", shape=shape, max_abs_err=err, tol=PREFILL_TOL[dtype],
+        ms=time_ms(lambda: A.prefill_attention(q, k, v, pos, lens_t), iters=5),
+        plain_ms=time_ms(lambda: A.prefill_attention_reference(q, k, v, pos, lens_t), iters=3),
+        library_ms=library_ms,
         bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
     )
 
@@ -461,6 +485,10 @@ def kernel_plan() -> "list[tuple[str, object, tuple]]":
     for R, offset, Skv in ((4, 0, 1536), (4, 512, 1536), (4, 1024, 1536), (1, 512, 1024)):
         plan.append(("prefill_attention", prefill_case,
                      (torch.bfloat16, R, 512, 32, 8, 128, 20 + offset, offset, Skv)))
+    # the draft model's most launched forward in the spec paged phase: one
+    # token a row for the 16 rows over its 2048-position window
+    plan.append(("prefill_attention", prefill_case,
+                 (torch.bfloat16, 16, 1, 32, 8, 128, 6, 0, 2048, PAGED_LENS)))
     # verify rows (start = kv_len) at k = 4 with every draft kept: S = 5
     plan.append(("ragged_attention", ragged_case,
                  (torch.bfloat16, 8, 8, 5, 4, 128, 2048, ragged[2048], ragged[2048], 30)))
@@ -507,19 +535,17 @@ def kernel_phase(dev) -> "tuple[list[dict], dict]":
 
 
 @contextlib.contextmanager
-def verify_shapes(name: str):
-    """While the block runs, tally the calls of the ragged wrapper ``A.name``
-    by (B, S, window: W positions dense, wpages paged) and keep a copy of
-    the kv lengths of the last call at each → {key: [calls, kv_lens]}.
-    ``verify_attention(_paged)`` looks the wrapper up at every call, so each
-    verify passes through here; the wrapper and its launch count are
-    unchanged."""
+def _tally(name: str, key):
+    """While the block runs, tally the calls of the wrapper ``A.name`` by
+    ``key(q, args, kw)`` and keep a copy of the kv lengths (its last
+    argument) of the last call at each → {key: [calls, kv_lens]}.  The
+    wrapper's callers look it up at every call, so each call passes through
+    here; the wrapper and its launch count are unchanged."""
     inner = getattr(A, name)
     tally: dict = {}
 
     def tallied(q, *args, **kw):
-        window = kw["wpages"] if name == "ragged_attention_paged" else args[0].shape[2]
-        entry = tally.setdefault((q.shape[0], q.shape[2], window), [0, None])
+        entry = tally.setdefault(key(q, args, kw), [0, None])
         entry[0] += 1
         entry[1] = args[-1].clone()  # kv_lens, on the device: no sync
         return inner(q, *args, **kw)
@@ -531,8 +557,24 @@ def verify_shapes(name: str):
         setattr(A, name, inner)
 
 
+def verify_shapes(name: str):
+    """Tally the ragged wrapper ``A.name``'s calls by (B, S, window: W
+    positions dense, wpages paged), as :func:`_tally` does;
+    ``verify_attention(_paged)`` looks the wrapper up at every call."""
+    if name == "ragged_attention_paged":
+        return _tally(name, lambda q, args, kw: (q.shape[0], q.shape[2], kw["wpages"]))
+    return _tally(name, lambda q, args, kw: (q.shape[0], q.shape[2], args[0].shape[2]))
+
+
+def prefill_shapes():
+    """Tally the prefill wrapper's calls by (B, Sq, Skv), as :func:`_tally`
+    does; ``model.prefill_attention`` looks the wrapper up at every call."""
+    return _tally("prefill_attention", lambda q, args, kw: (q.shape[0], q.shape[1], args[0].shape[2]))
+
+
 def _shape_rows(tally) -> "list[dict]":
-    """A :func:`verify_shapes` tally as JSON rows, most calls first."""
+    """A :func:`_tally` tally as JSON rows, most calls first (S: queries a
+    row; window: W or Skv positions, or wpages)."""
     rows = [dict(B=B, S=S, window=w, launches=n, last_kv_lens=lens.tolist())
             for (B, S, w), (n, lens) in tally.items()]
     return sorted(rows, key=lambda r: (-r["launches"], -r["S"]))
@@ -815,7 +857,7 @@ async def paged_serving_phase(dev, speculative: bool = False) -> dict:
         await serve(engine, [([1, 2, 3, 4, 5, 6, 7, 8], 2, {})])  # warm-up
         engine.stats = EngineStats()
         A.reset_launch_counts()
-        with verify_shapes("ragged_attention_paged") as tally:
+        with verify_shapes("ragged_attention_paged") as tally, prefill_shapes() as prefills:
             started = time.perf_counter()
             ttft_a: list[float] = []
             ttft_b: list[float] = []
@@ -856,6 +898,8 @@ async def paged_serving_phase(dev, speculative: bool = False) -> dict:
     assert stats.prefix_hits >= 4 and stats.prefix_reused_tokens >= 4096, vars(stats)
     shapes = _shape_rows(tally)
     assert sum(r["launches"] for r in shapes) == launches["ragged_attention_paged"], shapes
+    prefill_rows = _shape_rows(prefills)
+    assert sum(r["launches"] for r in prefill_rows) == launches["prefill_attention"], prefill_rows
     # the no-leak law: every page free or held by the prefix cache, every slot free
     free_pages, cached = engine._page_alloc.free_pages, engine._prefix.size
     assert free_pages + cached == rt.pool_pages() - 1, (free_pages, cached)
@@ -877,7 +921,7 @@ async def paged_serving_phase(dev, speculative: bool = False) -> dict:
         spec_proposed=stats.spec_proposed, spec_accepted=stats.spec_accepted,
         spec_emitted=stats.spec_emitted, spec_rows=stats.spec_rows,
         acceptance_rate=stats.acceptance_rate, tokens_per_dispatch=stats.tokens_per_dispatch,
-        tok_s_wall=stats.decode_tokens / wall, verify_shapes=shapes,
+        tok_s_wall=stats.decode_tokens / wall, verify_shapes=shapes, prefill_shapes=prefill_rows,
     )
     spec_note = (
         f", spec k=4 draft = target: acceptance {stats.acceptance_rate:.3f}, tokens/dispatch "
@@ -896,6 +940,8 @@ async def paged_serving_phase(dev, speculative: bool = False) -> dict:
         + (f", ragged launches by (B, S, wpages) "
            f"{[(r['B'], r['S'], r['window'], r['launches']) for r in shapes]}"
            if speculative else "")
+        + f", prefill launches by (B, Sq, Skv) "
+        f"{[(r['B'], r['S'], r['window'], r['launches']) for r in prefill_rows]}"
     )
     return result
 

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time the PyTorch port's kernels of one source tree at chip_smoke.py's shapes.
 
-    python3 scripts/torch_kernel_times.py [--tree DIR] [--label NAME]
+    python3 scripts/torch_kernel_times.py [--tree DIR] [--label NAME] [--kernel NAME ...]
 
 Imports ``calfkit_tpu_torch`` from ``DIR`` (default: this checkout), builds
 its kernels, and runs THIS checkout's ``chip_smoke.py`` kernel phase against
-them, for the kernels the tree has: every kernel against its plain version,
+them, for the kernels the tree has (or those ``--kernel`` names): every
+kernel against its plain version,
 timed with CUDA events beside the plain version,
 ``scaled_dot_product_attention`` and the bound.
 Two trees (e.g. a parent commit unpacked with ``git archive`` into a
@@ -30,6 +31,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=str(ROOT), help="checkout whose kernels to time")
     parser.add_argument("--label", default="", help="a name for this tree in the output")
+    parser.add_argument("--kernel", action="append", default=[],
+                        help="time only this kernel's cases (repeatable; default: all)")
     args = parser.parse_args()
     sys.path.insert(0, str(Path(args.tree).resolve()))
 
@@ -47,7 +50,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smoke.kernels.build_all()
     # a tree of an earlier slice lacks the later kernels: time what it has
-    plan = [case for case in smoke.kernel_plan() if hasattr(smoke.A, case[0])]
+    plan = [case for case in smoke.kernel_plan() if hasattr(smoke.A, case[0])
+            and (not args.kernel or case[0] in args.kernel)]
     with contextlib.redirect_stdout(sys.stderr):  # the per-case lines; stdout keeps the JSON
         cases = smoke.run_cases(torch.device("cuda", 0), plan)
     print(json.dumps(dict(

@@ -86,6 +86,7 @@ def _prefill_inputs(B, Sq, H, K, Skv, hd, lens, seed):
         (2, 24, 40, [40, 31], {}),  # a chunk at an offset, seq_len < Skv
         (4, 64, 64, [64, 50], dict(block_q=16, kv_chunk=32)),  # many blocks
         (2, 64, 96, [96, 70], dict(block_q=32, kv_chunk=32)),
+        (4, 24, 40, [40, 0], {}),  # a row that sees no position gives 0
     ],
 )
 def test_prefill_plain_matches_pallas(G, Sq, Skv, lens, blocks):

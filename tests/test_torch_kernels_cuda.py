@@ -66,6 +66,66 @@ def test_prefill_kernel_matches_plain(dtype, hd, G, Sq):
     torch.testing.assert_close(out.float(), ref.float(), **PREFILL_TOL[dtype])
 
 
+def _prefill_layer_case(dev, dtype, hd, G, Sq, Skv, q_pos, lens, seed, K):
+    """q [B, Sq, K*G, hd] and K/V as ``model.forward`` passes them: the
+    [:, :, :Skv] window of layer 1 of a [L, B, K, S, hd] cache."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(lens)
+    q = torch.randn((B, Sq, K * G, hd), generator=g, device=dev).to(dtype)
+    pages = torch.randn((2, 2, B, K, Skv + 96, hd), generator=g, device=dev).to(dtype)
+    pos = torch.tensor(q_pos, dtype=torch.int32, device=dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, pages[0, 1, :, :, :Skv], pages[1, 1, :, :, :Skv], pos, lens_t
+
+
+def _check_prefill(dtype, q, k, v, pos, lens):
+    """The kernel against the plain version; rows that see no position
+    (seq_len 0) are finite zeros in both."""
+    out = A.prefill_attention(q, k, v, pos, lens)
+    ref = A.prefill_attention_reference(q, k, v, pos, lens)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), **PREFILL_TOL[dtype])
+    blind = torch.minimum(pos + 1, lens[:, None]) <= 0
+    assert torch.all(out[blind] == 0)
+
+
+# the draft path's narrow forwards: B=16 rows of 1-8 queries over a 2048
+# window, lens spread over every tile; each row's queries end at its len,
+# except a fresh row (len 0: sees nothing) and two rows whose queries lie
+# past their len (they see only w < len)
+NARROW_LENS = [0, 17, 64, 100, 255, 511, 640, 777, 1000, 1024, 1300, 1500, 1601, 1800, 2000, 2048]
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("hd", [128, 64])
+@pytest.mark.parametrize("G", [4, 8])
+@pytest.mark.parametrize("Sq", [1, 3, 8])
+def test_prefill_kernel_narrow_launches(hd, G, Sq):
+    dev = torch.device("cuda")
+    q_pos = [[max(n, Sq) - Sq + j + (50 if b in (3, 9) else 0) for j in range(Sq)]
+             for b, n in enumerate(NARROW_LENS)]
+    case = _prefill_layer_case(dev, torch.bfloat16, hd, G, Sq, 2048, q_pos, NARROW_LENS,
+                               hd + G + Sq, K=8)
+    _check_prefill(torch.bfloat16, *case)
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,G", GEOMETRIES)
+def test_prefill_kernel_tile_edges(dtype, hd, G):
+    """Skv = 333, not a multiple of 64; chunks at offsets 37, 0, 233 and 150,
+    so the diagonal crosses tiles; row 1's len (60) is below most of its
+    q_pos, row 2's reaches Skv, row 3's is 0."""
+    dev = torch.device("cuda")
+    Sq, Skv = 100, 333
+    offsets, lens = [37, 0, 233, 150], [137, 60, 333, 0]
+    q_pos = [[o + j for j in range(Sq)] for o in offsets]
+    case = _prefill_layer_case(dev, dtype, hd, G, Sq, Skv, q_pos, lens, hd * G, K=4)
+    _check_prefill(dtype, *case)
+
+
 @pytest.mark.cuda
 @cuda_only
 def test_misaligned_inputs_raise_instead_of_launching():
