@@ -1,7 +1,7 @@
 // Device helpers shared by the attention kernels that stream K/V tiles
-// through shared memory (decode_attention.cu, ragged_attention.cu): 16-byte
-// cp.async copies, 16-byte shared-memory loads as f32, warp reductions, and
-// the two ways a (batch row, kv head)'s positions map to cache addresses.
+// through shared memory (split_attention.cuh): 16-byte cp.async copies,
+// 16-byte shared-memory loads of f32, warp reductions, and the two ways a
+// (batch row, kv head)'s positions map to cache addresses.
 
 #pragma once
 
@@ -14,17 +14,7 @@ namespace {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// 16 bytes of shared memory as f32: 8 bf16 or 4 f32 values
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
+// 16 bytes of shared memory: 4 f32 values
 __device__ __forceinline__ void load16(const float* p, float* out) {
   const float4 raw = *reinterpret_cast<const float4*>(p);
   out[0] = raw.x;
@@ -72,16 +62,18 @@ struct DenseRows {
 };
 
 // K/V rows of one (batch row, kv head) in a layer of the paged pool:
-// position pos in page pages[pos / page], at offset pos % page
+// position pos in the row's page pos / page, at offset pos % page; `pages`
+// holds the row's block table from its entry `first` on
 template <typename T>
 struct PagedRows {
   const T* base;     // the layer's pool at this kv head
-  const int* pages;  // this row's block table, staged in shared memory
+  const int* pages;  // a slice of this row's block table, staged in shared memory
+  int first;         // the table entry pages[0] holds
   int page;
   int64_t page_stride, pos_stride;
   __device__ __forceinline__ const T* at(int pos) const {
     const int p = pos / page;
-    return base + static_cast<int64_t>(pages[p]) * page_stride +
+    return base + static_cast<int64_t>(pages[p - first]) * page_stride +
            static_cast<int64_t>(pos - p * page) * pos_stride;
   }
 };

@@ -28,6 +28,7 @@ counts kernel launches, so a run can show it went through the kernels.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -98,27 +99,123 @@ def _check_status(name: str, status: int) -> None:
 
 
 # --------------------------------------------------------------------------- #
-# decode
+# the split-window kernels (decode and ragged; csrc/split_attention.cuh)
 # --------------------------------------------------------------------------- #
 
+_TILE = 64  # kv positions a tile
+_MAX_SPLITS = 64  # splits of one window
+_BLOCKS_PER_SM = 3  # blocks an SM over a full window (it holds two; short rows leave fewer)
+_MIN_SPLIT_TILES = 4  # a block's start and its share of the fold want this much work
 
-def _launch_stats(name: str, q: torch.Tensor, call) -> tuple:
-    """The launch shared by the kernels that return (o, m, z) statistics
-    (decode and ragged): ``call(qf, o, m, z, scale, stream)`` runs the C
-    entry point on q in f32 (contiguous) and three fresh f32 outputs, on the
-    current stream → (o shaped like q, m and z shaped like q[..., 0])."""
-    hd = q.shape[-1]
-    qf = q.to(torch.float32).contiguous()
-    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    m = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
-    z = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_plan(groups: int, window: int, sms: int) -> tuple[int, int]:
+    """How the decode and ragged kernels cut a ``window`` of positions
+    across blocks, for ``groups`` blocks a split (a query tile of a (row,
+    kv head) each) on a card of ``sms`` SMs → (splits, positions a split).
+
+    A split is a run of whole 64-position tiles, at least four (a block's
+    start, its partial and its share of the fold cost about as much as a few
+    tiles), sized so that a full window gives about three blocks an SM,
+    with at most 64 splits.  An SM holds two blocks of the bf16 kernel at
+    once, and splits past a row's length exit at once, so rows that stop
+    short of the window fill about one wave (of 2, 3 and 4 blocks an SM,
+    3 timed best on ``chip_smoke.kernel_plan()``'s cases)."""
+    tiles = max(1, -(-window // _TILE))
+    want = max(1, -(-_BLOCKS_PER_SM * sms // max(groups, 1)))
+    per = min(tiles, max(_MIN_SPLIT_TILES, -(-tiles // want), -(-tiles // _MAX_SPLITS)))
+    return -(-tiles // per), per * _TILE
+
+
+def _block_plan(
+    q: torch.Tensor, kv_dtype: torch.dtype, window: int
+) -> tuple[int, int, int]:
+    """→ (query rows a block, splits, positions a split) for a launch of
+    the decode ([B, K, G, hd] q) or ragged ([B, K, S, G, hd] q) kernel on
+    q's card over ``window`` positions.  A block takes one tile of 16 query
+    rows (bf16 caches) or 8 (f32) where S*G fits it, else tiles of 32; the
+    kernels take the rows they are given and refuse any other count."""
+    B, K = q.shape[:2]
+    SG = math.prod(q.shape[2:-1])
+    block_rows = 16 if kv_dtype == torch.bfloat16 else 8
+    if SG > block_rows:
+        block_rows = 32
+    groups = B * K * -(-SG // block_rows)
+    return (block_rows, *split_plan(groups, window, _sm_count(q.device.index)))
+
+
+def kernel_split_plan(
+    q: torch.Tensor, kv_dtype: torch.dtype, window: int
+) -> tuple[int, int]:
+    """:func:`split_plan` as a launch of the decode or ragged kernel on q
+    over ``window`` positions takes it → (splits, positions a split)."""
+    return _block_plan(q, kv_dtype, window)[1:]
+
+
+# per (device, stream): the split kernels' tickets, zero between launches
+# (the last block of each query tile resets its own); launches on one
+# stream are ordered, so they share one buffer
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    buf = _tickets.get((device.index, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _tickets[(device.index, stream)] = buf
+    return buf
+
+
+def _launch_stats(
+    name: str, fn, q: torch.Tensor, kv_dtype: torch.dtype, window: int, source: tuple
+) -> tuple:
+    """The launch of the split-window kernels (decode and ragged), which
+    return (o, m, z) statistics: q ([B, K, G, hd] or [B, K, S, G, hd]) is
+    read in its own dtype through its strides; three fresh f32 outputs and,
+    when the window takes more than one split, f32 partials for the fold
+    → (o shaped like q, m and z shaped like q[..., 0]).  ``source`` is the
+    entry point's own arguments after the shared ones."""
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: q dtype {q.dtype} not supported")
+    if q.stride(-1) != 1:
+        q = q.contiguous()
+    q5 = q if q.dim() == 5 else q[:, :, None]
+    B, K, S, G, hd = q5.shape
+    rows = B * K * S * G
+    block_rows, n_splits, split_pos = _block_plan(q, kv_dtype, window)
+    # one allocation for o, m and z, one for the partials [n_splits, rows, hd]
+    # and their m and z [n_splits, rows]: the serving path is host-bound
+    out = torch.empty(rows * (hd + 2), dtype=torch.float32, device=q.device)
+    o = out[:rows * hd].view(q.shape)
+    m = out[rows * hd:rows * (hd + 1)].view(q.shape[:-1])
+    z = out[rows * (hd + 1):].view(q.shape[:-1])
     with torch.cuda.device(q.device):  # the launching thread's current device
-        status = call(
-            qf, o, m, z, 1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        scratch = (None, None, None, None)
+        if n_splits > 1:
+            part = torch.empty(n_splits * rows * (hd + 2), dtype=torch.float32, device=q.device)
+            po = part.data_ptr()
+            pm = po + 4 * n_splits * rows * hd
+            tickets = _ticket_buffer(q.device, stream, B * K * -(-S * G // block_rows))
+            scratch = (po, pm, pm + 4 * n_splits * rows, tickets.data_ptr())
+        qs = q5.stride()
+        status = fn(
+            _DTYPE_CODES[kv_dtype], _DTYPE_CODES[q.dtype], hd, block_rows, q5.data_ptr(),
+            qs[0], qs[1], qs[2], qs[3], o.data_ptr(), m.data_ptr(), z.data_ptr(), *scratch,
+            n_splits, split_pos, 1.0 / math.sqrt(hd), stream, *source,
         )
     _check_status(name, status)
     launch_counts[name] += 1
     return o, m, z
+
+
+# --------------------------------------------------------------------------- #
+# decode
+# --------------------------------------------------------------------------- #
 
 
 def _grouped(q: torch.Tensor, K: int) -> torch.Tensor:
@@ -188,15 +285,13 @@ def decode_attention(
     if hd not in _HEAD_DIMS or not 1 <= G <= _MAX_DECODE_GROUP:
         raise ValueError(f"decode_attention: hd={hd}, G={G} not supported")
     _check_aligned16("decode_attention", k_cache, v_cache)
-    fn = kernels.function("decode_attention")
     lens = base_lens.to(torch.int32).contiguous()
     ks, vs = k_cache.stride(), v_cache.stride()
-    return _launch_stats("decode_attention", q, lambda qf, o, m, z, scale, stream: fn(
-        _DTYPE_CODES[k_cache.dtype], hd,
-        qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        o.data_ptr(), m.data_ptr(), z.data_ptr(),
-        B, K, G, W, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale, stream,
-    ))
+    return _launch_stats(
+        "decode_attention", kernels.function("decode_attention"), q, k_cache.dtype, W,
+        (k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(), B, K, G, W,
+         ks[0], ks[1], ks[2], vs[0], vs[1], vs[2]),
+    )
 
 
 def merged_decode_attention(
@@ -285,17 +380,15 @@ def paged_decode_attention(
         raise ValueError(f"paged_decode_attention: hd={hd}, G={G} not supported")
     k_layer, v_layer = pool_k[layer], pool_v[layer]  # views: nothing is copied
     _check_aligned16("paged_decode_attention", k_layer, v_layer)
-    fn = kernels.function("paged_decode_attention")
     tab = tables.to(torch.int32).contiguous()
     lens = base_lens.to(torch.int32).contiguous()
     ks, vs = k_layer.stride(), v_layer.stride()
-    return _launch_stats("paged_decode_attention", q, lambda qf, o, m, z, scale, stream: fn(
-        _DTYPE_CODES[pool_k.dtype], hd,
-        qf.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(), tab.data_ptr(),
-        lens.data_ptr(), o.data_ptr(), m.data_ptr(), z.data_ptr(),
-        B, K, G, wpages, page, tab.stride(0),
-        ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale, stream,
-    ))
+    return _launch_stats(
+        "paged_decode_attention", kernels.function("paged_decode_attention"), q, pool_k.dtype,
+        wpages * page,
+        (k_layer.data_ptr(), v_layer.data_ptr(), tab.data_ptr(), lens.data_ptr(),
+         B, K, G, wpages, page, tab.stride(0), ks[0], ks[1], ks[2], vs[0], vs[1], vs[2]),
+    )
 
 
 def merged_paged_decode_attention(
@@ -450,16 +543,14 @@ def ragged_attention(
     if k_cache.shape != (B, K, W, hd):
         raise ValueError(f"{name}: q {tuple(q.shape)} and cache {tuple(k_cache.shape)} differ")
     _check_aligned16(name, k_cache, v_cache)
-    fn = kernels.function(name)
     starts = q_starts.to(torch.int32).contiguous()
     lens = kv_lens.to(torch.int32).contiguous()
     ks, vs = k_cache.stride(), v_cache.stride()
-    return _launch_stats(name, q, lambda qf, o, m, z, scale, stream: fn(
-        _DTYPE_CODES[k_cache.dtype], hd,
-        qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), starts.data_ptr(),
-        lens.data_ptr(), o.data_ptr(), m.data_ptr(), z.data_ptr(),
-        B, K, S, G, W, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale, stream,
-    ))
+    return _launch_stats(
+        name, kernels.function(name), q, k_cache.dtype, W,
+        (k_cache.data_ptr(), v_cache.data_ptr(), starts.data_ptr(), lens.data_ptr(),
+         B, K, S, G, W, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2]),
+    )
 
 
 def ragged_attention_paged_reference(
@@ -518,18 +609,16 @@ def ragged_attention_paged(
         )
     k_layer, v_layer = pool_k[layer], pool_v[layer]  # views: nothing is copied
     _check_aligned16(name, k_layer, v_layer)
-    fn = kernels.function(name)
     tab = tables.to(torch.int32).contiguous()
     starts = q_starts.to(torch.int32).contiguous()
     lens = kv_lens.to(torch.int32).contiguous()
     ks, vs = k_layer.stride(), v_layer.stride()
-    return _launch_stats(name, q, lambda qf, o, m, z, scale, stream: fn(
-        _DTYPE_CODES[pool_k.dtype], hd,
-        qf.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(), tab.data_ptr(),
-        starts.data_ptr(), lens.data_ptr(), o.data_ptr(), m.data_ptr(), z.data_ptr(),
-        B, K, S, G, wpages, page, tab.stride(0),
-        ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale, stream,
-    ))
+    return _launch_stats(
+        name, kernels.function(name), q, pool_k.dtype, wpages * page,
+        (k_layer.data_ptr(), v_layer.data_ptr(), tab.data_ptr(), starts.data_ptr(),
+         lens.data_ptr(), B, K, S, G, wpages, page, tab.stride(0),
+         ks[0], ks[1], ks[2], vs[0], vs[1], vs[2]),
+    )
 
 
 def _merge_with_chunk(

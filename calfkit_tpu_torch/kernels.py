@@ -35,17 +35,21 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
+# the arguments the decode and ragged entry points share (split_attention.cuh):
+# kv and q dtype codes, hd, query rows a block; q and its four strides;
+# o, m, z; the partials po, pm, pz and the tickets; n_splits, split_pos;
+# scale; the stream
+_SPLIT = [_I, _I, _I, _I, _P, _L, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P]
+
 # kernel → (the source that exports it, its C symbol, its C signature)
 SIGNATURES: dict[str, tuple[str, str, list]] = {
     "decode_attention": (
         "decode_attention", "calfkit_decode_attention",
-        [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-         _L, _L, _L, _L, _L, _L, _F, _P],
+        [*_SPLIT, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L],
     ),
     "paged_decode_attention": (
         "decode_attention", "calfkit_paged_decode_attention",
-        [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-         _L, _L, _L, _L, _L, _L, _L, _F, _P],
+        [*_SPLIT, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L],
     ),
     "prefill_attention": (
         "prefill_attention", "calfkit_prefill_attention",
@@ -54,13 +58,11 @@ SIGNATURES: dict[str, tuple[str, str, list]] = {
     ),
     "ragged_attention": (
         "ragged_attention", "calfkit_ragged_attention",
-        [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-         _L, _L, _L, _L, _L, _L, _F, _P],
+        [*_SPLIT, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L],
     ),
     "ragged_attention_paged": (
         "ragged_attention", "calfkit_ragged_paged_attention",
-        [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-         _L, _L, _L, _L, _L, _L, _L, _F, _P],
+        [*_SPLIT, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L],
     ),
 }
 

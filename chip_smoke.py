@@ -45,11 +45,18 @@ the final ``ok`` line is never printed:
    tallied by shape (B, S, window);
 7. each ragged kernel against its plain version again, at the shape its
    speculative phase launched most, with the kv lengths of that shape's
-   last launch: the case the ``kernels`` line reports.
+   last launch and q in bf16, as serving passes it: the case the
+   ``kernels`` line reports.
 
 The kernel phase also holds the ragged multi-query kernels (speculative
 verify shapes S = 5, a mixed-row case with prefill-kind and fresh rows, page
-16, f32) against their plain versions, and the exactness phase serves the
+16, f32) against their plain versions, and times the fixed cases the
+split-window decode and ragged kernels are judged on from tree to tree: the
+dense spec phase's path shape (B=8, S=5, W=2048 at ``PATH_LENS``) and a lone
+agent turn (B=1, len 2000 of a 2048 window), each with f32 q and with q in
+bf16 as serving passes it.  The decode kernels and the paged ragged kernel
+are also held at their serving shapes with bf16 q; the ``kernels`` line
+reports the decode kernels there.  The exactness phase serves the
 dense and the paged+prefix configurations again with speculation on (draft
 model = target), whose streams must equal the spec-off streams.
 
@@ -161,9 +168,12 @@ def _sdpa_ms(q, k, v, mask=None, causal=False) -> float:
 # --------------------------------------------------------------------------- #
 
 
-def decode_case(dev, dtype, B, K, G, hd, W, lens, seed):
+def decode_case(dev, dtype, B, K, G, hd, W, lens, seed, q_dtype=torch.float32):
+    """The dense decode kernel on a [:, :, :W] view of a longer cache, q in
+    ``q_dtype`` (f32 unless noted in the shape; serving passes the model's
+    dtype)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((B, K, G, hd), generator=g, device=dev)
+    q = torch.randn((B, K, G, hd), generator=g, device=dev).to(q_dtype)
     # the engine passes a [:, :, :W] view of a longer cache: so does this
     cache = torch.randn((2, B, K, 2 * W, hd), generator=g, device=dev).to(dtype)
     k, v = cache[0, :, :, :W], cache[1, :, :, :W]
@@ -181,8 +191,13 @@ def decode_case(dev, dtype, B, K, G, hd, W, lens, seed):
     ops_ms = ops / PEAK_OPS[dtype] * 1e3
     mask = (torch.arange(W, device=dev)[None, :] < base[:, None])[:, None, None, :]
     qs = q.reshape(B, 1, K * G, hd).transpose(1, 2).to(dtype)
+    shape = dict(B=B, K=K, G=G, hd=hd, W=W, dtype=str(dtype))
+    if q_dtype != torch.float32:
+        shape["q_dtype"] = str(q_dtype)
+    if B == 1:
+        shape["lens"] = list(lens)
     return dict(
-        name="decode_attention", shape=dict(B=B, K=K, G=G, hd=hd, W=W, dtype=str(dtype)),
+        name="decode_attention", shape=shape,
         max_abs_err=err, tol=DECODE_TOL,
         ms=time_ms(lambda: A.decode_attention(q, k, v, base)),
         plain_ms=time_ms(lambda: A.decode_attention_reference(q, k, v, base), iters=5),
@@ -207,10 +222,12 @@ def _shuffled_pool(dev, dtype, g, K, hd, page, lens, wpages, seed):
     return pool_k, pool_v, torch.from_numpy(tables).to(dev), n_pages
 
 
-def paged_decode_case(dev, dtype, B, K, G, hd, page, lens, wpages, seed, layer=1):
-    """The paged kernel on a shuffled 2-layer pool, at layer 1."""
+def paged_decode_case(dev, dtype, B, K, G, hd, page, lens, wpages, seed, layer=1,
+                      q_dtype=torch.float32):
+    """The paged kernel on a shuffled 2-layer pool, at layer 1; q in
+    ``q_dtype``, as :func:`decode_case`."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((B, K, G, hd), generator=g, device=dev)
+    q = torch.randn((B, K, G, hd), generator=g, device=dev).to(q_dtype)
     pool_k, pool_v, tables, n_pages = _shuffled_pool(dev, dtype, g, K, hd, page, lens, wpages, seed)
     base = torch.tensor(lens, dtype=torch.int32, device=dev)
 
@@ -244,10 +261,12 @@ def paged_decode_case(dev, dtype, B, K, G, hd, page, lens, wpages, seed, layer=1
         )
 
     kw, vw = gather()
+    shape = dict(B=B, K=K, G=G, hd=hd, page=page, wpages=wpages, pool_pages=n_pages,
+                 dtype=str(dtype))
+    if q_dtype != torch.float32:
+        shape["q_dtype"] = str(q_dtype)
     return dict(
-        name="paged_decode_attention",
-        shape=dict(B=B, K=K, G=G, hd=hd, page=page, wpages=wpages, pool_pages=n_pages,
-                   dtype=str(dtype)),
+        name="paged_decode_attention", shape=shape,
         max_abs_err=err, tol=DECODE_TOL,
         ms=time_ms(kernel), plain_ms=time_ms(plain, iters=5),
         # no single PyTorch call reads K/V through block tables
@@ -350,12 +369,13 @@ def _ragged_sdpa_args(q, limits, W, dtype):
     return qs, (torch.arange(W, device=q.device)[None, None, :] < lim[:, :, None])[:, None]
 
 
-def ragged_case(dev, dtype, B, K, S, G, hd, W, starts, lens, seed, rows=None):
+def ragged_case(dev, dtype, B, K, S, G, hd, W, starts, lens, seed, rows=None,
+                q_dtype=torch.float32):
     """The dense ragged kernel on a [:, :, :W] view of a longer cache;
     ``rows`` labels the case's row lengths where they are not plain verify
-    rows of the kernel plan."""
+    rows of the kernel plan; q in ``q_dtype``, as :func:`decode_case`."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((B, K, S, G, hd), generator=g, device=dev)
+    q = torch.randn((B, K, S, G, hd), generator=g, device=dev).to(q_dtype)
     cache = torch.randn((2, B, K, 2 * W, hd), generator=g, device=dev).to(dtype)
     k, v = cache[0, :, :, :W], cache[1, :, :, :W]
     st = torch.tensor(starts, dtype=torch.int32, device=dev)
@@ -374,6 +394,8 @@ def ragged_case(dev, dtype, B, K, S, G, hd, W, starts, lens, seed, rows=None):
     shape = dict(B=B, K=K, S=S, G=G, hd=hd, W=W, dtype=str(dtype))
     if rows:
         shape["rows"] = rows
+    if q_dtype != torch.float32:
+        shape["q_dtype"] = str(q_dtype)
     return dict(
         name="ragged_attention", shape=shape, max_abs_err=err, tol=DECODE_TOL,
         ms=time_ms(lambda: A.ragged_attention(q, k, v, st, ln)),
@@ -382,12 +404,13 @@ def ragged_case(dev, dtype, B, K, S, G, hd, W, starts, lens, seed, rows=None):
     )
 
 
-def ragged_paged_case(dev, dtype, B, K, S, G, hd, page, lens, wpages, seed, layer=1, rows=None):
+def ragged_paged_case(dev, dtype, B, K, S, G, hd, page, lens, wpages, seed, layer=1, rows=None,
+                      q_dtype=torch.float32):
     """The paged ragged kernel at verify rows (start = kv_len) on a shuffled
-    2-layer pool, at layer 1; ``rows`` labels the row lengths as
-    :func:`ragged_case`'s does."""
+    2-layer pool, at layer 1; ``rows`` labels the row lengths and q is in
+    ``q_dtype``, as :func:`ragged_case`'s."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((B, K, S, G, hd), generator=g, device=dev)
+    q = torch.randn((B, K, S, G, hd), generator=g, device=dev).to(q_dtype)
     pool_k, pool_v, tables, n_pages = _shuffled_pool(dev, dtype, g, K, hd, page, lens, wpages, seed)
     ln = torch.tensor(lens, dtype=torch.int32, device=dev)
 
@@ -423,6 +446,8 @@ def ragged_paged_case(dev, dtype, B, K, S, G, hd, page, lens, wpages, seed, laye
                  dtype=str(dtype))
     if rows:
         shape["rows"] = rows
+    if q_dtype != torch.float32:
+        shape["q_dtype"] = str(q_dtype)
     return dict(
         name="ragged_attention_paged", shape=shape,
         max_abs_err=err, tol=DECODE_TOL,
@@ -440,16 +465,21 @@ def ragged_paged_case(dev, dtype, B, K, S, G, hd, page, lens, wpages, seed, laye
 # the paged serving shape: B=16 rows, lens 17-2048 and one fresh row
 PAGED_LENS = [0, 17, 100, 255, 256, 300, 511, 640, 777, 1024, 1300, 1500, 1600, 1800, 2000,
               2048]
+# the dense spec serving phase's most launched ragged shape (B=8, S=5,
+# W=2048): the kv lengths of its last launch in one run of the phase
+PATH_LENS = [0, 0, 1530, 1130, 725, 509, 155, 48]
 # the case of each kernel that the line of ``kernels`` reports: the dense
 # decode kernel at the dense serving phase's batch and window; the paged
 # decode kernel and the prefill kernel at the paged serving phase's decode
-# batch and last chunk of a 1536-token bucket.  The ragged kernels' cases
-# are made after their speculative phases, at the shape those phases
-# launched most (:func:`path_case`).
+# batch and last chunk of a 1536-token bucket; the decode kernels with q in
+# the model's dtype, as serving passes it.  The ragged kernels' cases are
+# made after their speculative phases, at the shape those phases launched
+# most (:func:`path_case`).
 MAIN_SHAPES = {
-    "decode_attention": dict(B=8, K=8, G=4, hd=128, W=2048, dtype="torch.bfloat16"),
+    "decode_attention": dict(B=8, K=8, G=4, hd=128, W=2048, dtype="torch.bfloat16",
+                             q_dtype="torch.bfloat16"),
     "paged_decode_attention": dict(B=16, K=8, G=4, hd=128, page=64, wpages=32, pool_pages=513,
-                                   dtype="torch.bfloat16"),
+                                   dtype="torch.bfloat16", q_dtype="torch.bfloat16"),
     "prefill_attention": dict(R=4, S=512, q_pos0=1024, Skv=1536, H=32, K=8, hd=128,
                               dtype="torch.bfloat16"),
 }
@@ -466,12 +496,20 @@ def kernel_plan() -> "list[tuple[str, object, tuple]]":
             plan.append(("decode_attention", decode_case, (dtype, 8, 8, 4, 128, W, ragged[W], W)))
     plan.append(("decode_attention", decode_case,
                  (torch.bfloat16, 8, 4, 8, 64, 2048, ragged[2048], 7)))
+    # the dense serving shape with q in the model's dtype, as serving passes it
+    plan.append(("decode_attention", decode_case,
+                 (torch.bfloat16, 8, 8, 4, 128, 2048, ragged[2048], 2048, torch.bfloat16)))
     for dtype, K, G, hd, page, seed in (
         (torch.bfloat16, 8, 4, 128, 64, 11), (torch.bfloat16, 8, 4, 128, 16, 12),
         (torch.float32, 8, 4, 128, 64, 13), (torch.bfloat16, 4, 8, 64, 64, 14),
     ):
         plan.append(("paged_decode_attention", paged_decode_case,
                      (dtype, 16, K, G, hd, page, PAGED_LENS, 2048 // page, seed)))
+    # the paged serving shape with q in the model's dtype (pages 64 and 16)
+    for page, seed in ((64, 15), (16, 16)):
+        plan.append(("paged_decode_attention", paged_decode_case,
+                     (torch.bfloat16, 16, 8, 4, 128, page, PAGED_LENS, 2048 // page, seed, 1,
+                      torch.bfloat16)))
     for dtype in (torch.bfloat16, torch.float32):
         for R in (1, 4):
             for S in (512, 2048):
@@ -489,9 +527,23 @@ def kernel_plan() -> "list[tuple[str, object, tuple]]":
     # token a row for the 16 rows over its 2048-position window
     plan.append(("prefill_attention", prefill_case,
                  (torch.bfloat16, 16, 1, 32, 8, 128, 6, 0, 2048, PAGED_LENS)))
+    # a lone agent turn: one row of 2000 positions in a 2048 window, f32 q
+    # and q in the model's dtype
+    for q_dtype in (torch.float32, torch.bfloat16):
+        plan.append(("decode_attention", decode_case,
+                     (torch.bfloat16, 1, 8, 4, 128, 2048, [2000], 8, q_dtype)))
     # verify rows (start = kv_len) at k = 4 with every draft kept: S = 5
     plan.append(("ragged_attention", ragged_case,
                  (torch.bfloat16, 8, 8, 5, 4, 128, 2048, ragged[2048], ragged[2048], 30)))
+    # the dense n-gram spec phase's most launched shape, at the kv lengths
+    # of its last launch in one run (PATH_LENS); and the lone agent turn's verify
+    for q_dtype in (torch.float32, torch.bfloat16):
+        plan.append(("ragged_attention", ragged_case,
+                     (torch.bfloat16, 8, 8, 5, 4, 128, 2048, PATH_LENS, PATH_LENS, 37,
+                      "spec dense path", q_dtype)))
+        plan.append(("ragged_attention", ragged_case,
+                     (torch.bfloat16, 1, 8, 5, 4, 128, 2048, [2000], [2000], 38, "one row",
+                      q_dtype)))
     # mixed rows: verify, prefill-kind (start < kv_len), fresh, prefill-kind
     # ending at the window; S*G = 64 query rows, two query tiles
     plan.append(("ragged_attention", ragged_case,
@@ -501,6 +553,11 @@ def kernel_plan() -> "list[tuple[str, object, tuple]]":
                               (torch.float32, 64, 34)):
         plan.append(("ragged_attention_paged", ragged_paged_case,
                      (dtype, 16, 8, 5, 4, 128, page, PAGED_LENS, 2048 // page, seed)))
+    # q in the model's dtype, as the spec serving phases pass it
+    for page, seed in ((64, 39), (16, 40)):
+        plan.append(("ragged_attention_paged", ragged_paged_case,
+                     (torch.bfloat16, 16, 8, 5, 4, 128, page, PAGED_LENS, 2048 // page, seed, 1,
+                      None, torch.bfloat16)))
     return plan
 
 
@@ -584,15 +641,15 @@ def path_case(dev, name: str, shapes: "list[dict]") -> dict:
     """The ragged kernel ``name`` against its plain version at the shape its
     speculative phase launched most (``shapes`` as :func:`_shape_rows`
     gives), with the kv lengths of that shape's last launch: verify rows,
-    start = kv_len, the 8B model's K=8, G=4, hd=128, bf16."""
+    start = kv_len, the 8B model's K=8, G=4, hd=128, bf16 cache and q."""
     top = shapes[0]
     lens, label = top["last_kv_lens"], f"spec serving, {top['launches']} launches"
+    bf16 = torch.bfloat16
     if name == "ragged_attention":
-        args = (torch.bfloat16, top["B"], 8, top["S"], 4, 128, top["window"], lens, lens, 35,
-                label)
+        args = (bf16, top["B"], 8, top["S"], 4, 128, top["window"], lens, lens, 35, label, bf16)
         return run_cases(dev, [(name, ragged_case, args)])[0]
-    args = (torch.bfloat16, top["B"], 8, top["S"], 4, 128, PAGED_RUNTIME.page_size, lens,
-            top["window"], 36, 1, label)
+    args = (bf16, top["B"], 8, top["S"], 4, 128, PAGED_RUNTIME.page_size, lens,
+            top["window"], 36, 1, label, bf16)
     return run_cases(dev, [(name, ragged_paged_case, args)])[0]
 
 

@@ -32,8 +32,10 @@ def report(source: str) -> str:
         done = subprocess.run(cmd, capture_output=True, text=True)
     if done.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}.cu:\n{done.stdout}{done.stderr}")
+    # each kernel's "spill stores/loads" line follows its "Function properties" line
     return "\n".join(
-        line for line in (done.stdout + done.stderr).splitlines() if line.startswith("ptxas")
+        line for line in (done.stdout + done.stderr).splitlines()
+        if line.startswith("ptxas") or "spill" in line
     )
 
 

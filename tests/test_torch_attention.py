@@ -312,3 +312,119 @@ def test_verify_attention_paged_matches_pallas(S):
         t(lens), wpages=wpages,
     )
     np.testing.assert_allclose(n(out), n(ref), **TOL)
+
+
+# --------------------------------------------------------------------------- #
+# the split-window law of the decode and ragged kernels
+# --------------------------------------------------------------------------- #
+#
+# The kernels cut the window into splits of whole tiles, one block each; a
+# split computes the plain (o, m, z) of its positions alone, and the last
+# split to finish folds them in split order.  Here each split's (o, m, z)
+# comes from the plain version on the window's slice, folded in index order
+# as the kernels fold, and the fold is held against the Pallas kernel on
+# the whole window.  Tolerance: f32 sum order (TOL), since the fold only
+# regroups the sums.
+
+
+def _fold_splits(parts):
+    """Fold split partials [(o, m, z)] in index order: m = max m_i (the
+    -1e29 floor included), w_i = exp(m_i - m), o = sum w_i o_i, z = sum
+    w_i z_i."""
+    m = torch.full_like(parts[0][1], -1e29)
+    for _, mi, _ in parts:
+        m = torch.maximum(m, mi)
+    o, z = torch.zeros_like(parts[0][0]), torch.zeros_like(parts[0][2])
+    for oi, mi, zi in parts:
+        w = torch.exp(mi - m)
+        o = o + w[..., None] * oi
+        z = z + w * zi
+    return o, m, z
+
+
+def _split_slices(W, split):
+    return [(lo, min(W, lo + split)) for lo in range(0, W, split)]
+
+
+# lens on, and one either side of, the split boundaries; a fresh row (all
+# splits past its stop) and a full one
+SPLIT_LENS = [0, 15, 16, 17, 31, 33, 48]
+
+
+@pytest.mark.parametrize("split", [8, 16, 48])
+@pytest.mark.parametrize("G", [1, 4])
+def test_split_fold_matches_pallas_decode(split, G):
+    B, K, W, hd = len(SPLIT_LENS), 2, 48, 16
+    x = _decode_inputs(B, K, G, W, hd, lens=SPLIT_LENS, seed=split + G)
+    lens = np.asarray(SPLIT_LENS, np.int32)
+    parts = [
+        A.decode_attention_reference(
+            t(x["q"]), t(x["k"][:, :, lo:hi]), t(x["v"][:, :, lo:hi]),
+            t(np.clip(lens - lo, 0, hi - lo).astype(np.int32)),
+        )
+        for lo, hi in _split_slices(W, split)
+    ]
+    out = _fold_splits(parts)
+    ref = decode_attention_pallas(j(x["q"]), j(x["k"]), j(x["v"]), j(lens), interpret=True)
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(n(a), n(b), **TOL)
+    # the fresh row: every split empty, the fold keeps o = 0, m = -1e29, z = 0
+    assert np.all(n(out[0])[0] == 0) and np.all(n(out[1])[0] == -1e29)
+    assert np.all(n(out[2])[0] == 0)
+
+
+@pytest.mark.parametrize("rows", list(RAGGED_ROWS) + ["split_edges"])
+@pytest.mark.parametrize("split", [8, 16])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_split_fold_matches_pallas_ragged(rows, split, dtype):
+    from calfkit_tpu.inference.pallas_attention import ragged_attention_pallas
+
+    S, G = 5, 4
+    if rows == "split_edges":  # prefill-kind rows ending mid-split, verify rows at the edges
+        descr = [
+            RG.RaggedRow(RG.KIND_PREFILL, start=10, q_len=S, kv_len=10 + S),
+            RG.RaggedRow(RG.KIND_PREFILL, start=0, q_len=S, kv_len=3),
+            RG.RaggedRow(RG.KIND_VERIFY, start=16, q_len=S, kv_len=16),
+            RG.RaggedRow(RG.KIND_VERIFY, start=17, q_len=S, kv_len=17),
+            RG.RaggedRow(RG.KIND_DECODE, start=0, q_len=1, kv_len=0),
+        ]
+    else:
+        descr = RAGGED_ROWS[rows](S)
+    starts, lens = _descriptors(descr)
+    B, K, W, hd = len(starts), 2, 32, 16
+    x = _ragged_inputs(B, K, S, G, W, hd, seed=split * S)
+    qg = np.ascontiguousarray(x["q"].reshape(B, S, K, G, hd).transpose(0, 2, 1, 3, 4))
+    tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    parts = [
+        A.ragged_attention_reference(
+            t(qg), t(x["k"][:, :, lo:hi], tdtype), t(x["v"][:, :, lo:hi], tdtype),
+            t((starts - lo).astype(np.int32)),
+            t(np.clip(lens - lo, 0, hi - lo).astype(np.int32)),
+        )
+        for lo, hi in _split_slices(W, split)
+    ]
+    out = _fold_splits(parts)
+    ref = ragged_attention_pallas(
+        j(qg), j(x["k"], dtype), j(x["v"], dtype), j(starts), j(lens), interpret=True
+    )
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(n(a), n(b), **TOL)
+    fresh = list(lens).index(0)
+    assert np.all(n(out[0])[fresh] == 0) and np.all(n(out[1])[fresh] == -1e29)
+    assert np.all(n(out[2])[fresh] == 0)
+
+
+@pytest.mark.parametrize(
+    "groups,window",
+    [(64, 2048), (8, 2048), (128, 2048), (64, 256), (1, 8192), (2, 64), (64, 0), (4, 100)],
+)
+def test_split_plan_covers_the_window_in_whole_tiles(groups, window):
+    splits, split_pos = A.split_plan(groups, window, sms=132)
+    assert split_pos % 64 == 0 and split_pos >= 64
+    assert 1 <= splits <= 64
+    assert splits * split_pos >= window > (splits - 1) * split_pos or splits == 1
+    tiles = max(1, -(-window // 64))
+    assert split_pos // 64 >= min(4, tiles)  # a split takes four tiles where there are four
+    per = split_pos // 64
+    if 4 < per < tiles and splits < 64:  # one tile less a split would pass the aim
+        assert groups * -(-tiles // (per - 1)) > A._BLOCKS_PER_SM * 132

@@ -142,12 +142,13 @@ def test_misaligned_inputs_raise_instead_of_launching():
         A.prefill_attention(qp, k, k, pos, lens)
 
 
-def _paged_case(dev, dtype, hd, G, page, lens, wpages, seed, K=8, n_pages=200):
+def _paged_case(dev, dtype, hd, G, page, lens, wpages, seed, K=8, n_pages=200,
+                q_dtype=torch.float32):
     """A 2-layer pool of random values and block tables of shuffled page
-    ids (trash-padded past each row's pages)."""
+    ids (trash-padded past each row's pages); q in ``q_dtype``."""
     g = torch.Generator(device=dev).manual_seed(seed)
     B = len(lens)
-    q = torch.randn((B, K, G, hd), generator=g, device=dev)
+    q = torch.randn((B, K, G, hd), generator=g, device=dev).to(q_dtype)
     pool = torch.randn((2, 2, n_pages, K, page, hd), generator=g, device=dev).to(dtype)
     ids = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
     tables = torch.zeros((B, wpages + 3), dtype=torch.int32)
@@ -281,3 +282,193 @@ def test_ragged_kernels_count_and_refuse_bad_inputs():
     shifted = flat[1:].view(pk.shape)
     with pytest.raises(ValueError, match="16-byte aligned"):
         A.ragged_attention_paged(qr, shifted, shifted, 0, tables, lens_t, lens_t, wpages=4)
+
+
+# --------------------------------------------------------------------------- #
+# the split window of the decode and ragged kernels
+# --------------------------------------------------------------------------- #
+
+
+def _edges(q, kv_dtype, W):
+    """Lens on, and one either side of, the first two split boundaries the
+    kernel takes for q over a window of W, plus a full row."""
+    splits, split_pos = A.kernel_split_plan(q, kv_dtype, W)
+    assert splits > 1, "the case must cut its window"
+    return [split_pos - 1, split_pos, split_pos + 1, 2 * split_pos - 1, 2 * split_pos,
+            2 * split_pos + 1, W - 1, W]
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,G", [(128, 4), (64, 8)])
+def test_decode_kernel_at_split_boundaries(dtype, q_dtype, hd, G):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(hd + G + 1)
+    B, K, W = 8, 8, 2048
+    q = torch.randn((B, K, G, hd), generator=g, device=dev).to(q_dtype)
+    cache = torch.randn((2, B, K, W + 64, hd), generator=g, device=dev).to(dtype)
+    k, v = cache[0, :, :, :W], cache[1, :, :, :W]
+    lens = torch.tensor(_edges(q, dtype, W), dtype=torch.int32, device=dev)
+    out = A.decode_attention(q, k, v, lens)
+    ref = A.decode_attention_reference(q, k, v, lens)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, **DECODE_TOL)
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [0, 1, 130, 2000, 2048])
+def test_decode_kernel_one_row_many_splits(dtype, n):
+    """A lone agent turn: B=1 over a 2048 window, most splits past the
+    row's length (n = 0: every split but the first exits, and the row
+    still gets o = 0, m = -1e29, z = 0)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(n)
+    q = torch.randn((1, 8, 4, 128), generator=g, device=dev)
+    k = torch.randn((1, 8, 2048, 128), generator=g, device=dev).to(dtype)
+    v = torch.randn((1, 8, 2048, 128), generator=g, device=dev).to(dtype)
+    assert A.kernel_split_plan(q, dtype, 2048)[0] >= 8
+    lens = torch.tensor([n], dtype=torch.int32, device=dev)
+    out = A.decode_attention(q, k, v, lens)
+    ref = A.decode_attention_reference(q, k, v, lens)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, **DECODE_TOL)
+    if n == 0:
+        assert torch.all(out[0] == 0) and torch.all(out[1] == -1e29) and torch.all(out[2] == 0)
+
+
+def _split_ragged_rows(split_pos, S, W):
+    """(starts, kv_lens): verify rows on and beside split boundaries, a
+    fresh row, prefill-kind rows whose triangle ends mid-split or on a
+    boundary, and a prefill-kind row past the window."""
+    rows = [RG.RaggedRow(RG.KIND_VERIFY, n, S, n) for n in (split_pos - 1, split_pos, W)]
+    rows.append(RG.RaggedRow(RG.KIND_DECODE, 0, 1, 0))
+    for st in (split_pos + 7, 2 * split_pos - S, W - S - 3):
+        rows.append(RG.RaggedRow(RG.KIND_PREFILL, st, S, st + S))
+    rows.append(RG.RaggedRow(RG.KIND_PREFILL, W - 2, S, W + 5))
+    starts, _, kv_lens = RG.build_descriptors(rows)
+    return starts, kv_lens
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,G", [(128, 4), (64, 8)])
+@pytest.mark.parametrize("S", [5, 12])
+def test_ragged_kernel_at_split_boundaries(dtype, hd, G, S):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(hd + G + S)
+    B, K, W = 8, 8, 2048
+    q = torch.randn((B, K, S, G, hd), generator=g, device=dev)
+    cache = torch.randn((2, B, K, W + 64, hd), generator=g, device=dev).to(dtype)
+    k, v = cache[0, :, :, :W], cache[1, :, :, :W]
+    splits, split_pos = A.kernel_split_plan(q, dtype, W)
+    assert splits > 1
+    starts, lens = (torch.tensor(x, dtype=torch.int32, device=dev)
+                    for x in _split_ragged_rows(split_pos, S, W))
+    out = A.ragged_attention(q, k, v, starts, lens)
+    ref = A.ragged_attention_reference(q, k, v, starts, lens)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, **DECODE_TOL)
+    fresh = 3
+    assert torch.all(out[0][fresh] == 0) and torch.all(out[1][fresh] == -1e29)
+    assert torch.all(out[2][fresh] == 0)
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("q_form", ["f32", "f32 of bf16 values", "bf16"])
+@pytest.mark.parametrize("B,n", [(8, None), (1, 2000)])
+def test_ragged_kernel_q_precision(q_form, B, n):
+    """The bf16 tensor-core products hold f32 q (bits below bf16: three
+    bf16 terms), f32 q whose values are bf16 (the lower terms are zero) and
+    bf16 q (one term) to the f32 plain version at DECODE_TOL."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(B)
+    K, S, G, hd, W = 8, 5, 4, 128, 2048
+    q = torch.randn((B, K, S, G, hd), generator=g, device=dev)
+    if q_form != "f32":
+        q = q.to(torch.bfloat16)
+        if q_form == "f32 of bf16 values":
+            q = q.float()
+    k = torch.randn((B, K, W, hd), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, K, W, hd), generator=g, device=dev).to(torch.bfloat16)
+    lens_list = [n] if n is not None else [17, 300, 777, 1024, 1500, 1600, 2000, 2048]
+    lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    out = A.ragged_attention(q, k, v, lens, lens)
+    ref = A.ragged_attention_reference(q, k, v, lens, lens)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, **DECODE_TOL)
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("kernel", ["decode", "ragged", "paged_decode", "ragged_paged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_split_kernels_repeat_bitwise(kernel, dtype, q_dtype):
+    """Two launches on the same inputs give the same bits: the partials
+    fold in split order, never in the order the splits finish."""
+    dev = torch.device("cuda")
+    lens = [0, 17, 300, 777, 1024, 1500, 2000, 2048]
+    q, pk, pv, tables, lens_t = _paged_case(dev, dtype, 128, 4, 64, lens, 32, 5, n_pages=300,
+                                            q_dtype=q_dtype)
+    g = torch.Generator(device=dev).manual_seed(5)
+    qr = torch.randn((8, 8, 5, 4, 128), generator=g, device=dev).to(q_dtype)
+    kd, vd = torch.randn((2, 8, 8, 2048, 128), generator=g, device=dev).to(dtype)
+    call = {
+        "decode": lambda: A.decode_attention(q, kd, vd, lens_t),
+        "ragged": lambda: A.ragged_attention(qr, kd, vd, lens_t, lens_t),
+        "paged_decode": lambda: A.paged_decode_attention(q, pk, pv, 1, tables, lens_t, wpages=32),
+        "ragged_paged": lambda: A.ragged_attention_paged(
+            qr, pk, pv, 1, tables, lens_t, lens_t, wpages=32),
+    }[kernel]
+    first = [x.clone() for x in call()]
+    for _ in range(3):
+        for a, b in zip(first, call()):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("kind", ["decode", "verify", "prefill"])
+def test_paged_kernels_at_split_boundaries(dtype, q_dtype, page, kind):
+    """The paged twins across split boundaries, q in f32 and in bf16 (as
+    serving passes it: one q term and its own shared-memory layout, with
+    the block table staged after it)."""
+    dev = torch.device("cuda")
+    W, S, K, G, hd = 2048, 5, 8, 4, 128
+    wpages = W // page
+    probe = torch.empty((8, K, S, G, hd), device=dev) if kind != "decode" else \
+        torch.empty((8, K, G, hd), device=dev)
+    splits, split_pos = A.kernel_split_plan(probe, dtype, W)
+    assert splits > 1
+    if kind == "prefill":
+        starts, lens = _split_ragged_rows(split_pos, S, W)
+    else:
+        starts = lens = _edges(probe, dtype, W)
+    q, pk, pv, tables, _ = _paged_case(dev, dtype, hd, G, page, [min(x, W) for x in lens],
+                                       wpages, page + S, K=K, n_pages=8 * wpages + 1,
+                                       q_dtype=q_dtype)
+    starts_t = torch.tensor(starts, dtype=torch.int32, device=dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for layer in (0, 1):
+        if kind == "decode":
+            out = A.paged_decode_attention(q, pk, pv, layer, tables, lens_t, wpages=wpages)
+            ref = A.paged_decode_attention_reference(q, pk, pv, layer, tables, lens_t,
+                                                     wpages=wpages)
+        else:
+            qr = torch.randn((8, K, S, G, hd), generator=torch.Generator(device=dev).manual_seed(S),
+                             device=dev).to(q_dtype)
+            out = A.ragged_attention_paged(qr, pk, pv, layer, tables, starts_t, lens_t,
+                                           wpages=wpages)
+            ref = A.ragged_attention_paged_reference(qr, pk, pv, layer, tables, starts_t, lens_t,
+                                                     wpages=wpages)
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, **DECODE_TOL)
