@@ -1,10 +1,13 @@
-// Device helpers shared by the attention kernels that stream K/V tiles
-// through shared memory (split_attention.cuh): 16-byte cp.async copies,
-// 16-byte shared-memory loads of f32, warp reductions, and the two ways a
-// (batch row, kv head)'s positions map to cache addresses.
+// Helpers shared by the attention kernels that stream K/V tiles through
+// shared memory (split_attention.cuh, paged_attention.cuh,
+// prefill_attention.cu): 16-byte cp.async copies, 16-byte shared-memory
+// loads of f32, warp reductions, the two ways a (batch row, kv head)'s
+// positions map to cache addresses for cp.async, and the mbarrier and TMA
+// primitives with the host-side tensor-map encoder.
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap; the encoder is looked up in libcuda at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,6 +80,114 @@ struct PagedRows {
            static_cast<int64_t>(pos - p * page) * pos_stride;
   }
 };
+
+// ------------------------------------------------------- mbarriers and TMA
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of a 4-D tensor map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// one box of a 5-D tensor map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4)
+      : "memory");
+}
+
+// plain shared-memory stores, ordered before later async-proxy accesses
+// (wgmma's reads, TMA's writes) of the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up in libcuda at run time, so the library
+// links nothing beyond the CUDA runtime; null where libcuda lacks it
+inline EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                      : nullptr;
+  }();
+  return fn;
+}
+
+// the tiled tensor map of a bf16 array of RANK dims (dims[0] the unit-stride
+// axis; strides[i] the element stride of dims[i + 1]), boxes of box[] and
+// 128-byte swizzled, zeros past each extent; false where it cannot be
+// encoded.  An axis of extent 1 may carry any stride: it is given the span
+// of the axes inside it, a 16-byte multiple as the map requires.
+template <int RANK>
+bool encode_bf16_map(CUtensorMap* map, const void* base, const int64_t (&dims)[RANK],
+                     const int64_t (&strides)[RANK - 1], const uint32_t (&box)[RANK]) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  cuuint64_t d[RANK], st[RANK - 1];
+  cuuint32_t bx[RANK], unit[RANK];
+  for (int i = 0; i < RANK; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    bx[i] = box[i];
+    unit[i] = 1;
+  }
+  cuuint64_t span = d[0] * sizeof(__nv_bfloat16);
+  for (int i = 0; i < RANK - 1; ++i) {
+    st[i] = d[i + 1] == 1 ? span : static_cast<cuuint64_t>(strides[i]) * sizeof(__nv_bfloat16);
+    span = st[i] * d[i + 1];
+  }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, RANK, const_cast<void*>(base), d, st, bx,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 // above 48 KB of shared memory only after the opt-in, which holds for the
 // current device

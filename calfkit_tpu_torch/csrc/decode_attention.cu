@@ -5,8 +5,10 @@
 //   decode_attention_pallas (kernel body _decode_attn_kernel, :33), entry
 //   point calfkit_decode_attention; and pallas_attention.py:153
 //   paged_decode_attention_pallas (kernel body _paged_attn_kernel, :99),
-//   entry point calfkit_paged_decode_attention.  Both run the split-window
-//   body of split_attention.cuh.
+//   entry point calfkit_paged_decode_attention.  The dense form (and the
+//   paged one over an f32 pool) runs the split-window body of
+//   split_attention.cuh; the paged form over a bf16 pool, the serving path,
+//   runs the persistent walk of paged_attention.cuh.
 //
 // Computes, for every (batch row b, kv head k) and each of its G query heads:
 //   s[w] = (q . k[w]) * scale, masked to -1e30 where w >= base_lens[b]
@@ -53,15 +55,23 @@
 //   CUDA-core body in the same split grid, 8 query rows a block.
 // - The paged TPU kernel visits all wpages pages, but a page past
 //   ceil(len / page) adds exact zeros (scores -1e30, exp(-1e30 - m) = 0
-//   with m >= -1e29), so a block stops at the row's length; it stages only
-//   its split's block-table entries in shared memory, and each 16-byte copy
-//   works out its own page.  The dense cache is read through its strides
-//   (the engine's window view of [L, B, K, S, hd]); q is read through its
-//   strides in its own dtype.  No window is gathered, nothing is copied.
-// Left for later: TMA; CUDA graphs for the launch (the serving path is
+//   with m >= -1e29), so the kernels stop at the row's length.  The split
+//   grid sizes its splits from the window, since the host reads no length:
+//   at serving batch that left a second, partial wave of blocks and a
+//   page lookup per 16-byte copy.  So a bf16 pool is read by a persistent
+//   grid (blocks an SM x SMs) that walks a plan every block computes from
+//   the lengths: all rows' live tiles cut into equal chunks, one a block,
+//   the partials of a row cut across chunks folded in order by the last of
+//   them.  A producer warp feeds the ring (three stages) by TMA, one box a
+//   page piece, through one tensor map over the whole pool with the layer
+//   and the page id as coordinates (paged_attention.cuh).  The dense cache
+//   is read through its strides (the engine's window view of [L, B, K, S,
+//   hd]); q is read through its strides in its own dtype.  No window is
+//   gathered, nothing is copied.
+// Left for later: CUDA graphs for the launch (the serving path is
 // host-bound).
 
-#include "split_attention.cuh"
+#include "paged_attention.cuh"
 
 // q is [B, K, G, hd] through its strides (q_ss unused); o [B, K, G, hd]
 // contiguous, m and z [B, K, G]; kv_dtype and q_dtype 0 = float32, 1 =
@@ -78,22 +88,41 @@ extern "C" int calfkit_decode_attention(CALFKIT_SPLIT_PARAMS, const void* kc, co
                                         long long k_sb, long long k_sk, long long k_sw,
                                         long long v_sb, long long v_sk, long long v_sw) {
   const SplitArgs a = CALFKIT_SPLIT_ARGS(lens, lens, B, K, 1, G, W);
-  return dispatch<true>(kv_dtype, q_dtype, hd, block_rows, a,
-                        DenseSource{kc, vc, k_sb, k_sk, k_sw, v_sb, v_sk, v_sw}, 0, stream);
+  return dispatch<true, false>(kv_dtype, q_dtype, hd, block_rows, a,
+                               DenseSource{kc, vc, k_sb, k_sk, k_sw, v_sb, v_sk, v_sw}, 0, stream);
 }
 
-// The paged form: pk/pv point at one layer of the pool [L, N, K, page, hd]
-// (k_sn/k_sk/k_sp: its page, head and position strides, in elements);
-// tables is [B, table_stride] int32 with at least wpages entries a row.
-// Any page size >= 1; the same arguments and return codes as above.
+// The paged form over the pool [L, N, K, page, hd]: pk/pv point at its
+// layer `layer` (k_sn/k_sk/k_sp: its page, head and position strides, in
+// elements); tables is [B, table_stride] int32 with at least wpages entries
+// a row.  A bf16 pool takes the walk: k_map and v_map are the pool's tensor
+// maps (calfkit_pool_tensor_map), the grid is `blocks` blocks
+// (calfkit_paged_decode_blocks gives the most the card holds at once),
+// chunks of at least min_tiles tiles; po/pm/pz hold B*K + blocks partials
+// of block_rows rows and tickets B*K ints, zero; n_splits and split_pos are
+// unused; page must be a multiple of 8.  An f32 pool takes the split grid
+// as the dense form (any page size >= 1; the maps, blocks and min_tiles
+// unused).  The same return codes as above.
 extern "C" int calfkit_paged_decode_attention(
     CALFKIT_SPLIT_PARAMS, const void* pk, const void* pv, const int* tables, const int* lens,
     int B, int K, int G, int wpages, int page, long long table_stride, long long k_sn,
-    long long k_sk, long long k_sp, long long v_sn, long long v_sk, long long v_sp) {
+    long long k_sk, long long k_sp, long long v_sn, long long v_sk, long long v_sp,
+    const void* k_map, const void* v_map, int blocks, int min_tiles, int layer) {
   if (page < 1 || wpages < 0) return -1;
   const SplitArgs a = CALFKIT_SPLIT_ARGS(lens, lens, B, K, 1, G, wpages * page);
-  return dispatch<true>(
+  if (kv_dtype == 1)
+    return paged_walk<true>(q_dtype, hd, block_rows, a, k_map, v_map, blocks, min_tiles, tables,
+                            table_stride, page, layer, stream);
+  return dispatch<true, true>(
       kv_dtype, q_dtype, hd, block_rows, a,
       PagedSource{pk, pv, tables, table_stride, page, k_sn, k_sk, k_sp, v_sn, v_sk, v_sp},
       staged_entries(split_pos, page, wpages), stream);
+}
+
+// blocks of the paged decode walk (bf16 pool; q dtype, hd, query rows a
+// block) the current device holds at once; negative: a CUDA error, -1 a
+// configuration the walk does not take
+extern "C" int calfkit_paged_decode_blocks(int q_dtype, int hd, int block_rows) {
+  return walk_dispatch<true>(q_dtype, hd, block_rows, false, WalkArgs{}, nullptr, nullptr, 0,
+                             nullptr);
 }

@@ -55,10 +55,7 @@
 // float32 (or mixed) inputs keep f32 arithmetic on the CUDA cores, so an f32
 // run stays within f32 rounding of the plain attention.
 
-#include <cuda.h>  // CUtensorMap; the encoder is looked up in libcuda at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attention_common.cuh"  // to_f32, warp reductions, mbarrier and TMA helpers
 
 namespace {
 
@@ -66,22 +63,8 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;  // query rows (position x head) per block
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // --------------------------------------------------------------------------
 // f32 arithmetic on the CUDA cores (float32 or mixed q / cache types)
@@ -227,10 +210,6 @@ struct WgLayout {
       1024 + kTileBytes + kStages * kStageBytes + 2 * kStages * sizeof(uint64_t) + kRows * sizeof(int);
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // byte offset of 16-byte chunk c of row r in a [64 rows][HD] bf16 tile
 // stored as 64-column slabs, 128-byte swizzled (chunk c % 8 of a 128-byte
 // row lands at (c % 8) ^ (r % 8)): the layout TMA writes and wgmma reads
@@ -250,45 +229,6 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) { return smem_des
 // on, the next 8 positions 1 KB on
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) { return smem_desc(addr, kSlab, 1024); }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// until the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// one 64 x 64 box of a 4-D tensor map into shared memory, completing on bar
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                            int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// plain shared-memory stores, made visible to wgmma's (async proxy) reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 // a barrier of the consumer warpgroup alone (the producer warp has left)
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
@@ -630,52 +570,15 @@ int launch(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up in libcuda at run time, so the library
-// links nothing beyond the CUDA runtime; null where libcuda lacks it
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                                      : nullptr;
-  }();
-  return fn;
-}
-
 // the tensor map of a bf16 [B, K, Skv, hd] cache view (element strides sb,
 // sk, ss; unit last axis) as dims (hd, Skv, K, B): boxes of 64 columns x 64
 // positions, 128-byte swizzled, zeros past Skv
 bool encode_kv_map(CUtensorMap* map, const void* base, int B, int K, int Skv, int hd, int64_t sb,
                    int64_t sk, int64_t ss) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(max(Skv, 1)),
-                              static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(B)};
-  const int64_t given[3] = {ss, sk, sb};
-  // an axis of extent 1 may carry any stride: give it the span of the axes
-  // inside it, a 16-byte multiple as the map requires
-  cuuint64_t strides[3];
-  cuuint64_t span = dims[0] * sizeof(bf16);
-  for (int i = 0; i < 3; ++i) {
-    strides[i] = dims[i + 1] == 1 ? span : static_cast<cuuint64_t>(given[i]) * sizeof(bf16);
-    span = strides[i] * dims[i + 1];
-  }
-  const cuuint32_t box[4] = {64, kKvTile, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const int64_t dims[4] = {hd, max(Skv, 1), K, B};
+  const int64_t strides[3] = {ss, sk, sb};
+  const uint32_t box[4] = {64, kKvTile, 1, 1};
+  return encode_bf16_map(map, base, dims, strides, box);
 }
 
 constexpr int kMapRefused = -2;

@@ -7,8 +7,10 @@
 //   ragged_attention_pallas (kernel body _ragged_attn_kernel, :298), entry
 //   point calfkit_ragged_attention; and pallas_attention.py:467
 //   ragged_attention_paged_pallas (kernel body _ragged_paged_attn_kernel,
-//   :413), entry point calfkit_ragged_paged_attention.  Both run the
-//   split-window body of split_attention.cuh.
+//   :413), entry point calfkit_ragged_paged_attention.  The dense form (and
+//   the paged one over an f32 pool) runs the split-window body of
+//   split_attention.cuh; the paged form over a bf16 pool runs the
+//   persistent walk of paged_attention.cuh.
 //
 // Computes, for every (batch row b, kv head k) and each of its S*G queries,
 // flattened as r = j * G + g (query j of the row, query head g of the group):
@@ -64,15 +66,17 @@
 //   and rescale by exp(0) = 1, so stopping early, and cutting the window
 //   into splits, give the same (o, m, z) as visiting the whole window.
 //   Rows with nothing to see write o = 0, m = -1e29, z = 0.
-// - Both forms read K/V in place through strides: the dense window view of
-//   [L, B, K, S, hd]; a layer of the paged pool, each block staging only
-//   its split's block-table entries in shared memory (pages past the stop,
-//   the trash page among them, are never read).  q is read through its
+// - The dense form reads K/V in place through the window view of [L, B,
+//   K, S, hd]'s strides.  A bf16 pool is walked by a persistent,
+//   length-balanced grid fed page by page by TMA, as the paged decode
+//   kernel's (paged_attention.cuh; 32 query rows a block there take four
+//   stages and one block an SM); pages past the stop, the trash page among
+//   them, are never read.  An f32 pool keeps the split grid, each block
+//   staging its split's block-table entries.  q is read through its
 //   strides in its own dtype: the verify's [B, S, K, G, hd] queries are
 //   not copied.
-// Left for later: TMA; a paged path that needs no per-copy page lookup.
 
-#include "split_attention.cuh"
+#include "paged_attention.cuh"
 
 // q is [B, K, S, G, hd] through its strides; o [B, K, S, G, hd] contiguous,
 // m and z [B, K, S, G]; kv_dtype and q_dtype 0 = float32, 1 = bfloat16;
@@ -90,23 +94,36 @@ extern "C" int calfkit_ragged_attention(CALFKIT_SPLIT_PARAMS, const void* kc, co
                                         long long k_sw, long long v_sb, long long v_sk,
                                         long long v_sw) {
   const SplitArgs a = CALFKIT_SPLIT_ARGS(starts, lens, B, K, S, G, W);
-  return dispatch<false>(kv_dtype, q_dtype, hd, block_rows, a,
-                         DenseSource{kc, vc, k_sb, k_sk, k_sw, v_sb, v_sk, v_sw}, 0, stream);
+  return dispatch<false, false>(kv_dtype, q_dtype, hd, block_rows, a,
+                                DenseSource{kc, vc, k_sb, k_sk, k_sw, v_sb, v_sk, v_sw}, 0, stream);
 }
 
-// The paged form: pk/pv point at one layer of the pool [L, N, K, page, hd]
-// (k_sn/k_sk/k_sp: its page, head and position strides, in elements);
-// tables is [B, table_stride] int32 with at least wpages entries a row.
-// Any page size >= 1; the same arguments and return codes as above.
+// The paged form over the pool [L, N, K, page, hd]: pk/pv point at its
+// layer `layer` (k_sn/k_sk/k_sp: its page, head and position strides, in
+// elements); tables is [B, table_stride] int32 with at least wpages entries
+// a row.  A bf16 pool takes the walk, an f32 pool the split grid, with the
+// arguments of calfkit_paged_decode_attention (partials and tickets counted
+// in units of B*K*ceil(S*G / block_rows)).  The same return codes as above.
 extern "C" int calfkit_ragged_paged_attention(
     CALFKIT_SPLIT_PARAMS, const void* pk, const void* pv, const int* tables, const int* starts,
     const int* lens, int B, int K, int S, int G, int wpages, int page, long long table_stride,
     long long k_sn, long long k_sk, long long k_sp, long long v_sn, long long v_sk,
-    long long v_sp) {
+    long long v_sp, const void* k_map, const void* v_map, int blocks, int min_tiles, int layer) {
   if (page < 1 || wpages < 0) return -1;
   const SplitArgs a = CALFKIT_SPLIT_ARGS(starts, lens, B, K, S, G, wpages * page);
-  return dispatch<false>(
+  if (kv_dtype == 1)
+    return paged_walk<false>(q_dtype, hd, block_rows, a, k_map, v_map, blocks, min_tiles, tables,
+                             table_stride, page, layer, stream);
+  return dispatch<false, true>(
       kv_dtype, q_dtype, hd, block_rows, a,
       PagedSource{pk, pv, tables, table_stride, page, k_sn, k_sk, k_sp, v_sn, v_sk, v_sp},
       staged_entries(split_pos, page, wpages), stream);
+}
+
+// blocks of the paged ragged walk (bf16 pool; q dtype, hd, query rows a
+// block: 16 or 32) the current device holds at once; negative: a CUDA
+// error, -1 a configuration the walk does not take
+extern "C" int calfkit_ragged_paged_blocks(int q_dtype, int hd, int block_rows) {
+  return walk_dispatch<false>(q_dtype, hd, block_rows, false, WalkArgs{}, nullptr, nullptr, 0,
+                              nullptr);
 }

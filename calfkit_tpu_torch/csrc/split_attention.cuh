@@ -1,6 +1,8 @@
 // The split-window attention body shared by the decode kernels
 // (decode_attention.cu) and the ragged multi-query kernels
-// (ragged_attention.cu), dense window and paged pool alike.
+// (ragged_attention.cu) over the dense window, and by their paged forms over
+// f32 pools (bf16 pools take the walk of paged_attention.cuh, which runs
+// TcBody's products).
 //
 // A launch computes, for every (batch row b, kv head k) and each of its S*G
 // query rows r = j * G + g (query j of the row, query head g of the group):
@@ -676,7 +678,7 @@ struct DenseSource {
   }
 };
 
-// one layer of the paged pool [N, K, page, HD] (page, head and position
+// one layer of an f32 paged pool [N, K, page, HD] (page, head and position
 // strides) read through block tables [B, table_stride]; the block stages
 // the table entries of its split's positions lo .. hi - 1 only
 struct PagedSource {
@@ -758,10 +760,11 @@ int launch_rows(const SplitArgs& a, int block_rows, const Source& src, int stage
   return -1;
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Returns 0 on success, the CUDA
-// error code of a refused launch, or -1 for a shape, type or split plan the
-// kernels do not take.
-template <bool kDecode, typename Source>
+// dtype codes: 0 = float32, 1 = bfloat16; kF32Only: f32 caches only (the
+// paged forms, whose bf16 pools take the walk).  Returns 0 on success, the
+// CUDA error code of a refused launch, or -1 for a shape, type or split
+// plan the kernels do not take.
+template <bool kDecode, bool kF32Only, typename Source>
 int dispatch(int kv_dtype, int q_dtype, int hd, int block_rows, const SplitArgs& a,
              const Source& src, int staged, void* stream) {
   if (a.G < 1 || a.S < 1 || a.B < 0 || a.K < 0 || a.window < 0) return -1;
@@ -776,10 +779,12 @@ int dispatch(int kv_dtype, int q_dtype, int hd, int block_rows, const SplitArgs&
 #define CALFKIT_SPLIT(KV, Q, T, TQ, HD)                                        \
   if (kv_dtype == KV && q_dtype == Q && hd == HD)                              \
     return launch_rows<T, TQ, HD, kDecode>(a, block_rows, src, staged, s);
-  CALFKIT_SPLIT(1, 1, bf, bf, 128)
-  CALFKIT_SPLIT(1, 0, bf, float, 128)
-  CALFKIT_SPLIT(1, 1, bf, bf, 64)
-  CALFKIT_SPLIT(1, 0, bf, float, 64)
+  if constexpr (!kF32Only) {
+    CALFKIT_SPLIT(1, 1, bf, bf, 128)
+    CALFKIT_SPLIT(1, 0, bf, float, 128)
+    CALFKIT_SPLIT(1, 1, bf, bf, 64)
+    CALFKIT_SPLIT(1, 0, bf, float, 64)
+  }
   CALFKIT_SPLIT(0, 1, float, bf, 128)
   CALFKIT_SPLIT(0, 0, float, float, 128)
   CALFKIT_SPLIT(0, 1, float, bf, 64)

@@ -28,6 +28,7 @@ counts kernel launches, so a run can show it went through the kernels.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -76,15 +77,20 @@ def _check_kv(name: str, k_cache: torch.Tensor, v_cache: torch.Tensor) -> None:
         raise ValueError(f"{name}: K/V head_dim must be the unit-stride axis")
 
 
+def _aligned16(t: torch.Tensor) -> bool:
+    """Its address and every stride (of an axis longer than 1, but the last)
+    a multiple of 16 bytes."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and not any(
+        stride * size % 16 for stride, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1
+    )
+
+
 def _check_aligned16(name: str, *tensors: torch.Tensor) -> None:
     """The kernels copy 16 bytes at a time: every address and every stride
     (of an axis longer than 1) must be a multiple of 16 bytes."""
-    for t in tensors:
-        size = t.element_size()
-        if t.data_ptr() % 16 or any(
-            stride * size % 16 for stride, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1
-        ):
-            raise ValueError(f"{name}: tensors must be 16-byte aligned in address and strides")
+    if not all(_aligned16(t) for t in tensors):
+        raise ValueError(f"{name}: tensors must be 16-byte aligned in address and strides")
 
 
 _STATUS = {-1: "shape or type not supported", -2: "a TMA tensor map could not be encoded"}
@@ -131,19 +137,24 @@ def split_plan(groups: int, window: int, sms: int) -> tuple[int, int]:
     return -(-tiles // per), per * _TILE
 
 
+def _block_rows(SG: int, kv_dtype: torch.dtype) -> int:
+    """The query rows a block of the split or walk kernels takes for S*G
+    rows a (row, kv head): one tile of 16 (bf16 caches) or 8 (f32) where
+    S*G fits it, else tiles of 32; the kernels take the rows they are given
+    and refuse any other count."""
+    rows = 16 if kv_dtype == torch.bfloat16 else 8
+    return rows if SG <= rows else 32
+
+
 def _block_plan(
     q: torch.Tensor, kv_dtype: torch.dtype, window: int
 ) -> tuple[int, int, int]:
     """→ (query rows a block, splits, positions a split) for a launch of
-    the decode ([B, K, G, hd] q) or ragged ([B, K, S, G, hd] q) kernel on
-    q's card over ``window`` positions.  A block takes one tile of 16 query
-    rows (bf16 caches) or 8 (f32) where S*G fits it, else tiles of 32; the
-    kernels take the rows they are given and refuse any other count."""
+    the decode ([B, K, G, hd] q) or ragged ([B, K, S, G, hd] q) split
+    kernel on q's card over ``window`` positions."""
     B, K = q.shape[:2]
     SG = math.prod(q.shape[2:-1])
-    block_rows = 16 if kv_dtype == torch.bfloat16 else 8
-    if SG > block_rows:
-        block_rows = 32
+    block_rows = _block_rows(SG, kv_dtype)
     groups = B * K * -(-SG // block_rows)
     return (block_rows, *split_plan(groups, window, _sm_count(q.device.index)))
 
@@ -156,9 +167,123 @@ def kernel_split_plan(
     return _block_plan(q, kv_dtype, window)[1:]
 
 
-# per (device, stream): the split kernels' tickets, zero between launches
-# (the last block of each query tile resets its own); launches on one
-# stream are ordered, so they share one buffer
+# --------------------------------------------------------------------------- #
+# the paged walk (bf16 pools; csrc/paged_attention.cuh)
+# --------------------------------------------------------------------------- #
+
+_MIN_CHUNK_TILES = 4  # the least tiles a chunk of the walk, where there are enough
+
+
+def walk_unit_tiles(
+    starts: "list[int]", lens: "list[int]", K: int, S: int, G: int, block_rows: int,
+    window: int, tile: int = _TILE,
+) -> "list[int]":
+    """The tiles of each unit of the paged walk (a row, kv head and query
+    tile of ``block_rows`` rows), in its order u = (b * K + k) * qtiles +
+    qt: ceil(stop / tile) with stop = min(kv_len, start + j_last + 1), the
+    positions the tile's last query sees (kv_len clamped to the window),
+    and at least one, so that a unit that sees nothing still has a writer."""
+    SG = S * G
+    qtiles = -(-SG // block_rows)
+    out = []
+    for start, n in zip(starts, lens):
+        kv_len = max(0, min(n, window))
+        per_head = []
+        for qt in range(qtiles):
+            j_last = (min(block_rows, SG - qt * block_rows) + qt * block_rows - 1) // G
+            stop = max(0, min(kv_len, start + j_last + 1))
+            per_head.append(max(1, -(-stop // tile)))
+        out += per_head * K
+    return out
+
+
+def walk_plan(
+    unit_tiles: "list[int]", blocks: int, min_tiles: int = _MIN_CHUNK_TILES
+) -> "list[list[tuple[int, int, int, int, int]]]":
+    """The plan every block of the paged walk computes on the card
+    (``paged_walk_attn_kernel``, ``csrc/paged_attention.cuh``): the T tiles
+    of all units, in unit order, cut into C = min(blocks, max(1, T //
+    min_tiles)) chunks, chunk c the tiles [c T // C, (c + 1) T // C), one a
+    block → for each chunk its segments, each (unit, first tile, end tile
+    within the unit, partial id u + c, segments of the unit).  A unit of
+    one segment is written by that block; the segments of any other write
+    their partials at their ids and the last of them folds them in order."""
+    T = sum(unit_tiles)
+    C = min(blocks, max(1, T // min_tiles))
+    starts = [0]
+    for n in unit_tiles:
+        starts.append(starts[-1] + n)
+
+    def chunk_of(t: int) -> int:
+        return ((t + 1) * C - 1) // T
+
+    plan = []
+    u = 0
+    for c in range(C):
+        lo, hi = c * T // C, (c + 1) * T // C
+        segments = []
+        while starts[u + 1] <= lo:
+            u += 1
+        pos = lo
+        while pos < hi:
+            end = min(hi, starts[u + 1])
+            n_seg = chunk_of(starts[u + 1] - 1) - chunk_of(starts[u]) + 1
+            segments.append((u, pos - starts[u], end - starts[u], u + c, n_seg))
+            pos = end
+            if end == starts[u + 1]:
+                u += 1
+        plan.append(segments)
+    return plan
+
+
+def walk_scratch(units: int, blocks: int) -> int:
+    """Partials the walk may write: its ids u + c lie below units + blocks,
+    a bound that needs no lengths."""
+    return units + blocks
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_blocks(name: str, index: int, q_code: int, hd: int, block_rows: int) -> int:
+    """The blocks of the paged walk kernel ``name`` that card ``index`` holds
+    at once (blocks an SM, by the kernel's registers and shared memory, x
+    SMs): its persistent grid."""
+    with torch.cuda.device(index):
+        blocks = kernels.function(f"{name}_blocks")(q_code, hd, block_rows)
+    if blocks < 1:
+        _check_status(name, blocks or -1)
+    return blocks
+
+
+# the tensor maps of bf16 pools, by (card, address, shape, strides, dtype):
+# the pool never moves, so a map stays right for every later launch (and
+# for a launch captured into a CUDA graph); a map depends on nothing but its
+# key, so a pool freed and re-allocated at the same address with the same
+# geometry gets the same bytes, and one with another geometry another key
+_pool_maps: dict[tuple, ctypes.Array] = {}
+_MAX_POOL_MAPS = 64
+
+
+def _pool_map(name: str, pool: torch.Tensor) -> int:
+    """→ the host address of ``pool``'s tensor map (128 bytes), encoded at
+    first use."""
+    key = (pool.device.index, pool.data_ptr(), tuple(pool.shape), pool.stride(), pool.dtype)
+    buf = _pool_maps.get(key)
+    if buf is None:
+        if len(_pool_maps) >= _MAX_POOL_MAPS:
+            _pool_maps.clear()
+        buf = ctypes.create_string_buffer(128)
+        L, N, K, page, hd = pool.shape
+        st = pool.stride()
+        _check_status(name, kernels.function("pool_tensor_map")(
+            ctypes.addressof(buf), pool.data_ptr(), L, N, K, page, hd, st[0], st[1], st[2], st[3],
+        ))
+        _pool_maps[key] = buf
+    return ctypes.addressof(buf)
+
+
+# per (device, stream): the split and walk kernels' tickets, zero between
+# launches (the last block of each query tile resets its own); launches on
+# one stream are ordered, so they share one buffer
 _tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
@@ -171,24 +296,48 @@ def _ticket_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def _launch_stats(
-    name: str, fn, q: torch.Tensor, kv_dtype: torch.dtype, window: int, source: tuple
+    name: str, fn, q: torch.Tensor, kv_dtype: torch.dtype, window: int, source: tuple,
+    pools: "tuple[torch.Tensor, torch.Tensor, int] | None" = None,
 ) -> tuple:
-    """The launch of the split-window kernels (decode and ragged), which
-    return (o, m, z) statistics: q ([B, K, G, hd] or [B, K, S, G, hd]) is
-    read in its own dtype through its strides; three fresh f32 outputs and,
-    when the window takes more than one split, f32 partials for the fold
-    → (o shaped like q, m and z shaped like q[..., 0]).  ``source`` is the
-    entry point's own arguments after the shared ones."""
+    """The launch of the split-window and walk kernels (decode and ragged),
+    which return (o, m, z) statistics: q ([B, K, G, hd] or [B, K, S, G,
+    hd]) is read in its own dtype through its strides (copied first only
+    where the walk's 16-byte loads cannot read it in place); three fresh f32
+    outputs and, where the window may take more than one block, f32
+    partials for the fold → (o shaped like q, m and z shaped like q[...,
+    0]).  ``source`` is the entry point's own arguments after the shared
+    ones; ``pools`` (pool_k, pool_v, layer) marks a paged form, whose bf16
+    pools take the walk and whose walk arguments are appended."""
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: q dtype {q.dtype} not supported")
     if q.stride(-1) != 1:
         q = q.contiguous()
+    walk = pools is not None and kv_dtype == torch.bfloat16
+    if walk and not _aligned16(q):  # the walk reads q 16 bytes at a time: a fresh copy
+        q = q.clone(memory_format=torch.contiguous_format)
     q5 = q if q.dim() == 5 else q[:, :, None]
     B, K, S, G, hd = q5.shape
     rows = B * K * S * G
-    block_rows, n_splits, split_pos = _block_plan(q, kv_dtype, window)
-    # one allocation for o, m and z, one for the partials [n_splits, rows, hd]
-    # and their m and z [n_splits, rows]: the serving path is host-bound
+    extra: tuple = ()
+    if walk:
+        block_rows = _block_rows(S * G, kv_dtype)
+        units = B * K * -(-S * G // block_rows)
+        # the persistent grid, no larger than the window could give chunks
+        blocks = min(
+            _walk_blocks(name, q.device.index, _DTYPE_CODES[q.dtype], hd, block_rows),
+            max(1, units * -(-window // _TILE) // _MIN_CHUNK_TILES),
+        )
+        part_rows, n_splits, split_pos = walk_scratch(units, blocks) * block_rows, 0, 0
+        extra = (_pool_map(name, pools[0]), _pool_map(name, pools[1]), blocks,
+                 _MIN_CHUNK_TILES, pools[2])
+    else:
+        block_rows, n_splits, split_pos = _block_plan(q, kv_dtype, window)
+        units = B * K * -(-S * G // block_rows)
+        part_rows = n_splits * rows if n_splits > 1 else 0
+        if pools is not None:  # an f32 pool: the split grid, no maps
+            extra = (None, None, 0, 0, pools[2])
+    # one allocation for o, m and z, one for the partials [part_rows, hd]
+    # and their m and z [part_rows]: the serving path is host-bound
     out = torch.empty(rows * (hd + 2), dtype=torch.float32, device=q.device)
     o = out[:rows * hd].view(q.shape)
     m = out[rows * hd:rows * (hd + 1)].view(q.shape[:-1])
@@ -196,21 +345,29 @@ def _launch_stats(
     with torch.cuda.device(q.device):  # the launching thread's current device
         stream = torch.cuda.current_stream(q.device).cuda_stream
         scratch = (None, None, None, None)
-        if n_splits > 1:
-            part = torch.empty(n_splits * rows * (hd + 2), dtype=torch.float32, device=q.device)
+        if part_rows:
+            part = torch.empty(part_rows * (hd + 2), dtype=torch.float32, device=q.device)
             po = part.data_ptr()
-            pm = po + 4 * n_splits * rows * hd
-            tickets = _ticket_buffer(q.device, stream, B * K * -(-S * G // block_rows))
-            scratch = (po, pm, pm + 4 * n_splits * rows, tickets.data_ptr())
+            pm = po + 4 * part_rows * hd
+            tickets = _ticket_buffer(q.device, stream, units)
+            scratch = (po, pm, pm + 4 * part_rows, tickets.data_ptr())
         qs = q5.stride()
         status = fn(
             _DTYPE_CODES[kv_dtype], _DTYPE_CODES[q.dtype], hd, block_rows, q5.data_ptr(),
             qs[0], qs[1], qs[2], qs[3], o.data_ptr(), m.data_ptr(), z.data_ptr(), *scratch,
-            n_splits, split_pos, 1.0 / math.sqrt(hd), stream, *source,
+            n_splits, split_pos, 1.0 / math.sqrt(hd), stream, *source, *extra,
         )
     _check_status(name, status)
     launch_counts[name] += 1
     return o, m, z
+
+
+def _check_pool_page(name: str, pool: torch.Tensor) -> None:
+    """A bf16 pool is read by TMA boxes of gcd(page, 64) positions, each
+    starting on a 1 KB boundary of the swizzled tile: page a multiple of 8."""
+    page = pool.shape[3]
+    if pool.dtype == torch.bfloat16 and page % 8:
+        raise ValueError(f"{name}: a bf16 pool's page size must be a multiple of 8 (got {page})")
 
 
 # --------------------------------------------------------------------------- #
@@ -354,8 +511,10 @@ def paged_decode_attention(
     the window of ``wpages`` pages that ``tables[b]`` names in layer
     ``layer`` of the pool → (o f32 unnormalized, m, z).
 
-    On CUDA the kernel reads each page in place through the block table:
-    the layer is a strided view of the pool and no window is gathered."""
+    On CUDA the kernel reads each page in place through the block table: a
+    bf16 pool by TMA through one tensor map of the whole pool (its page size
+    a multiple of 8), the layer and the page as coordinates; no window is
+    gathered."""
     if _on_cpu(q, pool_k, pool_v, tables, base_lens):
         return paged_decode_attention_reference(
             q, pool_k, pool_v, layer, tables, base_lens, wpages=wpages
@@ -380,6 +539,7 @@ def paged_decode_attention(
         raise ValueError(f"paged_decode_attention: hd={hd}, G={G} not supported")
     k_layer, v_layer = pool_k[layer], pool_v[layer]  # views: nothing is copied
     _check_aligned16("paged_decode_attention", k_layer, v_layer)
+    _check_pool_page("paged_decode_attention", pool_k)
     tab = tables.to(torch.int32).contiguous()
     lens = base_lens.to(torch.int32).contiguous()
     ks, vs = k_layer.stride(), v_layer.stride()
@@ -388,6 +548,7 @@ def paged_decode_attention(
         wpages * page,
         (k_layer.data_ptr(), v_layer.data_ptr(), tab.data_ptr(), lens.data_ptr(),
          B, K, G, wpages, page, tab.stride(0), ks[0], ks[1], ks[2], vs[0], vs[1], vs[2]),
+        pools=(pool_k, pool_v, layer),
     )
 
 
@@ -590,7 +751,8 @@ def ragged_attention_paged(
     """Paged ragged attention, the contract of :func:`ragged_attention` over
     the window of ``wpages`` pages that ``tables[b]`` names in layer
     ``layer`` of the pool → (o, m, z).  On CUDA the kernel reads each page
-    in place through the block table; no window is gathered."""
+    in place through the block table, as :func:`paged_decode_attention`'s
+    does; no window is gathered."""
     if _on_cpu(q, pool_k, pool_v, tables, q_starts, kv_lens):
         return ragged_attention_paged_reference(
             q, pool_k, pool_v, layer, tables, q_starts, kv_lens, wpages=wpages
@@ -609,6 +771,7 @@ def ragged_attention_paged(
         )
     k_layer, v_layer = pool_k[layer], pool_v[layer]  # views: nothing is copied
     _check_aligned16(name, k_layer, v_layer)
+    _check_pool_page(name, pool_k)
     tab = tables.to(torch.int32).contiguous()
     starts = q_starts.to(torch.int32).contiguous()
     lens = kv_lens.to(torch.int32).contiguous()
@@ -618,6 +781,7 @@ def ragged_attention_paged(
         (k_layer.data_ptr(), v_layer.data_ptr(), tab.data_ptr(), starts.data_ptr(),
          lens.data_ptr(), B, K, S, G, wpages, page, tab.stride(0),
          ks[0], ks[1], ks[2], vs[0], vs[1], vs[2]),
+        pools=(pool_k, pool_v, layer),
     )
 
 

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-Each ``csrc/<source>.cu`` exports plain C functions (one per kernel, listed
-in :data:`SIGNATURES`; the ``*.cuh`` headers hold device code they share)
+Each ``csrc/<source>.cu`` exports plain C functions (one per kernel, and
+the helpers their wrappers call, listed in :data:`SIGNATURES`; the ``*.cuh``
+headers hold device code they share)
 and is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library under ``_build/`` (listed in ``.gitignore``), then
 loaded with ``ctypes``.  Nothing is built
@@ -41,7 +42,11 @@ _F = ctypes.c_float
 # scale; the stream
 _SPLIT = [_I, _I, _I, _I, _P, _L, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P]
 
-# kernel → (the source that exports it, its C symbol, its C signature)
+# the paged forms' own arguments after their strides: the pool's K and V
+# tensor maps, the walk's blocks and least tiles a chunk, the layer
+_WALK = [_P, _P, _I, _I, _I]
+
+# entry point → (the source that exports it, its C symbol, its C signature)
 SIGNATURES: dict[str, tuple[str, str, list]] = {
     "decode_attention": (
         "decode_attention", "calfkit_decode_attention",
@@ -49,7 +54,16 @@ SIGNATURES: dict[str, tuple[str, str, list]] = {
     ),
     "paged_decode_attention": (
         "decode_attention", "calfkit_paged_decode_attention",
-        [*_SPLIT, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L],
+        [*_SPLIT, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, *_WALK],
+    ),
+    # the blocks of the paged walk the card holds at once (q dtype, hd, query rows a block)
+    "paged_decode_attention_blocks": (
+        "decode_attention", "calfkit_paged_decode_blocks", [_I, _I, _I],
+    ),
+    # the tensor map of a bf16 pool [L, N, K, page, hd] (out, base, dims, strides)
+    "pool_tensor_map": (
+        "decode_attention", "calfkit_pool_tensor_map",
+        [_P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L],
     ),
     "prefill_attention": (
         "prefill_attention", "calfkit_prefill_attention",
@@ -62,7 +76,11 @@ SIGNATURES: dict[str, tuple[str, str, list]] = {
     ),
     "ragged_attention_paged": (
         "ragged_attention", "calfkit_ragged_paged_attention",
-        [*_SPLIT, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L],
+        [*_SPLIT, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
+         *_WALK],
+    ),
+    "ragged_attention_paged_blocks": (
+        "ragged_attention", "calfkit_ragged_paged_blocks", [_I, _I, _I],
     ),
 }
 

@@ -35,7 +35,8 @@ the final ``ok`` line is never printed:
    2 unrelated prompts; the paged decode and prefill kernels run (counts
    reset just before, read just after), the second burst reuses the prefix
    pages, and after ``stop()`` every page is free or cached; it prints the
-   prefill kernel's launches tallied by (B, Sq, Skv);
+   prefill kernel's launches tallied by (B, Sq, Skv) and the paged decode
+   kernel's by (B, wpages);
 6. speculative serving phases, the same model: the paged phase again with
    ``SpecConfig(k=4)`` and the target's own weights as the draft model
    (every verify through the paged ragged kernel, no decode kernel), then
@@ -43,10 +44,10 @@ the final ``ok`` line is never printed:
    verify through the dense ragged kernel); each prints TTFT, tokens/s, the
    acceptance rate, tokens per verify dispatch and the ragged launches
    tallied by shape (B, S, window);
-7. each ragged kernel against its plain version again, at the shape its
-   speculative phase launched most, with the kv lengths of that shape's
-   last launch and q in bf16, as serving passes it: the case the
-   ``kernels`` line reports.
+7. the paged decode kernel and each ragged kernel against its plain
+   version again, at the shape its serving phase launched most, with the kv
+   lengths of that shape's last launch and q in bf16, as serving passes it:
+   the case the ``kernels`` line reports.
 
 The kernel phase also holds the ragged multi-query kernels (speculative
 verify shapes S = 5, a mixed-row case with prefill-kind and fresh rows, page
@@ -55,8 +56,12 @@ split-window decode and ragged kernels are judged on from tree to tree: the
 dense spec phase's path shape (B=8, S=5, W=2048 at ``PATH_LENS``) and a lone
 agent turn (B=1, len 2000 of a 2048 window), each with f32 q and with q in
 bf16 as serving passes it.  The decode kernels and the paged ragged kernel
-are also held at their serving shapes with bf16 q; the ``kernels`` line
-reports the decode kernels there.  The exactness phase serves the
+are also held at their serving shapes with bf16 q (the ``kernels`` line
+reports the dense decode kernel there), and the paged kernels at their
+serving paths' shapes (``PAGED_PATH_LENS``, ``SPEC_PAGED_PATH_LENS``: fixed
+copies of a run's, so two trees are timed on the same inputs) and at
+skewed batches (``WALK_LENS``), which their walk balances by length.  The
+exactness phase serves the
 dense and the paged+prefix configurations again with speculation on (draft
 model = target), whose streams must equal the spec-off streams.
 
@@ -223,9 +228,10 @@ def _shuffled_pool(dev, dtype, g, K, hd, page, lens, wpages, seed):
 
 
 def paged_decode_case(dev, dtype, B, K, G, hd, page, lens, wpages, seed, layer=1,
-                      q_dtype=torch.float32):
+                      q_dtype=torch.float32, rows=None):
     """The paged kernel on a shuffled 2-layer pool, at layer 1; q in
-    ``q_dtype``, as :func:`decode_case`."""
+    ``q_dtype``, as :func:`decode_case`; ``rows`` labels the row lengths
+    where they are not ``PAGED_LENS``."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, K, G, hd), generator=g, device=dev).to(q_dtype)
     pool_k, pool_v, tables, n_pages = _shuffled_pool(dev, dtype, g, K, hd, page, lens, wpages, seed)
@@ -263,6 +269,8 @@ def paged_decode_case(dev, dtype, B, K, G, hd, page, lens, wpages, seed, layer=1
     kw, vw = gather()
     shape = dict(B=B, K=K, G=G, hd=hd, page=page, wpages=wpages, pool_pages=n_pages,
                  dtype=str(dtype))
+    if rows:
+        shape["rows"] = rows
     if q_dtype != torch.float32:
         shape["q_dtype"] = str(q_dtype)
     return dict(
@@ -468,18 +476,26 @@ PAGED_LENS = [0, 17, 100, 255, 256, 300, 511, 640, 777, 1024, 1300, 1500, 1600, 
 # the dense spec serving phase's most launched ragged shape (B=8, S=5,
 # W=2048): the kv lengths of its last launch in one run of the phase
 PATH_LENS = [0, 0, 1530, 1130, 725, 509, 155, 48]
+# the paged serving phase's most launched paged decode shape (B=16,
+# wpages=32) and the spec paged phase's most launched verify shape (B=16,
+# S=5, wpages=32): the kv lengths of their last launch in one run of each
+PAGED_PATH_LENS = [0, 0, 0, 0, 0, 0, 724, 57, 1452, 1382, 1272, 1192, 1472, 1402, 1322, 1172]
+SPEC_PAGED_PATH_LENS = [0, 0, 0, 0, 0, 0, 732, 62, 1446, 1380, 1267, 1190, 1472, 1403, 1322,
+                        1174]
+# skewed batches of the paged kernels, which the walk balances across
+# blocks by their lengths: one long row and fifteen empty ones, every row
+# full, a lone agent turn
+WALK_LENS = {"one long, 15 empty": [2048] + [0] * 15, "all full": [2048] * 16,
+             "one row": [2000]}
 # the case of each kernel that the line of ``kernels`` reports: the dense
-# decode kernel at the dense serving phase's batch and window; the paged
-# decode kernel and the prefill kernel at the paged serving phase's decode
-# batch and last chunk of a 1536-token bucket; the decode kernels with q in
-# the model's dtype, as serving passes it.  The ragged kernels' cases are
-# made after their speculative phases, at the shape those phases launched
-# most (:func:`path_case`).
+# decode kernel at the dense serving phase's batch and window, with q in the
+# model's dtype, as serving passes it; the prefill kernel at the paged
+# serving phase's last chunk of a 1536-token bucket.  The paged decode
+# kernel's and the ragged kernels' cases are made after their serving
+# phases, at the shape those phases launched most (:func:`path_case`).
 MAIN_SHAPES = {
     "decode_attention": dict(B=8, K=8, G=4, hd=128, W=2048, dtype="torch.bfloat16",
                              q_dtype="torch.bfloat16"),
-    "paged_decode_attention": dict(B=16, K=8, G=4, hd=128, page=64, wpages=32, pool_pages=513,
-                                   dtype="torch.bfloat16", q_dtype="torch.bfloat16"),
     "prefill_attention": dict(R=4, S=512, q_pos0=1024, Skv=1536, H=32, K=8, hd=128,
                               dtype="torch.bfloat16"),
 }
@@ -558,6 +574,21 @@ def kernel_plan() -> "list[tuple[str, object, tuple]]":
         plan.append(("ragged_attention_paged", ragged_paged_case,
                      (torch.bfloat16, 16, 8, 5, 4, 128, page, PAGED_LENS, 2048 // page, seed, 1,
                       None, torch.bfloat16)))
+    # the paged kernels at their serving paths' shapes and at skewed
+    # batches, q in the model's dtype
+    plan.append(("paged_decode_attention", paged_decode_case,
+                 (torch.bfloat16, 16, 8, 4, 128, 64, PAGED_PATH_LENS, 32, 42, 1, torch.bfloat16,
+                  "paged path")))
+    plan.append(("ragged_attention_paged", ragged_paged_case,
+                 (torch.bfloat16, 16, 8, 5, 4, 128, 64, SPEC_PAGED_PATH_LENS, 32, 43, 1,
+                  "spec paged path", torch.bfloat16)))
+    for i, (label, lens) in enumerate(WALK_LENS.items()):
+        plan.append(("paged_decode_attention", paged_decode_case,
+                     (torch.bfloat16, len(lens), 8, 4, 128, 64, lens, 32, 50 + i, 1,
+                      torch.bfloat16, label)))
+        plan.append(("ragged_attention_paged", ragged_paged_case,
+                     (torch.bfloat16, len(lens), 8, 5, 4, 128, 64, lens, 32, 60 + i, 1, label,
+                      torch.bfloat16)))
     return plan
 
 
@@ -623,6 +654,13 @@ def verify_shapes(name: str):
     return _tally(name, lambda q, args, kw: (q.shape[0], q.shape[2], args[0].shape[2]))
 
 
+def decode_shapes():
+    """Tally the paged decode wrapper's calls by (B, 1, wpages), as
+    :func:`_tally` does; ``merged_paged_decode_attention`` looks the wrapper
+    up at every call."""
+    return _tally("paged_decode_attention", lambda q, args, kw: (q.shape[0], 1, kw["wpages"]))
+
+
 def prefill_shapes():
     """Tally the prefill wrapper's calls by (B, Sq, Skv), as :func:`_tally`
     does; ``model.prefill_attention`` looks the wrapper up at every call."""
@@ -638,13 +676,20 @@ def _shape_rows(tally) -> "list[dict]":
 
 
 def path_case(dev, name: str, shapes: "list[dict]") -> dict:
-    """The ragged kernel ``name`` against its plain version at the shape its
-    speculative phase launched most (``shapes`` as :func:`_shape_rows`
-    gives), with the kv lengths of that shape's last launch: verify rows,
-    start = kv_len, the 8B model's K=8, G=4, hd=128, bf16 cache and q."""
+    """The paged decode or a ragged kernel ``name`` against its plain version
+    at the shape its serving phase launched most (``shapes`` as
+    :func:`_shape_rows` gives), with the kv lengths of that shape's last
+    launch: (for the ragged kernels verify rows, start = kv_len) the 8B
+    model's K=8, G=4, hd=128, bf16 cache and q."""
     top = shapes[0]
-    lens, label = top["last_kv_lens"], f"spec serving, {top['launches']} launches"
     bf16 = torch.bfloat16
+    lens = top["last_kv_lens"]
+    if name == "paged_decode_attention":
+        label = f"paged serving, {top['launches']} launches"
+        args = (bf16, top["B"], 8, 4, 128, PAGED_RUNTIME.page_size, lens, top["window"], 41, 1,
+                bf16, label)
+        return run_cases(dev, [(name, paged_decode_case, args)])[0]
+    label = f"spec serving, {top['launches']} launches"
     if name == "ragged_attention":
         args = (bf16, top["B"], 8, top["S"], 4, 128, top["window"], lens, lens, 35, label, bf16)
         return run_cases(dev, [(name, ragged_case, args)])[0]
@@ -914,7 +959,8 @@ async def paged_serving_phase(dev, speculative: bool = False) -> dict:
         await serve(engine, [([1, 2, 3, 4, 5, 6, 7, 8], 2, {})])  # warm-up
         engine.stats = EngineStats()
         A.reset_launch_counts()
-        with verify_shapes("ragged_attention_paged") as tally, prefill_shapes() as prefills:
+        with verify_shapes("ragged_attention_paged") as tally, prefill_shapes() as prefills, \
+                decode_shapes() as decodes:
             started = time.perf_counter()
             ttft_a: list[float] = []
             ttft_b: list[float] = []
@@ -957,6 +1003,8 @@ async def paged_serving_phase(dev, speculative: bool = False) -> dict:
     assert sum(r["launches"] for r in shapes) == launches["ragged_attention_paged"], shapes
     prefill_rows = _shape_rows(prefills)
     assert sum(r["launches"] for r in prefill_rows) == launches["prefill_attention"], prefill_rows
+    decode_rows = _shape_rows(decodes)
+    assert sum(r["launches"] for r in decode_rows) == launches["paged_decode_attention"], decode_rows
     # the no-leak law: every page free or held by the prefix cache, every slot free
     free_pages, cached = engine._page_alloc.free_pages, engine._prefix.size
     assert free_pages + cached == rt.pool_pages() - 1, (free_pages, cached)
@@ -979,6 +1027,7 @@ async def paged_serving_phase(dev, speculative: bool = False) -> dict:
         spec_emitted=stats.spec_emitted, spec_rows=stats.spec_rows,
         acceptance_rate=stats.acceptance_rate, tokens_per_dispatch=stats.tokens_per_dispatch,
         tok_s_wall=stats.decode_tokens / wall, verify_shapes=shapes, prefill_shapes=prefill_rows,
+        decode_shapes=decode_rows,
     )
     spec_note = (
         f", spec k=4 draft = target: acceptance {stats.acceptance_rate:.3f}, tokens/dispatch "
@@ -999,6 +1048,8 @@ async def paged_serving_phase(dev, speculative: bool = False) -> dict:
            if speculative else "")
         + f", prefill launches by (B, Sq, Skv) "
         f"{[(r['B'], r['S'], r['window'], r['launches']) for r in prefill_rows]}"
+        + ("" if speculative else f", paged decode launches by (B, wpages) "
+           f"{[(r['B'], r['window'], r['launches']) for r in decode_rows]}")
     )
     return result
 
@@ -1087,9 +1138,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     spec_dense = asyncio.run(spec_serving_phase(dev))
     torch.cuda.empty_cache()
-    print("ragged kernels at their speculative phases' shapes")
-    for name, phase in (("ragged_attention", spec_dense), ("ragged_attention_paged", spec_paged)):
-        main_cases[name] = path_case(dev, name, phase["verify_shapes"])
+    print("paged decode and ragged kernels at their serving phases' shapes")
+    for name, shapes in (("paged_decode_attention", paged["decode_shapes"]),
+                         ("ragged_attention", spec_dense["verify_shapes"]),
+                         ("ragged_attention_paged", spec_paged["verify_shapes"])):
+        main_cases[name] = path_case(dev, name, shapes)
         cases.append(main_cases[name])
 
     # each kernel's launches from the path it serves, beside its case at a

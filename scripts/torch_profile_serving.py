@@ -49,6 +49,8 @@ from chip_smoke import (  # noqa: E402
 )
 
 FAMILIES = (  # kernel-name substring → family, first match wins
+    ("paged_walk_attn", "decode or ragged attention kernel"),  # bf16 pools
+    ("split_attn", "decode or ragged attention kernel"),  # dense caches, f32 pools
     ("ragged_paged_attn", "paged ragged attention kernel"),
     ("ragged_attn", "ragged attention kernel"),
     ("paged_decode_attn", "paged decode attention kernel"),

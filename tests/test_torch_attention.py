@@ -351,21 +351,63 @@ def _split_slices(W, split):
 SPLIT_LENS = [0, 15, 16, 17, 31, 33, 48]
 
 
+def _walk_cuts(unit_tiles, tile, W):
+    """The paged walk's segments of each unit, as window slices [lo, hi),
+    in segment order: the plan of :func:`A.walk_plan` with chunks of one or
+    two tiles, so a unit of more than one tile is cut, at varying places."""
+    cuts: dict[int, tuple[int, list]] = {}
+    blocks = max(2, 2 * sum(unit_tiles) // 3)
+    for segments in A.walk_plan(unit_tiles, blocks, min_tiles=1):
+        for u, t_lo, t_hi, _, n_seg in segments:
+            cuts.setdefault(u, (n_seg, []))[1].append((t_lo * tile, min(W, t_hi * tile)))
+    assert all(len(slices) == n_seg for n_seg, slices in cuts.values())
+    return {u: slices for u, (_, slices) in cuts.items()}
+
+
+def _fold_cuts(cuts, unit_rows, partial):
+    """Fold each unit's segment partials in segment order: ``partial(lo,
+    hi)`` gives the plain (o, m, z) of window slice [lo, hi) for the whole
+    batch; ``unit_rows(u)`` indexes unit u's rows in it → {u: (o, m, z)}."""
+    cache: dict = {}
+    out = {}
+    for u, slices in cuts.items():
+        parts = []
+        for lo, hi in slices:
+            if (lo, hi) not in cache:
+                cache[lo, hi] = partial(lo, hi)
+            parts.append(tuple(x[unit_rows(u)] for x in cache[lo, hi]))
+        out[u] = _fold_splits(parts)
+    return out
+
+
 @pytest.mark.parametrize("split", [8, 16, 48])
 @pytest.mark.parametrize("G", [1, 4])
-def test_split_fold_matches_pallas_decode(split, G):
+@pytest.mark.parametrize("cut", ["splits", "walk"])
+def test_split_fold_matches_pallas_decode(split, G, cut):
+    """``splits``: the window cut into splits of ``split`` positions, as the
+    split grid cuts it; ``walk``: each (row, kv head) cut where the paged
+    walk's chunks cut it, tiles of ``split`` positions, cuts inside a row."""
     B, K, W, hd = len(SPLIT_LENS), 2, 48, 16
     x = _decode_inputs(B, K, G, W, hd, lens=SPLIT_LENS, seed=split + G)
     lens = np.asarray(SPLIT_LENS, np.int32)
-    parts = [
-        A.decode_attention_reference(
+
+    def partial(lo, hi):
+        return A.decode_attention_reference(
             t(x["q"]), t(x["k"][:, :, lo:hi]), t(x["v"][:, :, lo:hi]),
             t(np.clip(lens - lo, 0, hi - lo).astype(np.int32)),
         )
-        for lo, hi in _split_slices(W, split)
-    ]
-    out = _fold_splits(parts)
+
     ref = decode_attention_pallas(j(x["q"]), j(x["k"]), j(x["v"]), j(lens), interpret=True)
+    if cut == "splits":
+        out = _fold_splits([partial(lo, hi) for lo, hi in _split_slices(W, split)])
+    else:
+        tiles = A.walk_unit_tiles(list(SPLIT_LENS), list(SPLIT_LENS), K, 1, G, 16, W, tile=split)
+        cuts = _walk_cuts(tiles, split, W)
+        # a row cut across chunks, where a row has more than one tile
+        assert any(len(c) > 1 for c in cuts.values()) or max(tiles) == 1
+        folded = _fold_cuts(cuts, lambda u: (u // K, u % K), partial)
+        out = [torch.stack([torch.stack([folded[b * K + k][i] for k in range(K)])
+                            for b in range(B)]) for i in range(3)]
     for a, b in zip(out, ref):
         np.testing.assert_allclose(n(a), n(b), **TOL)
     # the fresh row: every split empty, the fold keeps o = 0, m = -1e29, z = 0
@@ -376,7 +418,10 @@ def test_split_fold_matches_pallas_decode(split, G):
 @pytest.mark.parametrize("rows", list(RAGGED_ROWS) + ["split_edges"])
 @pytest.mark.parametrize("split", [8, 16])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-def test_split_fold_matches_pallas_ragged(rows, split, dtype):
+@pytest.mark.parametrize("cut", ["splits", "walk"])
+def test_split_fold_matches_pallas_ragged(rows, split, dtype, cut):
+    """As the decode fold test; the walk's units are query tiles of 16 of
+    the S*G = 20 rows, so a row's two tiles see different stops."""
     from calfkit_tpu.inference.pallas_attention import ragged_attention_pallas
 
     S, G = 5, 4
@@ -395,18 +440,35 @@ def test_split_fold_matches_pallas_ragged(rows, split, dtype):
     x = _ragged_inputs(B, K, S, G, W, hd, seed=split * S)
     qg = np.ascontiguousarray(x["q"].reshape(B, S, K, G, hd).transpose(0, 2, 1, 3, 4))
     tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
-    parts = [
-        A.ragged_attention_reference(
+
+    def partial(lo, hi):
+        return A.ragged_attention_reference(
             t(qg), t(x["k"][:, :, lo:hi], tdtype), t(x["v"][:, :, lo:hi], tdtype),
             t((starts - lo).astype(np.int32)),
             t(np.clip(lens - lo, 0, hi - lo).astype(np.int32)),
         )
-        for lo, hi in _split_slices(W, split)
-    ]
-    out = _fold_splits(parts)
+
     ref = ragged_attention_pallas(
         j(qg), j(x["k"], dtype), j(x["v"], dtype), j(starts), j(lens), interpret=True
     )
+    if cut == "splits":
+        out = _fold_splits([partial(lo, hi) for lo, hi in _split_slices(W, split)])
+    else:
+        rows_a_tile, qtiles = 16, 2  # S*G = 20 rows: tiles of rows 0-15 and 16-19
+        tiles = A.walk_unit_tiles(list(starts), list(lens), K, S, G, rows_a_tile, W, tile=split)
+        cuts = _walk_cuts(tiles, split, W)
+        assert any(len(c) > 1 for c in cuts.values()) or max(tiles) == 1
+
+        def unit_rows(u):  # unit (b, k, qt): its rows r = j * G + g of the [B, K, S*G] view
+            b, k, qt = u // (K * qtiles), u // qtiles % K, u % qtiles
+            r = torch.arange(qt * rows_a_tile, min(S * G, (qt + 1) * rows_a_tile))
+            return b, k, r // G, r % G
+
+        folded = _fold_cuts(cuts, unit_rows, partial)
+        out = [torch.zeros_like(x_) for x_ in partial(0, W)]
+        for u, res in folded.items():
+            for dst, val in zip(out, res):
+                dst[unit_rows(u)] = val
     for a, b in zip(out, ref):
         np.testing.assert_allclose(n(a), n(b), **TOL)
     fresh = list(lens).index(0)
@@ -428,3 +490,86 @@ def test_split_plan_covers_the_window_in_whole_tiles(groups, window):
     per = split_pos // 64
     if 4 < per < tiles and splits < 64:  # one tile less a split would pass the aim
         assert groups * -(-tiles // (per - 1)) > A._BLOCKS_PER_SM * 132
+
+
+# --------------------------------------------------------------------------- #
+# the paged walk's plan (csrc/paged_attention.cuh; mirrored by A.walk_plan)
+# --------------------------------------------------------------------------- #
+
+
+def _walk_case(case, seed):
+    """(starts, lens, K, S, G, rows a block, window) of a named case."""
+    rng = np.random.default_rng(seed)
+    if case == "random decode":
+        lens = rng.integers(0, 2049, 16)
+        lens[rng.integers(0, 16, 3)] = 0
+        return list(lens), list(lens), 8, 1, 4, 16, 2048
+    if case == "random verify":  # S*G = 20 rows: two query tiles of 16
+        lens = rng.integers(0, 2049, int(rng.integers(1, 40)))
+        return list(lens), list(lens), 8, 5, 4, 16, 2048
+    if case == "random prefill":  # prefill-kind rows: starts below their lens
+        lens = rng.integers(0, 700, 9)
+        starts = np.maximum(0, lens - rng.integers(0, 12, 9))
+        return list(starts), list(lens), 4, 12, 4, 32, 640
+    lens = {
+        "one long, 15 empty": [2048] + [0] * 15,
+        "all full": [2048] * 16,
+        "one row": [2000],
+        "all empty": [0] * 16,
+        "one position each": [1] * 16,
+        "past the window": [5000, 3, 64, 65],
+    }[case]
+    return lens, lens, 8, 1, 4, 16, 2048
+
+
+WALK_CASES = ["random decode", "random verify", "random prefill", "one long, 15 empty",
+              "all full", "one row", "all empty", "one position each", "past the window"]
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+@pytest.mark.parametrize("blocks", [264, 132, 7, 1])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_walk_plan_covers_every_tile_once(case, blocks, seed):
+    starts, lens, K, S, G, rows, W = _walk_case(case, seed)
+    tiles = A.walk_unit_tiles(starts, lens, K, S, G, rows, W)
+    qtiles = -(-S * G // rows)
+    assert len(tiles) == len(lens) * K * qtiles
+    plan = A.walk_plan(tiles, blocks)
+    T = sum(tiles)
+    # chunks: one a block at most, equal to within one tile, the least size
+    # where there are tiles enough
+    sizes = [sum(hi - lo for _, lo, hi, _, _ in chunk) for chunk in plan]
+    assert len(plan) <= blocks and sum(sizes) == T
+    assert max(sizes) - min(sizes) <= 1
+    assert min(sizes) >= min(A._MIN_CHUNK_TILES, T)
+    # every unit's tiles once, in order; its segments agree on their count;
+    # partial ids distinct and within the bound the host sizes scratch by
+    seen: dict[int, list] = {}
+    ids = set()
+    for chunk in plan:
+        for u, lo, hi, pid, n_seg in chunk:
+            seen.setdefault(u, []).append((lo, hi, n_seg))
+            assert pid not in ids and pid < A.walk_scratch(len(tiles), blocks)
+            ids.add(pid)
+    assert sorted(seen) == list(range(len(tiles)))
+    for u, segments in seen.items():
+        assert segments[0][0] == 0 and segments[-1][1] == tiles[u]
+        assert all(a[1] == b[0] for a, b in zip(segments, segments[1:]))
+        # one writer: a lone segment writes, or the last of n_seg folds
+        assert all(n_seg == len(segments) for _, _, n_seg in segments)
+    # a unit that sees nothing has one tile and so exactly one writer
+    for b, (st, n) in enumerate(zip(starts, lens)):
+        if min(n, W) <= 0 or st + S <= 0:
+            for u in range(b * K * qtiles, (b + 1) * K * qtiles):
+                assert tiles[u] == 1 and len(seen[u]) == 1
+
+
+@pytest.mark.parametrize("rows", [16, 32])
+def test_walk_unit_tiles_follow_the_stop_of_each_query_tile(rows):
+    # S*G = 20: with 16 rows a block, tile 0 holds queries 0-3, tile 1 query 4
+    starts, lens = [100, 0, 64], [104, 0, 2000]
+    tiles = A.walk_unit_tiles(starts, lens, 2, 5, 4, rows, 2048)
+    if rows == 16:  # stops: row 0 104, 104; row 1 0, 0; row 2 68, 69
+        assert tiles == [2, 2] * 2 + [1, 1] * 2 + [2, 2] * 2
+    else:
+        assert tiles == [2] * 2 + [1] * 2 + [2] * 2

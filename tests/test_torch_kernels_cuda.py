@@ -4,6 +4,8 @@ versions, on the card.  These tests need a CUDA device and skip without one
 -m cuda``); they import neither JAX nor the JAX package, so they run where
 only PyTorch is installed."""
 
+import math
+
 import pytest
 import torch
 
@@ -143,13 +145,14 @@ def test_misaligned_inputs_raise_instead_of_launching():
 
 
 def _paged_case(dev, dtype, hd, G, page, lens, wpages, seed, K=8, n_pages=200,
-                q_dtype=torch.float32):
-    """A 2-layer pool of random values and block tables of shuffled page
-    ids (trash-padded past each row's pages); q in ``q_dtype``."""
+                q_dtype=torch.float32, L=2):
+    """An L-layer pool of random values and block tables of shuffled page
+    ids (trash-padded past each row's pages, three entries past wpages); q
+    in ``q_dtype``."""
     g = torch.Generator(device=dev).manual_seed(seed)
     B = len(lens)
     q = torch.randn((B, K, G, hd), generator=g, device=dev).to(q_dtype)
-    pool = torch.randn((2, 2, n_pages, K, page, hd), generator=g, device=dev).to(dtype)
+    pool = torch.randn((2, L, n_pages, K, page, hd), generator=g, device=dev).to(dtype)
     ids = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
     tables = torch.zeros((B, wpages + 3), dtype=torch.int32)
     used = 0
@@ -472,3 +475,154 @@ def test_paged_kernels_at_split_boundaries(dtype, q_dtype, page, kind):
                                                      wpages=wpages)
         for a, b in zip(out, ref):
             torch.testing.assert_close(a, b, **DECODE_TOL)
+
+
+# --------------------------------------------------------------------------- #
+# the paged walk (bf16 pools): skewed batches, the tensor-map cache
+# --------------------------------------------------------------------------- #
+
+# one long row and fifteen empty ones (one row's tiles cut across most
+# blocks), every row full, a lone agent turn
+WALK_LENS = {"one long, 15 empty": [2048] + [0] * 15, "all full": [2048] * 16, "one row": [2000]}
+
+
+def _walk_call(kernel, case, page, q_dtype, seed):
+    """The paged kernel ``kernel`` on a 3-layer bf16 pool at WALK_LENS[case],
+    2048-position windows of wpages = 2048 / page entries of wider tables
+    → (a launch at layer l, its plain version at layer l)."""
+    dev = torch.device("cuda")
+    lens = WALK_LENS[case]
+    W, K, G, hd, S = 2048, 8, 4, 128, 5
+    wpages = W // page
+    q, pk, pv, tables, lens_t = _paged_case(dev, torch.bfloat16, hd, G, page, lens, wpages, seed,
+                                            K=K, n_pages=len(lens) * wpages + 1, q_dtype=q_dtype,
+                                            L=3)
+    assert tables.shape[1] > wpages
+    if kernel == "paged_decode":
+        def run(layer, fn=A.paged_decode_attention):
+            return fn(q, pk, pv, layer, tables, lens_t, wpages=wpages)
+        return run, lambda layer: run(layer, A.paged_decode_attention_reference)
+    qr = torch.randn((len(lens), K, S, G, hd), generator=torch.Generator(device=dev).manual_seed(seed),
+                     device=dev).to(q_dtype)
+
+    def run(layer, fn=A.ragged_attention_paged):
+        return fn(qr, pk, pv, layer, tables, lens_t, lens_t, wpages=wpages)
+    return run, lambda layer: run(layer, A.ragged_attention_paged_reference)
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("kernel", ["paged_decode", "ragged_paged"])
+@pytest.mark.parametrize("case", list(WALK_LENS))
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_paged_walk_skewed_batches(kernel, case, page, q_dtype):
+    """The walk's chunks cross rows of every length; layers 0 and L-1 of a
+    3-layer pool; wpages below the tables' width; q in f32 and in bf16."""
+    kernel_fn, plain = _walk_call(kernel, case, page, q_dtype, seed=page + len(case))
+    for layer in (0, 2):
+        out, ref = kernel_fn(layer), plain(layer)
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, **DECODE_TOL)
+        empty = torch.tensor(WALK_LENS[case], device=a.device) == 0
+        assert torch.all(out[0][empty] == 0) and torch.all(out[1][empty] == -1e29)
+        assert torch.all(out[2][empty] == 0)
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("kernel", ["paged_decode", "ragged_paged"])
+@pytest.mark.parametrize("case", list(WALK_LENS))
+def test_paged_walk_repeats_bitwise(kernel, case):
+    """The same bits every launch: a row cut across chunks folds in segment
+    order, never in the order its segments finish."""
+    kernel_fn, _ = _walk_call(kernel, case, 64, torch.bfloat16, seed=3)
+    first = [x.clone() for x in kernel_fn(1)]
+    for _ in range(3):
+        for a, b in zip(first, kernel_fn(1)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("kernel", ["paged_decode", "ragged_paged"])
+def test_pool_tensor_map_cache_serves_no_stale_map(kernel):
+    """A pool freed and another of another geometry allocated at the same
+    address (here: the same storage, viewed with page 64 and then page 16):
+    the tensor-map cache is keyed by address, shape, strides and dtype, so
+    the second pool is read through a map of its own."""
+    dev = torch.device("cuda")
+    K, G, hd, S, L = 8, 4, 128, 5, 2
+    lens = [100, 2000, 0, 700]
+    storage = torch.empty(2 * L * 129 * K * 64 * hd, dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((4, K, G, hd), generator=g, device=dev).to(torch.bfloat16)
+    qr = torch.randn((4, K, S, G, hd), generator=g, device=dev).to(torch.bfloat16)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for page, n_pages in ((64, 129), (16, 516)):
+        storage.normal_(generator=g)
+        pk, pv = storage.view(2, L, n_pages, K, page, hd)  # the same address each time
+        wpages = 2048 // page
+        ids = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(page)) + 1
+        tables = ids[:4 * wpages].view(4, wpages).to(torch.int32).to(dev)
+        if kernel == "paged_decode":
+            out = A.paged_decode_attention(q, pk, pv, 1, tables, lens_t, wpages=wpages)
+            ref = A.paged_decode_attention_reference(q, pk, pv, 1, tables, lens_t, wpages=wpages)
+        else:
+            out = A.ragged_attention_paged(qr, pk, pv, 1, tables, lens_t, lens_t, wpages=wpages)
+            ref = A.ragged_attention_paged_reference(qr, pk, pv, 1, tables, lens_t, lens_t,
+                                                     wpages=wpages)
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, **DECODE_TOL)
+    keys = [key for key in A._pool_maps if key[1] == storage.data_ptr()]
+    assert {key[2][3] for key in keys} >= {64, 16}  # one map a geometry
+
+
+@pytest.mark.cuda
+@cuda_only
+def test_paged_page_size_not_a_multiple_of_8():
+    """A bf16 pool's page size must be a multiple of 8 (the walk's TMA boxes
+    start on 1 KB boundaries): page 12 raises.  An f32 pool takes any page
+    size (the split grid) and matches its plain version."""
+    dev = torch.device("cuda")
+    lens = [0, 13, 100, 250]
+    for dtype in (torch.bfloat16, torch.float32):
+        q, pk, pv, tables, lens_t = _paged_case(dev, dtype, 128, 4, 12, lens, 22, 9)
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match="multiple of 8"):
+                A.paged_decode_attention(q, pk, pv, 1, tables, lens_t, wpages=22)
+            qr = torch.zeros((4, 8, 5, 4, 128), device=dev)
+            with pytest.raises(ValueError, match="multiple of 8"):
+                A.ragged_attention_paged(qr, pk, pv, 1, tables, lens_t, lens_t, wpages=22)
+        else:
+            out = A.paged_decode_attention(q, pk, pv, 1, tables, lens_t, wpages=22)
+            ref = A.paged_decode_attention_reference(q, pk, pv, 1, tables, lens_t, wpages=22)
+            for a, b in zip(out, ref):
+                torch.testing.assert_close(a, b, **DECODE_TOL)
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("kernel", ["paged_decode", "ragged_paged"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_paged_walk_reads_a_misaligned_q(kernel, q_dtype):
+    """A q whose address is no 16-byte multiple (a view one element into
+    its storage) is copied before the walk's 16-byte loads, and matches
+    the plain version."""
+    dev = torch.device("cuda")
+    lens = [0, 100, 700, 2048]
+    q, pk, pv, tables, lens_t = _paged_case(dev, torch.bfloat16, 128, 4, 64, lens, 32, 11,
+                                            n_pages=130, q_dtype=q_dtype)
+    shape = q.shape if kernel == "paged_decode" else (4, 8, 5, 4, 128)
+    flat = torch.randn(math.prod(shape) + 1, generator=torch.Generator(device=dev).manual_seed(3),
+                       device=dev).to(q_dtype)
+    qm = flat[1:].view(shape)
+    assert qm.data_ptr() % 16
+    if kernel == "paged_decode":
+        out = A.paged_decode_attention(qm, pk, pv, 1, tables, lens_t, wpages=32)
+        ref = A.paged_decode_attention_reference(qm, pk, pv, 1, tables, lens_t, wpages=32)
+    else:
+        out = A.ragged_attention_paged(qm, pk, pv, 1, tables, lens_t, lens_t, wpages=32)
+        ref = A.ragged_attention_paged_reference(qm, pk, pv, 1, tables, lens_t, lens_t, wpages=32)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, **DECODE_TOL)
