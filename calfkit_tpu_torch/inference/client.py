@@ -1,0 +1,599 @@
+"""TorchLocalModelClient — the ModelClient that serves an agent turn on the
+local PyTorch engine.
+
+The port's counterpart of the JAX package's ``JaxLocalModelClient``: an
+agent hands it a message history, it renders the history with a
+deterministic plain template, tokenizes it, streams the engine's tokens
+back as text deltas (re-decoding every few tokens, holding back an
+incomplete multi-byte tail and cutting at stop sequences on the host), and
+parses ``{"tool_name": ..., "args": ...}`` objects out of the answer as
+tool calls (configurable via ``tool_call_parser``).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import time
+from typing import Any, AsyncIterator, Callable
+
+from calfkit_tpu_torch.engine.model_client import (
+    ModelClient,
+    ModelRequestParameters,
+    ModelSettings,
+    ResponseDone,
+    ResumeOffset,
+    StreamEvent,
+    TextDelta,
+)
+from calfkit_tpu_torch.exceptions import InferenceError
+from calfkit_tpu_torch.models.messages import (
+    ModelMessage,
+    ModelRequest,
+    ModelResponse,
+    RetryPart,
+    SystemPart,
+    TextOutput,
+    ToolCallOutput,
+    ToolReturnPart,
+    Usage,
+    UserPart,
+)
+from calfkit_tpu_torch.models.payload import render_parts_as_text
+
+ToolCallParser = Callable[[str], tuple[str, list[ToolCallOutput]]]
+
+# the re-decode cadence of a stream: bounds the cost of detokenizing
+_EMIT_EVERY = 4
+
+
+def default_tool_call_parser(text: str) -> tuple[str, list[ToolCallOutput]]:
+    """Extract ``{"tool_name": ..., "args": {...}}`` objects (arbitrarily
+    nested args) from the text; returns (remaining_text, calls)."""
+    decoder = json.JSONDecoder()
+    calls: list[ToolCallOutput] = []
+    kept: list[str] = []
+    i = 0
+    while i < len(text):
+        start = text.find("{", i)
+        if start == -1:
+            kept.append(text[i:])
+            break
+        obj = None
+        try:
+            obj, consumed = decoder.raw_decode(text, start)
+        except ValueError:
+            pass
+        if isinstance(obj, dict) and isinstance(obj.get("tool_name"), str):
+            args = obj.get("args", {})
+            calls.append(
+                ToolCallOutput(
+                    tool_call_id=f"local_{int(time.time()*1000)}_{len(calls)}",
+                    tool_name=obj["tool_name"],
+                    args=args if isinstance(args, dict) else {},
+                )
+            )
+            kept.append(text[i:start])
+            i = consumed
+        else:
+            kept.append(text[i : start + 1])
+            i = start + 1
+    return "".join(kept).strip(), calls
+
+
+def render_messages(
+    messages: list[ModelMessage],
+    params: ModelRequestParameters,
+) -> str:
+    """Deterministic chat rendering (the plain template)."""
+    lines: list[str] = []
+    system: list[str] = []
+    for message in messages:
+        if isinstance(message, ModelRequest):
+            if message.instructions:
+                system.append(message.instructions)
+            for part in message.parts:
+                if isinstance(part, SystemPart):
+                    system.append(part.content)
+                elif isinstance(part, UserPart):
+                    content = (
+                        part.content
+                        if isinstance(part.content, str)
+                        else render_parts_as_text(part.content)
+                    )
+                    author = f" ({part.author})" if part.author else ""
+                    lines.append(f"<|user|>{author}\n{content}")
+                elif isinstance(part, ToolReturnPart):
+                    lines.append(
+                        f"<|tool_result|> {part.tool_name}: "
+                        f"{json.dumps(part.content, default=str)}"
+                    )
+                elif isinstance(part, RetryPart):
+                    lines.append(f"<|user|>\n[retry] {part.content}")
+        else:  # ModelResponse
+            text = message.text()
+            calls = message.tool_calls()
+            body = text
+            for call in calls:
+                args = call.args if isinstance(call.args, str) else json.dumps(call.args)
+                body += f'\n{{"tool_name": "{call.tool_name}", "args": {args}}}'
+            lines.append(f"<|assistant|>\n{body.strip()}")
+
+    tools = params.all_tools()
+    if tools:
+        tool_block = "\n".join(
+            f"- {t.name}: {t.description}\n  parameters: "
+            f"{json.dumps(t.parameters_schema)}"
+            for t in tools
+        )
+        system.append(
+            "You can call tools by replying with a JSON object "
+            '{"tool_name": "<name>", "args": {...}} on its own line.\n'
+            f"Available tools:\n{tool_block}"
+        )
+    header = f"<|system|>\n{chr(10).join(system)}\n" if system else ""
+    return header + "\n".join(lines) + "\n<|assistant|>\n"
+
+
+def _capacity(
+    pages_total: int, private: int, shared_live: int, resident: int,
+    evicted: int, stalls: int, lane: str,
+) -> dict:
+    """The paged pool's occupancy rollup, with the JAX package's
+    ``PageLedger.breakdown()`` keys.  The port attributes no page to an
+    owner or a chain yet (the scheduler-robustness slice ports the ledger),
+    so the by-owner and by-chain rows are empty and their "other" sums hold
+    every page; by lane, every private page is the engine's one lane."""
+    in_use = private + shared_live
+    by_lane = {lane: private} if private else {}
+    if shared_live:
+        by_lane["shared"] = shared_live
+    return {
+        "pages_total": pages_total,
+        "pages_in_use": in_use,
+        "headroom_pages": max(0, pages_total - in_use),
+        "private_pages": private,
+        "shared_referenced_pages": shared_live,
+        "prefix_resident_pages": resident,
+        "evicted_pages": evicted,
+        "alloc_stalls": stalls,
+        "by_owner": [],
+        "by_owner_other_pages": private,
+        "by_lane": by_lane,
+        "by_chain": [],
+        "by_chain_other_pages": resident,
+    }
+
+
+class TorchLocalModelClient(ModelClient):
+    """Local inference on the PyTorch engine.
+
+    Construction is cheap; device work (random weights, engine start)
+    happens on the first request or an explicit :meth:`start`.  The engine
+    runs on ``device`` (a CUDA card unless ``device="cpu"``)."""
+
+    def __init__(
+        self,
+        *,
+        checkpoint: str | None = None,
+        config: Any = None,  # ModelConfig | preset name
+        runtime: Any = None,  # RuntimeConfig
+        tokenizer: Any = None,
+        sampling: Any = None,
+        engine: Any = None,  # pre-built InferenceEngine (tests)
+        tool_call_parser: ToolCallParser = default_tool_call_parser,
+        max_new_tokens: int = 512,
+        seed: int = 0,
+        draft_checkpoint: str | None = None,
+        draft_params: Any = None,
+        device: str = "cuda",
+    ):
+        for name, value in (("checkpoint", checkpoint), ("draft_checkpoint", draft_checkpoint)):
+            if value is not None:
+                raise InferenceError(
+                    f"{name}= is not served by the PyTorch client yet "
+                    "(a later slice of the port: quantization/loader)"
+                )
+        self._config_spec = config
+        self._runtime = runtime
+        self._tokenizer = tokenizer
+        self._sampling = sampling
+        self._engine = engine
+        self._parser = tool_call_parser
+        self._max_new_tokens = max_new_tokens
+        self._seed = seed
+        self._draft_params = draft_params
+        self._device = device
+        self._start_lock: asyncio.Lock | None = None
+
+    @property
+    def model_name(self) -> str:
+        if self._engine is not None:
+            return self._engine.config.name
+        if isinstance(self._config_spec, str):
+            return self._config_spec
+        if self._config_spec is not None:
+            return self._config_spec.name
+        return "torch-local"
+
+    # ------------------------------------------------------------- startup
+    async def start(self) -> None:
+        def ready() -> bool:
+            return (
+                self._engine is not None
+                and self._engine._running
+                and self._tokenizer is not None
+            )
+
+        if ready():
+            return
+        if self._start_lock is None:
+            self._start_lock = asyncio.Lock()
+        async with self._start_lock:
+            if ready():
+                return
+            if self._engine is None:
+                self._engine = await asyncio.to_thread(self._build_engine)
+            await self._engine.start()
+            if self._tokenizer is None:
+                from calfkit_tpu_torch.inference.tokenizer import ByteTokenizer
+
+                self._tokenizer = ByteTokenizer()
+
+    def _build_engine(self) -> Any:
+        from calfkit_tpu_torch.inference.config import RuntimeConfig, preset
+        from calfkit_tpu_torch.inference.engine import InferenceEngine
+
+        if isinstance(self._config_spec, str):
+            config = preset(self._config_spec)
+        elif self._config_spec is not None:
+            config = self._config_spec
+        else:
+            raise InferenceError("TorchLocalModelClient needs a config")
+        return InferenceEngine(
+            config, self._runtime or RuntimeConfig(), sampling=self._sampling,
+            seed=self._seed, device=self._device, draft_params=self._draft_params,
+        )
+
+    async def stop(self) -> None:
+        if self._engine is not None:
+            await self._engine.stop()
+
+    def ready(self) -> "tuple[bool, str]":
+        """Readiness probe: True only once the engine is BUILT (weights
+        placed) and its scheduler task is running — distinct from liveness,
+        which is true from process start.  Cheap enough to call per scrape.
+        The port's engine has no dispatch-progress watchdog yet (the
+        scheduler-robustness slice), so it cannot read as wedged here; a
+        test holds that it still has none."""
+        engine = self._engine
+        if engine is None:
+            return False, "engine not built (weights not loaded)"
+        if not engine._running:
+            return False, "engine not started"
+        return True, "engine running"
+
+    def stats_snapshot(self, *, window: bool = False) -> dict:
+        """Live serving metrics (for the control-plane engine-stats advert),
+        with the JAX client's key set; safe before start (zeros and the
+        configured shape).
+
+        ``window=True`` additionally reports per-interval rates since the
+        PREVIOUS window=True call (``EngineStats.snapshot_and_delta`` —
+        single-consumer by design: the heartbeat advert passes it; ad-hoc
+        pollers must not, or they steal the heartbeat's intervals).
+
+        Until the scheduler-robustness slice of the port, the keys backed by
+        its counters read the engine's zeros, ``latency_ms`` is absent, and
+        the flight recorder's and capacity sampler's ring counts are
+        zero."""
+        rings = {"appended": 0, "dropped": 0, "dumped": 0}
+        engine = self._engine
+        if engine is None:
+            from calfkit_tpu_torch.inference.config import RuntimeConfig
+
+            runtime = self._runtime or RuntimeConfig()  # mirror _build_engine
+            pages_total = runtime.pool_pages() - 1 if runtime.kv_layout == "paged" else 0
+            return {
+                "model_name": self.model_name,
+                "platform": "",
+                "tokens_per_second": 0.0,
+                "mean_occupancy": 0.0,
+                "active_requests": 0,
+                "pending_requests": 0,
+                "free_slots": runtime.max_batch_size,
+                "max_batch_size": runtime.max_batch_size,
+                "kv_layout": runtime.kv_layout,
+                "prefill_tokens": 0,
+                "decode_tokens": 0,
+                "decode_dispatches": 0,
+                "overlap_dispatch": runtime.overlap_dispatch,
+                "overlap_wasted_tokens": 0,
+                # the EFFECTIVE setting: the flag engages only with chunked
+                # prefill + overlap dispatch
+                "ragged_waves": bool(
+                    runtime.ragged_waves and runtime.chunked_prefill
+                    and runtime.overlap_dispatch
+                ),
+                "prefill_absorbed_tokens": 0,
+                "unified_dispatches": 0,
+                "tokens_per_dispatch": 0.0,
+                "max_pending": runtime.max_pending,
+                "shed_requests": 0,
+                "expired_requests": 0,
+                "interactive_shed": 0,
+                "batch_shed": 0,
+                "interactive_expired": 0,
+                "batch_expired": 0,
+                "interactive_pending": 0,
+                "batch_pending": 0,
+                "cancelled_requests": 0,
+                "cancel_propagated": 0,
+                "delivery_stalled": 0,
+                "orphaned_requests": 0,
+                "dispatch_ewma_ms": 0.0,
+                "wedged": False,
+                "watchdog_trips": 0,
+                "watchdog_faulted": 0,
+                "flightrec": dict(rings),
+                "pages_total": pages_total,
+                "pages_in_use": 0,
+                "prefix_resident_pages": 0,
+                "evictions_window": 0,
+                "alloc_stalls": 0,
+                "capacity": _capacity(pages_total, 0, 0, 0, 0, 0, "decode"),
+                "capacity_samples": dict(rings),
+            }
+        import torch
+
+        stats = engine.stats
+        rt = engine.runtime
+        # the port's engine queues requests in _pending and _carry (no long
+        # lane yet: the multi-device slice) and has no priority classes (the
+        # scheduler-robustness slice): every queued request is interactive
+        queued = [*engine._pending, *engine._carry]
+        if engine._paged:
+            pages_total = engine._page_alloc.num_pages - 1
+            private = engine._page_alloc.held_pages
+            prefix = engine._prefix
+            shared_live = prefix.referenced if prefix is not None else 0
+            resident = prefix.size if prefix is not None else 0
+        else:
+            pages_total = private = shared_live = resident = 0
+        capacity = _capacity(
+            pages_total, private, shared_live, resident, stats.prefix_evictions,
+            stats.alloc_stalls, "spec" if engine._drafter is not None else "decode",
+        )
+        snapshot = {
+            "model_name": engine.config.name,
+            # JAX's platform names, so fleet consumers keep one vocabulary
+            "platform": "gpu" if engine.device.type == "cuda" else "cpu",
+            "tokens_per_second": round(stats.tokens_per_second, 1),
+            "mean_occupancy": round(stats.mean_occupancy, 4),
+            "active_requests": len(engine._active),
+            # admitted but not yet holding a slot: active + pending is the
+            # fleet router's queue-depth load signal
+            "pending_requests": len(engine._pending) + len(engine._carry),
+            "free_slots": len(engine._free),
+            "max_batch_size": rt.max_batch_size,
+            "kv_layout": rt.kv_layout,
+            "prefill_tokens": stats.prefill_tokens,
+            "decode_tokens": stats.decode_tokens,
+            "decode_dispatches": stats.decode_dispatches,
+            "overlap_dispatch": rt.overlap_dispatch,
+            "overlap_wasted_tokens": stats.overlap_wasted_tokens,
+            "ragged_waves": engine._ragged,
+            "prefill_absorbed_tokens": stats.prefill_absorbed_tokens,
+            "unified_dispatches": stats.unified_dispatches,
+            "tokens_per_dispatch": round(stats.mean_tokens_per_dispatch, 3),
+            "max_pending": rt.max_pending,
+            "shed_requests": stats.shed_requests,
+            "expired_requests": stats.expired_requests,
+            "interactive_shed": stats.interactive_shed,
+            "batch_shed": stats.batch_shed,
+            "interactive_expired": stats.interactive_expired,
+            "batch_expired": stats.batch_expired,
+            "interactive_pending": sum(1 for r in queued if not r.cancelled),
+            "batch_pending": 0,
+            "cancelled_requests": stats.cancelled_requests,
+            "cancel_propagated": stats.cancel_propagated,
+            "delivery_stalled": stats.delivery_stalled,
+            "orphaned_requests": stats.orphaned_requests,
+            "dispatch_ewma_ms": round(stats.dispatch_ewma_ms, 3),
+            # no dispatch-progress watchdog in the port's engine yet
+            "wedged": False,
+            "watchdog_trips": stats.watchdog_trips,
+            "watchdog_faulted": stats.watchdog_faulted,
+            "flightrec": dict(rings),
+            "pages_total": pages_total,
+            "pages_in_use": capacity["pages_in_use"],
+            "prefix_resident_pages": resident,
+            "evictions_window": stats.prefix_evictions,
+            "alloc_stalls": stats.alloc_stalls,
+            "capacity": capacity,
+            "capacity_samples": dict(rings),
+        }
+        if window:
+            # per-interval rates since the previous heartbeat; the advert's
+            # eviction signal is per interval too (a lifetime count
+            # flattens toward the mean as uptime grows)
+            snapshot["window"] = stats.snapshot_and_delta()[1]
+            snapshot["evictions_window"] = snapshot["window"]["prefix_evictions"]
+        if rt.speculative is not None:
+            snapshot["speculative"] = {
+                "k": rt.speculative.k,
+                "drafter": "draft-model" if rt.speculative.draft is not None else "ngram",
+                "spec_proposed": stats.spec_proposed,
+                "spec_accepted": stats.spec_accepted,
+                "acceptance_rate": round(stats.acceptance_rate, 4),
+                "tokens_per_dispatch": round(stats.tokens_per_dispatch, 3),
+            }
+        if engine._paged:
+            snapshot["free_pages"] = engine._page_alloc.free_pages
+            if engine._prefix is not None:
+                snapshot["prefix_cached_pages"] = engine._prefix.size
+                snapshot["prefix_hits"] = stats.prefix_hits
+                snapshot["prefix_reused_tokens"] = stats.prefix_reused_tokens
+        if engine.device.type == "cuda":
+            # the caching allocator's bytes in use: JAX's bytes_in_use
+            snapshot["hbm_gb_in_use"] = round(
+                torch.cuda.memory_allocated(engine.device) / 1e9, 3
+            )
+        return snapshot
+
+    # ------------------------------------------------------------- request
+    async def request(
+        self,
+        messages: list[ModelMessage],
+        settings: ModelSettings | None = None,
+        params: ModelRequestParameters | None = None,
+    ) -> ModelResponse:
+        async for event in self.request_stream(messages, settings, params):
+            if isinstance(event, ResponseDone):
+                return event.response
+        raise InferenceError("stream ended without a terminal response")
+
+    async def request_stream(
+        self,
+        messages: list[ModelMessage],
+        settings: ModelSettings | None = None,
+        params: ModelRequestParameters | None = None,
+    ) -> AsyncIterator[StreamEvent]:
+        await self.start()
+        params = params or ModelRequestParameters()
+        settings = settings or ModelSettings()
+        tokenizer = self._tokenizer
+        prompt_text = render_messages(messages, params)
+        prompt = [tokenizer.bos_id, *tokenizer.encode(prompt_text)]
+        max_new = settings.max_tokens or self._max_new_tokens
+
+        # decode-from-offset resume: the delivered prefix of a failed-over
+        # stream enters as PREFILL (appended to the prompt, so the prefix
+        # cache absorbs the shared prompt pages) and decode produces ONLY
+        # the remaining budget; under greedy decode the continuation is
+        # byte-exact with an unkilled run on a round-trip tokenizer
+        resume_tokens: list[int] = []
+        prior = ""
+        if settings.resume_text:
+            resume_tokens = list(tokenizer.encode(settings.resume_text))
+            prior = tokenizer.decode(resume_tokens)
+            prompt = prompt + resume_tokens
+            max_new = max(0, max_new - len(resume_tokens))
+
+        def terminal(full_text: str, generated_tokens: int) -> ResponseDone:
+            # ONE terminal builder for both exits (the resumed spent-budget
+            # short-circuit and the normal tail): parser gating, parts and
+            # usage must not fork.  output_tokens counts what THIS engine
+            # generated: a resumed run's delivered prefix is input (it
+            # entered via prefill and was billed as output by the attempt
+            # that generated it), so summing attempts never double-counts
+            remaining, calls = (
+                self._parser(full_text)
+                if params.tool_defs or params.output_tool
+                else (full_text, [])
+            )
+            parts: list[Any] = []
+            if remaining:
+                parts.append(TextOutput(text=remaining))
+            parts.extend(calls)
+            return ResponseDone(
+                ModelResponse(
+                    parts=parts,
+                    usage=Usage(input_tokens=len(prompt), output_tokens=generated_tokens),
+                    model_name=self.model_name,
+                )
+            )
+
+        if settings.resume_text and max_new <= 0:
+            # the delivered prefix already spent the whole token budget:
+            # nothing to decode — the resumed stream is just its terminal
+            yield ResumeOffset(len(prior))
+            yield terminal(prior, 0)
+            return
+
+        # per-request sampling: each provided knob overrides that knob of
+        # the engine default (top_p alone must NOT force greedy by zeroing
+        # temperature); the engine batches mixed settings row-wise
+        sampling = None
+        if (
+            settings.temperature is not None
+            or settings.top_p is not None
+            or settings.top_k is not None
+        ):
+            from calfkit_tpu_torch.inference.sampler import SamplingParams
+
+            base = self._engine.sampling
+            temperature = (
+                settings.temperature if settings.temperature is not None else base.temperature
+            )
+            if temperature <= 0.0 and settings.temperature is None and (
+                settings.top_p is not None or settings.top_k is not None
+            ):
+                # filtering was requested but the default is greedy: sample
+                # at T=1 so top_p/top_k actually apply
+                temperature = 1.0
+            sampling = SamplingParams(
+                temperature=temperature,
+                top_k=settings.top_k if settings.top_k is not None else base.top_k,
+                top_p=settings.top_p if settings.top_p is not None else base.top_p,
+            )
+        stops = [s for s in settings.stop_sequences if s]
+        # stop sequences cut host-side on decoded text; hold back enough of
+        # the tail that a sequence spanning an emission boundary is never
+        # already streamed when it completes
+        holdback = max((len(s) for s in stops), default=1) - 1
+
+        def first_stop(text: str) -> int:
+            hits = [i for s in stops if (i := text.find(s)) != -1]
+            return min(hits) if hits else -1
+
+        generated: list[int] = []
+        # a resumed stream's deltas begin past the already-delivered prefix:
+        # everything before ``emitted`` chars is prefill, never re-emitted
+        emitted = len(prior)
+        stopped_at = -1
+        if resume_tokens:
+            yield ResumeOffset(len(prior))
+        # the JAX client also forwards the caller's correlation id, run,
+        # deadline, lease and priority from its contextvars; the port has
+        # none of those yet (the scheduler-robustness slice), so each is None
+        token_stream = self._engine.generate(
+            prompt,
+            max_new_tokens=max_new,
+            stop_tokens=frozenset({tokenizer.eos_id}),
+            sampling=sampling,
+            seed=settings.seed,
+        )
+        try:
+            async for token in token_stream:
+                generated.append(token)
+                # the first token is emitted immediately; later ones batch
+                # on the re-decode cadence
+                if len(generated) % _EMIT_EVERY and len(generated) != 1:
+                    continue
+                # emit only the prefix that can't change: a trailing
+                # replacement char may be a multi-byte sequence completing
+                # (resume: the full text includes the prefilled prefix so
+                # stop sequences spanning the resume boundary still cut)
+                text = tokenizer.decode(resume_tokens + generated).rstrip("�")
+                if stops:
+                    stopped_at = first_stop(text)
+                    if stopped_at != -1:
+                        break
+                    text = text[: len(text) - holdback] if holdback else text
+                if len(text) > emitted:
+                    yield TextDelta(text[emitted:])
+                    emitted = len(text)
+        finally:
+            # a break above abandons the stream; close NOW (not at GC) so
+            # the engine reclaims the slot at its next tick
+            await token_stream.aclose()
+
+        full_text = tokenizer.decode(resume_tokens + generated)
+        if stops and stopped_at == -1:
+            stopped_at = first_stop(full_text)
+        if stopped_at != -1:
+            full_text = full_text[:stopped_at]
+        if len(full_text) > emitted:
+            yield TextDelta(full_text[emitted:])  # flush the tail
+        yield terminal(full_text, len(generated))

@@ -192,6 +192,73 @@ class EngineStats:
     spec_accepted: int = 0
     spec_emitted: int = 0
     spec_rows: int = 0
+    # the long-context sequence-parallel lane's requests and dispatches:
+    # 0 until the multi-device slice of the port serves that lane
+    long_requests: int = 0
+    long_dispatches: int = 0
+    # admission sheds, deadline expiries, their per-class splits, delivery
+    # stall-cancels, lease orphans and wedge-watchdog trips: 0 until the
+    # scheduler-robustness slice of the port serves them
+    shed_requests: int = 0
+    expired_requests: int = 0
+    delivery_stalled: int = 0
+    orphaned_requests: int = 0
+    watchdog_trips: int = 0
+    watchdog_faulted: int = 0
+    interactive_shed: int = 0
+    batch_shed: int = 0
+    interactive_expired: int = 0
+    batch_expired: int = 0
+    # EWMA of decode-dispatch latency (ms), the fleet router's tiebreak: a
+    # fold, not a counter; 0.0 until the scheduler-robustness slice
+    dispatch_ewma_ms: float = 0.0
+    # snapshot_and_delta state: the previous window's counter values and
+    # timestamp.  Single-consumer by design (the heartbeat advert): two
+    # delta readers would steal each other's intervals
+    _window: Any = field(default=None, repr=False, compare=False)
+
+    _COUNTER_FIELDS = (
+        "prefill_tokens", "decode_tokens", "decode_dispatches",
+        "decode_time_s", "occupancy_sum", "short_dispatches",
+        "long_requests", "long_dispatches", "prefix_hits",
+        "prefix_reused_tokens", "spec_proposed", "spec_accepted",
+        "spec_emitted", "spec_rows", "overlap_wasted_tokens",
+        "shed_requests", "expired_requests", "cancelled_requests",
+        "cancel_propagated", "delivery_stalled", "orphaned_requests",
+        "prefill_absorbed_tokens", "unified_dispatches",
+        "watchdog_trips", "watchdog_faulted",
+        "prefix_evictions", "alloc_stalls",
+        "interactive_shed", "batch_shed",
+        "interactive_expired", "batch_expired",
+    )
+
+    def counters(self) -> dict:
+        """Every cumulative counter as a plain dict (occupancy_hist as a
+        copied list): the windowing substrate."""
+        out: dict = {f: getattr(self, f) for f in self._COUNTER_FIELDS}
+        out["occupancy_hist"] = list(self.occupancy_hist)
+        return out
+
+    def snapshot_and_delta(self) -> "tuple[dict, dict]":
+        """(cumulative, per-interval delta) since the previous call; the
+        first call's delta covers everything since construction."""
+        now = time.monotonic()
+        cur = self.counters()
+        prev, prev_t = self._window or (
+            {f: 0 for f in self._COUNTER_FIELDS} | {"occupancy_hist": [0, 0, 0, 0]},
+            None,
+        )
+        delta: dict = {f: cur[f] - prev[f] for f in self._COUNTER_FIELDS}
+        delta["occupancy_hist"] = [
+            a - b for a, b in zip(cur["occupancy_hist"], prev["occupancy_hist"])
+        ]
+        delta["interval_s"] = round(now - prev_t, 3) if prev_t is not None else None
+        dt = delta["decode_time_s"]
+        delta["tokens_per_second"] = round(delta["decode_tokens"] / dt, 1) if dt > 0 else 0.0
+        dd = delta["decode_dispatches"]
+        delta["mean_occupancy"] = round(delta["occupancy_sum"] / dd, 4) if dd else 0.0
+        self._window = (cur, now)
+        return cur, delta
 
     @property
     def tokens_per_second(self) -> float:
@@ -209,6 +276,14 @@ class EngineStats:
         if not self.spec_proposed:
             return 0.0
         return self.spec_accepted / self.spec_proposed
+
+    @property
+    def mean_tokens_per_dispatch(self) -> float:
+        """Tokens processed per decode dispatch: decode tokens plus the
+        prefill chunk tokens ragged waves absorbed into those dispatches."""
+        if not self.decode_dispatches:
+            return 0.0
+        return (self.decode_tokens + self.prefill_absorbed_tokens) / self.decode_dispatches
 
     @property
     def tokens_per_dispatch(self) -> float:

@@ -44,10 +44,22 @@ the final ``ok`` line is never printed:
    verify through the dense ragged kernel); each prints TTFT, tokens/s, the
    acceptance rate, tokens per verify dispatch and the ragged launches
    tallied by shape (B, S, window);
-7. the paged decode kernel and each ragged kernel against its plain
+7. client phase: the paged serving phase's model and runtime built through
+   ``TorchLocalModelClient``, 8 agent conversations of two turns rendered
+   by the port's ``render_messages`` (a shared 1,000-byte instruction block,
+   3 tools, a unique user message; turn 2 re-sends the history, the answer
+   and a tool return) and tokenized by a tokenizer whose every id decodes
+   to a character, 32 new tokens a request; it checks usage, streamed
+   text, turn 2's prefix reuse, the snapshots' key sets, readiness, the
+   window's tokens, an abandoned stream's slot, the paged decode and
+   prefill launches and the no-leak law, and prints TTFT (to the first
+   ``TextDelta``) per turn, tokens/s, the client's own host work a request
+   and the kernels' launches by shape beside the card;
+8. the paged decode kernel and each ragged kernel against its plain
    version again, at the shape its serving phase launched most, with the kv
    lengths of that shape's last launch and q in bf16, as serving passes it:
-   the case the ``kernels`` line reports.
+   the case the ``kernels`` line reports; then the prefill and paged
+   decode kernels at the shapes the client phase launched most.
 
 The kernel phase also holds the ragged multi-query kernels (speculative
 verify shapes S = 5, a mixed-row case with prefill-kind and fresh rows, page
@@ -87,11 +99,20 @@ import torch
 import torch.nn.functional as F
 
 from calfkit_tpu_torch import kernels
+from calfkit_tpu_torch.engine import (
+    ModelRequestParameters,
+    ModelSettings,
+    ResponseDone,
+    TextDelta,
+)
 from calfkit_tpu_torch.inference import attention as A
 from calfkit_tpu_torch.inference import model as M
+from calfkit_tpu_torch.inference.client import TorchLocalModelClient, render_messages
 from calfkit_tpu_torch.inference.config import RuntimeConfig, SpecConfig, preset
 from calfkit_tpu_torch.inference.engine import EngineStats, InferenceEngine
 from calfkit_tpu_torch.inference.sampler import SamplingParams
+from calfkit_tpu_torch.inference.tokenizer import ByteTokenizer
+from calfkit_tpu_torch.models import ModelRequest, ToolDef, ToolReturnPart, UserPart, user_message
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # tensor-core bf16; f32 CUDA cores
@@ -675,17 +696,21 @@ def _shape_rows(tally) -> "list[dict]":
     return sorted(rows, key=lambda r: (-r["launches"], -r["S"]))
 
 
-def path_case(dev, name: str, shapes: "list[dict]") -> dict:
-    """The paged decode or a ragged kernel ``name`` against its plain version
-    at the shape its serving phase launched most (``shapes`` as
-    :func:`_shape_rows` gives), with the kv lengths of that shape's last
-    launch: (for the ragged kernels verify rows, start = kv_len) the 8B
-    model's K=8, G=4, hd=128, bf16 cache and q."""
+def path_case(dev, name: str, shapes: "list[dict]", where: str = "") -> dict:
+    """A kernel ``name`` against its plain version at the shape its serving
+    phase (``where``: the phase's name where it is not the kernel's own
+    serving phase) launched most (``shapes`` as :func:`_shape_rows` gives),
+    with the kv lengths of that shape's last launch: the 8B model's K=8,
+    G=4, hd=128, bf16 cache and q (for the ragged kernels verify rows, start
+    = kv_len; for prefill each row's queries end at its kv length)."""
     top = shapes[0]
     bf16 = torch.bfloat16
     lens = top["last_kv_lens"]
+    if name == "prefill_attention":
+        return run_cases(dev, [(name, prefill_case, (bf16, top["B"], top["S"], 32, 8, 128, 44,
+                                                     0, top["window"], lens))])[0]
     if name == "paged_decode_attention":
-        label = f"paged serving, {top['launches']} launches"
+        label = f"{where or 'paged serving'}, {top['launches']} launches"
         args = (bf16, top["B"], 8, 4, 128, PAGED_RUNTIME.page_size, lens, top["window"], 41, 1,
                 bf16, label)
         return run_cases(dev, [(name, paged_decode_case, args)])[0]
@@ -1106,6 +1131,255 @@ async def spec_serving_phase(dev) -> dict:
     return result
 
 
+# --------------------------------------------------------------------------- #
+# client phase: agent turns through the model client
+# --------------------------------------------------------------------------- #
+
+# the model client's stats_snapshot() keys before start(), and live on the
+# paged runtime (prefix cache on, no speculation) on a card; the CPU tests
+# hold both equal to the JAX client's (tests/test_torch_client.py)
+CLIENT_COLD_KEYS = frozenset({
+    "model_name", "platform", "tokens_per_second", "mean_occupancy", "active_requests",
+    "pending_requests", "free_slots", "max_batch_size", "kv_layout", "prefill_tokens",
+    "decode_tokens", "decode_dispatches", "overlap_dispatch", "overlap_wasted_tokens",
+    "ragged_waves", "prefill_absorbed_tokens", "unified_dispatches", "tokens_per_dispatch",
+    "max_pending", "shed_requests", "expired_requests", "interactive_shed", "batch_shed",
+    "interactive_expired", "batch_expired", "interactive_pending", "batch_pending",
+    "cancelled_requests", "cancel_propagated", "delivery_stalled", "orphaned_requests",
+    "dispatch_ewma_ms", "wedged", "watchdog_trips", "watchdog_faulted", "flightrec",
+    "pages_total", "pages_in_use", "prefix_resident_pages", "evictions_window",
+    "alloc_stalls", "capacity", "capacity_samples",
+})
+CLIENT_LIVE_KEYS = CLIENT_COLD_KEYS | {
+    "free_pages", "prefix_cached_pages", "prefix_hits", "prefix_reused_tokens", "hbm_gb_in_use",
+}
+
+# an agent's instruction block of 1,000 bytes, shared by every conversation;
+# with the tool block the conversations share 24 whole pages of 64 tokens,
+# which the chunk lane's reuse (whole chunks of 512, one chunk recomputed)
+# covers in full
+AGENT_INSTRUCTIONS = (
+    "You are the travel desk of a small agency. Answer in plain English, in "
+    "short paragraphs, and never invent a booking reference. When the user asks "
+    "about weather, flights or hotels, call the matching tool with arguments "
+    "taken from the conversation; if an argument is missing, ask for it first. "
+    "Quote prices in the currency the user wrote, and temperatures in the unit "
+    "they used, defaulting to Celsius. Never book anything without an explicit "
+    "yes from the user in the same conversation. When a tool returns an error, "
+    "apologise once, explain what failed in one sentence and offer the next "
+    "best option. Keep a running summary of decisions at the end of each "
+    "answer, as a bulleted list of at most five items. Respect the user's "
+    "budget: flag any option above it and propose a cheaper one. Dates are "
+    "written as YYYY-MM-DD. Cities are written with their country when the "
+    "name is ambiguous. If the user changes their mind, update the summary and "
+    "say what changed. Do not discuss topics outside travel planning."
+)
+AGENT_TOOLS = [
+    ToolDef(name="get_weather", description="Forecast for a city", parameters_schema={
+        "type": "object", "properties": {"city": {"type": "string"}}}),
+    ToolDef(name="search_flights", description="Flights on a date", parameters_schema={
+        "type": "object", "properties": {
+            "origin": {"type": "string"}, "destination": {"type": "string"},
+            "date": {"type": "string"}}}),
+    ToolDef(name="book_hotel", description="Reserve a hotel room", parameters_schema={
+        "type": "object",
+        "properties": {"city": {"type": "string"}, "nights": {"type": "integer"}}}),
+]
+AGENT_CITIES = ["Lisbon", "Oslo", "Kyoto", "Lima", "Nairobi", "Hanoi", "Quebec", "Tbilisi"]
+CLIENT_MAX_TOKENS = 32
+
+class CharTokenizer:
+    """Every id decodes to one character (``chr(0x100 + id)``), so a stream
+    on random weights shows text from its first token; text below U+0100
+    encodes to its ordinal.  The client phase's tokenizer: the byte
+    tokenizer drops the ids past 258 that random weights mostly emit."""
+
+    pad_id, bos_id, eos_id = 0, 1, 2
+
+    def encode(self, text: str) -> "list[int]":
+        return [ord(c) - 0x100 if ord(c) >= 0x100 else ord(c) for c in text]
+
+    def decode(self, ids: "list[int]") -> str:
+        return "".join(chr(0x100 + i) for i in ids if i >= 0)
+
+
+async def _client_turn(client, messages, params) -> dict:
+    """One agent turn through ``client.request_stream`` → its events, and
+    its clocks: submit, first ``TextDelta`` (absent if none came), done."""
+    clock = {"submit": time.perf_counter()}
+    events = []
+    async for event in client.request_stream(
+        messages, ModelSettings(max_tokens=CLIENT_MAX_TOKENS), params
+    ):
+        if isinstance(event, TextDelta) and "first" not in clock:
+            clock["first"] = time.perf_counter()
+        events.append(event)
+    clock["done"] = time.perf_counter()
+    return dict(events=events, **clock)
+
+
+def _turn_numbers(turns: "list[dict]", started: float) -> dict:
+    ttft = sorted((t["first"] - t["submit"]) * 1e3 for t in turns if "first" in t)
+    tokens = sum(t["events"][-1].response.usage.output_tokens for t in turns)
+    wall = max(t["done"] for t in turns) - started
+    return dict(ttft_ms=ttft, ttft_median_ms=statistics.median(ttft), ttft_max_ms=max(ttft),
+                output_tokens=tokens, wall_s=wall, tok_s=tokens / wall)
+
+
+async def client_phase(dev, card: str = "") -> dict:
+    """The paged serving drive's model and runtime, built and served through
+    ``TorchLocalModelClient``: 8 agent conversations, 2 turns each, every
+    turn rendered by the port's ``render_messages`` and tokenized by
+    :class:`CharTokenizer`.  Turn 1: the shared instruction block, 3 tools
+    with JSON schemas and a user message unique to the conversation; turn 2
+    re-sends turn 1's history, its response and a tool return.  32 new
+    tokens a request, greedy; a turn's 8 requests run concurrently.  TTFT is
+    ``request_stream`` to the first ``TextDelta``.  ``card`` (the card's
+    name and power limit) is printed beside the numbers."""
+    cfg = preset("llama-3-8b")
+    rt = PAGED_RUNTIME
+    platform = "gpu" if dev.type == "cuda" else "cpu"
+    tok = CharTokenizer()
+    client = TorchLocalModelClient(config=cfg, runtime=rt, tokenizer=tok, device=dev)
+    cold = client.stats_snapshot()
+    assert set(cold) == CLIENT_COLD_KEYS, set(cold) ^ CLIENT_COLD_KEYS
+    assert client.ready() == (False, "engine not built (weights not loaded)")
+    t0 = time.perf_counter()
+    await client.start()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    assert client.ready() == (True, "engine running"), client.ready()
+    engine = client._engine
+    params = ModelRequestParameters(tool_defs=AGENT_TOOLS)
+    turn1 = [
+        [ModelRequest(instructions=AGENT_INSTRUCTIONS, parts=[UserPart(content=(
+            f"Trip {i}: weather in {city} on 2026-0{i + 1}-1{i}, and a hotel for {i + 2} nights?"
+        ))])]
+        for i, city in enumerate(AGENT_CITIES)
+    ]
+    prompts1 = [[tok.bos_id, *tok.encode(render_messages(m, params))] for m in turn1]
+    shared = next(n for n in range(min(map(len, prompts1)))
+                  if len({p[n] for p in prompts1}) > 1)
+    shared_pages = shared // rt.page_size
+    try:
+        await client.request([user_message("warm up")], ModelSettings(max_tokens=2))
+        engine.stats = EngineStats()
+        A.reset_launch_counts()
+        with prefill_shapes() as prefills, decode_shapes() as decodes:
+            started = time.perf_counter()
+            first = await asyncio.gather(*[_client_turn(client, m, params) for m in turn1])
+            at_turn2 = time.perf_counter()
+            hits, reused = engine.stats.prefix_hits, engine.stats.prefix_reused_tokens
+            turn2 = [
+                messages + [t["events"][-1].response, ModelRequest(parts=[ToolReturnPart(
+                    tool_call_id=f"call_{i}", tool_name="get_weather",
+                    content={"city": AGENT_CITIES[i], "temp_c": 14 + i, "sky": "clear"},
+                )])]
+                for i, (messages, t) in enumerate(zip(turn1, first))
+            ]
+            second = await asyncio.gather(*[_client_turn(client, m, params) for m in turn2])
+            launches = dict(A.launch_counts)
+        live = client.stats_snapshot(window=True)
+        # the two turns' counters, before the abandoned stream below adds to them
+        s = engine.stats
+        stats = dict(
+            prefix_hits=s.prefix_hits, prefix_reused_tokens=s.prefix_reused_tokens,
+            decode_tokens=s.decode_tokens, decode_dispatches=s.decode_dispatches,
+            decode_tok_s=s.tokens_per_second, unified_dispatches=s.unified_dispatches,
+        )
+        hits2, reused2 = stats["prefix_hits"] - hits, stats["prefix_reused_tokens"] - reused
+        turns = first + second
+        for messages, t in zip(turn1 + turn2, turns):
+            events = t["events"]
+            response = events[-1].response
+            assert isinstance(events[-1], ResponseDone), events[-1]
+            prompt = [tok.bos_id, *tok.encode(render_messages(messages, params))]
+            assert 1 <= response.usage.output_tokens <= CLIENT_MAX_TOKENS, response.usage
+            assert response.usage.input_tokens == len(prompt), (response.usage, len(prompt))
+            deltas = "".join(e.text for e in events[:-1] if isinstance(e, TextDelta))
+            assert deltas == response.text(), (deltas, response.text())
+        text_chars = sum(len(t["events"][-1].response.text()) for t in turns)
+        assert text_chars > 0 and all("first" in t for t in first) and \
+            all("first" in t for t in second), "the streams carried no text"
+        tokens = sum(t["events"][-1].response.usage.output_tokens for t in turns)
+        assert hits2 >= 8 and reused2 >= 8 * shared_pages * rt.page_size, (hits2, reused2)
+        assert set(live) == (CLIENT_LIVE_KEYS if platform == "gpu"
+                             else CLIENT_LIVE_KEYS - {"hbm_gb_in_use"}) | {"window"}, set(live)
+        assert live["platform"] == platform, live["platform"]
+        assert live["window"]["decode_tokens"] == tokens, (live["window"], tokens)
+        assert launches["paged_decode_attention"] > 0 and launches["prefill_attention"] > 0, \
+            launches
+        prefill_rows, decode_rows = _shape_rows(prefills), _shape_rows(decodes)
+        assert sum(r["launches"] for r in prefill_rows) == launches["prefill_attention"]
+        assert sum(r["launches"] for r in decode_rows) == launches["paged_decode_attention"]
+        # the client's own host work on a request, apart from the engine,
+        # with the port's byte tokenizer: render and encode each history,
+        # and the re-decodes of a 32-token stream (at tokens 1, 4, 8, ...,
+        # 32, and the tail), ten times over
+        byte_tok = ByteTokenizer()
+        ids = np.random.default_rng(0).integers(0, 259, CLIENT_MAX_TOKENS).tolist()
+        host0 = time.perf_counter()
+        for _ in range(10):
+            for messages in turn1 + turn2:
+                byte_tok.encode(render_messages(messages, params))
+        render_ms = (time.perf_counter() - host0) * 1e3 / (10 * len(turns))
+        host0 = time.perf_counter()
+        for _ in range(10):
+            for n in [1, *range(4, CLIENT_MAX_TOKENS + 1, 4), CLIENT_MAX_TOKENS]:
+                byte_tok.decode(ids[:n]).rstrip("\ufffd")
+        redecode_ms = (time.perf_counter() - host0) * 1e3 / 10
+        # a stream abandoned after its first event gives its slot back
+        stream = client.request_stream([user_message("abandon me")], ModelSettings(max_tokens=256))
+        assert isinstance(await anext(stream), TextDelta)
+        await stream.aclose()
+        at_close = engine.stats.decode_dispatches
+        deadline = time.perf_counter() + 60
+        while engine._active or len(engine._free) != rt.max_batch_size:
+            assert time.perf_counter() < deadline, "the abandoned stream kept its slot"
+            await asyncio.sleep(0.002)
+        ticks = engine.stats.decode_dispatches - at_close
+        assert ticks <= 100, ticks
+    finally:
+        await client.stop()
+    # the no-leak law: every page free or held by the prefix cache, every slot free
+    free_pages, cached = engine._page_alloc.free_pages, engine._prefix.size
+    assert free_pages + cached == rt.pool_pages() - 1, (free_pages, cached)
+    assert len(engine._free) == rt.max_batch_size and not engine._active
+    result = dict(
+        init_s=init_s, shared_prompt_tokens=shared, shared_pages=shared_pages,
+        prompt_tokens=[len(p) for p in prompts1],
+        turn1=_turn_numbers(first, started), turn2=_turn_numbers(second, at_turn2),
+        tok_s=tokens / (max(t["done"] for t in second) - started), output_tokens=tokens,
+        turn2_prefix_hits=hits2, turn2_prefix_reused_tokens=reused2, **stats,
+        launches=launches, prefill_shapes=prefill_rows, decode_shapes=decode_rows,
+        abandon_ticks=ticks, hbm_gb_in_use=live.get("hbm_gb_in_use"),
+        render_encode_ms=render_ms, redecode_ms=redecode_ms, text_chars=text_chars,
+    )
+    t1, t2 = result["turn1"], result["turn2"]
+    print(
+        f"  client llama-3-8b bf16, 8 agent conversations x 2 turns x <= {CLIENT_MAX_TOKENS} "
+        f"tokens through TorchLocalModelClient (one run, no spread; {card}): "
+        f"init {init_s:.2f} s, "
+        f"prompts {min(result['prompt_tokens'])}-{max(result['prompt_tokens'])} tokens "
+        f"({shared} shared, {shared_pages} whole pages); TTFT (request_stream -> first "
+        f"TextDelta) turn 1 median {t1['ttft_median_ms']:.1f} ms max "
+        f"{t1['ttft_max_ms']:.1f} ms, turn 2 median {t2['ttft_median_ms']:.1f} ms max "
+        f"{t2['ttft_max_ms']:.1f} ms; {tokens} tokens ({text_chars} characters) at "
+        f"{result['tok_s']:.1f} tok/s over both turns' wall (turn 1 {t1['tok_s']:.1f}, turn 2 "
+        f"{t2['tok_s']:.1f}); decode {stats['decode_tok_s']:.1f} tok/s over "
+        f"{stats['decode_dispatches']} dispatches; turn 2 prefix hits {hits2} ({reused2} "
+        f"tokens); the client's host work a request (byte tokenizer): render + encode "
+        f"{render_ms:.3f} ms, re-decodes {redecode_ms:.3f} ms; launches {launches}; prefill "
+        f"launches by (B, Sq, Skv) "
+        f"{[(r['B'], r['S'], r['window'], r['launches']) for r in prefill_rows]}, paged "
+        f"decode launches by (B, wpages) "
+        f"{[(r['B'], r['window'], r['launches']) for r in decode_rows]}; abandoned stream's "
+        f"slot back after {ticks} dispatches; pages free {free_pages} + cached {cached} of "
+        f"{rt.pool_pages() - 1}"
+    )
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -1138,12 +1412,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     spec_dense = asyncio.run(spec_serving_phase(dev))
     torch.cuda.empty_cache()
+    print("client phase")
+    client = asyncio.run(client_phase(dev, card))
+    torch.cuda.empty_cache()
     print("paged decode and ragged kernels at their serving phases' shapes")
     for name, shapes in (("paged_decode_attention", paged["decode_shapes"]),
                          ("ragged_attention", spec_dense["verify_shapes"]),
                          ("ragged_attention_paged", spec_paged["verify_shapes"])):
         main_cases[name] = path_case(dev, name, shapes)
         cases.append(main_cases[name])
+    print("prefill and paged decode kernels at the client phase's shapes")
+    cases += [path_case(dev, "prefill_attention", client["prefill_shapes"]),
+              path_case(dev, "paged_decode_attention", client["decode_shapes"], "client")]
 
     # each kernel's launches from the path it serves, beside its case at a
     # shape of that path (MAIN_SHAPES, path_case): the dense decode kernel
@@ -1169,8 +1449,8 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, cases=cases, exactness=exact, serving=serving,
                            paged_serving=paged, spec_paged_serving=spec_paged,
-                           spec_serving=spec_dense, kernels=line["kernels"]), f, indent=1,
-                      default=str)
+                           spec_serving=spec_dense, client=client, kernels=line["kernels"]),
+                      f, indent=1, default=str)
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

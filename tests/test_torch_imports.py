@@ -1,6 +1,7 @@
 """The import law of the PyTorch port: ``calfkit_tpu_torch`` and
 ``chip_smoke.py`` import neither ``jax`` nor anything of ``calfkit_tpu``,
-and the engine refuses to fall back to the CPU when no card is present."""
+nor ``pydantic`` (the card's machine has none), and the engine and the
+model client refuse to fall back to the CPU when no card is present."""
 
 import ast
 import subprocess
@@ -18,18 +19,24 @@ import importlib, pkgutil, sys
 
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith("jax.") or name == "calfkit_tpu" \\
-                or name.startswith("calfkit_tpu."):
+        if name.split(".")[0] in ("jax", "calfkit_tpu", "pydantic"):
             raise ImportError(f"blocked import of {name}")
         return None
 
 sys.meta_path.insert(0, Block())
 sys.modules["jax"] = None
+sys.modules["pydantic"] = None
 import calfkit_tpu_torch
-for mod in pkgutil.walk_packages(calfkit_tpu_torch.__path__, "calfkit_tpu_torch."):
-    importlib.import_module(mod.name)
+names = [m.name for m in pkgutil.walk_packages(calfkit_tpu_torch.__path__, "calfkit_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+for name in ("calfkit_tpu_torch.inference.client", "calfkit_tpu_torch.inference.tokenizer",
+             "calfkit_tpu_torch.engine.model_client", "calfkit_tpu_torch.models.messages",
+             "calfkit_tpu_torch.models.payload", "calfkit_tpu_torch.models.capability"):
+    assert name in names, name
+from calfkit_tpu_torch.inference import TorchLocalModelClient
 import chip_smoke
-assert not any(m == "jax" or m.startswith(("jax.", "calfkit_tpu.")) or m == "calfkit_tpu"
+assert not any(m.split(".")[0] in ("jax", "calfkit_tpu", "pydantic")
                for m, v in sys.modules.items() if v is not None)
 print("OK")
 """
@@ -55,7 +62,7 @@ def test_no_jax_or_reference_import_in_source(path):
             names.append(node.module)
     bad = [
         name for name in names
-        if name.split(".")[0] in ("jax", "jaxlib", "calfkit_tpu")
+        if name.split(".")[0] in ("jax", "jaxlib", "calfkit_tpu", "pydantic")
     ]
     assert not bad, f"{path.name} imports {bad}"
 
@@ -69,3 +76,19 @@ def test_engine_without_a_card_raises_instead_of_using_the_cpu():
 
     with pytest.raises(InferenceError, match="no CUDA device"):
         InferenceEngine(preset("debug"), RuntimeConfig(max_batch_size=2, max_seq_len=64))
+
+
+def test_client_without_a_card_raises_instead_of_using_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import asyncio
+
+    from calfkit_tpu_torch.exceptions import InferenceError
+    from calfkit_tpu_torch.inference import TorchLocalModelClient
+    from calfkit_tpu_torch.inference.config import RuntimeConfig
+
+    client = TorchLocalModelClient(
+        config="debug", runtime=RuntimeConfig(max_batch_size=2, max_seq_len=64)
+    )
+    with pytest.raises(InferenceError, match="no CUDA device"):
+        asyncio.run(client.start())
