@@ -168,9 +168,10 @@ def _capacity(
 class TorchLocalModelClient(ModelClient):
     """Local inference on the PyTorch engine.
 
-    Construction is cheap; device work (random weights, engine start)
-    happens on the first request or an explicit :meth:`start`.  The engine
-    runs on ``device`` (a CUDA card unless ``device="cpu"``)."""
+    Construction is cheap; device work (loading ``checkpoint``, a local HF
+    directory, or random weights; engine start) happens on the first
+    request or an explicit :meth:`start`.  The engine runs on ``device`` (a
+    CUDA card unless ``device="cpu"``)."""
 
     def __init__(
         self,
@@ -188,12 +189,7 @@ class TorchLocalModelClient(ModelClient):
         draft_params: Any = None,
         device: str = "cuda",
     ):
-        for name, value in (("checkpoint", checkpoint), ("draft_checkpoint", draft_checkpoint)):
-            if value is not None:
-                raise InferenceError(
-                    f"{name}= is not served by the PyTorch client yet "
-                    "(a later slice of the port: quantization/loader)"
-                )
+        self._checkpoint = checkpoint
         self._config_spec = config
         self._runtime = runtime
         self._tokenizer = tokenizer
@@ -202,6 +198,7 @@ class TorchLocalModelClient(ModelClient):
         self._parser = tool_call_parser
         self._max_new_tokens = max_new_tokens
         self._seed = seed
+        self._draft_checkpoint = draft_checkpoint
         self._draft_params = draft_params
         self._device = device
         self._start_lock: asyncio.Lock | None = None
@@ -214,7 +211,7 @@ class TorchLocalModelClient(ModelClient):
             return self._config_spec
         if self._config_spec is not None:
             return self._config_spec.name
-        return "torch-local"
+        return self._checkpoint or "torch-local"
 
     # ------------------------------------------------------------- startup
     async def start(self) -> None:
@@ -244,15 +241,46 @@ class TorchLocalModelClient(ModelClient):
         from calfkit_tpu_torch.inference.config import RuntimeConfig, preset
         from calfkit_tpu_torch.inference.engine import InferenceEngine
 
+        runtime = self._runtime or RuntimeConfig()
+        draft_params = self._draft_params
+        if self._draft_checkpoint is not None and draft_params is None:
+            if runtime.speculative is None or runtime.speculative.draft is None:
+                # a draft checkpoint that silently never loads would leave
+                # the user speculating on the wrong drafter
+                raise InferenceError(
+                    "draft_checkpoint given but RuntimeConfig.speculative"
+                    ".draft is unset — set SpecConfig(draft=<ModelConfig>)"
+                )
+            from calfkit_tpu_torch.inference.loader import load_params
+
+            # the draft loads through the same loader as the target (its
+            # own, smaller, config), unquantized
+            draft_params = load_params(
+                self._draft_checkpoint, runtime.speculative.draft, device=self._device
+            )
+        if self._checkpoint is not None:
+            from calfkit_tpu_torch.inference.loader import config_from_hf, load_params
+            from calfkit_tpu_torch.inference.tokenizer import HFTokenizer
+
+            config = config_from_hf(self._checkpoint)
+            params = load_params(
+                self._checkpoint, config, device=self._device, quantize=runtime.quantization
+            )
+            if self._tokenizer is None:
+                self._tokenizer = HFTokenizer(self._checkpoint)
+            return InferenceEngine(
+                config, runtime, params=params, sampling=self._sampling, seed=self._seed,
+                device=self._device, draft_params=draft_params,
+            )
         if isinstance(self._config_spec, str):
             config = preset(self._config_spec)
         elif self._config_spec is not None:
             config = self._config_spec
         else:
-            raise InferenceError("TorchLocalModelClient needs a config")
+            raise InferenceError("TorchLocalModelClient needs a config or a checkpoint path")
         return InferenceEngine(
-            config, self._runtime or RuntimeConfig(), sampling=self._sampling,
-            seed=self._seed, device=self._device, draft_params=self._draft_params,
+            config, runtime, sampling=self._sampling, seed=self._seed, device=self._device,
+            draft_params=draft_params,
         )
 
     async def stop(self) -> None:

@@ -33,7 +33,10 @@ and speculative decoding.
   model) proposes up to ``k`` tokens per active request, one verify forward
   scores all k+1 positions against the cache through the ragged
   multi-query attention kernels, and each row accepts a prefix of its
-  drafts plus one correction token.
+  drafts plus one correction token;
+- weight-only quantization (``RuntimeConfig.quantization``, int8 or int4)
+  quantizes full-precision params at construction; the model dequantizes
+  each weight at its use.  The draft model's params are not quantized.
 
 Parts of the reference engine not ported yet raise instead of pretending:
 ``ValueError`` at construction for their configuration, ``InferenceError``
@@ -67,6 +70,12 @@ from calfkit_tpu_torch.inference.paged import (
     chain_hashes,
     pages_needed,
     table_row,
+)
+from calfkit_tpu_torch.inference.quant import (
+    bits_of,
+    is_quantized,
+    is_quantized4,
+    quantize_params,
 )
 from calfkit_tpu_torch.inference.sampler import (
     SamplingParams,
@@ -299,7 +308,6 @@ def _check_runtime(rt: RuntimeConfig) -> None:
     the port that will, and the configurations the reference refuses."""
     later = {
         "long_context": (rt.long_context, "multi-device"),
-        "quantization": (rt.quantization is not None, "quantization/loader"),
         "tp/dp > 1": (rt.tp > 1 or rt.dp > 1, "multi-device"),
         "max_pending": (rt.max_pending > 0, "scheduler robustness"),
         "max_out_blocks": (rt.max_out_blocks > 0, "scheduler robustness"),
@@ -312,6 +320,8 @@ def _check_runtime(rt: RuntimeConfig) -> None:
                 f"{knob} is not served by the PyTorch engine yet "
                 f"(a later slice of the port: {part})"
             )
+    if rt.quantization is not None:
+        bits_of(rt.quantization)
     if rt.chunked_prefill and rt.max_seq_len % rt.prefill_chunk:
         # buckets cap at max_seq_len; chunked admission needs every bucket
         # to be a whole number of chunks
@@ -355,6 +365,21 @@ def _check_runtime(rt: RuntimeConfig) -> None:
         )
     if rt.max_stop_tokens < 1:
         raise ValueError("max_stop_tokens must be >= 1")
+
+
+def _quantized(params: Any, quantization: str) -> Any:
+    """``params`` at the runtime's weight-only quantization: full-precision
+    params quantize where they lie, each tensor freed as it quantizes (peak
+    ~1x the model); params already quantized at that bitness pass through."""
+    bits = bits_of(quantization)
+    wq = params.get("layers", {}).get("wq")
+    matching = is_quantized(wq) if bits == 8 else is_quantized4(wq)
+    if (is_quantized(wq) or is_quantized4(wq)) and not matching:
+        raise ValueError(
+            f"params are pre-quantized at the other bitness than "
+            f"runtime quantization={quantization!r}"
+        )
+    return params if matching else quantize_params(params, consume=True, bits=bits)
 
 
 def _pow2_floor(n: int) -> int:
@@ -408,6 +433,8 @@ class InferenceEngine:
             generator = torch.Generator(device=dev)
             generator.manual_seed(seed)
             params = M.init_params(config, generator)
+        if rt.quantization is not None:
+            params = _quantized(params, rt.quantization)
         self.model = M.Decoder(params, dev)
         self.params = self.model.params()
 

@@ -19,6 +19,8 @@ Weight layout (per layer, stacked on axis 0 across layers):
     mlp:  w_gate/w_up [L, D, F], w_down [L, F, D]
     norms: attn_norm/mlp_norm [L, D]
     top:   embed [V, D], final_norm [D], lm_head [D, V] (absent when tied)
+The projections and the LM head may be quantized leaves
+(:mod:`calfkit_tpu_torch.inference.quant`), read through :func:`_w`.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from calfkit_tpu_torch.inference.attention import (
     verify_attention_paged,
 )
 from calfkit_tpu_torch.inference.config import ModelConfig
+from calfkit_tpu_torch.inference.quant import dequant
 
 Params = dict[str, Any]
 
@@ -105,15 +108,17 @@ def init_params(
 
 class Decoder(torch.nn.Module):
     """Owns the decoder's parameter tensors on one device, for inference (no
-    gradients).  :meth:`params` returns them in the tree layout the
-    functions of this module take."""
+    gradients).  A quantized leaf (``quant``'s integer payload and f32
+    scale) is a nested dict of its two tensors.  :meth:`params` returns them
+    in the tree layout the functions of this module take."""
 
     def __init__(self, params: Params, device: "torch.device | str"):
         super().__init__()
 
         def own(tree: Params) -> torch.nn.ParameterDict:
             return torch.nn.ParameterDict({
-                name: torch.nn.Parameter(w.to(device), requires_grad=False)
+                name: own(w) if isinstance(w, dict)
+                else torch.nn.Parameter(w.to(device), requires_grad=False)
                 for name, w in tree.items()
             })
 
@@ -121,12 +126,32 @@ class Decoder(torch.nn.Module):
         self.top = own({name: w for name, w in params.items() if name != "layers"})
 
     def params(self) -> Params:
-        return {**dict(self.top.items()), "layers": dict(self.layers.items())}
+        def tree(owned: torch.nn.ParameterDict) -> Params:
+            return {
+                name: tree(w) if isinstance(w, torch.nn.ParameterDict) else w
+                for name, w in owned.items()
+            }
+
+        return {**tree(self.top), "layers": tree(self.layers)}
 
 
 def layer_params(params: Params, i: int) -> Params:
-    """Layer ``i``'s slice of the stacked layer parameters (views)."""
-    return {name: w[i] for name, w in params["layers"].items()}
+    """Layer ``i``'s slice of the stacked layer parameters (views); a
+    quantized leaf gives layer ``i``'s payload and scale."""
+    return {
+        name: {k: v[i] for k, v in w.items()} if isinstance(w, dict) else w[i]
+        for name, w in params["layers"].items()
+    }
+
+
+def _w(leaf: Any, dtype: torch.dtype) -> torch.Tensor:
+    """The weight read seam: a plain tensor passes through; a quantized leaf
+    is dequantized to bf16, as the JAX package does whatever the model's
+    dtype, then cast to the activations' ``dtype`` (bf16 → f32 is exact, as
+    the JAX package's einsum promotion)."""
+    if isinstance(leaf, dict):
+        return dequant(leaf).to(dtype)
+    return leaf
 
 
 # --------------------------------------------------------------------------- #
@@ -172,9 +197,9 @@ def attn_qkv(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The block's attention front half: norm → QKV projections → rope."""
     h = rms_norm(x, lp["attn_norm"], eps)
-    q = torch.einsum("bsd,dnh->bsnh", h, lp["wq"])
-    k = torch.einsum("bsd,dkh->bskh", h, lp["wk"])
-    v = torch.einsum("bsd,dkh->bskh", h, lp["wv"])
+    q = torch.einsum("bsd,dnh->bsnh", h, _w(lp["wq"], h.dtype))
+    k = torch.einsum("bsd,dkh->bskh", h, _w(lp["wk"], h.dtype))
+    v = torch.einsum("bsd,dkh->bskh", h, _w(lp["wv"], h.dtype))
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
@@ -185,11 +210,12 @@ def attn_out_mlp(
     eps: float,
 ) -> torch.Tensor:
     """The block's back half: output projection + residual + SwiGLU MLP."""
-    x = x + torch.einsum("bsnh,nhd->bsd", attn, lp["wo"])
+    x = x + torch.einsum("bsnh,nhd->bsd", attn, _w(lp["wo"], attn.dtype))
     h = rms_norm(x, lp["mlp_norm"], eps)
-    gate = torch.einsum("bsd,df->bsf", h, lp["w_gate"])
-    up = torch.einsum("bsd,df->bsf", h, lp["w_up"])
-    return x + torch.einsum("bsf,fd->bsd", F.silu(gate) * up, lp["w_down"])
+    gate = torch.einsum("bsd,df->bsf", h, _w(lp["w_gate"], h.dtype))
+    up = torch.einsum("bsd,df->bsf", h, _w(lp["w_up"], h.dtype))
+    act = F.silu(gate) * up
+    return x + torch.einsum("bsf,fd->bsd", act, _w(lp["w_down"], act.dtype))
 
 
 def lm_logits(x: torch.Tensor, params: Params, eps: float) -> torch.Tensor:
@@ -198,7 +224,7 @@ def lm_logits(x: torch.Tensor, params: Params, eps: float) -> torch.Tensor:
     head = params.get("lm_head")
     if head is None:
         return torch.einsum("bsd,vd->bsv", x, params["embed"])
-    return torch.einsum("bsd,dv->bsv", x, head)
+    return torch.einsum("bsd,dv->bsv", x, _w(head, x.dtype))
 
 
 def _einsum_f32(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

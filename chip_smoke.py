@@ -59,7 +59,35 @@ the final ``ok`` line is never printed:
    version again, at the shape its serving phase launched most, with the kv
    lengths of that shape's last launch and q in bf16, as serving passes it:
    the case the ``kernels`` line reports; then the prefill and paged
-   decode kernels at the shapes the client phase launched most.
+   decode kernels at the shapes the client phase launched most;
+9. quantized exactness phase: the exactness phase's model with int8 and
+   then int4 weights (dequantized to bf16 at each use, as the JAX package
+   does), dense KV quantized by the engine at construction and paged KV
+   with the prefix cache; every greedy stream equals the recompute through
+   ``model.forward`` with the plain attention on the same quantized tree;
+10. checkpoint phase: an HF-layout BF16 checkpoint at Llama-3-8B widths
+   and 2 layers, two shards and an index (~3 GB), written by the script's
+   own safetensors writer into a temporary directory;
+   ``TorchLocalModelClient(checkpoint=...)`` serves 4 agent turns on the
+   paged runtime with every loaded bf16 leaf bit for bit the written
+   tensor (transposed); ``load_params(quantize="int8")`` equals
+   ``quantize_array_host`` of the same arrays and the card's peak
+   allocation over that load stays within the int8 tree's bytes (the bf16
+   embedding and norms among them) plus 5% (no full-precision copy on the
+   card); prints the write, load and first-turn seconds and the turns'
+   launches by shape;
+11. north-star drives: ``bench.py``'s ``llama8b`` shape (the full
+   llama-3-8b preset at ``max_seq_len`` 1024, 32 rows, 32 steps a
+   dispatch, paged KV of 193 pages of 64, chunked prefill of 128) with int8
+   weights from ``random_quantized_params_host``, then bf16 (random init),
+   each one wave of 32 requests of 64 prompt tokens and 128 new tokens,
+   then int4 and bf16 again with one wave of 8 each (so int4 is compared
+   with bf16 at the same load); prints TTFT median and max, decode
+   tokens/s and the mean decode dispatch, the weights' bytes and the peak
+   allocation and the launches by shape, and holds the no-leak law;
+12. the prefill and paged decode kernels against their plain versions
+   again, at the shapes the checkpoint phase and the int8 north-star drive
+   launched most (the north star's on a pool of its runtime's 193 pages).
 
 The kernel phase also holds the ragged multi-query kernels (speculative
 verify shapes S = 5, a mixed-row case with prefill-kind and fresh rows, page
@@ -88,11 +116,15 @@ import argparse
 import asyncio
 import contextlib
 import json
+import math
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -107,9 +139,11 @@ from calfkit_tpu_torch.engine import (
 )
 from calfkit_tpu_torch.inference import attention as A
 from calfkit_tpu_torch.inference import model as M
+from calfkit_tpu_torch.inference import quant as Q
 from calfkit_tpu_torch.inference.client import TorchLocalModelClient, render_messages
 from calfkit_tpu_torch.inference.config import RuntimeConfig, SpecConfig, preset
 from calfkit_tpu_torch.inference.engine import EngineStats, InferenceEngine
+from calfkit_tpu_torch.inference.loader import config_from_hf, load_params
 from calfkit_tpu_torch.inference.sampler import SamplingParams
 from calfkit_tpu_torch.inference.tokenizer import ByteTokenizer
 from calfkit_tpu_torch.models import ModelRequest, ToolDef, ToolReturnPart, UserPart, user_message
@@ -232,30 +266,38 @@ def decode_case(dev, dtype, B, K, G, hd, W, lens, seed, q_dtype=torch.float32):
     )
 
 
-def _shuffled_pool(dev, dtype, g, K, hd, page, lens, wpages, seed):
+def _shuffled_pool(dev, dtype, g, K, hd, page, lens, wpages, seed, n_pages=None):
     """A 2-layer pool of random values whose rows' pages are shuffled,
     non-contiguous ids (the trash page past each row's pages) → (pool_k,
-    pool_v, tables [B, wpages], n_pages)."""
+    pool_v, tables [B, wpages], n_pages).  The pool holds one window a row
+    and the trash page, or ``n_pages`` (a serving runtime's pool) with the
+    rows' pages drawn from it one after another."""
     B = len(lens)
-    n_pages = 1 + B * wpages
+    need = [-(-n // page) for n in lens]
+    if n_pages is None:
+        n_pages, first = 1 + B * wpages, [b * wpages for b in range(B)]
+    else:
+        first = np.cumsum([0, *need[:-1]]).tolist()
+        assert sum(need) < n_pages, (need, n_pages)
     pool_k = torch.randn((2, n_pages, K, page, hd), generator=g, device=dev).to(dtype)
     pool_v = torch.randn((2, n_pages, K, page, hd), generator=g, device=dev).to(dtype)
     ids = np.random.default_rng(seed).permutation(np.arange(1, n_pages))
     tables = np.zeros((B, wpages), np.int32)
-    for b, n in enumerate(lens):
-        need = -(-n // page)
-        tables[b, :need] = ids[b * wpages:b * wpages + need]
+    for b in range(B):
+        tables[b, :need[b]] = ids[first[b]:first[b] + need[b]]
     return pool_k, pool_v, torch.from_numpy(tables).to(dev), n_pages
 
 
 def paged_decode_case(dev, dtype, B, K, G, hd, page, lens, wpages, seed, layer=1,
-                      q_dtype=torch.float32, rows=None):
-    """The paged kernel on a shuffled 2-layer pool, at layer 1; q in
-    ``q_dtype``, as :func:`decode_case`; ``rows`` labels the row lengths
-    where they are not ``PAGED_LENS``."""
+                      q_dtype=torch.float32, rows=None, n_pages=None):
+    """The paged kernel on a shuffled 2-layer pool (of ``n_pages``, as
+    :func:`_shuffled_pool`), at layer 1; q in ``q_dtype``, as
+    :func:`decode_case`; ``rows`` labels the row lengths where they are not
+    ``PAGED_LENS``."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, K, G, hd), generator=g, device=dev).to(q_dtype)
-    pool_k, pool_v, tables, n_pages = _shuffled_pool(dev, dtype, g, K, hd, page, lens, wpages, seed)
+    pool_k, pool_v, tables, n_pages = _shuffled_pool(
+        dev, dtype, g, K, hd, page, lens, wpages, seed, n_pages)
     base = torch.tensor(lens, dtype=torch.int32, device=dev)
 
     def kernel():
@@ -696,13 +738,15 @@ def _shape_rows(tally) -> "list[dict]":
     return sorted(rows, key=lambda r: (-r["launches"], -r["S"]))
 
 
-def path_case(dev, name: str, shapes: "list[dict]", where: str = "") -> dict:
+def path_case(dev, name: str, shapes: "list[dict]", where: str = "",
+              n_pages: "int | None" = None) -> dict:
     """A kernel ``name`` against its plain version at the shape its serving
     phase (``where``: the phase's name where it is not the kernel's own
     serving phase) launched most (``shapes`` as :func:`_shape_rows` gives),
     with the kv lengths of that shape's last launch: the 8B model's K=8,
     G=4, hd=128, bf16 cache and q (for the ragged kernels verify rows, start
-    = kv_len; for prefill each row's queries end at its kv length)."""
+    = kv_len; for prefill each row's queries end at its kv length; for
+    paged decode a pool of ``n_pages``, as :func:`_shuffled_pool`)."""
     top = shapes[0]
     bf16 = torch.bfloat16
     lens = top["last_kv_lens"]
@@ -712,7 +756,7 @@ def path_case(dev, name: str, shapes: "list[dict]", where: str = "") -> dict:
     if name == "paged_decode_attention":
         label = f"{where or 'paged serving'}, {top['launches']} launches"
         args = (bf16, top["B"], 8, 4, 128, PAGED_RUNTIME.page_size, lens, top["window"], 41, 1,
-                bf16, label)
+                bf16, label, n_pages)
         return run_cases(dev, [(name, paged_decode_case, args)])[0]
     label = f"spec serving, {top['launches']} launches"
     if name == "ragged_attention":
@@ -1203,13 +1247,13 @@ class CharTokenizer:
         return "".join(chr(0x100 + i) for i in ids if i >= 0)
 
 
-async def _client_turn(client, messages, params) -> dict:
+async def _client_turn(client, messages, params, max_tokens: int = CLIENT_MAX_TOKENS) -> dict:
     """One agent turn through ``client.request_stream`` → its events, and
     its clocks: submit, first ``TextDelta`` (absent if none came), done."""
     clock = {"submit": time.perf_counter()}
     events = []
     async for event in client.request_stream(
-        messages, ModelSettings(max_tokens=CLIENT_MAX_TOKENS), params
+        messages, ModelSettings(max_tokens=max_tokens), params
     ):
         if isinstance(event, TextDelta) and "first" not in clock:
             clock["first"] = time.perf_counter()
@@ -1380,6 +1424,400 @@ async def client_phase(dev, card: str = "") -> dict:
     return result
 
 
+# --------------------------------------------------------------------------- #
+# the checkpoint path: quantized weights, an HF checkpoint, the north star
+# --------------------------------------------------------------------------- #
+
+
+def same_tree(a, b) -> bool:
+    """Two params trees hold the same keys and bit-identical tensors."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_tree(a[k], b[k]) for k in a)
+    return torch.equal(a, b)
+
+
+def tree_bytes(tree) -> int:
+    """The bytes of every tensor of a params tree (payloads and scales)."""
+    return sum(tree_bytes(w) if isinstance(w, dict) else w.numel() * w.element_size()
+               for w in tree.values())
+
+
+async def quant_exactness_phase(dev) -> dict:
+    """The exactness phase's model (Llama-3-8B widths, 4 layers, f32) with
+    int8 and then int4 weights: dense KV (the engine quantizing the
+    full-precision params at construction, bit for bit the tree quantized
+    beforehand) and paged KV with the prefix cache over two bursts; every
+    greedy stream equals a step-by-step recompute through ``model.forward``
+    with the plain attention on the same quantized tree."""
+    cfg = preset("llama-3-8b", n_layers=4, dtype="float32")
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(1))
+    rng = np.random.default_rng(11)
+    dense_rt = dict(
+        max_batch_size=4, max_seq_len=1024, prefill_chunk=128, decode_steps_per_dispatch=8
+    )
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 77, 300)]
+    prefix = rng.integers(0, cfg.vocab_size, 256).tolist()
+    tail = lambda n: rng.integers(0, cfg.vocab_size, n).tolist()  # noqa: E731
+    bursts = [
+        [(prefix + tail(40), 12, {}), (prefix + tail(90), 12, {})],
+        [(prefix + tail(60), 12, {}), (tail(50), 12, {})],
+    ]
+    out = {}
+    for quantization in ("int8", "int4"):
+        qparams = Q.quantize_params(params, bits=Q.bits_of(quantization))
+        rt = RuntimeConfig(**dense_rt, quantization=quantization)
+        # a shallow copy: the engine consumes the tree it quantizes
+        full = {**params, "layers": dict(params["layers"])}
+        engine = InferenceEngine(cfg, rt, params=full, device=dev)
+        assert same_tree(engine.params, qparams), "quantized at construction != beforehand"
+        await engine.start()
+        A.reset_launch_counts()
+        try:
+            dense = (await serve(engine, [(p, 12, {}) for p in prompts]))[0]
+        finally:
+            await engine.stop()
+        dense_launches = dict(A.launch_counts)
+        del engine
+        assert [len(s) for s in dense] == [12] * 3
+        assert dense_launches["decode_attention"] > 0 and dense_launches["prefill_attention"] > 0
+        _check_recompute(cfg, qparams, prompts, dense, dev)
+        paged_rt = RuntimeConfig(
+            **dense_rt, kv_layout="paged", page_size=64, chunked_prefill=True,
+            prefix_cache=True, quantization=quantization,
+        )
+        A.reset_launch_counts()
+        paged, stats = await _serve_fresh(cfg, paged_rt, qparams, dev, bursts)
+        paged_launches = dict(A.launch_counts)
+        assert [len(s) for s in paged] == [12] * 4
+        assert stats.prefix_hits == 1 and stats.prefix_reused_tokens == 256, vars(stats)
+        assert paged_launches["paged_decode_attention"] > 0, paged_launches
+        _check_recompute(cfg, qparams, [p for jobs in bursts for p, _, _ in jobs], paged, dev)
+        out[quantization] = dict(dense_launches=dense_launches, paged_launches=paged_launches,
+                                 weight_bytes=tree_bytes(qparams))
+        print(
+            f"  exactness, {quantization} (dequantized to bf16, f32 activations): 3 dense "
+            f"streams (quantized at construction) and 4 paged+prefix streams x 12 tokens == "
+            f"recompute on the same quantized tree; prefix hits {stats.prefix_hits}; weights "
+            f"{tree_bytes(qparams) / 1e9:.3f} GB (f32 {tree_bytes(params) / 1e9:.3f} GB)"
+        )
+        del qparams
+    return out
+
+
+def write_safetensors(path, tensors: "dict[str, torch.Tensor]") -> None:
+    """Write ``tensors`` (CPU, bf16 or f32) as one safetensors file: the
+    8-byte little-endian header length, the JSON header of each tensor's
+    dtype, shape and byte range in the data section, padded to 8 bytes,
+    then the raw little-endian bytes (the format's own writer is not
+    needed)."""
+    codes = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": codes[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.contiguous().view(torch.uint8).numpy().data)
+
+
+def hf_tensors(cfg, dev, seed: int) -> "dict[str, torch.Tensor]":
+    """Random bf16 weights of ``cfg`` under HF Llama names, projections in
+    HF's [out, in] layout, drawn on the card from ``seed``; norms around 1
+    so a swapped norm shows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D, H, K, hd, Fd, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
+                          cfg.vocab_size)
+
+    def draw(rows, cols):
+        return (torch.randn((rows, cols), generator=g, device=dev) / math.sqrt(cols)).to(
+            torch.bfloat16)
+
+    def norm():
+        return (1 + 0.1 * torch.randn((D,), generator=g, device=dev)).to(torch.bfloat16)
+
+    tensors = {"model.embed_tokens.weight": draw(V, D)}
+    for i in range(cfg.n_layers):
+        pre = f"model.layers.{i}."
+        tensors |= {
+            pre + "self_attn.q_proj.weight": draw(H * hd, D),
+            pre + "self_attn.k_proj.weight": draw(K * hd, D),
+            pre + "self_attn.v_proj.weight": draw(K * hd, D),
+            pre + "self_attn.o_proj.weight": draw(D, H * hd),
+            pre + "mlp.gate_proj.weight": draw(Fd, D),
+            pre + "mlp.up_proj.weight": draw(Fd, D),
+            pre + "mlp.down_proj.weight": draw(D, Fd),
+            pre + "input_layernorm.weight": norm(),
+            pre + "post_attention_layernorm.weight": norm(),
+        }
+    tensors |= {"model.norm.weight": norm(), "lm_head.weight": draw(V, D)}
+    return tensors
+
+
+def hf_layout(cfg, tensors, name: str) -> torch.Tensor:
+    """The port's stacked leaf ``name`` built from HF ``tensors`` by hand
+    (transposes and reshapes), for holding the loader to."""
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if name == "embed":
+        return tensors["model.embed_tokens.weight"]
+    if name == "final_norm":
+        return tensors["model.norm.weight"]
+    if name == "lm_head":
+        return tensors["lm_head.weight"].T
+    hf, shape = {
+        "wq": ("self_attn.q_proj.weight", (D, H, hd)), "wk": ("self_attn.k_proj.weight", (D, K, hd)),
+        "wv": ("self_attn.v_proj.weight", (D, K, hd)), "wo": ("self_attn.o_proj.weight", (H, hd, D)),
+        "w_gate": ("mlp.gate_proj.weight", (D, -1)), "w_up": ("mlp.up_proj.weight", (D, -1)),
+        "w_down": ("mlp.down_proj.weight", (-1, D)), "attn_norm": ("input_layernorm.weight", None),
+        "mlp_norm": ("post_attention_layernorm.weight", None),
+    }[name]
+    per_layer = [tensors[f"model.layers.{i}.{hf}"] for i in range(cfg.n_layers)]
+    return torch.stack([w if shape is None else w.T.reshape(shape) for w in per_layer])
+
+
+CKPT_TURNS = 4
+CKPT_MAX_TOKENS = 16
+
+
+async def checkpoint_phase(dev, card: str = "") -> dict:
+    """An HF-layout BF16 checkpoint at Llama-3-8B widths and 2 layers (two
+    shards behind ``model.safetensors.index.json``, and ``config.json``),
+    written by :func:`write_safetensors` into a temporary directory; then
+    ``TorchLocalModelClient(checkpoint=...)`` on the paged runtime serves
+    4 agent turns, its bf16 leaves bit for bit the written tensors; then
+    ``load_params(quantize="int8")`` quantizes on the host, its payloads and
+    scales those of ``quantize_array_host`` of the same arrays, the card's
+    peak allocation over the load within the int8 tree's bytes (the bf16
+    embedding and norms among them) plus 5%.  The turns' prefill and paged
+    decode launches are tallied by shape (:func:`prefill_shapes`,
+    :func:`decode_shapes`)."""
+    base = preset("llama-3-8b")
+    cfg = replace(base, n_layers=2)
+    tok = CharTokenizer()
+    with tempfile.TemporaryDirectory(prefix="calfkit-ckpt-") as tmp:
+        path = Path(tmp)
+        t0 = time.perf_counter()
+        drawn = hf_tensors(cfg, dev, seed=5)
+        host = {name: t.cpu() for name, t in drawn.items()}
+        names = list(host)
+        shards = {"model-00001-of-00002.safetensors": names[: len(names) // 2],
+                  "model-00002-of-00002.safetensors": names[len(names) // 2:]}
+        for shard, members in shards.items():
+            write_safetensors(path / shard, {name: host[name] for name in members})
+        (path / "model.safetensors.index.json").write_text(json.dumps({
+            "metadata": {"total_size": sum(t.numel() * 2 for t in host.values())},
+            "weight_map": {name: shard for shard, members in shards.items() for name in members},
+        }))
+        (path / "config.json").write_text(json.dumps({
+            "_name_or_path": "llama-3-8b-random-2-layers", "vocab_size": cfg.vocab_size,
+            "hidden_size": cfg.d_model, "num_hidden_layers": cfg.n_layers,
+            "num_attention_heads": cfg.n_heads, "num_key_value_heads": cfg.n_kv_heads,
+            "intermediate_size": cfg.d_ff, "rope_theta": cfg.rope_theta,
+            "rms_norm_eps": cfg.norm_eps, "max_position_embeddings": cfg.max_seq_len,
+            "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+        }))
+        disk_gb = sum(f.stat().st_size for f in path.glob("*.safetensors")) / 1e9
+        write_s = time.perf_counter() - t0
+        loaded_cfg = config_from_hf(path)
+        assert loaded_cfg == replace(cfg, name="llama-3-8b-random-2-layers"), loaded_cfg
+
+        client = TorchLocalModelClient(
+            checkpoint=str(path), tokenizer=tok, runtime=PAGED_RUNTIME, device=dev
+        )
+        assert client.model_name == str(path)
+        t0 = time.perf_counter()
+        await client.start()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        engine = client._engine
+        assert client.model_name == "llama-3-8b-random-2-layers"
+        params = engine.params
+        for name in ("embed", "final_norm", "lm_head"):
+            assert torch.equal(params[name], hf_layout(cfg, drawn, name)), name
+        for name in params["layers"]:
+            assert torch.equal(params["layers"][name], hf_layout(cfg, drawn, name)), name
+        bf16_bytes = tree_bytes(params)
+        turns = [
+            [ModelRequest(instructions=AGENT_INSTRUCTIONS, parts=[UserPart(
+                content=f"Weather in {city} tomorrow?")])]
+            for city in AGENT_CITIES[:CKPT_TURNS]
+        ]
+        request_params = ModelRequestParameters(tool_defs=AGENT_TOOLS)
+        try:
+            A.reset_launch_counts()
+            with prefill_shapes() as prefills, decode_shapes() as decodes:
+                started = time.perf_counter()
+                done = await asyncio.gather(*[
+                    _client_turn(client, m, request_params, CKPT_MAX_TOKENS) for m in turns
+                ])
+                launches = dict(A.launch_counts)
+        finally:
+            await client.stop()
+        first_turn_s = max(t["done"] for t in done) - started
+        for t in done:
+            response = t["events"][-1].response
+            assert 1 <= response.usage.output_tokens <= CKPT_MAX_TOKENS, response.usage
+            assert "first" in t and response.text(), "a turn streamed no text"
+        assert launches["prefill_attention"] > 0 and launches["paged_decode_attention"] > 0, \
+            launches
+        prefill_rows, decode_rows = _shape_rows(prefills), _shape_rows(decodes)
+        assert sum(r["launches"] for r in prefill_rows) == launches["prefill_attention"]
+        assert sum(r["launches"] for r in decode_rows) == launches["paged_decode_attention"]
+        free_pages = engine._page_alloc.free_pages
+        assert free_pages + engine._prefix.size == PAGED_RUNTIME.pool_pages() - 1
+        del engine, params, client
+        torch.cuda.empty_cache()
+
+        # the int8 load: quantized on the host, only int8 payloads, f32
+        # scales and the bf16 embedding and norms reach the card
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        qparams = load_params(path, loaded_cfg, device=dev, quantize="int8")
+        torch.cuda.synchronize()
+        load8_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - before
+    # the tree's bytes (the bf16 embedding and norms among them) plus 5%:
+    # less than one bf16 layer leaf of this checkpoint (w_gate, 0.235 GB),
+    # so a full-precision copy left on the card breaks it
+    q_bytes = tree_bytes(qparams)
+    assert peak <= 1.05 * q_bytes, (peak, q_bytes)
+    for name, leaf in [*qparams["layers"].items(), ("lm_head", qparams["lm_head"])]:
+        if not isinstance(leaf, dict):
+            assert torch.equal(leaf, hf_layout(cfg, drawn, name)), name
+            continue
+        axes = Q.LM_HEAD_REDUCTION_AXES if name == "lm_head" else Q.LAYER_REDUCTION_AXES[name]
+        want = Q.quantize_array_host(hf_layout(cfg, drawn, name).float().cpu().numpy(), axes)
+        for key in ("q8", "scale"):
+            assert torch.equal(leaf[key].cpu(), torch.from_numpy(want[key])), (name, key)
+    del qparams, drawn, host
+    result = dict(
+        disk_gb=disk_gb, write_s=write_s, load_s=load_s, load_int8_s=load8_s,
+        first_turn_s=first_turn_s, turn=_turn_numbers(done, started), bf16_weight_bytes=bf16_bytes,
+        int8_weight_bytes=q_bytes, int8_load_peak_bytes=peak, launches=launches,
+        prefill_shapes=prefill_rows, decode_shapes=decode_rows,
+    )
+    print(
+        f"  checkpoint: llama-3-8b widths, 2 layers, BF16 in 2 shards ({disk_gb:.2f} GB) "
+        f"written in {write_s:.2f} s; TorchLocalModelClient(checkpoint=...) loaded and started "
+        f"in {load_s:.2f} s ({bf16_bytes / 1e9:.3f} GB of weights, bit for bit the written "
+        f"tensors); {CKPT_TURNS} agent turns in {first_turn_s:.3f} s (TTFT median "
+        f"{result['turn']['ttft_median_ms']:.1f} ms); int8 load {load8_s:.2f} s, "
+        f"{q_bytes / 1e9:.3f} GB, peak allocation {peak / 1e9:.3f} GB (law: <= "
+        f"{1.05 * q_bytes / 1e9:.3f} GB); launches {launches}; prefill (B, Sq, Skv, launches) "
+        f"{[(r['B'], r['S'], r['window'], r['launches']) for r in prefill_rows]}, paged decode "
+        f"(B, wpages, launches) {[(r['B'], r['window'], r['launches']) for r in decode_rows]} "
+        f"({card})"
+    )
+    return result
+
+
+NORTH_STAR_RUNTIME = RuntimeConfig(
+    max_batch_size=32, max_seq_len=1024, prefill_chunk=128, decode_steps_per_dispatch=32,
+    kv_layout="paged", page_size=64, num_kv_pages=32 * 4 + 65, chunked_prefill=True,
+)
+NORTH_STAR_REQUESTS = 32
+NORTH_STAR_PROMPT = 64
+NORTH_STAR_NEW = 128
+
+
+def north_star_jobs(requests: int = NORTH_STAR_REQUESTS) -> "list[tuple]":
+    """``bench.py``'s ``llama8b`` requests: 64-token prompts, 128 new tokens
+    each → [(prompt, max_new, kwargs)]."""
+    return [([3 + (i % 41), *range(7, 6 + NORTH_STAR_PROMPT)], NORTH_STAR_NEW, {})
+            for i in range(requests)]
+
+
+def north_star_params(cfg, quantization: "str | None"):
+    """The north star's int8 or int4 params, built quantized on the host
+    from seed 0 (the JAX package's draws); None for bf16 (the engine's
+    random init)."""
+    if quantization is None:
+        return None
+    return Q.random_quantized_params_host(cfg, 0, bits=Q.bits_of(quantization))
+
+
+async def north_star_phase(
+    dev, quantization: "str | None", card: str = "", requests: int = NORTH_STAR_REQUESTS
+) -> dict:
+    """The JAX package's north-star shape (``bench.py``'s ``llama8b``): the
+    full llama-3-8b preset at ``max_seq_len`` 1024, 32 rows, 32 decode steps
+    a dispatch, paged KV (page 64, 193 pages), chunked prefill (chunk 128);
+    int8 and int4 weights from ``random_quantized_params_host`` (seed 0),
+    bf16 from the engine's random init.  One wave of ``requests`` (32)
+    requests of 64 prompt tokens (``bench.py``'s prompts) and 128 new
+    tokens, greedy.  The prefill and paged decode launches are tallied by
+    shape (:func:`prefill_shapes`, :func:`decode_shapes`)."""
+    cfg = preset("llama-3-8b", max_seq_len=NORTH_STAR_RUNTIME.max_seq_len)
+    rt = replace(NORTH_STAR_RUNTIME, quantization=quantization)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = north_star_params(cfg, quantization)
+    host_s = time.perf_counter() - t0
+    engine = InferenceEngine(cfg, rt, params=params, seed=0, device=dev)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = tree_bytes(engine.params)
+    jobs = north_star_jobs(requests)
+    await engine.start()
+    try:
+        await serve(engine, [([5, *range(6, 5 + NORTH_STAR_PROMPT)], 40, {})])  # warm-up
+        engine.stats = EngineStats()
+        A.reset_launch_counts()
+        with prefill_shapes() as prefills, decode_shapes() as decodes:
+            streams, ttft, wall = await serve(engine, jobs)
+            launches = dict(A.launch_counts)
+        stats = engine.stats
+    finally:
+        await engine.stop()
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert [len(s) for s in streams] == [NORTH_STAR_NEW] * requests
+    assert all(0 <= t < cfg.vocab_size for s in streams for t in s)
+    assert launches["prefill_attention"] > 0 and launches["paged_decode_attention"] > 0, launches
+    assert launches["decode_attention"] == 0, launches
+    prefill_rows, decode_rows = _shape_rows(prefills), _shape_rows(decodes)
+    assert sum(r["launches"] for r in prefill_rows) == launches["prefill_attention"]
+    assert sum(r["launches"] for r in decode_rows) == launches["paged_decode_attention"]
+    # the no-leak law (no prefix cache): every page and slot free
+    assert engine._page_alloc.free_pages == rt.pool_pages() - 1, engine._page_alloc.free_pages
+    assert len(engine._free) == rt.max_batch_size and not engine._active
+    name = quantization or "bf16"
+    result = dict(
+        host_params_s=host_s, init_s=init_s, wall_s=wall, ttft_ms=sorted(x * 1e3 for x in ttft),
+        ttft_median_ms=statistics.median(ttft) * 1e3, ttft_max_ms=max(ttft) * 1e3,
+        decode_tokens=stats.decode_tokens, decode_time_s=stats.decode_time_s,
+        decode_tok_s=stats.tokens_per_second, decode_dispatches=stats.decode_dispatches,
+        mean_dispatch_ms=stats.decode_time_s / stats.decode_dispatches * 1e3,
+        unified_dispatches=stats.unified_dispatches, prefill_waves=stats.prefill_waves,
+        requests=requests, tok_s_wall=requests * NORTH_STAR_NEW / wall,
+        weight_bytes=weight_bytes, max_memory_allocated=peak, launches=launches,
+        prefill_shapes=prefill_rows, decode_shapes=decode_rows,
+    )
+    print(
+        f"  north star llama-3-8b {name}, {requests} requests x "
+        f"{NORTH_STAR_PROMPT} prompt + {NORTH_STAR_NEW} new tokens (one run, no spread; "
+        f"{card}): params on the host {host_s:.2f} s, engine built {init_s:.2f} s; TTFT median "
+        f"{result['ttft_median_ms']:.1f} ms max {result['ttft_max_ms']:.1f} ms; decode "
+        f"{result['decode_tok_s']:.1f} tok/s over {stats.decode_dispatches} dispatches, mean "
+        f"dispatch {result['mean_dispatch_ms']:.1f} ms; {result['tok_s_wall']:.1f} tok/s over "
+        f"the wall {wall:.2f} s; weights {weight_bytes / 1e9:.3f} GB, max allocated "
+        f"{peak / 1e9:.3f} GB; launches {launches}; prefill (B, Sq, Skv, launches) "
+        f"{[(r['B'], r['S'], r['window'], r['launches']) for r in prefill_rows]}, paged decode "
+        f"(B, wpages, launches) {[(r['B'], r['window'], r['launches']) for r in decode_rows]}"
+    )
+    del engine
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -1415,6 +1853,23 @@ def main() -> int:
     print("client phase")
     client = asyncio.run(client_phase(dev, card))
     torch.cuda.empty_cache()
+    print("quantized exactness phase")
+    quant_exact = asyncio.run(quant_exactness_phase(dev))
+    torch.cuda.empty_cache()
+    print("checkpoint phase")
+    ckpt = asyncio.run(checkpoint_phase(dev, card))
+    torch.cuda.empty_cache()
+    print("north-star drives")
+    north = {}
+    # int4 serves one wave of 8: the script's time stays down (its weights'
+    # dequant, not the rows, sets a dispatch's time); bf16 serves one too,
+    # to compare int4 with at the same load
+    for key, quantization, requests in (
+        ("int8", "int8", NORTH_STAR_REQUESTS), ("bf16", None, NORTH_STAR_REQUESTS),
+        ("int4-8", "int4", 8), ("bf16-8", None, 8),
+    ):
+        north[key] = asyncio.run(north_star_phase(dev, quantization, card, requests))
+        torch.cuda.empty_cache()
     print("paged decode and ragged kernels at their serving phases' shapes")
     for name, shapes in (("paged_decode_attention", paged["decode_shapes"]),
                          ("ragged_attention", spec_dense["verify_shapes"]),
@@ -1424,6 +1879,15 @@ def main() -> int:
     print("prefill and paged decode kernels at the client phase's shapes")
     cases += [path_case(dev, "prefill_attention", client["prefill_shapes"]),
               path_case(dev, "paged_decode_attention", client["decode_shapes"], "client")]
+    print("prefill and paged decode kernels at the checkpoint phase's and the int8 north "
+          "star's shapes")
+    cases += [
+        path_case(dev, "prefill_attention", ckpt["prefill_shapes"]),
+        path_case(dev, "paged_decode_attention", ckpt["decode_shapes"], "checkpoint"),
+        path_case(dev, "prefill_attention", north["int8"]["prefill_shapes"]),
+        path_case(dev, "paged_decode_attention", north["int8"]["decode_shapes"],
+                  "north star int8", n_pages=NORTH_STAR_RUNTIME.pool_pages()),
+    ]
 
     # each kernel's launches from the path it serves, beside its case at a
     # shape of that path (MAIN_SHAPES, path_case): the dense decode kernel
@@ -1449,7 +1913,8 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, cases=cases, exactness=exact, serving=serving,
                            paged_serving=paged, spec_paged_serving=spec_paged,
-                           spec_serving=spec_dense, client=client, kernels=line["kernels"]),
+                           spec_serving=spec_dense, client=client, quant_exactness=quant_exact,
+                           checkpoint=ckpt, north_star=north, kernels=line["kernels"]),
                       f, indent=1, default=str)
     print(json.dumps(line))
     print(card)

@@ -2,7 +2,8 @@
 """Where the PyTorch port's serving time goes, on one CUDA card.
 
     python3 scripts/torch_profile_serving.py [--out PATH] [--preset NAME]
-        [--device cuda|cpu] [--workload dense|paged|spec-paged|spec-dense]
+        [--device cuda|cpu]
+        [--workload dense|paged|spec-paged|spec-dense|north-int8|north-bf16|north-int4]
 
 Serves one of ``chip_smoke.py``'s serving workloads twice on one engine: the
 first round warms up, the second runs under ``torch.profiler``.  ``dense``
@@ -15,6 +16,10 @@ round fills the prefix cache, so in the profiled round every prompt
 reuses its cached pages.  ``spec-paged`` is ``paged`` with
 ``SpecConfig(k=4)`` and the target's own weights as the draft model;
 ``spec-dense`` is ``dense`` with the n-gram drafter (``SpecConfig(k=4)``).
+``north-int8``, ``north-bf16`` and ``north-int4`` are the north-star drive
+(``NORTH_STAR_RUNTIME``, ``north_star_jobs``: 32 requests of 64 + 128
+tokens, the preset at ``max_seq_len`` 1024) with int8 or int4 weights built
+on the host (``north_star_params``) or bf16 from the engine's random init.
 Prints one JSON object: the profiled window's wall
 time, the device's busy time (union of kernel intervals) and idle share,
 launches and device time per kernel family, the top kernels by device time,
@@ -42,8 +47,11 @@ from calfkit_tpu_torch.inference import model as M  # noqa: E402
 from calfkit_tpu_torch.inference.config import SpecConfig, preset  # noqa: E402
 from calfkit_tpu_torch.inference.engine import InferenceEngine  # noqa: E402
 from chip_smoke import (  # noqa: E402
+    NORTH_STAR_RUNTIME,
     PAGED_RUNTIME,
     SERVING_RUNTIME,
+    north_star_jobs,
+    north_star_params,
     paged_serving_jobs,
     serving_jobs,
 )
@@ -100,7 +108,15 @@ async def run(args) -> dict:
     else:
         rt = SERVING_RUNTIME
         _, jobs = serving_jobs(cfg.vocab_size)
-    if args.workload == "spec-paged":  # the draft model reads the target's tensors
+    if args.workload.startswith("north-"):
+        quantization = {"north-int8": "int8", "north-int4": "int4"}.get(args.workload)
+        cfg = preset(args.preset, max_seq_len=NORTH_STAR_RUNTIME.max_seq_len)
+        rt = replace(NORTH_STAR_RUNTIME, quantization=quantization)
+        jobs = north_star_jobs()
+        engine = InferenceEngine(
+            cfg, rt, params=north_star_params(cfg, quantization), seed=0, device=dev
+        )
+    elif args.workload == "spec-paged":  # the draft model reads the target's tensors
         rt = replace(rt, speculative=SpecConfig(k=4, draft=cfg))
         params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
         engine = InferenceEngine(cfg, rt, params=params, draft_params=params, device=dev)
@@ -169,7 +185,8 @@ def main() -> int:
     parser.add_argument("--out")
     parser.add_argument("--preset", default="llama-3-8b")
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--workload", default="dense", choices=("dense", "paged", "spec-paged", "spec-dense"))
+    parser.add_argument("--workload", default="dense", choices=(
+        "dense", "paged", "spec-paged", "spec-dense", "north-int8", "north-bf16", "north-int4"))
     args = parser.parse_args()
     if args.device == "cuda" and not torch.cuda.is_available():
         print("torch_profile_serving: no CUDA device", file=sys.stderr)

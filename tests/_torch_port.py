@@ -21,6 +21,7 @@ import calfkit_tpu_torch.models.capability as port_capability
 import calfkit_tpu_torch.models.messages as port_messages
 import calfkit_tpu_torch.models.payload as port_payload
 from calfkit_tpu.inference import model as JM
+from calfkit_tpu.inference import quant as JQ
 from calfkit_tpu.inference.config import preset as jax_preset
 from calfkit_tpu_torch.inference.config import preset as torch_preset
 from calfkit_tpu_torch.inference.weights import params_from_numpy
@@ -42,6 +43,14 @@ def torch_params(params) -> dict:
     """The same weights as the port's tensors on the CPU."""
     tree = jax.tree.map(np.asarray, params)
     return params_from_numpy(tree, device="cpu")
+
+
+def quantized_params(bits: int, seed: int = 0):
+    """The reference tests' debug-preset params quantized by the JAX
+    package (``bits`` 8 or 4), and the same quantized tree as the port's
+    CPU tensors (int8 or uint8 payloads, f32 scales)."""
+    params = JQ.quantize_params(jax_params(seed), bits=bits)
+    return params, torch_params(params)
 
 
 def t(array, dtype=None) -> torch.Tensor:

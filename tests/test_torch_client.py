@@ -687,12 +687,6 @@ def _emit(text):
     return generate
 
 
-def test_checkpoints_raise_until_the_loader_slice():
-    for kw in (dict(checkpoint="/ckpt"), dict(draft_checkpoint="/draft")):
-        with pytest.raises(InferenceError, match="quantization/loader"):
-            TorchLocalModelClient(config="debug", **kw)
-
-
 async def test_no_config_raises():
     client = TorchLocalModelClient(device="cpu")
     assert client.model_name == "torch-local"

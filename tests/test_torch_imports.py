@@ -1,6 +1,8 @@
 """The import law of the PyTorch port: ``calfkit_tpu_torch`` and
 ``chip_smoke.py`` import neither ``jax`` nor anything of ``calfkit_tpu``,
-nor ``pydantic`` (the card's machine has none), and the engine and the
+nor ``pydantic``, ``safetensors``, ``ml_dtypes`` or ``transformers`` (the
+card's machine has none of them): the one exception is ``HFTokenizer``'s
+lazy import of ``transformers`` when one is built.  The engine and the
 model client refuse to fall back to the CPU when no card is present."""
 
 import ast
@@ -13,31 +15,38 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "calfkit_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+BANNED = ("jax", "jaxlib", "calfkit_tpu", "pydantic", "safetensors", "ml_dtypes", "transformers")
+# (file, enclosing function, package): the lazy imports the law allows
+LAZY_ALLOWED = {
+    ("calfkit_tpu_torch/inference/tokenizer.py", "HFTokenizer.__init__", "transformers"),
+}
 
 _BLOCKED_IMPORT = """
 import importlib, pkgutil, sys
 
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "calfkit_tpu", "pydantic"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError(f"blocked import of {name}")
         return None
 
+BLOCKED = ("jax", "calfkit_tpu", "pydantic", "safetensors", "transformers", "ml_dtypes")
 sys.meta_path.insert(0, Block())
-sys.modules["jax"] = None
-sys.modules["pydantic"] = None
+for name in BLOCKED:
+    sys.modules[name] = None
 import calfkit_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(calfkit_tpu_torch.__path__, "calfkit_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
 for name in ("calfkit_tpu_torch.inference.client", "calfkit_tpu_torch.inference.tokenizer",
              "calfkit_tpu_torch.engine.model_client", "calfkit_tpu_torch.models.messages",
-             "calfkit_tpu_torch.models.payload", "calfkit_tpu_torch.models.capability"):
+             "calfkit_tpu_torch.models.payload", "calfkit_tpu_torch.models.capability",
+             "calfkit_tpu_torch.inference.quant", "calfkit_tpu_torch.inference.loader",
+             "calfkit_tpu_torch.inference._safetensors"):
     assert name in names, name
 from calfkit_tpu_torch.inference import TorchLocalModelClient
 import chip_smoke
-assert not any(m.split(".")[0] in ("jax", "calfkit_tpu", "pydantic")
-               for m, v in sys.modules.items() if v is not None)
+assert not any(m.split(".")[0] in BLOCKED for m, v in sys.modules.items() if v is not None)
 print("OK")
 """
 
@@ -51,20 +60,43 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert proc.stdout.strip().endswith("OK")
 
 
+def _imports(tree: ast.AST) -> "list[tuple[str, str]]":
+    """(module imported, the qualified name of the enclosing function or
+    class; "" at module scope) for every import in ``tree``."""
+    found = []
+
+    def visit(node, scope):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+                visit(child, f"{scope}.{child.name}" if scope else child.name)
+                continue
+            if isinstance(child, ast.Import):
+                found.extend((alias.name, scope) for alias in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.module:
+                found.append((child.module, scope))
+            visit(child, scope)
+
+    visit(tree, "")
+    return found
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import_in_source(path):
     tree = ast.parse(path.read_text(), filename=str(path))
-    names = []
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names += [alias.name for alias in node.names]
-        elif isinstance(node, ast.ImportFrom) and node.module:
-            names.append(node.module)
+    where = str(path.relative_to(ROOT))
     bad = [
-        name for name in names
-        if name.split(".")[0] in ("jax", "jaxlib", "calfkit_tpu", "pydantic")
+        (name, scope) for name, scope in _imports(tree)
+        if name.split(".")[0] in BANNED
+        and (where, scope, name.split(".")[0]) not in LAZY_ALLOWED
     ]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_transformers_is_imported_only_inside_hf_tokenizer():
+    path = ROOT / "calfkit_tpu_torch" / "inference" / "tokenizer.py"
+    found = [(name, scope) for name, scope in _imports(ast.parse(path.read_text()))
+             if name.split(".")[0] == "transformers"]
+    assert found == [("transformers", "HFTokenizer.__init__")]
 
 
 def test_engine_without_a_card_raises_instead_of_using_the_cpu():

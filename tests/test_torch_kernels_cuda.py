@@ -626,3 +626,92 @@ def test_paged_walk_reads_a_misaligned_q(kernel, q_dtype):
         ref = A.ragged_attention_paged_reference(qm, pk, pv, 1, tables, lens_t, lens_t, wpages=32)
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, **DECODE_TOL)
+
+
+# --------------------------------------------------------------------------- #
+# weight-only quantization on the card
+# --------------------------------------------------------------------------- #
+
+# (weight shape, reduction axes) at Llama-3-8B widths: one layer's wq, wo,
+# w_down, and the LM head's first 4096 vocabulary columns
+QUANT_LEAVES = [((1, 4096, 32, 128), (1,)), ((1, 32, 128, 4096), (1, 2)),
+                ((1, 14336, 4096), (1,)), ((4096, 4096), (0,))]
+
+
+def _quantize(w, axes, bits):
+    from calfkit_tpu_torch.inference import quant as Q
+
+    return Q.quantize_tensor(w, axes) if bits == 8 else Q.quantize_tensor4(w, axes)
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("shape,axes", QUANT_LEAVES)
+def test_quantize_and_dequant_on_the_card_match_the_cpu_bitwise(shape, axes, bits):
+    """Quantizing and dequantizing are elementwise IEEE arithmetic (a
+    division, round half to even, a multiply, one rounding cast): the card
+    gives the CPU's bits."""
+    from calfkit_tpu_torch.inference import quant as Q
+
+    g = torch.Generator().manual_seed(len(shape) + bits)
+    w = (torch.randn(shape, generator=g) * 0.02).to(torch.bfloat16)
+    cpu = _quantize(w, axes, bits)
+    card = _quantize(w.cuda(), axes, bits)
+    for key in cpu:
+        assert torch.equal(card[key].cpu(), cpu[key]), key
+    for dtype in (torch.bfloat16, torch.float32):
+        assert torch.equal(Q.dequant(card, dtype).cpu(), Q.dequant(cpu, dtype))
+
+
+def _map_weights(tree, fn):
+    """``fn`` over a params tree's weights, a quantized leaf taken whole."""
+    from calfkit_tpu_torch.inference import quant as Q
+
+    return {
+        name: fn(w) if not isinstance(w, dict) or Q.is_quantized(w) or Q.is_quantized4(w)
+        else _map_weights(w, fn)
+        for name, w in tree.items()
+    }
+
+
+def _quantized_forward(params, cfg, dev, seed):
+    """The debug-shaped forward of ``params`` on ``dev`` over 2 rows of 40
+    tokens (one of them 29 long) → logits."""
+    from calfkit_tpu_torch.inference import model as M
+
+    def to(w):
+        return {k: x.to(dev) for k, x in w.items()} if isinstance(w, dict) else w.to(dev)
+
+    g = torch.Generator().manual_seed(seed)
+    B, S = 2, 40
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g, dtype=torch.int32)
+    pos = torch.arange(S, dtype=torch.int32).expand(B, S).contiguous()
+    lens = torch.tensor([S, 29], dtype=torch.int32)
+    cache = M.make_empty_cache(cfg, B, 64, torch.float32, device=dev)
+    logits, _ = M.forward(
+        _map_weights(params, to), cfg, tokens.to(dev), pos.to(dev), cache, lens.to(dev)
+    )
+    return logits
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_forward_on_the_card(bits):
+    """The quantized forward on the card equals, bit for bit, the card's
+    forward on the dequantized weights as plain tensors (the seam adds
+    nothing), and the CPU's quantized forward within the f32 tolerance of
+    the CPU parity tests (2e-4: cuBLAS and the CPU sum in other orders)."""
+    from calfkit_tpu_torch.inference import model as M
+    from calfkit_tpu_torch.inference import quant as Q
+    from calfkit_tpu_torch.inference.config import preset
+
+    cfg = preset("debug", d_model=256, n_heads=2, n_kv_heads=1, d_ff=512, dtype="float32")
+    params = Q.quantize_params(M.init_params(cfg, torch.Generator().manual_seed(bits)), bits=bits)
+    plain = _map_weights(params, lambda w: Q.dequant(w).float() if isinstance(w, dict) else w)
+    card = _quantized_forward(params, cfg, "cuda", bits)
+    assert torch.equal(card, _quantized_forward(plain, cfg, "cuda", bits))
+    torch.testing.assert_close(
+        card.cpu(), _quantized_forward(params, cfg, "cpu", bits), atol=2e-4, rtol=2e-4
+    )
