@@ -7,7 +7,11 @@ deterministic plain template, tokenizes it, streams the engine's tokens
 back as text deltas (re-decoding every few tokens, holding back an
 incomplete multi-byte tail and cutting at stop sequences on the host), and
 parses ``{"tool_name": ..., "args": ...}`` objects out of the answer as
-tool calls (configurable via ``tool_call_parser``).
+tool calls (configurable via ``tool_call_parser``).  Like the reference, it
+forwards the caller's context from the port's contextvars to the engine
+(the trace id as the correlation id, the run, the deadline, the lease and
+the priority class) and opens the ``engine.generate`` span with its
+``engine.prefill`` and ``engine.decode`` children under the caller's.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import json
 import time
 from typing import Any, AsyncIterator, Callable
 
+from calfkit_tpu_torch import leases, qos
+from calfkit_tpu_torch.cancellation import current_deadline
 from calfkit_tpu_torch.engine.model_client import (
     ModelClient,
     ModelRequestParameters,
@@ -40,6 +46,8 @@ from calfkit_tpu_torch.models.messages import (
     UserPart,
 )
 from calfkit_tpu_torch.models.payload import render_parts_as_text
+from calfkit_tpu_torch.observability import capacity as _capacity
+from calfkit_tpu_torch.observability.trace import TRACER, current_context
 
 ToolCallParser = Callable[[str], tuple[str, list[ToolCallOutput]]]
 
@@ -133,36 +141,6 @@ def render_messages(
         )
     header = f"<|system|>\n{chr(10).join(system)}\n" if system else ""
     return header + "\n".join(lines) + "\n<|assistant|>\n"
-
-
-def _capacity(
-    pages_total: int, private: int, shared_live: int, resident: int,
-    evicted: int, stalls: int, lane: str,
-) -> dict:
-    """The paged pool's occupancy rollup, with the JAX package's
-    ``PageLedger.breakdown()`` keys.  The port attributes no page to an
-    owner or a chain yet (the scheduler-robustness slice ports the ledger),
-    so the by-owner and by-chain rows are empty and their "other" sums hold
-    every page; by lane, every private page is the engine's one lane."""
-    in_use = private + shared_live
-    by_lane = {lane: private} if private else {}
-    if shared_live:
-        by_lane["shared"] = shared_live
-    return {
-        "pages_total": pages_total,
-        "pages_in_use": in_use,
-        "headroom_pages": max(0, pages_total - in_use),
-        "private_pages": private,
-        "shared_referenced_pages": shared_live,
-        "prefix_resident_pages": resident,
-        "evicted_pages": evicted,
-        "alloc_stalls": stalls,
-        "by_owner": [],
-        "by_owner_other_pages": private,
-        "by_lane": by_lane,
-        "by_chain": [],
-        "by_chain_other_pages": resident,
-    }
 
 
 class TorchLocalModelClient(ModelClient):
@@ -289,16 +267,20 @@ class TorchLocalModelClient(ModelClient):
 
     def ready(self) -> "tuple[bool, str]":
         """Readiness probe: True only once the engine is BUILT (weights
-        placed) and its scheduler task is running — distinct from liveness,
-        which is true from process start.  Cheap enough to call per scrape.
-        The port's engine has no dispatch-progress watchdog yet (the
-        scheduler-robustness slice), so it cannot read as wedged here; a
-        test holds that it still has none."""
+        placed), its scheduler task is running and its dispatch-progress
+        watchdog does not declare it wedged — distinct from liveness, which
+        is true from process start.  Cheap enough to call per scrape."""
         engine = self._engine
         if engine is None:
             return False, "engine not built (weights not loaded)"
         if not engine._running:
             return False, "engine not started"
+        if engine._wedged:
+            # alive, but a dispatch is hung: routers place nothing new here
+            return False, (
+                "engine wedged: no dispatch progress for "
+                f"{engine.runtime.watchdog_stall_s:.1f}s with work pending"
+            )
         return True, "engine running"
 
     def stats_snapshot(self, *, window: bool = False) -> dict:
@@ -309,13 +291,7 @@ class TorchLocalModelClient(ModelClient):
         ``window=True`` additionally reports per-interval rates since the
         PREVIOUS window=True call (``EngineStats.snapshot_and_delta`` —
         single-consumer by design: the heartbeat advert passes it; ad-hoc
-        pollers must not, or they steal the heartbeat's intervals).
-
-        Until the scheduler-robustness slice of the port, the keys backed by
-        its counters read the engine's zeros, ``latency_ms`` is absent, and
-        the flight recorder's and capacity sampler's ring counts are
-        zero."""
-        rings = {"appended": 0, "dropped": 0, "dumped": 0}
+        pollers must not, or they steal the heartbeat's intervals)."""
         engine = self._engine
         if engine is None:
             from calfkit_tpu_torch.inference.config import RuntimeConfig
@@ -363,35 +339,26 @@ class TorchLocalModelClient(ModelClient):
                 "wedged": False,
                 "watchdog_trips": 0,
                 "watchdog_faulted": 0,
-                "flightrec": dict(rings),
+                "flightrec": {"appended": 0, "dropped": 0, "dumped": 0},
                 "pages_total": pages_total,
                 "pages_in_use": 0,
                 "prefix_resident_pages": 0,
                 "evictions_window": 0,
                 "alloc_stalls": 0,
-                "capacity": _capacity(pages_total, 0, 0, 0, 0, 0, "decode"),
-                "capacity_samples": dict(rings),
+                "capacity": _capacity.PageLedger(pages_total).breakdown(),
+                "capacity_samples": {"appended": 0, "dropped": 0, "dumped": 0},
             }
         import torch
 
         stats = engine.stats
         rt = engine.runtime
-        # the port's engine queues requests in _pending and _carry (no long
-        # lane yet: the multi-device slice) and has no priority classes (the
-        # scheduler-robustness slice): every queued request is interactive
+        # per-class QUEUED depth (the port's engine queues in _pending and
+        # _carry; no long lane yet: the multi-device slice); a flagged shed
+        # victim still in the deque is not depth
         queued = [*engine._pending, *engine._carry]
-        if engine._paged:
-            pages_total = engine._page_alloc.num_pages - 1
-            private = engine._page_alloc.held_pages
-            prefix = engine._prefix
-            shared_live = prefix.referenced if prefix is not None else 0
-            resident = prefix.size if prefix is not None else 0
-        else:
-            pages_total = private = shared_live = resident = 0
-        capacity = _capacity(
-            pages_total, private, shared_live, resident, stats.prefix_evictions,
-            stats.alloc_stalls, "spec" if engine._drafter is not None else "decode",
-        )
+        interactive_pending = sum(1 for r in queued if not r.cancelled and r.priority != "batch")
+        batch_pending = sum(1 for r in queued if not r.cancelled and r.priority == "batch")
+        ledger = engine._ledger
         snapshot = {
             "model_name": engine.config.name,
             # JAX's platform names, so fleet consumers keep one vocabulary
@@ -421,25 +388,39 @@ class TorchLocalModelClient(ModelClient):
             "batch_shed": stats.batch_shed,
             "interactive_expired": stats.interactive_expired,
             "batch_expired": stats.batch_expired,
-            "interactive_pending": sum(1 for r in queued if not r.cancelled),
-            "batch_pending": 0,
+            "interactive_pending": interactive_pending,
+            "batch_pending": batch_pending,
             "cancelled_requests": stats.cancelled_requests,
             "cancel_propagated": stats.cancel_propagated,
             "delivery_stalled": stats.delivery_stalled,
             "orphaned_requests": stats.orphaned_requests,
             "dispatch_ewma_ms": round(stats.dispatch_ewma_ms, 3),
-            # no dispatch-progress watchdog in the port's engine yet
-            "wedged": False,
+            "wedged": engine._wedged,
             "watchdog_trips": stats.watchdog_trips,
             "watchdog_faulted": stats.watchdog_faulted,
-            "flightrec": dict(rings),
-            "pages_total": pages_total,
-            "pages_in_use": capacity["pages_in_use"],
-            "prefix_resident_pages": resident,
+            # ring overflow (dropped) is a signal, never silent truncation
+            "flightrec": engine._journal.counts(),
+            "pages_total": ledger.pages_total,
+            "pages_in_use": ledger.pages_in_use,
+            "prefix_resident_pages": ledger.prefix_resident_pages,
             "evictions_window": stats.prefix_evictions,
             "alloc_stalls": stats.alloc_stalls,
-            "capacity": capacity,
-            "capacity_samples": dict(rings),
+            "capacity": ledger.breakdown(),
+            "capacity_samples": engine._sampler.counts(),
+        }
+        # latency percentiles from this engine's own fixed-bucket histograms
+        engine._sync_metric_counters()
+        m = engine.latency
+        snapshot["latency_ms"] = {
+            name: round(m[hist].percentile(q), 3)
+            for hist, label in (
+                ("ttft_ms", "ttft"),
+                ("inter_token_ms", "inter_token"),
+                ("queue_wait_ms", "queue_wait"),
+                ("prefill_ms", "prefill"),
+                ("dispatch_gap_ms", "dispatch_gap"),
+            )
+            for q, name in ((0.5, f"{label}_p50"), (0.99, f"{label}_p99"))
         }
         if window:
             # per-interval rates since the previous heartbeat; the advert's
@@ -575,26 +556,68 @@ class TorchLocalModelClient(ModelClient):
             hits = [i for s in stops if (i := text.find(s)) != -1]
             return min(hits) if hits else -1
 
+        # trace spans: a caller that set the trace contextvar gets
+        # engine.generate with prefill/decode children; untraced callers
+        # pay one contextvar read
+        trace_parent = current_context.get()
+        gen_span = prefill_span = decode_span = None
+        if trace_parent is not None:
+            gen_span = TRACER.start_span(
+                "engine.generate",
+                parent=trace_parent,
+                kind="engine",
+                emitter=f"engine/{self.model_name}",
+                attrs={
+                    "model": self.model_name,
+                    "prompt_tokens": len(prompt),
+                    "max_new_tokens": max_new,
+                },
+            )
+            prefill_span = TRACER.start_span(
+                "engine.prefill", parent=gen_span.context, kind="engine",
+                emitter=gen_span.emitter,
+            )
+
+        started = time.perf_counter()
         generated: list[int] = []
         # a resumed stream's deltas begin past the already-delivered prefix:
         # everything before ``emitted`` chars is prefill, never re-emitted
         emitted = len(prior)
         stopped_at = -1
+        ttft_ms = 0.0
         if resume_tokens:
             yield ResumeOffset(len(prior))
-        # the JAX client also forwards the caller's correlation id, run,
-        # deadline, lease and priority from its contextvars; the port has
-        # none of those yet (the scheduler-robustness slice), so each is None
+        # the caller's context rides the same contextvar channels as the
+        # trace: the engine journals under the trace id, attributes pages to
+        # the run, enforces the caller's absolute deadline, registers the run
+        # against its lease and orders sheds by its class
         token_stream = self._engine.generate(
             prompt,
             max_new_tokens=max_new,
             stop_tokens=frozenset({tokenizer.eos_id}),
             sampling=sampling,
             seed=settings.seed,
+            corr=trace_parent.trace_id if trace_parent is not None else None,
+            run=_capacity.current_run.get(),
+            deadline=current_deadline.get(),
+            lease=leases.current_lease.get(),
+            priority=qos.current_priority.get(),
         )
+        stream_exc: BaseException | None = None
         try:
             async for token in token_stream:
                 generated.append(token)
+                if len(generated) == 1:
+                    # the first token IS the TTFT moment: prefill ends and
+                    # the decode phase starts here
+                    ttft_ms = (time.perf_counter() - started) * 1000.0
+                    if prefill_span is not None:
+                        prefill_span.end(ttft_ms=round(ttft_ms, 3))
+                        prefill_span = None
+                        decode_span = TRACER.start_span(
+                            "engine.decode", parent=gen_span.context,
+                            kind="engine", emitter=gen_span.emitter,
+                        )
                 # the first token is emitted immediately; later ones batch
                 # on the re-decode cadence
                 if len(generated) % _EMIT_EVERY and len(generated) != 1:
@@ -612,10 +635,33 @@ class TorchLocalModelClient(ModelClient):
                 if len(text) > emitted:
                     yield TextDelta(text[emitted:])
                     emitted = len(text)
+        except BaseException as exc:
+            # captured here, not through sys.exc_info() in the finally,
+            # which also reports exceptions merely being handled in an
+            # enclosing frame (this generator resumes inside the consumer's)
+            stream_exc = exc
+            raise
         finally:
             # a break above abandons the stream; close NOW (not at GC) so
             # the engine reclaims the slot at its next tick
             await token_stream.aclose()
+            # the span status tells HOW the stream ended: an engine fault is
+            # error, a consumer abandoning the generator is cancelled, a
+            # break or return is ok
+            status = (
+                None if stream_exc is None
+                else "cancelled"
+                if isinstance(stream_exc, (GeneratorExit, asyncio.CancelledError))
+                else "error"
+            )
+            if prefill_span is not None:  # zero tokens: no decode phase
+                prefill_span.end(status=status)
+            if decode_span is not None:
+                decode_span.end(status=status, generated_tokens=len(generated))
+            if gen_span is not None:
+                gen_span.end(
+                    status=status, generated_tokens=len(generated), ttft_ms=round(ttft_ms, 3),
+                )
 
         full_text = tokenizer.decode(resume_tokens + generated)
         if stops and stopped_at == -1:

@@ -36,11 +36,19 @@ and speculative decoding.
   drafts plus one correction token;
 - weight-only quantization (``RuntimeConfig.quantization``, int8 or int4)
   quantizes full-precision params at construction; the model dequantizes
-  each weight at its use.  The draft model's params are not quantized.
+  each weight at its use.  The draft model's params are not quantized;
+- the robustness layer: bounded admission with the QoS shed order
+  (``max_pending``), per-request deadlines and caller leases reaped queued
+  or active, the delivery stall bound (``max_out_blocks``) and the
+  dispatch-progress watchdog (``watchdog_stall_s``), each ending its
+  requests with one typed error;
+- telemetry: the flight recorder (a ring journal of every scheduling
+  decision), the page ledger (who holds which KV page), the occupancy
+  sampler (``capacity_samples``) and the ``/metrics`` instruments,
+  observed per dispatch or per admission, never per token.
 
-Parts of the reference engine not ported yet raise instead of pretending:
-``ValueError`` at construction for their configuration, ``InferenceError``
-at submit for per-request deadlines, leases and priorities.
+The multi-device parts of the reference engine (tp/dp, the long-context
+lane) are not ported and raise ``ValueError`` at construction.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ import logging
 import math
 import threading
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, AsyncIterator
@@ -59,7 +68,14 @@ from typing import Any, AsyncIterator
 import numpy as np
 import torch
 
-from calfkit_tpu_torch.exceptions import InferenceError
+from calfkit_tpu_torch import cancellation, leases, qos
+from calfkit_tpu_torch.exceptions import (
+    DeadlineExceededError,
+    EngineOverloadedError,
+    EngineWedgedError,
+    InferenceError,
+    RunOrphanedError,
+)
 from calfkit_tpu_torch.inference import model as M
 from calfkit_tpu_torch.inference import ragged as ragged_math
 from calfkit_tpu_torch.inference.config import ModelConfig, RuntimeConfig
@@ -84,10 +100,96 @@ from calfkit_tpu_torch.inference.sampler import (
     sample_slots,
     spec_accept_slots,
 )
+from calfkit_tpu_torch.observability import capacity, flightrec
+from calfkit_tpu_torch.observability.metrics import (
+    INTER_TOKEN_BUCKETS_MS,
+    REGISTRY,
+    MetricsRegistry,
+)
 
 logger = logging.getLogger(__name__)
 
 _DONE = object()
+
+# process-wide active-request aggregation: the shared gauge reports the
+# SUM across live engines, not the last dispatching engine's count; the
+# lock serializes insert/pop/sum across decode threads and the event loop
+_ACTIVE_BY_ENGINE: dict[int, int] = {}
+_ACTIVE_LOCK = threading.Lock()
+
+
+def _drop_engine_active(key: int) -> None:
+    """Remove one engine from the aggregation and re-set the gauge (at
+    ``stop()`` and when an abandoned engine is collected)."""
+    with _ACTIVE_LOCK:
+        if _ACTIVE_BY_ENGINE.pop(key, None) is None:
+            return
+        total = sum(_ACTIVE_BY_ENGINE.values())
+    REGISTRY.gauge("calfkit_engine_active_requests").set(total)
+
+
+def _engine_metrics(
+    registry: "MetricsRegistry | None" = None, *, histograms_only: bool = False
+) -> dict:
+    """The engine's instruments, get-or-create from ``registry`` (default:
+    the process registry, shared by every engine of the process for the
+    ``/metrics`` exposition; each engine also keeps a private
+    ``histograms_only`` set for its own percentiles).  The reference's
+    names, help and buckets.  Everything observed here is PER DISPATCH or
+    PER ADMISSION, never per token."""
+    reg = registry if registry is not None else REGISTRY
+    out: dict = {
+        "queue_wait_ms": reg.histogram(
+            "calfkit_engine_queue_wait_ms", "submit-to-prefill-start wait (ms)",
+        ),
+        "prefill_ms": reg.histogram(
+            "calfkit_engine_prefill_ms", "prefill wave latency, admission to landing (ms)",
+        ),
+        "ttft_ms": reg.histogram(
+            "calfkit_engine_ttft_ms",
+            "time to first token: submit to first-token emission (ms)",
+        ),
+        "inter_token_ms": reg.histogram(
+            "calfkit_engine_inter_token_ms",
+            "per-sequence inter-token latency (dispatch wall / steps, ms)",
+            buckets=INTER_TOKEN_BUCKETS_MS,
+        ),
+        "decode_dispatch_ms": reg.histogram(
+            "calfkit_engine_decode_dispatch_ms",
+            "one decode/verify dispatch, enqueue to host sync (ms)",
+        ),
+        "dispatch_gap_ms": reg.histogram(
+            "calfkit_engine_dispatch_gap_ms",
+            "device-idle bubble: previous dispatch landing to next launch, "
+            "zero while a dispatch is already in flight (ms)",
+            buckets=INTER_TOKEN_BUCKETS_MS,
+        ),
+    }
+    if histograms_only:
+        return out
+    out.update(
+        decode_tokens=reg.counter("calfkit_engine_decode_tokens_total", "decoded tokens emitted"),
+        prefill_tokens=reg.counter(
+            "calfkit_engine_prefill_tokens_total", "prompt tokens prefilled"
+        ),
+        spec_proposed=reg.counter(
+            "calfkit_engine_spec_proposed_total",
+            "speculative draft tokens offered to verify dispatches",
+        ),
+        spec_accepted=reg.counter(
+            "calfkit_engine_spec_accepted_total",
+            "speculative draft tokens accepted by verify dispatches",
+        ),
+        overlap_wasted_tokens=reg.counter(
+            "calfkit_engine_overlap_wasted_tokens_total",
+            "pad tokens discarded by one-dispatch-late retirement (overlapped execution)",
+        ),
+        active_requests=reg.gauge(
+            "calfkit_engine_active_requests",
+            "requests holding a slot (summed across the process's engines)",
+        ),
+    )
+    return out
 
 
 def _deliver_batch(deliveries: "list[tuple[asyncio.Queue, list]]") -> None:
@@ -155,8 +257,35 @@ class GenRequest:
     page_hashes: list = field(default_factory=list)
     slot: int = -1
     generated: int = 0
+    prefill_ms: float = 0.0
     cancelled: bool = False
-    corr: "str | None" = None  # the request's correlation id
+    # the absolute deadline (epoch seconds on cancellation.wall_clock),
+    # None = undeadlined; ``expired`` marks a deadline reap and ``stalled``
+    # a max_out_blocks stall-cancel, so the consumer raises a typed error
+    deadline: "float | None" = None
+    expired: bool = False
+    stalled: bool = False
+    # the caller's liveness lease (None = un-leased); ``orphaned`` marks a
+    # lease-lapse reap (typed RunOrphanedError)
+    lease_id: "str | None" = None
+    lease_ttl: float = 0.0
+    lease_entry: "list | None" = None  # the live _lease_heap entry
+    orphaned: bool = False
+    # the QoS class, resolved at submit; ``shed`` marks a QUEUED request
+    # evicted for an interactive one at a full lane, with the (lane,
+    # pending, limit) seen at the eviction
+    priority: str = "interactive"
+    shed: bool = False
+    shed_detail: "tuple[str, int, int] | None" = None
+    # the watchdog faulted this request (typed, retriable EngineWedgedError)
+    wedged: bool = False
+    deadline_entry: "list | None" = None  # the live _deadline_heap entry
+    # the request's correlation id (the flight recorder's join key) and
+    # the caller's run id (the page ledger's owner tag): precomputed
+    # strings, so journal and ledger appends never format
+    corr: "str | None" = None
+    run: "str | None" = None
+    started_at: float = field(default_factory=time.perf_counter)
     # the live _retire_heap entry ([bound, seq, request]); cleared at
     # retirement so the heap stops pinning this request's memory
     heap_entry: Any = None
@@ -206,8 +335,8 @@ class EngineStats:
     long_requests: int = 0
     long_dispatches: int = 0
     # admission sheds, deadline expiries, their per-class splits, delivery
-    # stall-cancels, lease orphans and wedge-watchdog trips: 0 until the
-    # scheduler-robustness slice of the port serves them
+    # stall-cancels, lease orphans, and the wedge watchdog's trips and the
+    # requests it faulted
     shed_requests: int = 0
     expired_requests: int = 0
     delivery_stalled: int = 0
@@ -219,7 +348,7 @@ class EngineStats:
     interactive_expired: int = 0
     batch_expired: int = 0
     # EWMA of decode-dispatch latency (ms), the fleet router's tiebreak: a
-    # fold, not a counter; 0.0 until the scheduler-robustness slice
+    # fold, not a counter (never in _COUNTER_FIELDS or window deltas)
     dispatch_ewma_ms: float = 0.0
     # snapshot_and_delta state: the previous window's counter values and
     # timestamp.  Single-consumer by design (the heartbeat advert): two
@@ -240,6 +369,19 @@ class EngineStats:
         "interactive_shed", "batch_shed",
         "interactive_expired", "batch_expired",
     )
+
+    # EWMA smoothing for dispatch_ewma_ms: about five dispatches of memory
+    EWMA_ALPHA = 0.2
+
+    def note_dispatch_ewma(self, sample_ms: float) -> None:
+        """Fold one dispatch's wall latency into the EWMA; the first sample
+        primes the fold directly (a zero start would under-report)."""
+        prev = self.dispatch_ewma_ms
+        if prev == 0.0:
+            self.dispatch_ewma_ms = sample_ms
+        else:
+            a = self.EWMA_ALPHA
+            self.dispatch_ewma_ms = a * sample_ms + (1.0 - a) * prev
 
     def counters(self) -> dict:
         """Every cumulative counter as a plain dict (occupancy_hist as a
@@ -304,21 +446,15 @@ class EngineStats:
 
 
 def _check_runtime(rt: RuntimeConfig) -> None:
-    """Refuse what this engine does not serve yet, naming the later part of
-    the port that will, and the configurations the reference refuses."""
-    later = {
-        "long_context": (rt.long_context, "multi-device"),
-        "tp/dp > 1": (rt.tp > 1 or rt.dp > 1, "multi-device"),
-        "max_pending": (rt.max_pending > 0, "scheduler robustness"),
-        "max_out_blocks": (rt.max_out_blocks > 0, "scheduler robustness"),
-        "watchdog_stall_s": (rt.watchdog_stall_s > 0, "scheduler robustness"),
-        "capacity_samples": (rt.capacity_samples > 0, "scheduler robustness"),
-    }
-    for knob, (requested, part) in later.items():
+    """Refuse what this engine does not serve yet (the multi-device knobs),
+    and the configurations the reference refuses."""
+    for knob, requested in (
+        ("long_context", rt.long_context), ("tp/dp > 1", rt.tp > 1 or rt.dp > 1),
+    ):
         if requested:
             raise ValueError(
                 f"{knob} is not served by the PyTorch engine yet "
-                f"(a later slice of the port: {part})"
+                "(a later slice of the port: multi-device)"
             )
     if rt.quantization is not None:
         bits_of(rt.quantization)
@@ -448,6 +584,9 @@ class InferenceEngine:
                 (B, rt.pages_per_seq()), dtype=torch.int32, device=dev
             )
             self._page_alloc = PageAllocator(n_pages)
+            # the page-ownership mirror, kept O(1) at every alloc, free and
+            # evict site (the allocator's pool less its trash page)
+            self._ledger = capacity.PageLedger(n_pages - 1)
             if rt.prefix_cache:
                 self._prefix = PrefixCache()
             logger.info(
@@ -456,6 +595,8 @@ class InferenceEngine:
             )
         else:
             self._k, self._v = M.make_empty_cache(config, B, S, device=dev)
+            # a pool-less ledger: the snapshot's keys exist with zeros
+            self._ledger = capacity.PageLedger(0)
         self._last = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._lens = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._host_lens = np.zeros((B,), np.int64)  # host mirror for windows
@@ -493,6 +634,19 @@ class InferenceEngine:
         # cancels whose snapshot lost the race with the decode thread:
         # re-matched on the next scheduler pass
         self._deferred_cancels: set[str] = set()
+        # the deadline reaper's min-heap of [deadline, (class, seq),
+        # request] and the orphan reaper's of [lease expiry, ...], peeked
+        # once per scheduler pass; event-loop only, lazy pops
+        self._deadline_heap: list[list] = []
+        self._deadline_seq = itertools.count()
+        self._lease_heap: list[list] = []
+        self._lease_seq = itertools.count()
+        # released-lease sweep cursor: a clean caller close reaps now
+        self._lease_release_gen = leases.release_generation()
+        # the chaos seam: when set, called with a point name ("tick" per
+        # scheduler pass, "dispatch" per decode tick); an exception it
+        # raises crosses the dispatch loop like a real engine fault
+        self._chaos: Any = None
         # requests whose single-shot admission prefill runs in the worker thread
         self._admitting: list[GenRequest] = []
         self._inflight: "dict | None" = None  # chunked-prefill wave in flight
@@ -510,7 +664,44 @@ class InferenceEngine:
         self._wake = asyncio.Event()
         self._task: asyncio.Task[None] | None = None
         self._running = False
+        # the dispatch-progress watchdog: its own event-loop task, because
+        # a wedged dispatch blocks the serve loop inside asyncio.to_thread.
+        # ``_progress_at`` is stamped (on the wall_clock seam) at every
+        # dispatch or wave landing; with work pending and no stamp for
+        # watchdog_stall_s the engine is declared wedged
+        self._wedged = False
+        self._wedged_at = 0.0
+        self._progress_at = cancellation.wall_clock()
+        self._watchdog_task: asyncio.Task[None] | None = None
         self.stats = EngineStats()
+        # the flight recorder: O(1) lock-free appends at every scheduling
+        # decision; flightrec_events=0 makes an append one attribute check
+        self._journal = flightrec.FlightRecorder(rt.flightrec_events, label=config.name)
+        # the occupancy timeline: one sample per dispatch landing
+        # (capacity_samples=0 is off), with its HBM roofline constants
+        self._sampler = capacity.CapacitySampler(
+            rt.capacity_samples, label=config.name, ledger=self._ledger
+        )
+        self._capacity_on = self._sampler.capacity > 0
+        self._hbm_constants = capacity.hbm_constants(config, rt.quantization)
+        self._hbm_ctx = rt.max_seq_len / 2.0
+        # a mesh cancel reaching any node of the process reaches this
+        # engine's requests
+        cancellation.register_cancel_target(self)
+        # the process-registry instruments, this engine's own histograms
+        # (its percentiles), and the cursors that turn cumulative stats
+        # into counter increments
+        self.metrics = _engine_metrics()
+        self._own_registry = MetricsRegistry()
+        self.latency = _engine_metrics(self._own_registry, histograms_only=True)
+        self._counted = dict.fromkeys(
+            ("decode_tokens", "prefill_tokens", "spec_proposed", "spec_accepted",
+             "overlap_wasted_tokens"), 0,
+        )
+        self._counted_lock = threading.Lock()
+        # an engine abandoned without stop() must not pin its last active
+        # count into the process gauge
+        weakref.finalize(self, _drop_engine_active, id(self))
         self._drafter: Any = None
         if self._spec is not None:
             from calfkit_tpu_torch.inference.spec import build_drafter
@@ -529,11 +720,26 @@ class InferenceEngine:
             return
         self._running = True
         self._loop = asyncio.get_running_loop()
+        # SIGUSR2 dumps every live journal (best-effort: skipped off the
+        # main thread)
+        flightrec.install_sigusr2()
         self._task = self._loop.create_task(self._serve(), name="inference-engine")
+        if self.runtime.watchdog_stall_s > 0:
+            self._progress_at = cancellation.wall_clock()
+            self._watchdog_task = self._loop.create_task(
+                self._watchdog(), name="inference-engine-watchdog"
+            )
 
     async def stop(self) -> None:
         self._running = False
         self._wake.set()
+        if self._watchdog_task is not None:
+            self._watchdog_task.cancel()
+            try:
+                await self._watchdog_task
+            except (asyncio.CancelledError, Exception):  # noqa: BLE001
+                pass
+            self._watchdog_task = None
         if self._task is not None:
             try:
                 await asyncio.wait_for(self._task, timeout=30)
@@ -541,6 +747,8 @@ class InferenceEngine:
                 self._task.cancel()
             self._task = None
         self._finish_all()
+        # a stopped engine must not pin a stale count in the process gauge
+        _drop_engine_active(id(self))
 
     def _finish_all(self) -> None:
         """Terminate every waiter: active slots AND still-queued requests
@@ -582,25 +790,72 @@ class InferenceEngine:
 
         ``sampling``/``seed`` override the engine defaults for this request
         only.  Abandoning the iterator cancels the request: its slot is
-        reclaimed at the next scheduler pass.  ``corr`` tags the request
-        for :meth:`cancel_correlation`; ``run`` (the caller's run id) is
-        accepted and not used by this engine yet.
-        ``deadline``, ``lease`` and ``priority`` belong to a later slice of
-        the port and raise :class:`InferenceError` when given."""
-        for name, value in (("deadline", deadline), ("lease", lease), ("priority", priority)):
-            if value is not None:
-                raise InferenceError(
-                    f"{name}= is not served by the PyTorch engine yet "
-                    "(a later slice of the port: scheduler robustness)"
-                )
+        reclaimed at the next scheduler pass.  ``corr`` tags the request's
+        flight-recorder events (and :meth:`cancel_correlation`); ``run``,
+        the caller's run id, tags its pages in the page ledger.
+
+        ``deadline`` is the request's ABSOLUTE deadline (epoch seconds on
+        :func:`calfkit_tpu_torch.cancellation.wall_clock`): an expired
+        submit raises :class:`DeadlineExceededError` at once, and a queued
+        or active request whose deadline passes is reaped (its stream
+        raises the same error).  ``lease`` is the caller's liveness lease
+        ``(lease_id, ttl_s)``: once its beats lapse past the TTL the run is
+        reaped, queued or active (:class:`RunOrphanedError`).  ``priority``
+        is the caller's QoS class (``"interactive"`` | ``"batch"``; anything
+        else is the default class): with ``RuntimeConfig.max_pending`` set,
+        a submit that finds its lane full evicts a queued batch request if
+        it is interactive, else is shed with :class:`EngineOverloadedError`.
+        While the watchdog declares the engine wedged, a submit raises
+        :class:`EngineWedgedError`."""
+        req_priority = qos.resolve_priority(priority)
         if not self._running:
             raise InferenceError("engine not started")
+        if self._wedged:
+            # admitting work behind a hung dispatch would only grow the
+            # pile the watchdog just faulted: callers should fail over
+            self.stats.watchdog_faulted += 1
+            raise EngineWedgedError(
+                "engine is wedged (no dispatch progress for "
+                f"{self.runtime.watchdog_stall_s:.1f}s with work pending); "
+                "retry against another replica",
+                stalled_s=self.runtime.watchdog_stall_s,
+            )
+        if deadline is not None:
+            overdue = cancellation.wall_clock() - deadline
+            if overdue >= 0:
+                # expired on arrival: admitting it would burn prefill and
+                # decode dispatches for a dead caller
+                self.stats.expired_requests += 1
+                self._count_expired_class(req_priority)
+                self._journal.append(flightrec.EV_EXPIRE, corr, -1, int(overdue * 1000))
+                raise DeadlineExceededError(f"request expired {overdue:.3f}s before admission")
+        if lease is not None and leases.lease_lapsed(lease[0]):
+            # the caller was already gone when this submit arrived
+            self.stats.orphaned_requests += 1
+            self._journal.append(flightrec.EV_ORPHAN, corr, -1, 0)
+            raise RunOrphanedError("caller lease lapsed before admission", lease_id=lease[0])
         if len(prompt) >= self.runtime.max_seq_len:
             raise InferenceError(
                 f"prompt of {len(prompt)} tokens exceeds max_seq_len "
                 f"{self.runtime.max_seq_len} (the long-context lane is a later "
                 "slice of the port)"
             )
+        request = GenRequest(
+            prompt=list(prompt),
+            max_new_tokens=max_new_tokens,
+            stop_tokens=stop_tokens,
+            sampling=sampling,
+            seed=seed,
+            corr=corr,
+            run=run,
+            deadline=deadline,
+            priority=req_priority,
+        )
+        if lease is not None:
+            request.lease_id, request.lease_ttl = lease
+        self._journal.append(flightrec.EV_SUBMIT, corr, -1, len(request.prompt), max_new_tokens)
+        if self._drafter is not None:
+            request.history = list(prompt)  # the drafters read prompt + output
         if (
             self.runtime.overlap_dispatch or self._spec is not None
         ) and len(stop_tokens) > self.runtime.max_stop_tokens:
@@ -614,16 +869,6 @@ class InferenceEngine:
                 "RuntimeConfig.max_stop_tokens (or set overlap_dispatch=False "
                 "with speculation off for the host-side lockstep path)"
             )
-        request = GenRequest(
-            prompt=list(prompt),
-            max_new_tokens=max_new_tokens,
-            stop_tokens=stop_tokens,
-            sampling=sampling,
-            seed=seed,
-            corr=corr,
-        )
-        if self._drafter is not None:
-            request.history = list(prompt)  # the drafters read prompt + output
         if self._paged:
             # reject what the pool could NEVER serve: re-queueing it would
             # wait (and starve everything behind it) forever
@@ -634,7 +879,14 @@ class InferenceEngine:
                     f"request needs {reserve} KV pages but the pool only has "
                     f"{usable}; lower max_new_tokens or raise num_kv_pages"
                 )
+        # requests mid-admission hold queue places and page reservations
+        # like queued ones, so they count toward the lane's depth
+        self._shed_if_full(
+            "short", len(self._pending) + len(self._carry) + len(self._admitting), request
+        )
         self._pending.append(request)
+        self._submit_deadline(request)
+        self._submit_lease(request)
         self._wake.set()
         inner = self._consume(request)
         try:
@@ -645,12 +897,316 @@ class InferenceEngine:
             # asyncgen finalizer gets around to collecting the inner one
             await inner.aclose()
 
+    # ------------------------------------------------- overload protection
+    def _count_shed_class(self, priority: str) -> None:
+        if qos.class_rank(priority):
+            self.stats.batch_shed += 1
+        else:
+            self.stats.interactive_shed += 1
+
+    def _count_expired_class(self, priority: str) -> None:
+        if qos.class_rank(priority):
+            self.stats.batch_expired += 1
+        else:
+            self.stats.interactive_expired += 1
+
+    def _shed_victim(self) -> "GenRequest | None":
+        """The QUEUED batch-class request to evict so an arriving
+        interactive request takes its place at a full lane: among batch
+        requests, the one whose caller lease has the OLDEST beat (un-leased
+        or never-beaten requests read age 0, the most alive).  Only queued
+        entries are candidates: evicting an active slot would discard paid
+        prefill work.  None when no batch request is queued."""
+        victim: "GenRequest | None" = None
+        victim_age = -1.0
+        for r in (*self._carry, *self._pending, *self._admitting):
+            if r.cancelled or not qos.class_rank(r.priority):
+                continue
+            age = leases.lease_age(r.lease_id)
+            age = 0.0 if age is None else age
+            if age > victim_age:
+                victim, victim_age = r, age
+        return victim
+
+    def _shed_queued(self, victim: GenRequest, lane: str, pending: int, limit: int) -> None:
+        """Evict one queued batch request through the ordinary cancellation
+        path; its consumer raises the same typed, retriable
+        EngineOverloadedError (same lane/pending/limit) a shed at submit
+        would have."""
+        victim.shed = True
+        victim.shed_detail = (lane, pending, limit)
+        victim.cancelled = True
+        self._cancel_dirty = True
+        self.stats.shed_requests += 1
+        self._count_shed_class(victim.priority)
+        self._journal.append(flightrec.EV_SHED, victim.corr, -1, pending, limit)
+        self._wake.set()
+
+    def _shed_if_full(self, lane: str, pending: int, request: GenRequest) -> None:
+        """Bounded admission, priority-ordered: when the lane's queue is at
+        ``max_pending``, an interactive submit evicts a queued batch request
+        and is admitted in its place; otherwise the submit itself is refused
+        with a typed, retriable error.  An interactive request is never shed
+        while a batch request is sheddable."""
+        limit = self.runtime.max_pending
+        if not limit or pending < limit:
+            return
+        if not qos.class_rank(request.priority):
+            victim = self._shed_victim()
+            if victim is not None:
+                self._shed_queued(victim, lane, pending, limit)
+                return  # admitted in the victim's place
+        self.stats.shed_requests += 1
+        self._count_shed_class(request.priority)
+        self._journal.append(flightrec.EV_SHED, request.corr, -1, pending, limit)
+        raise EngineOverloadedError(
+            f"{lane} lane has {pending} queued requests (max_pending="
+            f"{limit}); retry with backoff or add capacity",
+            lane=lane, pending=pending, limit=limit,
+        )
+
+    def _reap_order(self, request: GenRequest, seq: int) -> "tuple[int, int]":
+        """The reapers' heap key between expiry and request: at EQUAL
+        expiry the batch-class entry sorts first."""
+        return (1 - qos.class_rank(request.priority), seq)
+
+    def _submit_deadline(self, request: GenRequest) -> None:
+        """Register a deadlined request for the scheduler's expiry reap."""
+        if request.deadline is None:
+            return
+        entry = [request.deadline, self._reap_order(request, next(self._deadline_seq)), request]
+        request.deadline_entry = entry
+        heapq.heappush(self._deadline_heap, entry)
+
+    def _drop_deadline(self, request: GenRequest) -> None:
+        """Null a finished request's deadline entry (it pops lazily), so the
+        heap holds no reference to the dead request."""
+        entry = request.deadline_entry
+        if entry is not None:
+            entry[2] = None
+            request.deadline_entry = None
+
+    def _request_live(self, request: GenRequest) -> bool:
+        """Is this request still queued or holding engine resources?"""
+        if request.slot != -1:
+            return True
+        return any(r is request for r in (*self._carry, *self._pending, *self._admitting))
+
+    def _check_deadlines(self) -> None:
+        """Reap queued AND active requests whose deadline passed, through
+        the ordinary cancellation path.  One heap peek when nothing
+        expired."""
+        heap = self._deadline_heap
+        if not heap:
+            return
+        now = cancellation.wall_clock()
+        if heap[0][0] > now:
+            return
+        while heap and heap[0][0] <= now:
+            _, _, request = heapq.heappop(heap)
+            if request is None or request.cancelled or not self._request_live(request):
+                continue  # finished or already being reaped: a lazy entry
+            request.expired = True
+            request.cancelled = True
+            self._cancel_dirty = True
+            self.stats.expired_requests += 1
+            self._count_expired_class(request.priority)
+            self._journal.append(
+                flightrec.EV_EXPIRE, request.corr, request.slot,
+                int((now - request.deadline) * 1000),
+            )
+
+    # -------------------------------------------------------- orphan reaper
+    # A run whose caller's lease lapsed is abandoned through the ordinary
+    # cancellation path, with a typed, non-retriable terminal.  Precedence
+    # (shared with _raise_terminal): wedged > expired > orphaned > shed >
+    # stalled > plain cancel: exactly one typed error per run.
+
+    def _submit_lease(self, request: GenRequest) -> None:
+        """Register a leased request for the orphan sweep."""
+        if request.lease_id is None:
+            return
+        expiry = leases.lease_expiry(request.lease_id)
+        if expiry is None:
+            # a never-beaten lease: the submit itself is proof of life
+            expiry = cancellation.wall_clock() + request.lease_ttl
+        entry = [expiry, self._reap_order(request, next(self._lease_seq)), request]
+        request.lease_entry = entry
+        heapq.heappush(self._lease_heap, entry)
+
+    def _drop_lease(self, request: GenRequest) -> None:
+        """Null a finished request's lease entry (it pops lazily)."""
+        entry = request.lease_entry
+        if entry is not None:
+            entry[2] = None
+            request.lease_entry = None
+
+    def _check_orphans(self) -> None:
+        """Reap queued AND active runs whose caller lease lapsed.  One heap
+        peek when no registered expiry has arrived; an entry whose lease
+        was refreshed since is re-pushed at its new expiry."""
+        heap = self._lease_heap
+        if not heap:
+            return
+        now = cancellation.wall_clock()
+        gen = leases.release_generation()
+        if gen != self._lease_release_gen:
+            # a lease was RELEASED (clean caller close): its runs orphan
+            # now, ahead of their registered expiry
+            self._lease_release_gen = gen
+            for entry in heap:
+                request = entry[2]
+                if (
+                    request is not None and not request.cancelled
+                    and leases.lease_lapsed(request.lease_id, now)
+                ):
+                    entry[0] = now
+            heapq.heapify(heap)
+        if heap[0][0] > now:
+            return
+        while heap and heap[0][0] <= now:
+            entry = heapq.heappop(heap)
+            request = entry[2]
+            if request is None or request.cancelled or not self._request_live(request):
+                continue
+            expiry = leases.lease_expiry(request.lease_id)
+            if expiry is None:
+                expiry = entry[0] + request.lease_ttl
+            if expiry > now:
+                # the caller beat since registration: re-arm and keep serving
+                fresh = [expiry, self._reap_order(request, next(self._lease_seq)), request]
+                request.lease_entry = fresh
+                heapq.heappush(heap, fresh)
+                continue
+            request.orphaned = True
+            request.cancelled = True
+            self._cancel_dirty = True
+            self.stats.orphaned_requests += 1
+            # clamp: a RELEASED lease reads expiry -inf
+            self._journal.append(
+                flightrec.EV_ORPHAN, request.corr, request.slot,
+                int(min(now - expiry, 86400.0) * 1000),
+            )
+
+    def _check_stalls(self) -> None:
+        """Bound per-request delivery: a consumer that stopped draining its
+        stream (more than ``max_out_blocks`` undrained blocks) is
+        stall-cancelled, and its blocks free with the request."""
+        bound = self.runtime.max_out_blocks
+        if not bound:
+            return
+        stalled = [r for r in self._active.values() if not r.cancelled and r.out.qsize() > bound]
+        for request in stalled:
+            request.stalled = True
+            request.cancelled = True
+            self._cancel_dirty = True
+            self.stats.delivery_stalled += 1
+            self._journal.append(
+                flightrec.EV_CANCEL, request.corr, request.slot, request.out.qsize()
+            )
+
+    # ------------------------------------------------------- wedge watchdog
+    def _note_progress(self) -> None:
+        """A dispatch or wave LANDED: the watchdog's progress signal (on the
+        wall_clock seam, so a virtual clock drives wedge detection)."""
+        self._progress_at = cancellation.wall_clock()
+
+    def _watchdog_requests(self) -> "list[GenRequest]":
+        """Every request the engine owes an outcome: active slots, the
+        queues, mid-admission prefills and the inflight chunked wave."""
+        out: list[GenRequest] = [
+            *self._active.values(), *self._carry, *self._pending, *self._admitting,
+        ]
+        if self._inflight is not None:
+            out.extend(self._inflight["wave"])
+        return out
+
+    def _work_pending(self) -> bool:
+        return bool(
+            self._active or self._pending or self._carry or self._admitting
+            or self._inflight is not None or self._pend is not None
+        )
+
+    async def _watchdog(self) -> None:
+        """The dispatch-progress watchdog: its OWN task, because a dispatch
+        that never returns blocks the serve loop inside asyncio.to_thread.
+        Polls on real time, measures the stall on the wall_clock seam."""
+        threshold = self.runtime.watchdog_stall_s
+        interval = max(0.01, min(threshold / 4.0, 0.25))
+        while self._running:
+            await asyncio.sleep(interval)
+            now = cancellation.wall_clock()
+            if self._wedged:
+                if self._progress_at > self._wedged_at:
+                    # the dispatch came back: serving resumes; the faulted
+                    # requests were flagged cancelled, so the ordinary reap
+                    # frees their slots and pages
+                    self._wedged = False
+                    logger.warning(
+                        "engine un-wedged: a dispatch landed after the watchdog "
+                        "tripped; serving resumes"
+                    )
+                continue
+            if not self._work_pending():
+                # idle is not a stall: the next submit's clock starts now
+                self._progress_at = now
+                continue
+            if now - self._progress_at >= threshold:
+                self._trip_wedge(now - self._progress_at)
+
+    def _trip_wedge(self, stalled_s: float) -> None:
+        """Declare the engine wedged: journal and dump the flight recorder,
+        flip readiness, and fault every owed request with the typed,
+        retriable EngineWedgedError so callers fail over now.  The requests
+        are also flagged cancelled: if the wedge clears, the ordinary reap
+        reclaims their slots and pages.  Nothing is freed or retired here:
+        an in-flight dispatch may still write through them."""
+        self._wedged = True
+        self._wedged_at = cancellation.wall_clock()
+        self.stats.watchdog_trips += 1
+        requests = self._watchdog_requests()
+        self._journal.append(flightrec.EV_WEDGE, None, -1, int(stalled_s * 1000), len(requests))
+        try:
+            path = self._journal.dump(reason="wedge")
+            logger.error(
+                "engine WEDGED: no dispatch landing for %.1fs with %d request(s) "
+                "pending; flight-recorder dump: %s", stalled_s, len(requests), path,
+            )
+        except Exception:  # noqa: BLE001 - the dump must never mask the fault
+            logger.exception("flight-recorder wedge dump failed")
+        faulted = 0
+        for request in requests:
+            if request.wedged:
+                continue
+            request.wedged = True
+            request.cancelled = True
+            faulted += 1
+            # wake the consumer NOW: the serve loop that normally delivers
+            # _DONE is the thing that is stuck
+            request.out.put_nowait(_DONE)
+        self.stats.watchdog_faulted += faulted
+        self._cancel_dirty = True
+        self._wake.set()
+
+    def _note_cancel(self, request: GenRequest) -> None:
+        """One cancelled request drained from any lane or queue: the
+        journal line and the counter.  Expired, stalled, wedged, orphaned
+        and shed requests were recorded where they were flagged and have
+        their own counters."""
+        self._drop_deadline(request)
+        self._drop_lease(request)
+        if request.expired or request.stalled or request.wedged or request.orphaned or request.shed:
+            return
+        self._journal.append(flightrec.EV_CANCEL, request.corr, request.slot)
+        self.stats.cancelled_requests += 1
+
     def cancel_correlation(self, corr: str) -> int:
-        """Abandon every request tagged ``corr`` (event-loop context);
-        returns how many requests were newly flagged.  The scheduler's next
-        pass reaps them through the ordinary cancellation path.  The decode
-        thread may resize ``_active`` during the snapshot, so it retries and,
-        if the race persists, defers the match to the scheduler pass."""
+        """Abandon every request tagged ``corr`` (event-loop context; the
+        engine is a :mod:`~calfkit_tpu_torch.cancellation` target); returns
+        how many requests were newly flagged.  The scheduler's next pass
+        reaps them through the ordinary cancellation path.  The decode
+        thread may resize ``_active`` during the snapshot, so it retries
+        and, if the race persists, defers the match to the scheduler pass."""
         if not corr:
             return 0
         for _ in range(4):
@@ -679,6 +1235,47 @@ class InferenceEngine:
             self._wake.set()
         return matched
 
+    def _raise_terminal(self, request: GenRequest) -> None:
+        """Typed stream endings: an engine-initiated cancel surfaces as a
+        typed error at the consumer, not a silent short stream.  THE
+        precedence law: **wedged > expired > orphaned > shed > stalled**.
+        Wedged first (a live caller must fail over); expired before
+        orphaned (the deadline is the caller's own contract); a priority
+        shed after the non-retriable causes; stalled last."""
+        if request.wedged:
+            raise EngineWedgedError(
+                "engine wedged while this request was pending "
+                f"({request.generated} tokens delivered); retry against another replica",
+                stalled_s=self.runtime.watchdog_stall_s,
+            )
+        if request.expired:
+            raise DeadlineExceededError(
+                f"request deadline passed after {request.generated} generated tokens"
+            )
+        if request.orphaned:
+            raise RunOrphanedError(
+                "caller lease lapsed; the run was reaped after "
+                f"{request.generated} generated tokens",
+                lease_id=request.lease_id or "",
+            )
+        if request.shed:
+            lane, pending, limit = request.shed_detail or (
+                "short", 0, self.runtime.max_pending or 0
+            )
+            raise EngineOverloadedError(
+                f"queued batch-class request was shed from the {lane} "
+                f"lane to admit interactive work (pending={pending}, "
+                f"max_pending={limit}); retry with backoff",
+                lane=lane, pending=pending, limit=limit,
+            )
+        if request.stalled:
+            raise EngineOverloadedError(
+                "token delivery stalled past max_out_blocks="
+                f"{self.runtime.max_out_blocks}; request was cancelled",
+                lane="delivery", pending=request.out.qsize(),
+                limit=self.runtime.max_out_blocks,
+            )
+
     async def _consume(self, request: GenRequest) -> AsyncIterator[int]:
         """Drain a queued request's tokens; abandoning the iterator flags
         cancellation for the scheduler to reap."""
@@ -688,10 +1285,12 @@ class InferenceEngine:
                 item = await request.out.get()
                 if item is _DONE:
                     done = True
+                    self._raise_terminal(request)
                     return
                 for token in item:  # one dispatch's token block
                     if token is _DONE:
                         done = True
+                        self._raise_terminal(request)
                         return
                     yield token
         finally:
@@ -704,7 +1303,12 @@ class InferenceEngine:
     async def _serve(self) -> None:
         try:
             while self._running:
+                if self._chaos is not None:
+                    self._chaos("tick")
                 self._drain_deferred_cancels()
+                self._check_deadlines()
+                self._check_orphans()
+                self._check_stalls()
                 self._reap_cancelled()
                 if self._ragged:
                     # ragged unified waves: ONE scheduler lane — the pass
@@ -732,9 +1336,17 @@ class InferenceEngine:
                     self._wake.clear()
                     if not self._pending and not self._carry:
                         await self._wake.wait()
-        except Exception:  # noqa: BLE001 - the loop's crash rail
+        except Exception as exc:  # noqa: BLE001 - the loop's crash rail
             logger.exception("inference engine scheduler crashed")
             self._running = False
+            # the ring holds the decision sequence that led here: dump it
+            # next to the traceback, never masking the fault itself
+            try:
+                self._journal.append(flightrec.EV_FAULT, None, -1, 0, 0, repr(exc))
+                path = self._journal.dump(reason="fault")
+                logger.error("flight-recorder fault dump: %s", path)
+            except Exception:  # noqa: BLE001
+                logger.exception("flight-recorder fault dump failed")
             self._finish_all()
 
     def _drain_deferred_cancels(self) -> None:
@@ -759,21 +1371,21 @@ class InferenceEngine:
             r.cancelled for r in self._inflight["wave"]
         ):
             for request in self._inflight["wave"]:
-                self.stats.cancelled_requests += 1
+                self._note_cancel(request)
                 if request.slot != -1:
                     self._retire_slot(request)
                 request.out.put_nowait(_DONE)
             self._inflight = None
         for request in list(self._active.values()):
             if request.cancelled:
-                self.stats.cancelled_requests += 1
+                self._note_cancel(request)
                 self._retire_slot(request)
                 request.out.put_nowait(_DONE)
         if any(r.cancelled for r in self._carry):
             kept = []
             for request in self._carry:
                 if request.cancelled:
-                    self.stats.cancelled_requests += 1
+                    self._note_cancel(request)
                     request.out.put_nowait(_DONE)
                 else:
                     kept.append(request)
@@ -782,7 +1394,7 @@ class InferenceEngine:
             kept_q: deque[GenRequest] = deque()
             for request in self._pending:
                 if request.cancelled:
-                    self.stats.cancelled_requests += 1
+                    self._note_cancel(request)
                     request.out.put_nowait(_DONE)
                 else:
                     kept_q.append(request)
@@ -792,7 +1404,7 @@ class InferenceEngine:
         while self._carry or self._pending:
             request = self._carry.pop(0) if self._carry else self._pending.popleft()
             if request.cancelled:
-                self.stats.cancelled_requests += 1
+                self._note_cancel(request)
                 request.out.put_nowait(_DONE)
                 continue
             return request
@@ -864,18 +1476,30 @@ class InferenceEngine:
         served this pass (alloc failure / wave trim); re-admission replans
         from scratch."""
         if self._prefix is not None and request.shared_pages:
+            self._journal.append(
+                flightrec.EV_PREFIX_REL, request.corr, request.slot, len(request.shared_pages)
+            )
             self._prefix.release(request.shared_pages)
+            self._ledger.release(request.shared_pages)
         request.reuse_len = 0
         request.shared_pages = []
 
-    def _alloc_with_eviction(self, slot: int, n: int) -> "list[int] | None":
+    def _alloc_with_eviction(
+        self, slot: int, n: int, corr: "str | None" = None
+    ) -> "list[int] | None":
         pages = self._page_alloc.alloc(slot, n)
         if pages is None:
+            self._ledger.note_stall()
             self.stats.alloc_stalls += 1
             if self._prefix is not None:
-                # idle cache entries are reclaimable capacity, not a leak
+                # idle cache entries are reclaimable capacity, not a leak;
+                # the journal records the shortfall, tagged with the owner
+                # whose admission forced the eviction
+                self._journal.append(
+                    flightrec.EV_PAGE_EVICT, corr, slot, n - self._page_alloc.free_pages
+                )
                 freed = self._prefix.evict(
-                    n - self._page_alloc.free_pages, self._page_alloc
+                    n - self._page_alloc.free_pages, self._page_alloc, ledger=self._ledger
                 )
                 self.stats.prefix_evictions += freed
                 pages = self._page_alloc.alloc(slot, n)
@@ -887,10 +1511,10 @@ class InferenceEngine:
         assign slots (and, when paged, reserve each request's whole page
         footprint: admission control, no mid-flight OOM).  None when
         nothing can be admitted right now."""
-        first = self._next_pending() if self._free else None
-        if first is None:
+        if not self._free or self._peek_pending() is None:
             return None
         rt = self.runtime
+        first = self._next_pending()
         wave = [first]
         wave_bucket = self._bucket_of(len(first.prompt))
         # ragged mode: the wave may grow only as wide as the token budget
@@ -901,6 +1525,10 @@ class InferenceEngine:
             # acquire at FORMATION: a later member's _alloc_with_eviction
             # must never reclaim pages an earlier member still needs
             self._prefix.acquire(first.shared_pages)
+            self._ledger.acquire(first.shared_pages)
+            self._journal.append(
+                flightrec.EV_PREFIX_ACQ, first.corr, -1, len(first.shared_pages)
+            )
         while (
             len(wave) < len(self._free)
             and len(wave) < rt.max_prefill_wave
@@ -919,6 +1547,10 @@ class InferenceEngine:
                 peeked.reuse_len = head_reuse
                 peeked.shared_pages = peeked.shared_pages[: head_reuse // rt.page_size]
                 self._prefix.acquire(peeked.shared_pages)
+                self._ledger.acquire(peeked.shared_pages)
+                self._journal.append(
+                    flightrec.EV_PREFIX_ACQ, peeked.corr, -1, len(peeked.shared_pages)
+                )
             wave.append(self._next_pending())
         # power-of-two waves; trimmed requests go to the FRONT carry list,
         # preserving arrival order
@@ -930,6 +1562,7 @@ class InferenceEngine:
         if not self._paged:
             for request in wave:
                 request.slot = self._free.pop()
+            self._journal.append(flightrec.EV_WAVE_FORM, None, -1, len(wave), wave_bucket)
             return wave, wave_bucket
         # the tail of an unservable wave waits at the queue front
         granted: list[GenRequest] = []
@@ -937,7 +1570,7 @@ class InferenceEngine:
             slot = self._free.pop()
             shared = request.shared_pages  # acquired at formation
             need = self._reserve_pages(request, wave_bucket) - len(shared)
-            pages = self._alloc_with_eviction(slot, need)
+            pages = self._alloc_with_eviction(slot, need, request.corr)
             if pages is None:
                 self._free.append(slot)
                 # EVERY carried member's acquisition is undone, or its
@@ -948,18 +1581,27 @@ class InferenceEngine:
                 break
             request.slot = slot
             request.pages = shared + pages
+            self._journal.append(
+                flightrec.EV_PAGE_ALLOC, request.corr, slot, len(request.pages), len(shared)
+            )
+            self._ledger.alloc(
+                slot, len(pages), request.corr, request.run, capacity.lane_kind(request.history)
+            )
             granted.append(request)
         if not granted:
             return None  # pool exhausted: wait for retirements
         # keep waves power-of-two after page trimming too
         keep = _pow2_floor(len(granted))
         for request in granted[keep:]:
+            self._journal.append(flightrec.EV_PAGE_FREE, request.corr, request.slot)
             self._page_alloc.free(request.slot)
+            self._ledger.free(request.slot)
             self._free.append(request.slot)
             request.slot = -1
             request.pages = []
             self._drop_reuse_plan(request)
         self._carry = granted[keep:] + self._carry
+        self._journal.append(flightrec.EV_WAVE_FORM, None, -1, keep, wave_bucket)
         return granted[:keep], wave_bucket
 
     def _activate_wave(self, wave: list[GenRequest]) -> None:
@@ -969,11 +1611,17 @@ class InferenceEngine:
             if request.slot == -1:
                 continue
             if request.cancelled:
-                self.stats.cancelled_requests += 1
+                # abandoned while its admission was in flight: release the
+                # slot and pages instead of activating a corpse
+                self._note_cancel(request)
                 self._retire_slot(request)
                 request.out.put_nowait(_DONE)
                 continue
             self._active[request.slot] = request
+            self._journal.append(
+                flightrec.EV_ADMIT, request.corr, request.slot, len(request.prompt),
+                request.reuse_len,
+            )
             self._track_retirement(request)
             row = self._stop_np[request.slot]
             row[:] = -1
@@ -1129,15 +1777,28 @@ class InferenceEngine:
         self, wave: list[GenRequest], true_lens: np.ndarray,
         firsts: np.ndarray, elapsed: float,
     ) -> None:
-        """Host side of the wave landing: stats, host-mirror lens, and the
-        first-token emission, marshalled to the event loop in ONE batch."""
+        """Host side of the wave landing: stats, latency observations,
+        host-mirror lens, and the first-token emission, marshalled to the
+        event loop in ONE batch."""
         self.stats.prefill_waves += 1
         self.stats.prefill_time_s += elapsed
+        elapsed_ms = elapsed * 1000.0
         deliveries: list[tuple[asyncio.Queue, list]] = []
+        self._note_progress()  # a wave landing is watchdog progress
+        self._observe("prefill_ms", elapsed_ms)
+        self._journal.append(flightrec.EV_WAVE_LAND, None, -1, len(wave), int(elapsed_ms))
+        now = time.perf_counter()
         for r, request in enumerate(wave):
             if request.slot == -1:
                 continue
+            request.prefill_ms = elapsed_ms
             self.stats.prefill_tokens += int(true_lens[r])
+            # the wave lands the first token, so submit → now IS the TTFT;
+            # what precedes the prefill work is queue wait (per admission,
+            # never per token)
+            ttft_ms = (now - request.started_at) * 1000.0
+            self._observe("ttft_ms", ttft_ms)
+            self._observe("queue_wait_ms", max(0.0, ttft_ms - elapsed_ms))
             # the prompt occupies [0, true_len); decode inserts from true_len
             self._host_lens[request.slot] = int(true_lens[r])
             items: list = []
@@ -1241,6 +1902,7 @@ class InferenceEngine:
         absorption); finalize after the last.  True when the wave landed."""
         inf = self._inflight
         logits = self._chunk(inf)
+        self._journal.append(flightrec.EV_PREFILL_CHUNK, None, -1, inf["idx"], inf["n_chunks"])
         if inf["idx"] < inf["n_chunks"]:
             return False
         return self._finalize_inflight(logits)
@@ -1275,10 +1937,12 @@ class InferenceEngine:
         if len(request.page_hashes) < full:
             request.page_hashes = chain_hashes(request.prompt, ps)
         fresh: list[int] = []
+        fresh_hashes: list = []
         for i in range(len(request.shared_pages), full):
             page = request.pages[i]
             if self._prefix.register(request.page_hashes[i], page):
                 fresh.append(page)
+                fresh_hashes.append(request.page_hashes[i])
             # else another request registered this chain position first:
             # this duplicate page stays private (slot-held, freed at
             # retirement), and LATER positions still register — sessions
@@ -1287,6 +1951,9 @@ class InferenceEngine:
         if fresh:
             self._page_alloc.transfer_out(request.slot, fresh)
             self._prefix.acquire(fresh)
+            # the pages leave the slot's private count and enter chain
+            # ownership at refcount 1 (this request's own reference)
+            self._ledger.transfer(request.slot, fresh, fresh_hashes)
             request.shared_pages = request.shared_pages + fresh
 
     # ------------------------------------------------- ragged unified waves
@@ -1323,22 +1990,16 @@ class InferenceEngine:
             if self._inflight is not None:
                 return self._advance_inflight()
             return False
+        if self._chaos is not None and self._active:
+            self._chaos("dispatch")
         pend = self._pend
         finished = False
         if self._active:
             finished = self._launch_ragged()
-        else:
-            self._pend = None
-            if self._inflight is not None:
-                finished = self._advance_inflight()
+        elif self._inflight is not None:
+            finished = self._advance_inflight()
         if pend is not None:
-            deliveries = self._land_decode(pend)
-            if not self._active:
-                # the landing retired every participant: drain the
-                # follow-up before a consumer can observe completion
-                self._drain_decode()
-            if deliveries:
-                self._loop.call_soon_threadsafe(_deliver_batch, deliveries)
+            self._land_pend(pend)
         return finished
 
     def _absorb_fits(self) -> bool:
@@ -1379,10 +2040,14 @@ class InferenceEngine:
             self.stats.short_dispatches += 1
         prev = self._pend
         done_prev = prev["done_dev"] if prev is not None else self._done_zero
+        R = len(inf["wave"])
+        self._observe_gap()
+        self._journal.append(flightrec.EV_DISPATCH_LAUNCH, None, -1, steps, len(self._active))
+        self._journal.append(flightrec.EV_RAGGED_WAVE, None, -1, len(self._active), R)
         started = time.perf_counter()
         logits = self._chunk(inf)
         toks, n_valid, done = self._dispatch(active, window, steps, sampled, done_prev)
-        R = len(inf["wave"])
+        self._journal.append(flightrec.EV_PREFILL_CHUNK, None, -1, inf["idx"], inf["n_chunks"])
         self.stats.prefill_absorbed_tokens += R * inf["chunk"]
         self.stats.unified_dispatches += 1
         self._stage_pend(toks, n_valid, done, steps, started, extra_rows=R)
@@ -1545,6 +2210,8 @@ class InferenceEngine:
             drafts[slot, : len(proposal)] = proposal
             ndraft[slot] = len(proposal)
         sampled = any(not self._effective_sampling(r).is_greedy for r in self._active.values())
+        self._observe_gap()  # just before the enqueue: drafting is prep too
+        self._journal.append(flightrec.EV_DISPATCH_LAUNCH, None, -1, S, len(self._active))
         # the dispatch wall starts after drafting, as in the reference:
         # decode_time_s times the verify dispatches, not the draft model
         started = time.perf_counter()
@@ -1554,8 +2221,17 @@ class InferenceEngine:
         )))  # [B, S] + the retirement arrays: the tick's landing sync
         elapsed = time.perf_counter() - started
         self._last_sync_t = time.perf_counter()
-        # one verify forward advances the retirement clock by one step
-        self._note_dispatch(elapsed, 1)
+        # one verify forward advances the retirement clock by one step; its
+        # inter-token latency divides by what each row emitted
+        n_active = len(self._active)
+        self._note_dispatch(
+            elapsed, 1, tokens_per_row=float(emitted.sum()) / n_active if n_active else 1.0
+        )
+        # the verify sync IS the landing: one event carries the wave's
+        # draft offer against what it emitted
+        self._journal.append(
+            flightrec.EV_SPEC_TICK, None, -1, int(ndraft.sum()), int(emitted.sum())
+        )
         deliveries: list[tuple[asyncio.Queue, list]] = []
         for slot, request in list(self._active.items()):
             count = int(emitted[slot])
@@ -1634,29 +2310,42 @@ class InferenceEngine:
         """One scheduler tick of the decode lane.  Overlapped mode enqueues
         dispatch N+1 FIRST, then syncs and fans out dispatch N; lockstep
         mode (the oracle) launches, syncs and fans out."""
+        if self._chaos is not None:
+            self._chaos("dispatch")
         if not self.runtime.overlap_dispatch:
             self._decode_tick_lockstep()
             return
         pend = self._pend
         if self._active:
             self._launch_decode()
-        else:
-            self._pend = None
         if pend is not None:
-            deliveries = self._land_decode(pend)
-            if not self._active:
-                # the landing retired every participant: the dispatch just
-                # launched is all zombies.  Land it NOW, before any consumer
-                # can observe completion, so slots are fully accounted
-                self._drain_decode()
-            if deliveries:
-                self._loop.call_soon_threadsafe(_deliver_batch, deliveries)
+            self._land_pend(pend)
+
+    def _land_pend(self, pend: dict) -> None:
+        """Land the previous dispatch ``pend`` after this tick's launch (if
+        any).  When nothing was launched, ``_pend`` still holds ``pend``
+        through its landing and is cleared only after its deferred frees
+        ran: an observer on the event loop that sees ``_pend is None`` also
+        sees every slot, page and prefix reference released.  When the
+        landing retired every participant of a launched dispatch, that
+        dispatch is all zombies: it is drained NOW, before any consumer can
+        observe completion, so slots are fully accounted."""
+        deliveries = self._land_decode(pend)
+        if self._pend is pend:
+            self._pend = None
+        elif not self._active:
+            self._drain_decode()
+        if deliveries:
+            self._loop.call_soon_threadsafe(_deliver_batch, deliveries)
 
     def _drain_decode(self) -> None:
-        """Land an in-flight dispatch whose participants have all retired."""
-        pend, self._pend = self._pend, None
+        """Land an in-flight dispatch whose participants have all retired.
+        ``_pend`` is cleared only after the landing's deferred frees ran
+        (see :meth:`_land_pend`)."""
+        pend = self._pend
         if pend is not None:
             deliveries = self._land_decode(pend)
+            self._pend = None
             if deliveries:
                 self._loop.call_soon_threadsafe(_deliver_batch, deliveries)
 
@@ -1693,6 +2382,16 @@ class InferenceEngine:
             )
         return self._retire_dev
 
+    def _observe_gap(self) -> None:
+        """The dispatch-gap bubble, observed just before each enqueue (after
+        the host's argument prep, through which the device idles too): zero
+        while a dispatch is already in flight, else the host-side span since
+        the previous landing.  Reset across idle periods."""
+        if self._pend is not None:
+            self._observe("dispatch_gap_ms", 0.0)
+        elif self._last_sync_t is not None:
+            self._observe("dispatch_gap_ms", (time.perf_counter() - self._last_sync_t) * 1000.0)
+
     def _dispatch(
         self, active: torch.Tensor, window: int, steps: int, sampled: bool,
         done_prev: torch.Tensor,
@@ -1716,6 +2415,8 @@ class InferenceEngine:
             self.stats.short_dispatches += 1
         prev = self._pend
         done_prev = prev["done_dev"] if prev is not None else self._done_zero
+        self._observe_gap()
+        self._journal.append(flightrec.EV_DISPATCH_LAUNCH, None, -1, steps, len(self._active))
         started = time.perf_counter()
         toks, n_valid, done = self._dispatch(active, window, steps, sampled, done_prev)
         self._stage_pend(toks, n_valid, done, steps, started)
@@ -1777,6 +2478,7 @@ class InferenceEngine:
             if items:
                 deliveries.append((request.out, items))
         self.stats.overlap_wasted_tokens += wasted
+        self._journal.append(flightrec.EV_DISPATCH_LAND, None, -1, steps, wasted)
         self._free_deferred(pend)
         if not self._active:
             self._last_sync_t = None  # idle boundary, not a bubble
@@ -1785,19 +2487,28 @@ class InferenceEngine:
     def _free_deferred(self, pend: dict) -> None:
         """Release the slots, pages and prefix references of requests that
         retired while ``pend`` was in flight, now that no in-flight dispatch
-        can write through a re-allocated page or read an evicted one."""
-        for slot, shared in pend["deferred"]:
+        can write through a re-allocated page or read an evicted one.  Each
+        deferred entry carries its owner's corr, so the frees attribute to
+        the request whose pages they are, in the journal and the ledger."""
+        for slot, shared, corr in pend["deferred"]:
             if self._prefix is not None and shared:
+                self._journal.append(flightrec.EV_PREFIX_REL, corr, slot, len(shared))
                 self._prefix.release(shared)
+                self._ledger.release(shared)
             if self._paged:
+                self._journal.append(flightrec.EV_PAGE_FREE, corr, slot)
                 self._page_alloc.free(slot)
+                self._ledger.free(slot)
             self._free.append(slot)
+            self._journal.append(flightrec.EV_SLOT_FREE, corr, slot)
 
     def _decode_tick_lockstep(self) -> None:
         """The lockstep reference path: launch, sync, fan out — with the
         HOST as the retirement authority (arbitrary-size stop sets).  The
         overlapped path must produce identical token streams."""
         active, window, steps, sampled = self._decode_args()
+        self._observe_gap()
+        self._journal.append(flightrec.EV_DISPATCH_LAUNCH, None, -1, steps, len(self._active))
         started = time.perf_counter()
         toks, _n_valid, _done = self._dispatch(
             active, window, steps, sampled, self._done_zero
@@ -1808,6 +2519,7 @@ class InferenceEngine:
         elapsed = time.perf_counter() - started
         self._last_sync_t = time.perf_counter()
         self._note_dispatch(elapsed, steps)
+        self._journal.append(flightrec.EV_DISPATCH_LAND, None, -1, steps, 0)
         if steps < self.runtime.decode_steps_per_dispatch:
             self.stats.short_dispatches += 1
         deliveries: list[tuple[asyncio.Queue, list]] = []
@@ -1844,19 +2556,72 @@ class InferenceEngine:
             self._loop.call_soon_threadsafe(_deliver_batch, deliveries)
 
     def _note_dispatch(
-        self, elapsed: float, clock_steps: int, n_rows: int | None = None
+        self, elapsed: float, clock_steps: int,
+        tokens_per_row: float | None = None, n_rows: int | None = None,
     ) -> None:
-        """Per-dispatch clock + stats.  ``n_rows`` pins the occupancy to the
-        dispatch's participants (under overlap the landing runs after newer
-        admissions changed ``_active``)."""
+        """Per-dispatch clock, stats and telemetry, shared by the decode and
+        verify ticks.  ``tokens_per_row`` is the inter-token latency's
+        denominator where it differs from the clock (a verify advances the
+        clock by 1 but emits each row's accepted prefix); ``n_rows`` pins
+        the occupancy to the dispatch's participants (under overlap the
+        landing runs after newer admissions changed ``_active``).  Every
+        observation here is O(1): per dispatch, never per token."""
         with self._retire_lock:
             self._decode_clock += clock_steps
+        self._note_progress()  # every landed dispatch is watchdog progress
         self.stats.decode_dispatches += 1
         self.stats.decode_time_s += elapsed
         rows = n_rows if n_rows is not None else len(self._active)
         occupancy = rows / self.runtime.max_batch_size
         self.stats.occupancy_sum += occupancy
         self.stats.occupancy_hist[min(3, int(occupancy * 4))] += 1
+        denom = tokens_per_row if tokens_per_row else clock_steps
+        if self._capacity_on:
+            self._sampler.append(
+                self._ledger.pages_in_use,
+                self._page_alloc.free_pages if self._paged else 0,
+                self._ledger.prefix_resident_pages,
+                rows,
+                len(self._pending),
+                float(denom) * rows,
+                capacity.hbm_bytes_per_token(self._hbm_constants, self._hbm_ctx, max(rows, 1)),
+            )
+        self._observe("decode_dispatch_ms", elapsed * 1000.0)
+        self.stats.note_dispatch_ewma(elapsed * 1000.0)
+        self._observe("inter_token_ms", elapsed * 1000.0 / max(1.0, denom))
+        self._update_active_gauge()
+        self._sync_metric_counters()
+
+    def _update_active_gauge(self) -> None:
+        """The process gauge sums across live engines; called per dispatch
+        AND per retirement (an idle engine must not pin its last count).
+        The running check sits inside the lock, so stop()'s pop can never
+        interleave and leave a stale entry."""
+        with _ACTIVE_LOCK:
+            if not self._running:
+                return
+            _ACTIVE_BY_ENGINE[id(self)] = len(self._active)
+            total = sum(_ACTIVE_BY_ENGINE.values())
+        self.metrics["active_requests"].set(total)
+
+    def _observe(self, key: str, value: float) -> None:
+        """One latency observation, recorded in the process-shared
+        instrument (the /metrics exposition) and this engine's own (its
+        percentiles)."""
+        self.metrics[key].observe(value)
+        self.latency[key].observe(value)
+
+    def _sync_metric_counters(self) -> None:
+        """Fold cumulative stats into the process-registry counters as
+        increments (per dispatch and at snapshot time).  Locked: the decode
+        thread and the event loop both run this."""
+        m, counted, stats = self.metrics, self._counted, self.stats
+        with self._counted_lock:
+            for key in counted:
+                value = getattr(stats, key)
+                if value != counted[key]:
+                    m[key].inc(value - counted[key])
+                    counted[key] = value
 
     def _retire_slot(self, request: GenRequest) -> None:
         """Reclaim a request's slot, page reservation and shared-page
@@ -1866,23 +2631,42 @@ class InferenceEngine:
         (an in-flight dispatch must never find its pages re-allocated under
         it, nor its shared prefix pages evicted while it still reads them);
         everything observable updates now."""
+        self._drop_deadline(request)
+        self._drop_lease(request)
         self._active.pop(request.slot, None)
         if self._drafter is not None and request.slot != -1:
             self._drafter.retire(request.slot)
         pend = self._pend
         if pend is not None and request.slot in pend["slot_set"]:
-            pend["deferred"].append((request.slot, request.shared_pages))
+            # the journal records both moments: RETIRE_DEFER here, the
+            # frees at the landing; the deferred entry carries the owner
+            self._journal.append(
+                flightrec.EV_RETIRE_DEFER, request.corr, request.slot, request.generated
+            )
+            pend["deferred"].append((request.slot, request.shared_pages, request.corr))
         else:
+            self._journal.append(
+                flightrec.EV_RETIRE, request.corr, request.slot, request.generated
+            )
             if self._prefix is not None and request.shared_pages:
                 # shared pages return to the CACHE (refcount), never to the
                 # free list while other readers may hold them
+                self._journal.append(
+                    flightrec.EV_PREFIX_REL, request.corr, request.slot,
+                    len(request.shared_pages),
+                )
                 self._prefix.release(request.shared_pages)
+                self._ledger.release(request.shared_pages)
             if self._paged:
+                self._journal.append(flightrec.EV_PAGE_FREE, request.corr, request.slot)
                 self._page_alloc.free(request.slot)
+                self._ledger.free(request.slot)
             self._free.append(request.slot)
+            self._journal.append(flightrec.EV_SLOT_FREE, request.corr, request.slot)
         request.shared_pages = []
         request.slot = -1
         self._untrack_retirement(request)
+        self._update_active_gauge()
 
     def _record_token(self, request: GenRequest, token: int, items: list) -> bool:
         """THE retirement authority of host-side retirement: bump

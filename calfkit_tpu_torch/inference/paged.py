@@ -45,13 +45,6 @@ class PageAllocator:
         """slot -> page count currently reserved (public, for stats/tests)."""
         return {slot: len(pages) for slot, pages in self._held.items()}
 
-    @property
-    def held_pages(self) -> int:
-        """Pages slots hold privately (not cache-owned).  Snapshots the
-        holdings in one C-level copy, so a reader on the event loop never
-        iterates a dict the decode thread is resizing."""
-        return sum(map(len, list(self._held.values())))
-
     def alloc(self, slot: int, n: int) -> list[int] | None:
         """Reserve ``n`` pages for ``slot``; None if the pool can't cover it."""
         if slot in self._held:
@@ -120,12 +113,6 @@ class PrefixCache:
     @property
     def size(self) -> int:
         return len(self._entries)
-
-    @property
-    def referenced(self) -> int:
-        """Cached pages some live slot references (refcount >= 1), read
-        from a one-copy snapshot as :attr:`PageAllocator.held_pages` is."""
-        return sum(1 for refs in list(self._refs.values()) if refs > 0)
 
     def lookup(self, hashes: "list[bytes]") -> "list[int]":
         """Longest cached chain prefix → its pages, in sequence order."""

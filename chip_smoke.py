@@ -87,7 +87,24 @@ the final ``ok`` line is never printed:
    allocation and the launches by shape, and holds the no-leak law;
 12. the prefill and paged decode kernels against their plain versions
    again, at the shapes the checkpoint phase and the int8 north-star drive
-   launched most (the north star's on a pool of its runtime's 193 pages).
+   launched most (the north star's on a pool of its runtime's 193 pages);
+13. overload phase: the robustness layer and its telemetry at llama-3-8b's
+   full width (the last bf16 north-star drive's weights), paged (page 64,
+   chunk 512, prefix cache, 16 rows) on a pool of 257 pages, half of what
+   16 rows of 2048 tokens need, with ``max_pending`` 16, ``max_out_blocks``
+   2, a 30 s watchdog, the occupancy sampler and a virtual wall clock: 48
+   agent requests at once (a 1,000-token instruction block shared by six,
+   a unique tail, 32 new tokens; every third batch-class; deadlines, a
+   lease that stops beating, a live lease and a consumer that stops
+   reading among them), then a dispatch held past the watchdog's threshold.
+   Overlapped, then lockstep; it holds one typed ending or a full stream a
+   request, batch shed before interactive, the counters equal to the
+   endings and to their journal events, the ``/metrics`` dispatch count,
+   evictions, the pool's accounting at every occupancy sample and after
+   ``stop()``, the same endings in both runs and the survivors' streams
+   equal; then the prefill kernel and the paged decode kernel (over the
+   phase's own pool after eviction, through its last block tables) against
+   their plain versions at the phase's most launched shapes.
 
 The kernel phase also holds the ragged multi-query kernels (speculative
 verify shapes S = 5, a mixed-row case with prefill-kind and fresh rows, page
@@ -289,15 +306,20 @@ def _shuffled_pool(dev, dtype, g, K, hd, page, lens, wpages, seed, n_pages=None)
 
 
 def paged_decode_case(dev, dtype, B, K, G, hd, page, lens, wpages, seed, layer=1,
-                      q_dtype=torch.float32, rows=None, n_pages=None):
+                      q_dtype=torch.float32, rows=None, n_pages=None, pool=None):
     """The paged kernel on a shuffled 2-layer pool (of ``n_pages``, as
-    :func:`_shuffled_pool`), at layer 1; q in ``q_dtype``, as
+    :func:`_shuffled_pool`), or on ``pool`` = (pool_k, pool_v, tables), an
+    engine's own pool and block tables, at layer 1; q in ``q_dtype``, as
     :func:`decode_case`; ``rows`` labels the row lengths where they are not
     ``PAGED_LENS``."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, K, G, hd), generator=g, device=dev).to(q_dtype)
-    pool_k, pool_v, tables, n_pages = _shuffled_pool(
-        dev, dtype, g, K, hd, page, lens, wpages, seed, n_pages)
+    if pool is None:
+        pool_k, pool_v, tables, n_pages = _shuffled_pool(
+            dev, dtype, g, K, hd, page, lens, wpages, seed, n_pages)
+    else:
+        pool_k, pool_v, tables = pool
+        n_pages = pool_k.shape[1]
     base = torch.tensor(lens, dtype=torch.int32, device=dev)
 
     def kernel():
@@ -1196,6 +1218,7 @@ CLIENT_COLD_KEYS = frozenset({
 })
 CLIENT_LIVE_KEYS = CLIENT_COLD_KEYS | {
     "free_pages", "prefix_cached_pages", "prefix_hits", "prefix_reused_tokens", "hbm_gb_in_use",
+    "latency_ms",
 }
 
 # an agent's instruction block of 1,000 bytes, shared by every conversation;
@@ -1745,7 +1768,8 @@ def north_star_params(cfg, quantization: "str | None"):
 
 
 async def north_star_phase(
-    dev, quantization: "str | None", card: str = "", requests: int = NORTH_STAR_REQUESTS
+    dev, quantization: "str | None", card: str = "", requests: int = NORTH_STAR_REQUESTS,
+    keep: "dict | None" = None,
 ) -> dict:
     """The JAX package's north-star shape (``bench.py``'s ``llama8b``): the
     full llama-3-8b preset at ``max_seq_len`` 1024, 32 rows, 32 decode steps
@@ -1754,7 +1778,9 @@ async def north_star_phase(
     bf16 from the engine's random init.  One wave of ``requests`` (32)
     requests of 64 prompt tokens (``bench.py``'s prompts) and 128 new
     tokens, greedy.  The prefill and paged decode launches are tallied by
-    shape (:func:`prefill_shapes`, :func:`decode_shapes`)."""
+    shape (:func:`prefill_shapes`, :func:`decode_shapes`).  ``keep``, when
+    given, receives the engine's weights (``keep["params"]``) for a later
+    phase of the same model."""
     cfg = preset("llama-3-8b", max_seq_len=NORTH_STAR_RUNTIME.max_seq_len)
     rt = replace(NORTH_STAR_RUNTIME, quantization=quantization)
     torch.cuda.synchronize()
@@ -1791,6 +1817,8 @@ async def north_star_phase(
     assert engine._page_alloc.free_pages == rt.pool_pages() - 1, engine._page_alloc.free_pages
     assert len(engine._free) == rt.max_batch_size and not engine._active
     name = quantization or "bf16"
+    if keep is not None:
+        keep["params"] = engine.params
     result = dict(
         host_params_s=host_s, init_s=init_s, wall_s=wall, ttft_ms=sorted(x * 1e3 for x in ttft),
         ttft_median_ms=statistics.median(ttft) * 1e3, ttft_max_ms=max(ttft) * 1e3,
@@ -1816,6 +1844,450 @@ async def north_star_phase(
     )
     del engine
     return result
+
+
+# --------------------------------------------------------------------------- #
+# phase 13: the robustness layer and its telemetry under overload
+# --------------------------------------------------------------------------- #
+
+# the paged serving runtime with a pool of half what 16 rows x 2048 tokens
+# need (513 pages), bounded admission, the delivery stall bound, the
+# watchdog and the occupancy timeline
+OVERLOAD_RUNTIME = RuntimeConfig(
+    max_batch_size=16, max_seq_len=2048, kv_layout="paged", page_size=64,
+    prefill_chunk=512, chunked_prefill=True, prefix_cache=True, decode_steps_per_dispatch=8,
+    num_kv_pages=257, max_pending=16, max_out_blocks=2, watchdog_stall_s=30.0,
+    capacity_samples=1 << 12, flightrec_events=1 << 16,
+)
+OVERLOAD_REQUESTS = 48
+OVERLOAD_NEW = 32
+# the drill's roles by request index: every third request is batch-class;
+# 0, 4 and 21 carry a deadline 5 s out, 1, 4 and 22 a lease that stops
+# beating (TTL 5 s), 3 a live lease; 6's consumer stops reading
+OVERLOAD_DEADLINED = (0, 4, 21)
+OVERLOAD_DEAD_LEASE = (1, 4, 22)
+OVERLOAD_LIVE_LEASE = (3,)
+OVERLOAD_STALLED = 6
+# the two endings of EngineOverloadedError: a shed at admission, a stall
+_ENDINGS = {
+    "shed": ("EngineOverloadedError", "short"),
+    "stalled": ("EngineOverloadedError", "delivery"),
+}
+
+
+class VirtualClock:
+    """The wall clock of the phase: ``cancellation.wall_clock`` reads it,
+    and only the script advances it, so deadlines, lease lapse and the
+    watchdog fire at the same point of every run."""
+
+    def __init__(self, now: float = 1_700_000_000.0):
+        self.now = now
+
+    def __call__(self) -> float:
+        return self.now
+
+    def advance(self, seconds: float) -> None:
+        self.now += seconds
+
+
+class Pace:
+    """The engine's chaos seam as the phase's script: at the start of each
+    scheduler pass it fires the armed actions whose condition holds; a
+    decode tick blocks on ``gate`` once :meth:`block_next_dispatch` armed
+    it (a landing held past the watchdog's threshold)."""
+
+    def __init__(self):
+        self.armed: list = []
+        self.gate = None
+        self.blocked = False
+
+    def when(self, condition, action) -> None:
+        self.armed.append((condition, action))
+
+    def block_next_dispatch(self, gate) -> None:
+        self.gate = gate
+
+    def __call__(self, point: str) -> None:
+        if point == "tick":
+            for entry in list(self.armed):
+                if entry[0]():
+                    self.armed.remove(entry)
+                    entry[1]()
+        elif self.gate is not None:
+            gate, self.gate = self.gate, None
+            self.blocked = True
+            gate.wait()
+
+
+def overload_prompts(vocab_size: int) -> "list[list[int]]":
+    """Agent-shaped prompts from seed 13: 9 instruction blocks of 1,000
+    tokens, each shared by six agents (the ninth by the wedge drill's
+    requests), plus a unique tail of 40-200 tokens a request."""
+    rng = np.random.default_rng(13)
+    blocks = [rng.integers(0, vocab_size, 1000).tolist() for _ in range(9)]
+    return [blocks[i // 6] + rng.integers(0, vocab_size, int(rng.integers(40, 200))).tolist()
+            for i in range(OVERLOAD_REQUESTS + 6)]
+
+
+async def _settle(condition, seconds: float = 120.0, what: str = "") -> None:
+    deadline = time.perf_counter() + seconds
+    while not condition():
+        assert time.perf_counter() < deadline, f"never settled: {what}"
+        await asyncio.sleep(0.002)
+
+
+def quiescent(engine) -> bool:
+    """Nothing queued, admitting, in flight or active."""
+    return (not engine._active and engine._pend is None and engine._inflight is None
+            and not engine._pending and not engine._carry and not engine._admitting)
+
+
+async def overload_drive(cfg, rt, params, dev, dump_dir: str) -> dict:
+    """One run of the overload phase's script (see :func:`overload_phase`)
+    → the engine (stopped) and every request's ending."""
+    import threading
+
+    from calfkit_tpu_torch import cancellation, leases
+    from calfkit_tpu_torch.exceptions import CalfkitError
+    from calfkit_tpu_torch.observability.capacity import CapacitySampler
+
+    engine = InferenceEngine(cfg, rt, params=params, device=dev)
+    pool = engine._page_alloc.num_pages - 1
+    sampled: list = []
+
+    class CheckedSampler(CapacitySampler):
+        """At every occupancy sample: pages by owner + free pages == pool."""
+
+        def append(self, *args, **kw):
+            b = engine._ledger.breakdown()
+            sampled.append(b["private_pages"] + b["prefix_resident_pages"]
+                           + engine._page_alloc.free_pages)
+            super().append(*args, **kw)
+
+    engine._sampler = CheckedSampler(rt.capacity_samples, label="overload", ledger=engine._ledger)
+    pace = Pace()
+    engine._chaos = pace
+    prompts = overload_prompts(cfg.vocab_size)
+    outcomes: dict = {}
+
+    def live(corr):
+        return next((r for r in list(engine._active.values()) if r.corr == corr), None)
+
+    async def run(corr, prompt, hold=None, **kw):
+        toks = []
+        stream = engine.generate(prompt, max_new_tokens=OVERLOAD_NEW, corr=corr, **kw)
+        try:
+            async for tok in stream:
+                toks.append(tok)
+                if hold is not None and len(toks) == 1:
+                    await hold.wait()
+            outcomes[corr] = ("ok", toks)
+        except CalfkitError as exc:
+            outcomes[corr] = (type(exc).__name__, getattr(exc, "lane", None))
+        finally:
+            await stream.aclose()
+
+    clock = VirtualClock()
+    previous = cancellation.wall_clock
+    cancellation.wall_clock = clock
+    tag = f"{'overlap' if rt.overlap_dispatch else 'lockstep'}-{id(engine):x}"
+    dead, alive = f"dead-{tag}", f"live-{tag}"
+    leases.note_beat(dead, 5.0)
+    leases.note_beat(alive, 30.0)
+    await engine.start()
+    try:
+        t0 = time.perf_counter()
+        # overload, deadlines, orphans and a stalled consumer: one burst; the
+        # clock passes the deadlines and the dead lease's TTL once request 0
+        # decodes
+        pace.when(lambda: (r := live("ov-0")) is not None and r.generated >= 2,
+                  lambda: clock.advance(6.0))
+        hold = asyncio.Event()
+        jobs = []
+        for i in range(OVERLOAD_REQUESTS):
+            kw = dict(priority="batch" if i % 3 == 2 else "interactive")
+            if i in OVERLOAD_DEADLINED:
+                kw["deadline"] = clock.now + 5.0
+            if i in OVERLOAD_DEAD_LEASE:
+                kw["lease"] = (dead, 5.0)
+            if i in OVERLOAD_LIVE_LEASE:
+                kw["lease"] = (alive, 30.0)
+            if i == OVERLOAD_STALLED:
+                kw["hold"] = hold
+            jobs.append(asyncio.ensure_future(run(f"ov-{i}", prompts[i], **kw)))
+        others = [j for i, j in enumerate(jobs) if i != OVERLOAD_STALLED]
+        await asyncio.gather(*others)
+        await _settle(lambda: quiescent(engine), what="the overload burst")
+        hold.set()
+        await jobs[OVERLOAD_STALLED]
+        burst_s = time.perf_counter() - t0
+        # the wedge: a landing held past watchdog_stall_s
+        gate = threading.Event()
+        pace.when(lambda: (r := live("wg-0")) is not None and r.generated >= 2,
+                  lambda: pace.block_next_dispatch(gate))
+        wedged = asyncio.gather(*[run(f"wg-{k}", prompts[OVERLOAD_REQUESTS + k])
+                                  for k in range(3)])
+        try:
+            await _settle(lambda: pace.blocked, what="the held landing")
+            clock.advance(2 * rt.watchdog_stall_s)
+            await _settle(lambda: engine._wedged, 30.0, "the watchdog's trip")
+            await wedged
+            await run("wg-late", prompts[OVERLOAD_REQUESTS + 3])  # refused while wedged
+            dumps = sorted(Path(dump_dir).glob("flightrec-*.jsonl"))
+        finally:
+            clock.advance(0.01)
+            gate.set()
+        await _settle(lambda: not engine._wedged and quiescent(engine), what="the un-wedge")
+        await run("wg-after", prompts[OVERLOAD_REQUESTS + 4])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        await engine.stop()
+        cancellation.wall_clock = previous
+    return dict(engine=engine, outcomes=outcomes, wall_s=wall, burst_s=burst_s, dumps=dumps,
+                sampled=sampled, pool=pool)
+
+
+def check_overload_run(run: dict, rt) -> dict:
+    """Every law of one overload run → its counters."""
+    from calfkit_tpu_torch.observability import flightrec
+    from calfkit_tpu_torch.observability.metrics import metrics_text
+
+    engine, out = run["engine"], run["outcomes"]
+    stats = engine.stats
+    # every request ends in exactly one typed error or a full stream
+    assert len(out) == OVERLOAD_REQUESTS + 5, sorted(out)
+    assert all(o[0] != "ok" or len(o[1]) == OVERLOAD_NEW for o in out.values()), out
+    kinds = [o[:2] if o[0] != "ok" else ("ok",) for o in out.values()]
+    n = {k: kinds.count(v) for k, v in _ENDINGS.items()}
+    n["expired"] = sum(1 for o in out.values() if o[0] == "DeadlineExceededError")
+    n["orphaned"] = sum(1 for o in out.values() if o[0] == "RunOrphanedError")
+    n["wedged"] = sum(1 for o in out.values() if o[0] == "EngineWedgedError")
+    # the script's roles: batch sheds first, an interactive submit at a full
+    # lane evicts a queued batch request; deadlines, orphans, precedence
+    burst = {i: out[f"ov-{i}"] for i in range(OVERLOAD_REQUESTS)}
+    shed_batch = [i for i, o in burst.items() if o[:2] == _ENDINGS["shed"] and i % 3 == 2]
+    shed_inter = [i for i, o in burst.items() if o[:2] == _ENDINGS["shed"] and i % 3 != 2]
+    admitted_inter = [i for i in range(rt.max_pending, OVERLOAD_REQUESTS)
+                      if i % 3 != 2 and burst[i][:2] != _ENDINGS["shed"]]
+    assert shed_batch == [i for i in range(OVERLOAD_REQUESTS) if i % 3 == 2], shed_batch
+    assert admitted_inter and min(shed_inter) > max(admitted_inter), (shed_inter, admitted_inter)
+    for i in OVERLOAD_DEADLINED:
+        assert burst[i][0] == "DeadlineExceededError", (i, burst[i])
+    for i in set(OVERLOAD_DEAD_LEASE) - set(OVERLOAD_DEADLINED):
+        assert burst[i][0] == "RunOrphanedError", (i, burst[i])
+    assert burst[OVERLOAD_LIVE_LEASE[0]][0] == "ok"
+    assert burst[OVERLOAD_STALLED][:2] == _ENDINGS["stalled"], burst[OVERLOAD_STALLED]
+    assert [out[f"wg-{k}"][0] for k in range(3)] == ["EngineWedgedError"] * 3, out
+    assert out["wg-late"][0] == "EngineWedgedError" and out["wg-after"][0] == "ok"
+    assert run["dumps"], "the wedge wrote no flight-recorder dump"
+    # each counter equals its endings and the count of its journal event
+    assert engine._journal.counts()["dropped"] == 0, engine._journal.counts()
+    journal = [(flightrec.EVENT_NAMES[e[2]], e[4], e[5], e[6]) for e in engine._journal.snapshot()]
+    events = {name: [e for e in journal if e[0] == name] for name in flightrec.EVENT_NAMES}
+    expired_slots = [e[1] for e in events["EXPIRE"]]
+    assert min(expired_slots) == -1 < max(expired_slots), expired_slots  # queued and active
+    assert stats.shed_requests == n["shed"] == len(events["SHED"]), (n, vars(stats))
+    assert stats.expired_requests == n["expired"] == len(events["EXPIRE"]), (n, vars(stats))
+    assert stats.orphaned_requests == n["orphaned"] == len(events["ORPHAN"]), (n, vars(stats))
+    assert stats.delivery_stalled == n["stalled"] == sum(1 for e in events["CANCEL"] if e[2]), n
+    assert stats.watchdog_trips == len(events["WEDGE"]) == 1, vars(stats)
+    assert stats.watchdog_faulted == n["wedged"] == events["WEDGE"][0][3] + 1, (n, vars(stats))
+    assert stats.interactive_shed == len(shed_inter) and stats.batch_shed == len(shed_batch)
+    # the /metrics exposition counts every decode dispatch
+    text = metrics_text(engine._own_registry)
+    count = next(int(line.split()[-1]) for line in text.splitlines()
+                 if line.startswith("calfkit_engine_decode_dispatch_ms_count "))
+    assert count == stats.decode_dispatches > 0, (count, stats.decode_dispatches)
+    assert stats.prefix_evictions > 0, vars(stats)
+    # at every occupancy sample, and after stop(): nothing leaked
+    assert run["sampled"] and set(run["sampled"]) == {run["pool"]}, set(run["sampled"])
+    assert len(engine._free) == rt.max_batch_size and not engine._active
+    free_pages, cached = engine._page_alloc.free_pages, engine._prefix.size
+    assert free_pages + cached == run["pool"], (free_pages, cached)
+    assert engine._ledger.pages_in_use == 0, engine._ledger.breakdown()
+    return dict(
+        endings=n, shed_batch=len(shed_batch), shed_interactive=len(shed_inter),
+        survivors=sum(1 for o in out.values() if o[0] == "ok"),
+        decode_dispatches=stats.decode_dispatches, decode_tokens=stats.decode_tokens,
+        decode_tok_s=stats.tokens_per_second, prefix_hits=stats.prefix_hits,
+        prefix_evictions=stats.prefix_evictions, alloc_stalls=stats.alloc_stalls,
+        cancelled=stats.cancelled_requests, journal_events=len(journal),
+        samples=len(run["sampled"]), dispatch_ewma_ms=stats.dispatch_ewma_ms,
+        wall_s=run["wall_s"], burst_s=run["burst_s"],
+    )
+
+
+def tie_gaps(cfg, params, prompt: "list[int]", stream: "list[int]", dev) -> "list[tuple]":
+    """Teacher-force ``stream`` after ``prompt`` through one plain forward
+    (``model.forward`` with the plain attention, one row) → for each step
+    (the top logit - the chosen token's logit, the tie band: two bf16
+    spacings at the top logit's magnitude).  The model's logits are bf16:
+    a gap inside the band is a tie that the rounding of any earlier sum can
+    flip."""
+    seq = prompt + stream
+    n = len(seq)
+    logits, _ = M.forward(
+        params, cfg, torch.tensor([seq], dtype=torch.int32, device=dev),
+        torch.arange(n, dtype=torch.int32, device=dev)[None],
+        M.make_empty_cache(cfg, 1, n, device=dev),
+        torch.tensor([n], dtype=torch.int32, device=dev), attn_impl="plain",
+    )
+    lg = logits[0, len(prompt) - 1:n - 1].float()  # row t predicts stream[t]
+    top = lg.max(dim=1).values
+    chosen = lg.gather(1, torch.tensor(stream, device=dev)[:, None])[:, 0]
+    band = 2.0 * torch.exp2(torch.floor(torch.log2(top.abs().clamp_min(2.0 ** -126))) - 7)
+    return list(zip((top - chosen).tolist(), band.tolist()))
+
+
+def check_survivor_streams(cfg, params, prompts, on: dict, off: dict, dev) -> dict:
+    """The survivors' greedy streams of the overlapped and the lockstep run:
+    equal, or equal up to a step where the two runs chose two tokens both
+    within the tie band of that step's top logit (:func:`tie_gaps`); and
+    every token of both runs within that band of its step's top logit (a
+    wrong K/V page would put a token far below it)."""
+    diverged, off_top, max_gap = [], 0, 0.0
+    for corr, (kind, stream) in on.items():
+        if kind != "ok":
+            continue
+        prompt = prompts[OVERLOAD_REQUESTS + 4] if corr == "wg-after" else prompts[int(corr[3:])]
+        other = off[corr][1]
+        gaps = {"overlapped": tie_gaps(cfg, params, prompt, stream, dev),
+                "lockstep": tie_gaps(cfg, params, prompt, other, dev)}
+        for run, steps in gaps.items():
+            assert all(g <= band for g, band in steps), (corr, run, steps)
+            off_top += sum(1 for g, _ in steps if g > 0)
+            max_gap = max(max_gap, max(g for g, _ in steps))
+        d = next((i for i, (a, b) in enumerate(zip(stream, other)) if a != b), None)
+        if d is not None:
+            # the common prefix gives step d the same logits in both forwards
+            diverged.append(dict(corr=corr, step=d, gap_overlapped=gaps["overlapped"][d][0],
+                                 gap_lockstep=gaps["lockstep"][d][0],
+                                 band=gaps["overlapped"][d][1]))
+    return dict(survivors=sum(1 for o in on.values() if o[0] == "ok"), diverged=diverged,
+                tokens_below_top=off_top, max_gap=max_gap)
+
+
+@contextlib.contextmanager
+def _last_paged_tables():
+    """While the block runs, keep the block tables and kv lengths of the
+    paged decode wrapper's last call at each (B, 1, wpages)."""
+    inner = A.paged_decode_attention
+    last: dict = {}
+
+    def keep(q, pool_k, pool_v, layer, tables, lens, **kw):
+        last[(q.shape[0], 1, kw["wpages"])] = (tables.clone(), lens.clone())
+        return inner(q, pool_k, pool_v, layer, tables, lens, **kw)
+
+    A.paged_decode_attention = keep
+    try:
+        yield last
+    finally:
+        A.paged_decode_attention = inner
+
+
+async def overload_phase(dev, params, card: str = "") -> "tuple[dict, list[dict]]":
+    """Phase 13: the robustness layer and its telemetry on the card, at
+    llama-3-8b's full width with the pool full.  ``params``: the bf16
+    weights an earlier phase built (seed 0).  The runtime
+    (``OVERLOAD_RUNTIME``): paged, page 64, chunk 512, prefix cache, 16
+    rows, a pool of 257 pages (~2.1 GB), max_pending 16, max_out_blocks 2,
+    watchdog 30 s, the occupancy sampler; ``cancellation.wall_clock`` is a
+    virtual clock only the script advances; flight-recorder dumps go to a
+    temporary ``CALFKIT_FLIGHTREC_DIR``.
+
+    The drive: 48 agent requests submitted at once (a 1,000-token
+    instruction block shared by six, a unique tail, 32 new tokens, every
+    third batch-class; deadlines, a lease that stops beating, a live lease
+    and a consumer that stops reading among them); then a wedge (a landing
+    held past the watchdog's threshold, a submit during it, the release and
+    a request after it).  It runs overlapped (the main path: #2 and #5
+    tallied by shape), overlapped again and then lockstep, and holds every
+    law of :func:`check_overload_run` in each, the same endings in all
+    three, the repeat's streams bit for bit the first run's, and the
+    lockstep survivors' streams equal to the overlapped ones up to a bf16
+    tie (:func:`check_survivor_streams`: the two schedules batch the rows
+    differently, which moves the rounding of the walk's partial sums and of
+    the prefill products).  Then #5 and #2 against their plain versions at
+    the phase's most launched shapes, #2 over the phase's own pool after
+    eviction, through the block tables of its last launch."""
+    import os
+
+    cfg = preset("llama-3-8b")
+    rt = OVERLOAD_RUNTIME
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = {}
+    with tempfile.TemporaryDirectory() as dump_dir:
+        before = os.environ.get("CALFKIT_FLIGHTREC_DIR")
+        os.environ["CALFKIT_FLIGHTREC_DIR"] = dump_dir
+        try:
+            A.reset_launch_counts()
+            with prefill_shapes() as prefills, decode_shapes() as decodes, \
+                    _last_paged_tables() as tables:
+                runs["overlap"] = await overload_drive(cfg, rt, params, dev, dump_dir)
+                launches = dict(A.launch_counts)
+            peak = torch.cuda.max_memory_allocated(dev)
+            runs["repeat"] = await overload_drive(cfg, rt, params, dev, dump_dir)
+            runs["lockstep"] = await overload_drive(
+                cfg, replace(rt, overlap_dispatch=False), params, dev, dump_dir)
+        finally:
+            if before is None:
+                os.environ.pop("CALFKIT_FLIGHTREC_DIR", None)
+            else:
+                os.environ["CALFKIT_FLIGHTREC_DIR"] = before
+    checked = {name: check_overload_run(r, r["engine"].runtime) for name, r in runs.items()}
+    on, off = runs["overlap"]["outcomes"], runs["lockstep"]["outcomes"]
+    assert runs["repeat"]["outcomes"] == on, "the repeat's endings or streams changed"
+    assert {k: v[:2] if v[0] != "ok" else "ok" for k, v in on.items()} == \
+        {k: v[:2] if v[0] != "ok" else "ok" for k, v in off.items()}, (on, off)
+    streams = check_survivor_streams(cfg, params, overload_prompts(cfg.vocab_size), on, off, dev)
+    assert launches["paged_decode_attention"] > 0 and launches["prefill_attention"] > 0, launches
+    assert launches["decode_attention"] == launches["ragged_attention"] == \
+        launches["ragged_attention_paged"] == 0, launches
+    prefill_rows, decode_rows = _shape_rows(prefills), _shape_rows(decodes)
+    assert sum(r["launches"] for r in prefill_rows) == launches["prefill_attention"]
+    assert sum(r["launches"] for r in decode_rows) == launches["paged_decode_attention"]
+    # the kernels at the phase's shapes: #2 over the overlap run's own pool
+    # (pages evicted and reused, ids as the allocator handed them out)
+    engine = runs["overlap"]["engine"]
+    top = decode_rows[0]
+    used, lens = tables[(top["B"], 1, top["window"])]
+    cases = [
+        path_case(dev, "prefill_attention", prefill_rows),
+        paged_decode_case(dev, torch.bfloat16, top["B"], 8, 4, 128, rt.page_size,
+                          lens.tolist(), top["window"], 43, 1, torch.bfloat16,
+                          f"overload phase, {top['launches']} launches",
+                          pool=(engine._k, engine._v, used)),
+    ]
+    del runs, engine
+    result = dict(
+        overlap=checked["overlap"], repeat=checked["repeat"], lockstep=checked["lockstep"],
+        streams=streams, launches=launches, prefill_shapes=prefill_rows,
+        decode_shapes=decode_rows, max_memory_allocated=peak,
+    )
+    o, s = checked["overlap"], checked["lockstep"]
+    print(
+        f"  overload llama-3-8b bf16, {OVERLOAD_REQUESTS} agent requests x {OVERLOAD_NEW} "
+        f"tokens + the wedge drill, pool {rt.pool_pages()} pages of {rt.page_size} (one run "
+        f"each, no spread; {card}): overlapped wall {o['wall_s']:.2f} s (burst "
+        f"{o['burst_s']:.2f} s), again {checked['repeat']['wall_s']:.2f} s, lockstep "
+        f"{s['wall_s']:.2f} s; endings {o['endings']} (batch shed {o['shed_batch']}, "
+        f"interactive shed {o['shed_interactive']}), {o['survivors']} full streams, the "
+        f"repeat's bit for bit; against lockstep {len(streams['diverged'])} diverge at a bf16 "
+        f"tie {[(d['corr'], d['step'], d['gap_overlapped'], d['gap_lockstep']) for d in streams['diverged']]}"
+        f" (tokens below their step's top logit {streams['tokens_below_top']}, largest gap "
+        f"{streams['max_gap']}); lockstep evictions {s['prefix_evictions']}; decode "
+        f"{o['decode_tok_s']:.1f} tok/s "
+        f"over {o['decode_dispatches']} dispatches (EWMA {o['dispatch_ewma_ms']:.1f} ms), "
+        f"prefix hits {o['prefix_hits']}, evictions {o['prefix_evictions']}, alloc stalls "
+        f"{o['alloc_stalls']}, journal {o['journal_events']} events, {o['samples']} occupancy "
+        f"samples; max allocated {peak / 1e9:.3f} GB; launches {launches}; prefill (B, Sq, Skv, "
+        f"launches) {[(r['B'], r['S'], r['window'], r['launches']) for r in prefill_rows]}, "
+        f"paged decode (B, wpages, launches) "
+        f"{[(r['B'], r['window'], r['launches']) for r in decode_rows]}"
+    )
+    return result, cases
 
 
 def main() -> int:
@@ -1861,6 +2333,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("north-star drives")
     north = {}
+    bf16_weights: dict = {}  # the last bf16 drive's weights, for phase 13
     # int4 serves one wave of 8: the script's time stays down (its weights'
     # dequant, not the rows, sets a dispatch's time); bf16 serves one too,
     # to compare int4 with at the same load
@@ -1868,7 +2341,8 @@ def main() -> int:
         ("int8", "int8", NORTH_STAR_REQUESTS), ("bf16", None, NORTH_STAR_REQUESTS),
         ("int4-8", "int4", 8), ("bf16-8", None, 8),
     ):
-        north[key] = asyncio.run(north_star_phase(dev, quantization, card, requests))
+        north[key] = asyncio.run(north_star_phase(
+            dev, quantization, card, requests, keep=bf16_weights if key == "bf16-8" else None))
         torch.cuda.empty_cache()
     print("paged decode and ragged kernels at their serving phases' shapes")
     for name, shapes in (("paged_decode_attention", paged["decode_shapes"]),
@@ -1888,6 +2362,10 @@ def main() -> int:
         path_case(dev, "paged_decode_attention", north["int8"]["decode_shapes"],
                   "north star int8", n_pages=NORTH_STAR_RUNTIME.pool_pages()),
     ]
+    print("overload phase")
+    overload, overload_cases = asyncio.run(overload_phase(dev, bf16_weights.pop("params"), card))
+    cases += overload_cases
+    torch.cuda.empty_cache()
 
     # each kernel's launches from the path it serves, beside its case at a
     # shape of that path (MAIN_SHAPES, path_case): the dense decode kernel
@@ -1914,7 +2392,8 @@ def main() -> int:
             json.dump(dict(card=card, cases=cases, exactness=exact, serving=serving,
                            paged_serving=paged, spec_paged_serving=spec_paged,
                            spec_serving=spec_dense, client=client, quant_exactness=quant_exact,
-                           checkpoint=ckpt, north_star=north, kernels=line["kernels"]),
+                           checkpoint=ckpt, north_star=north, overload=overload,
+                           kernels=line["kernels"]),
                       f, indent=1, default=str)
     print(json.dumps(line))
     print(card)

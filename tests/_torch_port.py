@@ -1,10 +1,15 @@
 """Shared helpers of the PyTorch port's parity tests: the JAX package is the
 oracle, and both packages get the same inputs as numpy arrays; the model
-client's messages cross between the two packages by field."""
+client's messages cross between the two packages by field, and one virtual
+clock is THE wall clock of both."""
 
 from __future__ import annotations
 
+import asyncio
+import contextlib
 import dataclasses
+import threading
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -12,19 +17,41 @@ import numpy as np
 import torch
 from pydantic import BaseModel
 
+import calfkit_tpu.cancellation as mesh_cancellation
 import calfkit_tpu.engine.model_client as mesh_model_client
+import calfkit_tpu.exceptions as mesh_exceptions
+import calfkit_tpu.leases as mesh_leases
 import calfkit_tpu.models.capability as mesh_capability
 import calfkit_tpu.models.messages as mesh_messages
 import calfkit_tpu.models.payload as mesh_payload
+import calfkit_tpu.observability.capacity as mesh_capacity
+import calfkit_tpu.observability.flightrec as mesh_flightrec
+import calfkit_tpu.observability.metrics as mesh_metrics
+import calfkit_tpu.observability.trace as mesh_trace
+import calfkit_tpu.qos as mesh_qos
+import calfkit_tpu_torch.cancellation as port_cancellation
 import calfkit_tpu_torch.engine.model_client as port_model_client
+import calfkit_tpu_torch.exceptions as port_exceptions
+import calfkit_tpu_torch.leases as port_leases
 import calfkit_tpu_torch.models.capability as port_capability
 import calfkit_tpu_torch.models.messages as port_messages
 import calfkit_tpu_torch.models.payload as port_payload
+import calfkit_tpu_torch.observability.capacity as port_capacity
+import calfkit_tpu_torch.observability.flightrec as port_flightrec
+import calfkit_tpu_torch.observability.metrics as port_metrics
+import calfkit_tpu_torch.observability.trace as port_trace
+import calfkit_tpu_torch.qos as port_qos
 from calfkit_tpu.inference import model as JM
 from calfkit_tpu.inference import quant as JQ
+from calfkit_tpu.inference.config import RuntimeConfig as JaxRuntime
 from calfkit_tpu.inference.config import preset as jax_preset
+from calfkit_tpu.inference.engine import InferenceEngine as JaxEngine
+from calfkit_tpu.sim.clock import virtual_clock as mesh_virtual_clock
+from calfkit_tpu_torch.inference.config import RuntimeConfig as TorchRuntime
 from calfkit_tpu_torch.inference.config import preset as torch_preset
+from calfkit_tpu_torch.inference.engine import InferenceEngine
 from calfkit_tpu_torch.inference.weights import params_from_numpy
+from chip_smoke import Pace, quiescent  # the chip smoke's overload phase drives alike
 
 JAX_CFG = jax_preset("debug")
 TORCH_CFG = torch_preset("debug")
@@ -71,6 +98,21 @@ def n(x) -> np.ndarray:
         return (x.float() if x.is_floating_point() else x).numpy()
     x = np.asarray(x)
     return x.astype(np.float32) if np.issubdtype(x.dtype, np.floating) or x.dtype.name == "bfloat16" else x
+
+
+@contextlib.contextmanager
+def virtual_clock():
+    """The JAX package's chaos ``VirtualClock``, installed as the
+    ``cancellation.wall_clock`` of BOTH packages for the block: deadlines,
+    lease lapse and the watchdog of both engines advance only when the test
+    advances the clock."""
+    with mesh_virtual_clock() as clock:
+        previous = port_cancellation.wall_clock
+        port_cancellation.wall_clock = clock
+        try:
+            yield clock
+        finally:
+            port_cancellation.wall_clock = previous
 
 
 # --------------------------------------------------------------------------- #
@@ -137,6 +179,20 @@ class MeshModelClient(mesh_model_client.ModelClient):
         raise RuntimeError("stream ended without a terminal response")
 
     async def request_stream(self, messages, settings=None, params=None):
+        # the caller context the mesh's node kernel set for this delivery,
+        # copied into the port's contextvars (which the port's client reads)
+        trace = mesh_trace.current_context.get()
+        context = [
+            (port_cancellation.current_deadline, mesh_cancellation.current_deadline.get()),
+            (port_leases.current_lease, mesh_leases.current_lease.get()),
+            (port_qos.current_priority, mesh_qos.current_priority.get()),
+            (port_capacity.current_run, mesh_capacity.current_run.get()),
+            (port_trace.current_context, None if trace is None else port_trace.TraceContext(
+                trace_id=trace.trace_id, span_id=trace.span_id,
+                parent_span_id=trace.parent_span_id,
+            )),
+        ]
+        tokens = [(var, var.set(value)) for var, value in context]
         stream = self.client.request_stream(
             to_port(messages), to_port(settings), to_port(params)
         )
@@ -145,3 +201,274 @@ class MeshModelClient(mesh_model_client.ModelClient):
                 yield to_mesh(event)
         finally:
             await stream.aclose()
+            for var, token in reversed(tokens):
+                with contextlib.suppress(ValueError):  # closed from another context
+                    var.reset(token)
+
+
+# --------------------------------------------------------------------------- #
+# the robustness drill: one scripted drive through either package's engine
+# --------------------------------------------------------------------------- #
+
+# event arguments that are times in ms (masked when journals are compared)
+_TIMED_ARGS = {"WAVE_LAND": (False, True), "EXPIRE": (True, False),
+               "ORPHAN": (True, False), "WEDGE": (True, False)}
+
+
+def live(engine, corr):
+    """The active request tagged ``corr`` (None when it holds no slot)."""
+    return next((r for r in list(engine._active.values()) if r.corr == corr), None)
+
+
+def _outcome(exc) -> tuple:
+    name = type(exc).__name__
+    if name == "EngineOverloadedError":
+        return name, exc.lane, exc.pending, exc.limit
+    if name == "RunOrphanedError":
+        return name, exc.lease_id
+    if name == "EngineWedgedError":
+        return name, exc.stalled_s
+    return (name,)
+
+
+def journal_rows(engine, names) -> "list[tuple]":
+    """The engine's journal as (event, corr, slot, a, b), oldest first, with
+    the arguments that are times in ms masked."""
+    rows = []
+    for _seq, _t, code, corr, slot, a, b, _note in engine._journal.snapshot():
+        name = names[code]
+        mask_a, mask_b = _TIMED_ARGS.get(name, (False, False))
+        rows.append((name, corr, slot, None if mask_a else a, None if mask_b else b))
+    return rows
+
+
+def metric_counts(text: str) -> dict:
+    """Prometheus text → {instrument name: count} for histograms (their
+    ``_count`` sample) and {name: value} for counters."""
+    out, kinds = {}, {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split()
+            kinds[name] = kind
+        elif line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            if name.endswith("_count") and kinds.get(name[:-6]) == "histogram":
+                out[name[:-6]] = int(value)
+            elif kinds.get(name) == "counter":
+                out[name] = float(value)
+    return out
+
+
+async def robustness_drill(engine, pkg, clock, tag: str) -> dict:
+    """Drive a started-to-be engine (either package's) through the
+    robustness drills in one run, phase after phase, each phase's actions
+    fired by :class:`Pace` at scheduler ticks → every outcome the parity
+    tests compare.  ``pkg`` names the package's modules: ``leases``,
+    ``exceptions``, ``flightrec``, ``capacity``, ``metrics``; ``tag`` makes
+    lease ids unique per run (each package has its own lease store).
+
+    1. overload: eight submits at once past a full lane (max_pending=4):
+       batch work is shed first, an interactive submit evicts a queued batch
+       request, and an interactive one is shed only when none is queued;
+    2. deadlines: one active and one queued request expire mid-decode;
+    3. orphans: a dead lease reaps an active and a queued run, a live one
+       is served, and a run whose deadline and lease lapse together raises
+       the deadline's error (the precedence law);
+    4. a consumer that stops reading is stall-cancelled (max_out_blocks);
+    5. cancels: a consumer closes its stream, another by correlation id;
+    6. wedge: a blocked dispatch trips the watchdog, every owed request
+       faults typed, a submit during the wedge is refused, the engine
+       un-wedges and serves again."""
+    pace = Pace()
+    engine._chaos = pace
+    outcomes: dict = {}
+    ledgers: list = []
+    samples_ok: list = []
+    prefix = list(range(1, 17))  # two pages of 8, one chunk of 16
+    other = list(range(200, 216))
+    leases = pkg.leases
+
+    def prompt(i, base=prefix):
+        return base + [100 + 7 * i + k for k in range(3 + i % 5)]
+
+    async def run(corr, p, n, *, close_after=None, hold=None, **kw):
+        toks = []
+        agen = engine.generate(p, max_new_tokens=n, corr=corr, **kw)
+        try:
+            async for tok in agen:
+                toks.append(tok)
+                if close_after is not None and len(toks) == close_after:
+                    break
+                if hold is not None and len(toks) == 1:
+                    await hold.wait()
+            outcomes[corr] = ("ok", toks)
+        except TYPED as exc:
+            outcomes[corr] = _outcome(exc)
+        finally:
+            await agen.aclose()
+
+    async def phase(*jobs):
+        await asyncio.gather(*jobs)
+        for _ in range(400):
+            if quiescent(engine):
+                break
+            await asyncio.sleep(0.01)
+        assert quiescent(engine), f"{tag}: engine never settled"
+        await asyncio.sleep(0.02)
+
+    TYPED = tuple(getattr(pkg.exceptions, name) for name in (
+        "EngineOverloadedError", "EngineWedgedError", "DeadlineExceededError", "RunOrphanedError",
+    ))
+    if engine._paged:
+        # at every occupancy sample: pages by owner + free pages == the pool
+        class Checked(pkg.capacity.CapacitySampler):
+            def append(self, *args, **kw):
+                b = engine._ledger.breakdown()
+                samples_ok.append(
+                    b["private_pages"] + b["prefix_resident_pages"]
+                    + engine._page_alloc.free_pages == engine._page_alloc.num_pages - 1
+                )
+                super().append(*args, **kw)
+
+        engine._sampler = Checked(
+            engine._sampler.capacity, label="drill", ledger=engine._ledger
+        )
+    await engine.start()
+    try:
+        # 1. overload and QoS
+        pace.when(lambda: len(engine._active) == 2,
+                  lambda: ledgers.append(engine._ledger.breakdown()))
+        classes = ["batch", "batch", "interactive", "interactive", "interactive", "batch",
+                   "interactive", "interactive"]
+        await phase(*[run(f"shed-{i}", prompt(i, other), 6, priority=c)
+                      for i, c in enumerate(classes)])
+        # 2. deadlines: active and queued requests expire mid-decode
+        now = clock.now
+        pace.when(lambda: (r := live(engine, "dl-a")) is not None and r.generated >= 5,
+                  lambda: (ledgers.append(engine._ledger.breakdown()), clock.advance(10.0)))
+        await phase(run("dl-a", prompt(6), 24, deadline=now + 5),
+                    run("dl-b", prompt(7), 12),
+                    run("dl-q", prompt(8), 24, deadline=now + 5, priority="batch"))
+        # 3. orphans and the precedence law
+        dead, both, alive = (f"{tag}-dead", f"{tag}-both", f"{tag}-live")
+        leases.note_beat(dead, 5.0)
+        leases.note_beat(both, 5.0)
+        leases.note_beat(alive, 20.0)
+        now = clock.now
+        pace.when(lambda: (r := live(engine, "or-dead")) is not None and r.generated >= 5,
+                  lambda: clock.advance(6.0))
+        await phase(run("or-dead", prompt(9), 24, lease=(dead, 5.0)),
+                    run("or-both", prompt(10), 24, deadline=now + 5, lease=(both, 5.0)),
+                    run("or-live", prompt(11), 10, lease=(alive, 20.0)),
+                    run("or-dead-q", prompt(12), 10, lease=(dead, 5.0)))
+        # 4. a stalled consumer
+        hold = asyncio.Event()
+        stuck = asyncio.ensure_future(run("st-stuck", prompt(13), 24, hold=hold))
+        await phase(run("st-ok", prompt(14), 16))
+        hold.set()
+        await stuck
+        # 5. cancels
+        pace.when(lambda: (r := live(engine, "cx-corr")) is not None and r.generated >= 3,
+                  lambda: engine.cancel_correlation("cx-corr"))
+        await phase(run("cx-close", prompt(15), 24, close_after=3),
+                    run("cx-corr", prompt(16), 24), run("cx-ok", prompt(17), 10))
+        # 6. wedge: a blocked dispatch trips the watchdog
+        gate = threading.Event()
+        pace.when(lambda: (r := live(engine, "wg-0")) is not None and r.generated >= 3,
+                  lambda: pace.block_next_dispatch(gate))
+        wedged = asyncio.gather(run("wg-0", prompt(18), 24), run("wg-1", prompt(19), 24),
+                                run("wg-2", prompt(20), 24))
+        try:
+            for _ in range(800):
+                if pace.blocked:
+                    break
+                await asyncio.sleep(0.01)
+            assert pace.blocked, f"{tag}: the dispatch never blocked"
+            clock.advance(60.0)
+            for _ in range(800):
+                if engine._wedged:
+                    break
+                await asyncio.sleep(0.01)
+            assert engine._wedged, f"{tag}: the watchdog never tripped"
+            await wedged
+            await run("wg-late", prompt(21), 4)
+        finally:
+            clock.advance(0.01)
+            gate.set()
+        for _ in range(800):
+            if not engine._wedged and quiescent(engine):
+                break
+            await asyncio.sleep(0.01)
+        assert not engine._wedged, f"{tag}: a landing never un-wedged the engine"
+        await phase(run("wg-after", prompt(22), 6))
+    finally:
+        await engine.stop()
+    counters = engine.stats.counters()
+    counters.pop("decode_time_s")
+    return dict(
+        outcomes=outcomes,
+        counters=counters,
+        journal=journal_rows(engine, pkg.flightrec.EVENT_NAMES),
+        latency=metric_counts(pkg.metrics.metrics_text(engine._own_registry)),
+        ledgers=ledgers + [engine._ledger.breakdown()],
+        samples=[row[2:] for row in engine._sampler.snapshot()],
+        samples_ok=samples_ok,
+        free=sorted(engine._free),
+        pages=(engine._page_alloc.free_pages + (engine._prefix.size if engine._prefix else 0)
+               if engine._paged else None),
+    )
+
+
+# the drill's configurations: f32 debug weights and KV (no bf16 near-ties),
+# two slots, overload, stall and watchdog bounds; dense and paged + prefix
+# cache + chunked prefill (a pool small enough to evict), each overlapped
+# and lockstep
+_JAX_F32 = jax_preset("debug", dtype="float32")
+_TORCH_F32 = torch_preset("debug", dtype="float32")
+_DRILL_BASE = dict(
+    max_batch_size=2, max_seq_len=128, prefill_chunk=16, decode_steps_per_dispatch=4,
+    max_pending=4, max_out_blocks=2, watchdog_stall_s=30.0, capacity_samples=256,
+    flightrec_events=1 << 14,
+)
+DRILL_PAGED = dict(
+    kv_layout="paged", page_size=8, num_kv_pages=13, chunked_prefill=True, prefix_cache=True,
+)
+DRILL_CONFIGS = {
+    "dense-overlap": dict(_DRILL_BASE, overlap_dispatch=True),
+    "dense-lockstep": dict(_DRILL_BASE, overlap_dispatch=False),
+    "paged-overlap": dict(_DRILL_BASE, **DRILL_PAGED, overlap_dispatch=True),
+    "paged-lockstep": dict(_DRILL_BASE, **DRILL_PAGED, overlap_dispatch=False),
+}
+_JAX_PKG = SimpleNamespace(
+    leases=mesh_leases, exceptions=mesh_exceptions, flightrec=mesh_flightrec,
+    capacity=mesh_capacity, metrics=mesh_metrics,
+)
+_PORT_PKG = SimpleNamespace(
+    leases=port_leases, exceptions=port_exceptions, flightrec=port_flightrec,
+    capacity=port_capacity, metrics=port_metrics,
+)
+
+
+_DRILLS: dict = {}
+
+
+async def drills(weights, name) -> "tuple[dict, dict]":
+    """(the JAX engine's drill, the port's) for configuration ``name``, run
+    once per process: both test files of the drill read the same runs."""
+    if name not in _DRILLS:
+        rt = DRILL_CONFIGS[name]
+        with virtual_clock() as clock:
+            ref = await robustness_drill(
+                JaxEngine(_JAX_F32, JaxRuntime(**rt, attention_impl="pallas_interpret"),
+                          params=weights[0]),
+                _JAX_PKG, clock, name,
+            )
+        with virtual_clock() as clock:
+            port = await robustness_drill(
+                InferenceEngine(_TORCH_F32, TorchRuntime(**rt), params=weights[1], device="cpu"),
+                _PORT_PKG, clock, name,
+            )
+        _DRILLS[name] = ref, port
+    return _DRILLS[name]
+
+

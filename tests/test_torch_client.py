@@ -15,9 +15,8 @@ EQUAL:
   requests;
 - the ``SamplingParams`` each client hands its engine for every combination
   of temperature, top_p and top_k over a greedy and a sampled default;
-- ``stats_snapshot``'s key sets (cold and live; ``latency_ms`` is the live
-  branch's one key the port does not have yet) and the values of every
-  counter both engines keep, windows included;
+- ``stats_snapshot``'s key sets (cold and live, ``latency_ms`` included)
+  and the values of every counter both engines keep, windows included;
 - an ``Agent``'s two turns over the in-memory mesh (text, usage, prefix
   reuse), the port's client reaching the agent through a test-only adapter.
 
@@ -389,7 +388,8 @@ async def test_event_streams_match_reference(weights, name):
 @pytest.mark.parametrize("name", list(RUNTIMES))
 async def test_stats_snapshot_matches_reference(weights, name):
     (_, ref_live, ref_windows), (_, live, windows) = await _both(weights, name)
-    assert set(live) == set(ref_live) - {"latency_ms"}
+    assert set(live) == set(ref_live)
+    assert set(live["latency_ms"]) == set(ref_live["latency_ms"])
     assert set(live["capacity"]) == set(ref_live["capacity"])
     assert live["platform"] == ref_live["platform"] == "cpu"
     shared = [k for k in SHARED_COUNTERS if k in ref_live]
@@ -413,7 +413,7 @@ async def test_chip_smoke_key_sets_are_the_reference_key_sets(weights):
     (_, ref_live, _), _ = await _both(weights, "paged")
     cold = JaxLocalModelClient(config="debug", runtime=JaxRuntime(**PAGED)).stats_snapshot()
     assert chip_smoke.CLIENT_COLD_KEYS == set(cold)
-    assert chip_smoke.CLIENT_LIVE_KEYS - {"hbm_gb_in_use"} == set(ref_live) - {"latency_ms"}
+    assert chip_smoke.CLIENT_LIVE_KEYS - {"hbm_gb_in_use"} == set(ref_live)
 
 
 @pytest.mark.parametrize("name", list(RUNTIMES))
@@ -447,7 +447,7 @@ async def test_spec_live_snapshot_keys_match_reference(weights):
         await ref.start()
         await port.request([user_message("hi")])
         snap = port.stats_snapshot(window=True)
-        ref_keys = set(ref.stats_snapshot(window=True)) - {"latency_ms"}
+        ref_keys = set(ref.stats_snapshot(window=True))
     finally:
         await ref.stop()
         await port.stop()
@@ -508,9 +508,13 @@ async def test_sampling_resolution_matches_reference(default):
         _knobs(c["sampling"]) for c in ref_engine.calls
     ]
     assert [c["seed"] for c in port_engine.calls] == [5] * len(KNOBS)
-    # the port forwards no caller context yet: the engine's defaults stand
-    assert all(c.keys() == {"max_new_tokens", "stop_tokens", "sampling", "seed"}
-               for c in port_engine.calls)
+    # the port forwards the caller context the reference forwards (none is
+    # set here, so every one is None in both)
+    context = ("corr", "run", "deadline", "lease", "priority")
+    assert [c.keys() for c in port_engine.calls] == [c.keys() for c in ref_engine.calls]
+    assert [[c[k] for k in context] for c in port_engine.calls] == [
+        [c[k] for k in context] for c in ref_engine.calls
+    ]
 
 
 async def test_temperature_seed_reproducible(weights):
@@ -549,12 +553,31 @@ async def test_request_roundtrip_bytes():
     assert client.ready() == (False, "engine not started")
 
 
-def test_ready_reads_every_engine_state():
-    """``ready()`` reads the engine's running flag and nothing else: the
-    port's engine has no dispatch-progress watchdog.  When one lands,
-    this fails until ``ready()`` and ``stats_snapshot()['wedged']`` read it."""
-    engine = InferenceEngine(TORCH_CFG, RuntimeConfig(**DENSE), device="cpu")
-    assert not hasattr(engine, "_wedged")
+async def test_ready_reads_every_engine_state(weights):
+    """``ready()`` and ``stats_snapshot()['wedged']`` read every engine
+    state the JAX client's read: not built, not started, running, and
+    wedged by the dispatch-progress watchdog (the same reason text)."""
+    assert TorchLocalModelClient(config="debug").ready() == (
+        False, "engine not built (weights not loaded)"
+    )
+    port = _port_client(weights, DENSE)
+    ref = _jax_client(weights, DENSE)
+    assert port.ready() == ref.ready() == (False, "engine not started")
+    try:
+        await port.start()
+        await ref.start()
+        assert port.ready() == ref.ready() == (True, "engine running")
+        for client in (port, ref):
+            client._engine._wedged = True
+        assert port.ready() == ref.ready()
+        assert port.ready()[0] is False and "wedged" in port.ready()[1]
+        assert port.stats_snapshot()["wedged"] is ref.stats_snapshot()["wedged"] is True
+        for client in (port, ref):
+            client._engine._wedged = False
+    finally:
+        await port.stop()
+        await ref.stop()
+    assert port.ready() == ref.ready() == (False, "engine not started")
 
 
 async def test_stop_sequences_terminate(weights):

@@ -21,7 +21,6 @@ jax = pytest.importorskip("jax")
 
 from calfkit_tpu.inference.config import RuntimeConfig as JaxRuntime  # noqa: E402
 from calfkit_tpu.inference.engine import InferenceEngine as JaxEngine  # noqa: E402
-from calfkit_tpu_torch.exceptions import InferenceError  # noqa: E402
 from calfkit_tpu_torch.inference.config import RuntimeConfig, SpecConfig  # noqa: E402
 from calfkit_tpu_torch.inference.engine import InferenceEngine  # noqa: E402
 from calfkit_tpu_torch.inference.sampler import SamplingParams  # noqa: E402
@@ -188,13 +187,15 @@ def test_later_slices_raise(weights, over):
 
 
 @pytest.mark.parametrize(
-    "kw", [dict(deadline=1e12), dict(lease=("l", 5.0)), dict(priority="batch")]
+    "kw", [dict(deadline=1e12), dict(lease=("l", 5.0)), dict(priority="batch")],
+    ids=["deadline", "lease", "priority"],
 )
-async def test_request_knobs_of_later_slices_raise(weights, kw):
+async def test_request_knobs_serve_as_reference(weights, kw):
+    """A far deadline, a never-beaten lease and the batch class are served
+    as the JAX engine serves them: the same streams, nothing reaped."""
+    jobs = [(p, n, dict(kw)) for p, n in JOBS]
+    ref = await _reference(weights, jobs)
     engine = _port(weights)
-    await engine.start()
-    try:
-        with pytest.raises(InferenceError, match="later slice"):
-            await _gen(engine, [1, 2], 2, **kw)
-    finally:
-        await engine.stop()
+    out = await _serve(engine, jobs)
+    assert out == ref and [len(s) for s in out] == [n for _, n in JOBS]
+    assert engine.stats.expired_requests == engine.stats.orphaned_requests == 0
