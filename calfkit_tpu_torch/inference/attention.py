@@ -23,7 +23,9 @@ place of the JAX package's Pallas kernels on this path:
 Each wrapper runs its kernel when the tensors lie on a CUDA device and its
 plain version (``*_reference``) when they lie on the CPU; there is no
 switch in between and no fallback from the kernel.  ``launch_counts``
-counts kernel launches, so a run can show it went through the kernels.
+counts kernel launches, so a run can show it went through the kernels; a
+launch captured into a CUDA graph counts at each replay, not at its
+capture (``graphs.CapturedDispatch``).
 """
 
 from __future__ import annotations
@@ -283,13 +285,24 @@ def _pool_map(name: str, pool: torch.Tensor) -> int:
 
 # per (device, stream): the split and walk kernels' tickets, zero between
 # launches (the last block of each query tile resets its own); launches on
-# one stream are ordered, so they share one buffer
+# one stream are ordered, so they share one buffer.  A CUDA graph bakes in
+# the buffer its capture saw (captures run on the engine's capture stream,
+# after an eager run there has sized the buffer): a buffer outgrown by a
+# larger launch is kept in ``_outgrown``, never freed under a graph
 _tickets: dict[tuple[int, int], torch.Tensor] = {}
+_outgrown: list[torch.Tensor] = []
 
 
 def _ticket_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
     buf = _tickets.get((device.index, stream))
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "attention tickets would be allocated inside a CUDA graph capture: "
+                "run the captured body eagerly on the capture stream first"
+            )
+        if buf is not None:
+            _outgrown.append(buf)
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _tickets[(device.index, stream)] = buf
     return buf

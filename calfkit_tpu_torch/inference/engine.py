@@ -45,7 +45,13 @@ and speculative decoding.
 - telemetry: the flight recorder (a ring journal of every scheduling
   decision), the page ledger (who holds which KV page), the occupancy
   sampler (``capacity_samples``) and the ``/metrics`` instruments,
-  observed per dispatch or per admission, never per token.
+  observed per dispatch or per admission, never per token;
+- compiled dispatch: on a card every dispatch body (decode, verify, the
+  ragged wave, a chunk, a single-shot prefill, the landing, the prefix
+  seed) is captured once per key as a CUDA graph and replayed
+  (:mod:`~calfkit_tpu_torch.inference.graphs`), the keys those of the JAX
+  engine's jit caches; the bodies read and write the engine's tensors in
+  place, at addresses fixed for the engine's life.
 
 The multi-device parts of the reference engine (tp/dp, the long-context
 lane) are not ported and raise ``ValueError`` at construction.
@@ -76,6 +82,7 @@ from calfkit_tpu_torch.exceptions import (
     InferenceError,
     RunOrphanedError,
 )
+from calfkit_tpu_torch.inference import graphs
 from calfkit_tpu_torch.inference import model as M
 from calfkit_tpu_torch.inference import ragged as ragged_math
 from calfkit_tpu_torch.inference.config import ModelConfig, RuntimeConfig
@@ -597,18 +604,40 @@ class InferenceEngine:
             self._k, self._v = M.make_empty_cache(config, B, S, device=dev)
             # a pool-less ledger: the snapshot's keys exist with zeros
             self._ledger = capacity.PageLedger(0)
+        # the compiled-dispatch layer: every dispatch body captured once per
+        # key as a CUDA graph and replayed (graphs.py), under the keys of the
+        # JAX engine's jit caches; the graphs read the engine's tensors
+        # below in place, so none of them is ever re-bound
+        self._graphs = graphs.GraphPool(dev)
+        self._decode_graphs: dict[tuple, graphs.CapturedDispatch] = {}
+        self._prefill_graphs: dict[tuple, graphs.CapturedDispatch] = {}
         self._last = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._lens = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._host_lens = np.zeros((B,), np.int64)  # host mirror for windows
         # device-side retirement inputs: each slot's stop tokens as a
         # fixed-shape row (-1 padded) and the absolute cache length at which
         # the row hits its hard generation bound (min(prompt + max_new - 1,
-        # max_seq - 2)), written at activation and uploaded only when an
-        # activation changed them
+        # max_seq - 2)), written at activation and copied into the device
+        # buffers only when an activation changed them
         self._stop_np = np.full((B, rt.max_stop_tokens), -1, np.int32)
         self._hard_end = np.zeros((B,), np.int32)
-        self._retire_dev: "tuple[torch.Tensor, torch.Tensor] | None" = None
+        self._stop_dev = torch.full((B, rt.max_stop_tokens), -1, dtype=torch.int32, device=dev)
+        self._hard_dev = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self._retire_dirty = False
+        # the latest decode dispatch's done mask: written in place by every
+        # decode graph, so it survives the chunk and landing graphs that may
+        # replay before the next decode dispatch reads it as ``done_prev``
+        self._done = torch.zeros((B,), dtype=torch.bool, device=dev)
         self._done_zero = torch.zeros((B,), dtype=torch.bool, device=dev)
+        # the prefill waves' scratch K/V, at one address for the engine's
+        # life (a graph replays the addresses its capture saw): one flat
+        # buffer for the widest wave at max_seq_len positions, of which a
+        # wave of R rows takes the [L, R, K, max_seq_len, hd] views
+        rows = min(rt.max_prefill_wave, B)
+        self._scratch_flat = torch.zeros(
+            2 * config.n_layers * rows * config.n_kv_heads * S * config.head_dim,
+            dtype=self._k.dtype, device=dev,
+        )
         # the launched-but-not-landed decode dispatch (overlap mode only)
         self._pend: "dict | None" = None
         self._last_sync_t: "float | None" = None  # the previous landing's clock
@@ -1631,7 +1660,7 @@ class InferenceEngine:
                 len(request.prompt) + request.max_new_tokens - 1,
                 self.runtime.max_seq_len - 2,
             )
-            self._retire_dev = None  # device copies stale: re-upload at launch
+            self._retire_dirty = True  # device copies stale: copy at launch
             if self._drafter is not None:
                 self._drafter.admit(request.slot, request.prompt)
 
@@ -1649,20 +1678,15 @@ class InferenceEngine:
         return admitted
 
     # ------------------------------------------------------- device work
-    def _to_device(self, array: np.ndarray) -> torch.Tensor:
-        """Host array → device tensor without waiting for queued device
-        work: a pinned staging copy and an asynchronous upload."""
-        host = torch.from_numpy(np.ascontiguousarray(array).copy())
-        if self.device.type == "cpu":
-            return host
-        return host.pin_memory().to(self.device, non_blocking=True)
-
     def _stage_host(self, tensors: "tuple[torch.Tensor, ...]") -> tuple:
         """Enqueue device → host copies of ``tensors`` into pinned memory,
         then an event after them: :meth:`_sync_host` waits for exactly this
-        work, never for dispatches enqueued later."""
+        work, never for dispatches enqueued later.  Staged right after the
+        dispatch that wrote them, before any other dispatch replays over
+        them (graph outputs live until the next replay; ``_done`` until the
+        next decode dispatch)."""
         if self.device.type == "cpu":
-            return tuple(tensors), None
+            return tuple(t.clone() for t in tensors), None
         hosts = tuple(
             torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
             for t in tensors
@@ -1729,49 +1753,113 @@ class InferenceEngine:
             scatter_ids[r, : request.reuse_len // rt.page_size] = TRASH_PAGE
         return page_rows, scatter_ids
 
-    def _land_math(
-        self, wave: list[GenRequest], bucket: int, arrays: dict,
-        scratch: "tuple[torch.Tensor, torch.Tensor]", logits: torch.Tensor,
-    ) -> torch.Tensor:
-        """Enqueue a wave's landing from its scratch and its final chunk's
-        logits [R, chunk, V] (the whole bucket for single-shot prefill) →
-        firsts [R] (device).  Every row's last prompt position lives in the
-        final chunk: the wave shares one bucket."""
-        chunk = logits.shape[1]
-        idx = np.clip(arrays["true_lens"] - 1 - (bucket - chunk), 0, chunk - 1)
-        last_logits = logits[
-            torch.arange(len(wave), device=logits.device), self._to_device(idx.astype(np.int64))
-        ]
-        d = {name: self._to_device(arrays[name]) for name in (
-            "slots", "true_lens", "seeds", "w_temp", "w_top_k", "w_top_p",
-        )}
-        paged: dict = {}
-        if self._paged:
-            page_rows, scatter_ids = self._paged_wave_args(wave, bucket)
-            paged = dict(
-                tables=self._tables, page_rows=self._to_device(page_rows),
-                scatter_ids=self._to_device(scatter_ids),
-            )
-        return _finalize_wave_math(
-            arrays["sampled"], self._paged, self._k, self._v, *scratch,
-            self._last, self._lens, d["slots"], d["true_lens"], last_logits,
-            self._slot_seeds, self._temp, self._top_k, self._top_p,
-            d["seeds"], d["w_temp"], d["w_top_k"], d["w_top_p"], **paged,
+    def _scratch(self, rows: int) -> "tuple[torch.Tensor, torch.Tensor]":
+        """The wave scratch of ``rows`` rows: [L, rows, K, max_seq_len, hd]
+        K and V views of the engine's flat buffer, the same for every wave
+        of that width (a wave of bucket P uses positions [0, P))."""
+        cfg = self.config
+        shape = (cfg.n_layers, rows, cfg.n_kv_heads, self.runtime.max_seq_len, cfg.head_dim)
+        n = math.prod(shape)
+        half = self._scratch_flat.numel() // 2
+        return (
+            self._scratch_flat[:n].view(shape), self._scratch_flat[half:half + n].view(shape)
         )
 
+    def _wave_specs(self, rows: int, bucket: int) -> list:
+        """Static inputs of a wave landing: slots, true_lens, seeds, w_temp,
+        w_top_k, w_top_p (and paged: table rows, scatter pages)."""
+        specs = [
+            ((rows,), torch.int64), ((rows,), torch.int32), ((rows,), torch.int64),
+            ((rows,), torch.float32), ((rows,), torch.int32), ((rows,), torch.float32),
+        ]
+        if self._paged:
+            specs += [
+                ((rows, self.runtime.pages_per_seq()), torch.int32),
+                ((rows, bucket // self.runtime.page_size), torch.int64),
+            ]
+        return specs
+
+    def _wave_inputs(self, wave: list[GenRequest], bucket: int, arrays: dict) -> list:
+        """The host arrays of :meth:`_wave_specs` for ``wave``."""
+        inputs = [arrays[name] for name in (
+            "slots", "true_lens", "seeds", "w_temp", "w_top_k", "w_top_p",
+        )]
+        if self._paged:
+            inputs += self._paged_wave_args(wave, bucket)
+        return inputs
+
+    def _cached(self, table: dict, key: tuple, build: Any) -> graphs.CapturedDispatch:
+        """The dispatch of ``key`` in ``table``, made at the key's first use
+        from ``build()`` → (body, static input specs).  A body reaches the
+        engine through a weak proxy: the graphs the engine holds must not
+        hold the engine, or a dropped engine's weights, caches and graph
+        pool would wait for the cycle collector."""
+        fn = table.get(key)
+        if fn is None:
+            fn = table[key] = graphs.CapturedDispatch(self._graphs, *build())
+        return fn
+
+    def _land_body(self, bucket: int, rows: int, sampled: bool) -> Any:
+        """The wave landing's body over the scratch's first ``bucket``
+        positions → fn(last_logits [R, V], *wave inputs) → firsts [R]."""
+        eng = weakref.proxy(self)
+        sk, sv = (side[:, :, :, :bucket] for side in self._scratch(rows))
+
+        def land(last_logits, slots, true_lens, seeds, w_temp, w_top_k, w_top_p, *paged):
+            if paged:  # (page_rows, scatter_ids)
+                paged = (eng._tables, *paged)
+            return _finalize_wave_math(
+                sampled, eng._paged, eng._k, eng._v, sk, sv,
+                eng._last, eng._lens, slots, true_lens, last_logits,
+                eng._slot_seeds, eng._temp, eng._top_k, eng._top_p,
+                seeds, w_temp, w_top_k, w_top_p, *paged,
+            )
+
+        return land
+
+    def _prefill_graph(self, bucket: int, rows: int, sampled: bool) -> graphs.CapturedDispatch:
+        """Single-shot prefill: R admissions run as one [R, bucket] forward
+        on the scratch, then land in the slot rows (or reserved pages), in
+        one graph → fn(tokens, last_idx, *wave inputs) → firsts [R]."""
+
+        def build():
+            eng, cfg, dev = weakref.proxy(self), self.config, self.device
+            scratch = self._scratch(rows)
+            land = self._land_body(bucket, rows, sampled)
+
+            def prefill(tokens, last_idx, *wave):
+                pos = torch.arange(bucket, dtype=torch.int32, device=dev).expand(rows, bucket)
+                logits, _ = M.forward(
+                    eng.params, cfg, tokens, pos, scratch,
+                    torch.full((rows,), bucket, dtype=torch.int32, device=dev),
+                    attn_window=bucket,
+                )
+                return land(logits[torch.arange(rows, device=dev), last_idx], *wave)
+
+            specs = [((rows, bucket), torch.int32), ((rows,), torch.int64)]
+            return prefill, specs + self._wave_specs(rows, bucket)
+
+        return self._cached(self._prefill_graphs, (bucket, rows, sampled), build)
+
+    def _final_graph(self, bucket: int, rows: int, sampled: bool) -> graphs.CapturedDispatch:
+        """The chunked wave's landing from its scratch and its final chunk's
+        last-position logits → fn(last_logits, *wave inputs) → firsts [R]."""
+
+        def build():
+            # logits come in the activations' dtype, the embedding's
+            specs = [((rows, self.config.vocab_size), self.params["embed"].dtype)]
+            return self._land_body(bucket, rows, sampled), specs + self._wave_specs(rows, bucket)
+
+        return self._cached(self._prefill_graphs, ("final", bucket, rows, sampled), build)
+
     def _prefill(self, wave: list[GenRequest], bucket: int, arrays: dict) -> torch.Tensor:
-        """Batched prefill: R admissions run as one [R, bucket] forward on a
-        scratch cache, then land in the slot rows (or reserved pages) →
-        firsts [R] (device)."""
-        dev = self.device
-        R, P = arrays["tokens"].shape
-        scratch = M.make_empty_cache(self.config, R, P, dtype=self._k.dtype, device=dev)
-        pos = torch.arange(P, dtype=torch.int32, device=dev).expand(R, P)
-        logits, _ = M.forward(
-            self.params, self.config, self._to_device(arrays["tokens"]), pos, scratch,
-            torch.full((R,), P, dtype=torch.int32, device=dev),
+        """Batched prefill of a formed wave through its graph → firsts [R]
+        (device)."""
+        R = len(wave)
+        last_idx = np.clip(arrays["true_lens"] - 1, 0, bucket - 1).astype(np.int64)
+        return self._prefill_graph(bucket, R, arrays["sampled"])(
+            arrays["tokens"], last_idx, *self._wave_inputs(wave, bucket, arrays)
         )
-        return self._land_math(wave, bucket, arrays, scratch, logits)
 
     def _land_wave(
         self, wave: list[GenRequest], true_lens: np.ndarray,
@@ -1836,9 +1924,10 @@ class InferenceEngine:
         return True
 
     def _start_inflight_wave(self, wave: list[GenRequest], bucket: int) -> None:
-        """Stage a formed wave for chunked advancement: allocate (or
-        prefix-seed) the scratch and record the chunk cursor.  Shared by
-        the bifurcated chunked lane and the ragged unified lane."""
+        """Stage a formed wave for chunked advancement: prefix-seed the
+        scratch where the wave reuses cached pages, and record the chunk
+        cursor.  Shared by the bifurcated chunked lane and the ragged
+        unified lane."""
         chunk = min(self.runtime.prefill_chunk, bucket)
         reuse = wave[0].reuse_len  # uniform across the wave
         if reuse:
@@ -1847,73 +1936,101 @@ class InferenceEngine:
             # offset
             npg = reuse // self.runtime.page_size
             ids = np.asarray([request.pages[:npg] for request in wave], np.int64)
-            scratch = self._seed_scratch(bucket, ids)
+            self._seed_graph(bucket, npg, len(wave))(ids)
             self.stats.prefix_hits += len(wave)
             self.stats.prefix_reused_tokens += reuse * len(wave)
-        else:
-            scratch = M.make_empty_cache(
-                self.config, len(wave), bucket, dtype=self._k.dtype, device=self.device
-            )
+        arrays = self._wave_arrays(wave, bucket)
+        # every row's last prompt position lies in the final chunk (the
+        # wave shares one bucket): its index there
+        arrays["last_idx"] = np.clip(
+            arrays["true_lens"] - 1 - (bucket - chunk), 0, chunk - 1
+        ).astype(np.int64)
         self._inflight = dict(
             wave=wave, bucket=bucket, chunk=chunk,
             n_chunks=-(-bucket // chunk), idx=reuse // chunk,
-            arrays=self._wave_arrays(wave, bucket),
-            scratch=scratch,
+            arrays=arrays,
             started=time.perf_counter(),
         )
 
-    def _seed_scratch(
-        self, bucket: int, ids: np.ndarray
-    ) -> "tuple[torch.Tensor, torch.Tensor]":
-        """A fresh chunk-lane scratch [L, R, K, bucket, hd] whose first
-        ``n`` pages per row are copied from the pool (``ids`` [R, n])."""
-        cfg = self.config
-        R, n = ids.shape
-        span = n * self.runtime.page_size
-        idx = self._to_device(ids)
-        scratch = M.make_empty_cache(cfg, R, bucket, dtype=self._k.dtype, device=self.device)
-        for side, pool in zip(scratch, (self._k, self._v)):
-            pages = pool[:, idx]  # [L, R, n, K, page, hd]
-            side[:, :, :, :span] = pages.permute(0, 1, 3, 2, 4, 5).reshape(
-                cfg.n_layers, R, cfg.n_kv_heads, span, cfg.head_dim
-            )
-        return scratch
+    def _seed_graph(self, bucket: int, n_pages: int, rows: int) -> graphs.CapturedDispatch:
+        """The prefix seed: the first ``n_pages`` pages of each scratch row
+        copied from the pool → fn(ids [R, n_pages]).  The positions after
+        them are written by the wave's chunks before any query reads them."""
 
-    def _chunk(self, inf: dict) -> torch.Tensor:
-        """Enqueue the inflight wave's next prefill chunk: a forward of
-        [R, chunk] tokens at the cursor's offset into the wave's scratch
-        (written in place), then advance the cursor → logits [R, chunk, V]."""
+        def build():
+            eng, cfg = weakref.proxy(self), self.config
+            span = n_pages * self.runtime.page_size
+            scratch = self._scratch(rows)
+
+            def seed(ids):
+                for side, pool in zip(scratch, (eng._k, eng._v)):
+                    pages = pool[:, ids]  # [L, R, n, K, page, hd]
+                    side[:, :, :, :span] = pages.permute(0, 1, 3, 2, 4, 5).reshape(
+                        cfg.n_layers, rows, cfg.n_kv_heads, span, cfg.head_dim
+                    )
+
+            return seed, [((rows, n_pages), torch.int64)]
+
+        return self._cached(self._prefill_graphs, ("seed", bucket, n_pages, rows), build)
+
+    def _chunk_body(self, chunk: int, rows: int) -> Any:
+        """The prefill-chunk body, shared by the chunk and the ragged
+        graphs: a forward of [R, chunk] tokens at a device offset into the
+        wave's scratch (written in place) → fn(tokens, offset [1],
+        last_idx [R]) → the logits [R, V] at each row's ``last_idx``."""
+        eng, cfg, dev = weakref.proxy(self), self.config, self.device
+        scratch = self._scratch(rows)
+
+        def chunk_step(tokens, offset, last_idx):
+            pos = (offset + torch.arange(chunk, dtype=torch.int32, device=dev)).expand(rows, chunk)
+            logits, _ = M.forward(
+                eng.params, cfg, tokens, pos, scratch, (offset + chunk).expand(rows)
+            )
+            return logits[torch.arange(rows, device=dev), last_idx]
+
+        return chunk_step
+
+    def _chunk_specs(self, chunk: int, rows: int) -> list:
+        return [((rows, chunk), torch.int32), ((1,), torch.int32), ((rows,), torch.int64)]
+
+    def _chunk_graph(self, chunk: int, rows: int) -> graphs.CapturedDispatch:
+        return self._cached(
+            self._prefill_graphs, ("chunk", chunk, rows),
+            lambda: (self._chunk_body(chunk, rows), self._chunk_specs(chunk, rows)),
+        )
+
+    def _chunk_inputs(self, inf: dict) -> list:
+        """The inflight wave's next chunk as the chunk body's inputs, and
+        the cursor advanced."""
         chunk, idx = inf["chunk"], inf["idx"]
         offset = idx * chunk
-        tokens = inf["arrays"]["tokens"][:, offset:offset + chunk]
-        R = tokens.shape[0]
-        dev = self.device
-        pos = (offset + torch.arange(chunk, dtype=torch.int32, device=dev)).expand(R, chunk)
-        logits, _ = M.forward(
-            self.params, self.config, self._to_device(tokens), pos, inf["scratch"],
-            torch.full((R,), offset + chunk, dtype=torch.int32, device=dev),
-        )
         inf["idx"] = idx + 1
-        return logits
+        return [
+            inf["arrays"]["tokens"][:, offset:offset + chunk],
+            np.asarray([offset], np.int32), inf["arrays"]["last_idx"],
+        ]
 
     def _advance_inflight(self) -> bool:
         """Run one chunk of the inflight wave in its OWN invocation (the
         bifurcated lane, and the ragged lane when the token budget refuses
         absorption); finalize after the last.  True when the wave landed."""
         inf = self._inflight
-        logits = self._chunk(inf)
+        logits = self._chunk_graph(inf["chunk"], len(inf["wave"]))(*self._chunk_inputs(inf))
         self._journal.append(flightrec.EV_PREFILL_CHUNK, None, -1, inf["idx"], inf["n_chunks"])
         if inf["idx"] < inf["n_chunks"]:
             return False
         return self._finalize_inflight(logits)
 
-    def _finalize_inflight(self, logits: torch.Tensor) -> bool:
-        """The chunked wave's landing (last chunk done): the landing math,
-        the first-token sync, prefix registration.  One host sync per WAVE,
-        shared by the bifurcated and ragged lanes."""
+    def _finalize_inflight(self, last_logits: torch.Tensor) -> bool:
+        """The chunked wave's landing (last chunk done) from the final
+        chunk's last-position logits: the landing graph, the first-token
+        sync, prefix registration.  One host sync per WAVE, shared by the
+        bifurcated and ragged lanes."""
         inf = self._inflight
-        wave, arrays = inf["wave"], inf["arrays"]
-        firsts = self._land_math(wave, inf["bucket"], arrays, inf["scratch"], logits)
+        wave, arrays, bucket = inf["wave"], inf["arrays"], inf["bucket"]
+        firsts = self._final_graph(bucket, len(wave), arrays["sampled"])(
+            last_logits, *self._wave_inputs(wave, bucket, arrays)
+        )
         # the wave's designated landing sync: first tokens must reach the
         # host for delivery (and real TTFT)
         (firsts,) = self._sync_host(self._stage_host((firsts,)))
@@ -2038,15 +2155,15 @@ class InferenceEngine:
         active, window, steps, sampled = self._decode_args()
         if steps < self.runtime.decode_steps_per_dispatch:
             self.stats.short_dispatches += 1
-        prev = self._pend
-        done_prev = prev["done_dev"] if prev is not None else self._done_zero
+        done_prev = self._done if self._pend is not None else self._done_zero
         R = len(inf["wave"])
         self._observe_gap()
         self._journal.append(flightrec.EV_DISPATCH_LAUNCH, None, -1, steps, len(self._active))
         self._journal.append(flightrec.EV_RAGGED_WAVE, None, -1, len(self._active), R)
         started = time.perf_counter()
-        logits = self._chunk(inf)
-        toks, n_valid, done = self._dispatch(active, window, steps, sampled, done_prev)
+        self._copy_retire_args()
+        fn = self._ragged_graph(window, steps, sampled, inf["chunk"], R)
+        logits, toks, n_valid, done = fn(*self._chunk_inputs(inf), active, done_prev)
         self._journal.append(flightrec.EV_PREFILL_CHUNK, None, -1, inf["idx"], inf["n_chunks"])
         self.stats.prefill_absorbed_tokens += R * inf["chunk"]
         self.stats.unified_dispatches += 1
@@ -2065,73 +2182,106 @@ class InferenceEngine:
                 return w
         return cap
 
-    def _decode_fn(
-        self, window: int, steps: int, sampled: bool,
-        active: torch.Tensor, done_prev: torch.Tensor,
-        stop_table: torch.Tensor, hard_end: torch.Tensor,
-    ) -> "tuple[torch.Tensor, ...]":
-        """The decode dispatch body: ``steps`` ring-buffer decode steps over
-        the read-only cache window (dense rows, or ``ceil(window / page)``
-        pages per row through the block tables), argmax or ``sample_slots``
-        per step, then the ring's consolidation (in place) and
-        ``retire_mask_slots``.  Enqueues device work only — no host sync.
-        → (last, new_lens, toks [steps, B], n_valid, done)."""
-        cfg = self.config
-        # ``done_prev`` is the PREVIOUS dispatch's device-side done mask:
-        # under overlap a row that retired there is frozen here by pure
-        # device dataflow, before the host has seen that block (paged: its
-        # consolidation writes go to the trash page)
-        active = active & torch.logical_not(done_prev)
-        last, lens = self._last, self._lens
-        B = last.shape[0]
+    def _decode_body(self, window: int, steps: int, sampled: bool) -> Any:
+        """The decode dispatch body, shared by the decode and the ragged
+        graphs: ``steps`` ring-buffer decode steps over the read-only cache
+        window (dense rows, or ``ceil(window / page)`` pages per row through
+        the block tables), argmax or ``sample_slots`` per step, then the
+        ring's consolidation and ``retire_mask_slots``; ``last``, ``lens``
+        and ``_done`` are updated in place.  Enqueues device work only — no
+        host sync.  → fn(active [B], done_prev [B]) → (toks [steps, B],
+        n_valid, done)."""
+        eng, cfg, dev = weakref.proxy(self), self.config, self.device
+        B = self.runtime.max_batch_size
         ring_shape = (cfg.n_layers, steps, B, cfg.n_kv_heads, cfg.head_dim)
-        ring = (
-            torch.zeros(ring_shape, dtype=self._k.dtype, device=self.device),
-            torch.zeros(ring_shape, dtype=self._v.dtype, device=self.device),
-        )
         if self._paged:
             wpages = -(-window // self.runtime.page_size)
-            pool, tables = (self._k, self._v), self._tables
 
             def step(tokens, ring, t):
                 return M.decode_step_ring_paged(
-                    self.params, cfg, tokens, pool, tables, ring, t, lens, wpages
+                    eng.params, cfg, tokens, (eng._k, eng._v), eng._tables, ring, t, eng._lens,
+                    wpages,
                 )
         else:
             window_kv = (self._k[:, :, :, :window], self._v[:, :, :, :window])
 
             def step(tokens, ring, t):
-                return M.decode_step_ring(self.params, cfg, tokens, window_kv, ring, t, lens)
+                return M.decode_step_ring(eng.params, cfg, tokens, window_kv, ring, t, eng._lens)
 
-        toks = []
-        for t in range(steps):
-            logits, ring = step(last[:, None], ring, t)
-            if sampled:
-                # per-(request, position) streams: deterministic for a given
-                # seed regardless of batch composition / slot reuse
-                # (+1: position ``lens`` itself was the prefill's draw)
-                keys = fold_in(self._slot_seeds, lens + t + 1)
-                nxt = sample_slots(
-                    logits[:, -1], keys, self._temp, self._top_k, self._top_p
-                )
+        def decode(active, done_prev):
+            # ``done_prev`` is the PREVIOUS dispatch's device-side done
+            # mask: under overlap a row that retired there is frozen here by
+            # pure device dataflow, before the host has seen that block
+            # (paged: its consolidation writes go to the trash page)
+            active = active & torch.logical_not(done_prev)
+            last, lens = eng._last, eng._lens
+            ring = (
+                torch.zeros(ring_shape, dtype=eng._k.dtype, device=dev),
+                torch.zeros(ring_shape, dtype=eng._v.dtype, device=dev),
+            )
+            toks = []
+            for t in range(steps):
+                logits, ring = step(last[:, None], ring, t)
+                if sampled:
+                    # per-(request, position) streams: deterministic for a
+                    # given seed regardless of batch composition / slot
+                    # reuse (+1: position ``lens`` itself was the prefill's
+                    # draw)
+                    keys = fold_in(eng._slot_seeds, lens + t + 1)
+                    nxt = sample_slots(logits[:, -1], keys, eng._temp, eng._top_k, eng._top_p)
+                else:
+                    nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+                last = torch.where(active, nxt, last)
+                toks.append(last)
+            block = torch.stack(toks)  # [steps, B]
+            if eng._paged:
+                M.consolidate_ring_paged((eng._k, eng._v), ring, eng._tables, lens, active)
             else:
-                nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-            last = torch.where(active, nxt, last)
-            toks.append(last)
-        block = torch.stack(toks)  # [steps, B]
+                M.consolidate_ring((eng._k, eng._v), ring, lens)
+            n_valid, done = retire_mask_slots(block.T, eng._stop_dev, eng._hard_dev - lens, active)
+            eng._lens.copy_(torch.where(active, lens + steps, lens))
+            eng._last.copy_(last)
+            eng._done.copy_(done)
+            return block, n_valid, eng._done
+
+        return decode
+
+    def _decode_graph(self, window: int, steps: int, sampled: bool) -> graphs.CapturedDispatch:
         if self._paged:
-            M.consolidate_ring_paged((self._k, self._v), ring, self._tables, lens, active)
+            key: tuple = (-(-window // self.runtime.page_size), steps, sampled, "paged")
         else:
-            M.consolidate_ring((self._k, self._v), ring, lens)
-        new_lens = torch.where(active, lens + steps, lens)
-        n_valid, done = retire_mask_slots(block.T, stop_table, hard_end - lens, active)
-        return last, new_lens, block, n_valid, done
+            key = (window, steps, sampled)
+        B = self.runtime.max_batch_size
+        return self._cached(
+            self._decode_graphs, key,
+            lambda: (self._decode_body(window, steps, sampled), [((B,), torch.bool)] * 2),
+        )
+
+    def _ragged_graph(
+        self, window: int, steps: int, sampled: bool, chunk: int, rows: int
+    ) -> graphs.CapturedDispatch:
+        """THE unified prefill+decode dispatch: the inflight wave's next
+        chunk, then the decode dispatch, in one graph → fn(chunk inputs,
+        active, done_prev) → (last_logits, toks, n_valid, done)."""
+
+        def build():
+            chunk_step = self._chunk_body(chunk, rows)
+            decode = self._decode_body(window, steps, sampled)
+
+            def ragged(tokens, offset, last_idx, active, done_prev):
+                last_logits = chunk_step(tokens, offset, last_idx)
+                return (last_logits, *decode(active, done_prev))
+
+            B = self.runtime.max_batch_size
+            return ragged, self._chunk_specs(chunk, rows) + [((B,), torch.bool)] * 2
+
+        wkey = -(-window // self.runtime.page_size) if self._paged else window
+        return self._cached(
+            self._decode_graphs, ("ragged", wkey, steps, sampled, chunk, rows), build
+        )
 
     # ---------------------------------------------------- speculative verify
-    def _verify_fn(
-        self, window: int, S: int, sampled: bool, active: torch.Tensor,
-        drafts: torch.Tensor, ndraft: torch.Tensor,
-    ) -> "tuple[torch.Tensor, ...]":
+    def _verify_graph(self, window: int, S: int, sampled: bool) -> graphs.CapturedDispatch:
         """The speculative verify dispatch: feed [last, d_0..d_{S-2}] per
         row, score all S positions in one forward against the cache window
         (dense rows, or ``ceil(window / page)`` pages per row through the
@@ -2141,35 +2291,49 @@ class InferenceEngine:
         past the advanced length and the next wave overwrites them, so
         nothing rolls back.  Inactive rows emit 0 (paged: their writes go to
         the trash page).  Enqueues device work only; updates the engine's
-        last/lens → (out_toks [B, S], emitted, n_valid, done)."""
-        cfg = self.config
-        last, lens = self._last, self._lens
-        tokens = torch.cat([last[:, None], drafts], dim=1)
-        if self._paged:
-            wpages = -(-window // self.runtime.page_size)
-            logits, ring = M.verify_step_ring_paged(
-                self.params, cfg, tokens, (self._k, self._v), self._tables, lens, wpages
-            )
-        else:
+        last/lens in place → fn(active [B], drafts [B, S-1], ndraft [B]) →
+        (out_toks [B, S], emitted, n_valid, done)."""
+        wpages = -(-window // self.runtime.page_size)
+
+        def build():
+            eng, cfg = weakref.proxy(self), self.config
             window_kv = (self._k[:, :, :, :window], self._v[:, :, :, :window])
-            logits, ring = M.verify_step_ring(self.params, cfg, tokens, window_kv, lens)
-        out_toks, emitted = spec_accept_slots(
-            logits, drafts, ndraft, lens, self._slot_seeds, self._temp, self._top_k,
-            self._top_p, sampled=sampled,
-        )
-        emitted = torch.where(active, emitted, 0)
+
+            def verify(active, drafts, ndraft):
+                last, lens = eng._last, eng._lens
+                tokens = torch.cat([last[:, None], drafts], dim=1)
+                if eng._paged:
+                    logits, ring = M.verify_step_ring_paged(
+                        eng.params, cfg, tokens, (eng._k, eng._v), eng._tables, lens, wpages
+                    )
+                else:
+                    logits, ring = M.verify_step_ring(eng.params, cfg, tokens, window_kv, lens)
+                out_toks, emitted = spec_accept_slots(
+                    logits, drafts, ndraft, lens, eng._slot_seeds, eng._temp, eng._top_k,
+                    eng._top_p, sampled=sampled,
+                )
+                emitted = torch.where(active, emitted, 0)
+                if eng._paged:
+                    M.consolidate_ring_paged((eng._k, eng._v), ring, eng._tables, lens, active)
+                else:
+                    M.consolidate_ring((eng._k, eng._v), ring, lens)
+                idx = (emitted - 1).clamp(0, S - 1).to(torch.int64)
+                new_last = torch.where(active, out_toks.gather(1, idx[:, None])[:, 0], last)
+                n_valid, done = retire_mask_slots(
+                    out_toks, eng._stop_dev, eng._hard_dev - lens, active, emitted=emitted
+                )
+                eng._lens.copy_(lens + emitted)
+                eng._last.copy_(new_last)
+                return out_toks, emitted, n_valid, done
+
+            B = self.runtime.max_batch_size
+            return verify, [((B,), torch.bool), ((B, S - 1), torch.int32), ((B,), torch.int32)]
+
         if self._paged:
-            M.consolidate_ring_paged((self._k, self._v), ring, self._tables, lens, active)
+            key: tuple = ("verify", wpages, S, sampled, "paged")
         else:
-            M.consolidate_ring((self._k, self._v), ring, lens)
-        idx = (emitted - 1).clamp(0, S - 1).to(torch.int64)
-        new_last = torch.where(active, out_toks.gather(1, idx[:, None])[:, 0], last)
-        stop_table, hard_end = self._retire_args()
-        n_valid, done = retire_mask_slots(
-            out_toks, stop_table, hard_end - lens, active, emitted=emitted
-        )
-        self._last, self._lens = new_last, lens + emitted
-        return out_toks, emitted, n_valid, done
+            key = ("verify", window, S, sampled)
+        return self._cached(self._decode_graphs, key, build)
 
     def _spec_decode_tick(self) -> None:
         """One speculative wave: draft up to k tokens per active request,
@@ -2215,10 +2379,10 @@ class InferenceEngine:
         # the dispatch wall starts after drafting, as in the reference:
         # decode_time_s times the verify dispatches, not the draft model
         started = time.perf_counter()
-        out_toks, emitted, n_valid, done = self._sync_host(self._stage_host(self._verify_fn(
-            window, S, sampled, self._to_device(active_mask), self._to_device(drafts),
-            self._to_device(ndraft),
-        )))  # [B, S] + the retirement arrays: the tick's landing sync
+        self._copy_retire_args()
+        out_toks, emitted, n_valid, done = self._sync_host(self._stage_host(
+            self._verify_graph(window, S, sampled)(active_mask, drafts, ndraft)
+        ))  # [B, S] + the retirement arrays: the tick's landing sync
         elapsed = time.perf_counter() - started
         self._last_sync_t = time.perf_counter()
         # one verify forward advances the retirement clock by one step; its
@@ -2349,11 +2513,10 @@ class InferenceEngine:
             if deliveries:
                 self._loop.call_soon_threadsafe(_deliver_batch, deliveries)
 
-    def _decode_args(self) -> "tuple[torch.Tensor, int, int, bool]":
+    def _decode_args(self) -> "tuple[np.ndarray, int, int, bool]":
         """Host-side inputs of one decode dispatch (shared by the overlap
         launch, the ragged launch and the lockstep tick) → (active mask,
-        window, steps, sampled).  Pure host work and an asynchronous
-        upload."""
+        window, steps, sampled).  Pure host work."""
         active_mask = np.zeros((self.runtime.max_batch_size,), bool)
         needed = 1
         for slot in self._active:
@@ -2371,16 +2534,17 @@ class InferenceEngine:
         sampled = any(
             not self._effective_sampling(r).is_greedy for r in self._active.values()
         )
-        return self._to_device(active_mask), window, steps, sampled
+        return active_mask, window, steps, sampled
 
-    def _retire_args(self) -> "tuple[torch.Tensor, torch.Tensor]":
-        """Device copies of the per-slot stop table + hard-bound lens,
-        re-uploaded only after an activation rewrote them."""
-        if self._retire_dev is None:
-            self._retire_dev = (
-                self._to_device(self._stop_np), self._to_device(self._hard_end)
-            )
-        return self._retire_dev
+    def _copy_retire_args(self) -> None:
+        """Copy the per-slot stop table and hard-bound lens into the device
+        buffers the decode and verify graphs read, only after an activation
+        rewrote them (stream order: a dispatch already enqueued reads the
+        previous values)."""
+        if self._retire_dirty:
+            self._retire_dirty = False
+            graphs.fill(self._stop_dev, self._stop_np)
+            graphs.fill(self._hard_dev, self._hard_end)
 
     def _observe_gap(self) -> None:
         """The dispatch-gap bubble, observed just before each enqueue (after
@@ -2393,17 +2557,13 @@ class InferenceEngine:
             self._observe("dispatch_gap_ms", (time.perf_counter() - self._last_sync_t) * 1000.0)
 
     def _dispatch(
-        self, active: torch.Tensor, window: int, steps: int, sampled: bool,
+        self, active: np.ndarray, window: int, steps: int, sampled: bool,
         done_prev: torch.Tensor,
     ) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor]":
-        """Enqueue one decode dispatch and advance the engine's device state
-        → (toks, n_valid, done) device handles."""
-        stop_table, hard_end = self._retire_args()
-        last, lens, toks, n_valid, done = self._decode_fn(
-            window, steps, sampled, active, done_prev, stop_table, hard_end
-        )
-        self._last, self._lens = last, lens
-        return toks, n_valid, done
+        """Enqueue one decode dispatch, which advances the engine's device
+        state in place → (toks, n_valid, done) device handles."""
+        self._copy_retire_args()
+        return self._decode_graph(window, steps, sampled)(active, done_prev)
 
     def _launch_decode(self) -> None:
         """Enqueue the next decode dispatch — NO host sync.  The previous
@@ -2413,8 +2573,9 @@ class InferenceEngine:
         active, window, steps, sampled = self._decode_args()
         if steps < self.runtime.decode_steps_per_dispatch:
             self.stats.short_dispatches += 1
-        prev = self._pend
-        done_prev = prev["done_dev"] if prev is not None else self._done_zero
+        # the in-flight dispatch's done mask, in ``_done`` until this one
+        # replaces it
+        done_prev = self._done if self._pend is not None else self._done_zero
         self._observe_gap()
         self._journal.append(flightrec.EV_DISPATCH_LAUNCH, None, -1, steps, len(self._active))
         started = time.perf_counter()
@@ -2433,7 +2594,6 @@ class InferenceEngine:
             self._host_lens[slot] += steps
         self._pend = dict(
             staged=self._stage_host((toks, n_valid, done)),
-            done_dev=done,
             steps=steps,
             started=started,
             participants=list(self._active.items()),

@@ -122,6 +122,16 @@ exactness phase serves the
 dense and the paged+prefix configurations again with speculation on (draft
 model = target), whose streams must equal the spec-off streams.
 
+Every dispatch of every engine runs through the compiled-dispatch layer
+(``inference/graphs.py``): each drive prints its CUDA graph captures,
+replays and capture seconds and its peak allocation, and fails if a
+dispatch ran outside a graph; the launch tallies count replays
+(:func:`install_tallies`).  Between phases 11 and 12, the graph phase
+serves the lockstep dense, paged, speculative paged and bf16 north-star
+drives under ``graphs.eager()`` and on graphs, one fresh engine each on one
+set of weights: the streams must be equal bit for bit, and graph serving's
+peak allocation at most 1.25 x eager's at the paged and north-star drives.
+
 The line before the last is ``nvidia-smi``'s name and power limit; the
 ``kernels`` JSON line precedes it; the last line is the ``ok`` JSON object.
 ``--out`` also writes every measurement as JSON.
@@ -155,6 +165,7 @@ from calfkit_tpu_torch.engine import (
     TextDelta,
 )
 from calfkit_tpu_torch.inference import attention as A
+from calfkit_tpu_torch.inference import graphs
 from calfkit_tpu_torch.inference import model as M
 from calfkit_tpu_torch.inference import quant as Q
 from calfkit_tpu_torch.inference.client import TorchLocalModelClient, render_messages
@@ -707,49 +718,115 @@ def kernel_phase(dev) -> "tuple[list[dict], dict]":
     return cases, main
 
 
+# the wrappers whose calls the phases tally, each by its shape key
+# (S: queries a row; the window: W or Skv positions, or wpages)
+TALLY_KEYS = {
+    "ragged_attention": lambda q, args, kw: (q.shape[0], q.shape[2], args[0].shape[2]),
+    "ragged_attention_paged": lambda q, args, kw: (q.shape[0], q.shape[2], kw["wpages"]),
+    "paged_decode_attention": lambda q, args, kw: (q.shape[0], 1, kw["wpages"]),
+    "prefill_attention": lambda q, args, kw: (q.shape[0], q.shape[1], args[0].shape[2]),
+}
+_OPEN_TALLIES: dict = {}  # wrapper name → the open tally {key: [calls, kv_lens]}
+
+
+def observe_call(tag, tensors: "list[torch.Tensor]", record, wanted=lambda: True) -> None:
+    """Pass copies of ``tensors`` (a wrapper's device arguments) to
+    ``record(n, copies)`` as a wrapper call is counted: at once for a call
+    that launches (eager); for a call inside a CUDA graph capture, at each
+    replay of that graph, with n its calls of ``tag`` (the copies made by
+    the graph at the tag's first call, cloned right after the replay).
+    ``wanted()`` is asked first, so an observer with nothing open costs a
+    replay nothing."""
+    def make():
+        inside = [t.clone() for t in tensors]  # graph nodes: refreshed by every replay
+
+        def hook(n):
+            if wanted():
+                record(n, [t.clone() for t in inside])
+        return hook
+
+    if not graphs.on_replay(tag, make) and wanted():
+        record(1, [t.clone() for t in tensors])
+
+
+def install_tallies() -> None:
+    """Wrap the tallied wrappers of ``A`` once, before any engine captures
+    a graph: every call, and every replay of a graph that captured calls,
+    counts in the open tally of its wrapper (:func:`_tally`), whenever the
+    graph was captured.  The wrappers' callers look them up at every call;
+    the wrappers and their launch counts are unchanged."""
+    for name, key in TALLY_KEYS.items():
+        inner = getattr(A, name)
+        if getattr(inner, "tallied", False):
+            continue
+
+        def tallied(q, *args, _name=name, _key=key, _inner=inner, **kw):
+            k = _key(q, args, kw)
+
+            def record(n, copies, _k=k):
+                entry = _OPEN_TALLIES[_name].setdefault(_k, [0, None])
+                entry[0] += n
+                entry[1] = copies[0]  # kv_lens, on the device: no sync
+
+            observe_call((_name, k), [args[-1]], record, lambda: _name in _OPEN_TALLIES)
+            return _inner(q, *args, **kw)
+
+        tallied.tallied = True
+        setattr(A, name, tallied)
+
+
 @contextlib.contextmanager
-def _tally(name: str, key):
-    """While the block runs, tally the calls of the wrapper ``A.name`` by
-    ``key(q, args, kw)`` and keep a copy of the kv lengths (its last
-    argument) of the last call at each → {key: [calls, kv_lens]}.  The
-    wrapper's callers look it up at every call, so each call passes through
-    here; the wrapper and its launch count are unchanged."""
-    inner = getattr(A, name)
+def _tally(name: str):
+    """While the block runs, tally the launches of the wrapper ``A.name``
+    (eager calls and graph replays alike) by its ``TALLY_KEYS`` key and
+    keep a copy of the kv lengths (its last argument) of the last launch
+    at each → {key: [launches, kv_lens]}."""
+    install_tallies()
     tally: dict = {}
-
-    def tallied(q, *args, **kw):
-        entry = tally.setdefault(key(q, args, kw), [0, None])
-        entry[0] += 1
-        entry[1] = args[-1].clone()  # kv_lens, on the device: no sync
-        return inner(q, *args, **kw)
-
-    setattr(A, name, tallied)
+    _OPEN_TALLIES[name] = tally
     try:
         yield tally
     finally:
-        setattr(A, name, inner)
+        _OPEN_TALLIES.pop(name, None)
 
 
 def verify_shapes(name: str):
-    """Tally the ragged wrapper ``A.name``'s calls by (B, S, window: W
-    positions dense, wpages paged), as :func:`_tally` does;
-    ``verify_attention(_paged)`` looks the wrapper up at every call."""
-    if name == "ragged_attention_paged":
-        return _tally(name, lambda q, args, kw: (q.shape[0], q.shape[2], kw["wpages"]))
-    return _tally(name, lambda q, args, kw: (q.shape[0], q.shape[2], args[0].shape[2]))
+    """Tally the ragged wrapper ``A.name``'s launches by (B, S, window: W
+    positions dense, wpages paged), as :func:`_tally` does."""
+    return _tally(name)
 
 
 def decode_shapes():
-    """Tally the paged decode wrapper's calls by (B, 1, wpages), as
-    :func:`_tally` does; ``merged_paged_decode_attention`` looks the wrapper
-    up at every call."""
-    return _tally("paged_decode_attention", lambda q, args, kw: (q.shape[0], 1, kw["wpages"]))
+    """Tally the paged decode wrapper's launches by (B, 1, wpages), as
+    :func:`_tally` does."""
+    return _tally("paged_decode_attention")
 
 
 def prefill_shapes():
-    """Tally the prefill wrapper's calls by (B, Sq, Skv), as :func:`_tally`
-    does; ``model.prefill_attention`` looks the wrapper up at every call."""
-    return _tally("prefill_attention", lambda q, args, kw: (q.shape[0], q.shape[1], args[0].shape[2]))
+    """Tally the prefill wrapper's launches by (B, Sq, Skv), as
+    :func:`_tally` does."""
+    return _tally("prefill_attention")
+
+
+def graph_numbers(engine) -> dict:
+    """The engine's compiled-dispatch counts so far: captures, replays,
+    eager calls, capture seconds, its graph keys and the calls through
+    them; fails if a dispatch ran outside a graph while :func:`eager` is
+    off (every call is a capture or a replay)."""
+    out = dict(engine._graphs.stats)
+    out["calls"] = sum(fn.calls for fn in (
+        *engine._decode_graphs.values(), *engine._prefill_graphs.values()))
+    out["keys"] = len(engine._decode_graphs) + len(engine._prefill_graphs)
+    if engine.device.type == "cuda" and not graphs.eager_active():
+        assert out["eager"] == 0 and out["calls"] == out["captures"] + out["replays"], out
+    return out
+
+
+def graph_note(numbers: dict, peak: int) -> str:
+    return (f"graphs: {numbers['captures']} captures ({numbers['capture_s']:.2f} s) + "
+            f"{numbers['replays']} replays = {numbers['calls']} dispatches over "
+            f"{numbers['keys']} keys, {numbers['eager']} eager; max allocated "
+            f"{peak / 1e9:.3f} GB")
 
 
 def _shape_rows(tally) -> "list[dict]":
@@ -840,6 +917,7 @@ async def _serve_fresh(
 ) -> "tuple[list[list[int]], EngineStats]":
     """A fresh engine serves ``bursts`` (lists of jobs) one after the other
     → (streams in job order, the engine's stats)."""
+    torch.cuda.reset_peak_memory_stats(dev)
     engine = InferenceEngine(cfg, rt, params=params, device=dev, draft_params=draft_params)
     await engine.start()
     try:
@@ -848,6 +926,7 @@ async def _serve_fresh(
             streams += (await serve(engine, jobs))[0]
     finally:
         await engine.stop()
+    print(f"    {graph_note(graph_numbers(engine), torch.cuda.max_memory_allocated(dev))}")
     return streams, engine.stats
 
 
@@ -946,6 +1025,7 @@ def serving_jobs(vocab_size: int) -> "tuple[list[list[int]], list[tuple]]":
 async def serving_phase(dev) -> dict:
     cfg = preset("llama-3-8b")
     rt = SERVING_RUNTIME
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     engine = InferenceEngine(cfg, rt, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -980,18 +1060,19 @@ async def serving_phase(dev) -> dict:
         assert len(engine._free) == rt.max_batch_size and not engine._active
     finally:
         await engine.stop()
+    numbers, peak = graph_numbers(engine), torch.cuda.max_memory_allocated(dev)
     result = dict(
         init_s=init_s, wall_s=wall, ttft_ms=sorted(x * 1e3 for x in ttft),
         ttft_median_ms=statistics.median(ttft) * 1e3, ttft_max_ms=max(ttft) * 1e3,
         **round1, launches=launches,
         launches_per_request={k: n / len(jobs) for k, n in launches.items()},
-        stop_cut=cut,
+        stop_cut=cut, graphs=numbers, max_memory_allocated=peak,
     )
     print(
         f"  serving llama-3-8b bf16, 6 requests x 32 tokens: init {init_s:.2f} s, "
         f"TTFT median {result['ttft_median_ms']:.1f} ms max {result['ttft_max_ms']:.1f} ms, "
         f"decode {result['decode_tok_s']:.1f} tok/s over {result['decode_dispatches']} dispatches, "
-        f"launches {launches}"
+        f"launches {launches}; {graph_note(numbers, peak)}"
     )
     return result
 
@@ -1026,6 +1107,7 @@ async def paged_serving_phase(dev, speculative: bool = False) -> dict:
     cfg = preset("llama-3-8b")
     rt = PAGED_RUNTIME
     new_tokens = 48
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     if speculative:
         rt = replace(rt, speculative=SpecConfig(k=4, draft=cfg))
@@ -1077,6 +1159,7 @@ async def paged_serving_phase(dev, speculative: bool = False) -> dict:
         stats = engine.stats
     finally:
         await engine.stop()
+    numbers, peak = graph_numbers(engine), torch.cuda.max_memory_allocated(dev)
     assert [len(o) for o in out_a + out_b] == [new_tokens] * 10
     assert all(0 <= tok < cfg.vocab_size for o in out_a + out_b for tok in o)
     assert launches["prefill_attention"] > 0, launches
@@ -1118,7 +1201,7 @@ async def paged_serving_phase(dev, speculative: bool = False) -> dict:
         spec_emitted=stats.spec_emitted, spec_rows=stats.spec_rows,
         acceptance_rate=stats.acceptance_rate, tokens_per_dispatch=stats.tokens_per_dispatch,
         tok_s_wall=stats.decode_tokens / wall, verify_shapes=shapes, prefill_shapes=prefill_rows,
-        decode_shapes=decode_rows,
+        decode_shapes=decode_rows, graphs=numbers, max_memory_allocated=peak,
     )
     spec_note = (
         f", spec k=4 draft = target: acceptance {stats.acceptance_rate:.3f}, tokens/dispatch "
@@ -1141,6 +1224,7 @@ async def paged_serving_phase(dev, speculative: bool = False) -> dict:
         f"{[(r['B'], r['S'], r['window'], r['launches']) for r in prefill_rows]}"
         + ("" if speculative else f", paged decode launches by (B, wpages) "
            f"{[(r['B'], r['window'], r['launches']) for r in decode_rows]}")
+        + f"; {graph_note(numbers, peak)}"
     )
     return result
 
@@ -1151,6 +1235,7 @@ async def spec_serving_phase(dev) -> dict:
     verify dispatch and the dense ragged kernel."""
     cfg = preset("llama-3-8b")
     rt = replace(SERVING_RUNTIME, speculative=SpecConfig(k=4))
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     engine = InferenceEngine(cfg, rt, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -1167,6 +1252,7 @@ async def spec_serving_phase(dev) -> dict:
         stats = engine.stats
     finally:
         await engine.stop()
+    numbers, peak = graph_numbers(engine), torch.cuda.max_memory_allocated(dev)
     assert [len(s) for s in streams] == [32] * 6, [len(s) for s in streams]
     shapes = _shape_rows(tally)
     assert sum(r["launches"] for r in shapes) == launches["ragged_attention"], shapes
@@ -1183,6 +1269,7 @@ async def spec_serving_phase(dev) -> dict:
         spec_emitted=stats.spec_emitted, spec_rows=stats.spec_rows,
         acceptance_rate=stats.acceptance_rate, tokens_per_dispatch=stats.tokens_per_dispatch,
         tok_s_wall=stats.decode_tokens / wall, launches=launches, verify_shapes=shapes,
+        graphs=numbers, max_memory_allocated=peak,
     )
     print(
         f"  spec serving llama-3-8b bf16, n-gram k=4, 6 requests x 32 tokens: init "
@@ -1192,7 +1279,8 @@ async def spec_serving_phase(dev) -> dict:
         f"over the run's wall), acceptance "
         f"{stats.acceptance_rate:.3f}, tokens/dispatch {stats.tokens_per_dispatch:.2f}, "
         f"launches {launches}, ragged launches by (B, S, W) "
-        f"{[(r['B'], r['S'], r['window'], r['launches']) for r in shapes]}"
+        f"{[(r['B'], r['S'], r['window'], r['launches']) for r in shapes]}; "
+        f"{graph_note(numbers, peak)}"
     )
     return result
 
@@ -1307,6 +1395,7 @@ async def client_phase(dev, card: str = "") -> dict:
     rt = PAGED_RUNTIME
     platform = "gpu" if dev.type == "cuda" else "cpu"
     tok = CharTokenizer()
+    torch.cuda.reset_peak_memory_stats(dev)
     client = TorchLocalModelClient(config=cfg, runtime=rt, tokenizer=tok, device=dev)
     cold = client.stats_snapshot()
     assert set(cold) == CLIENT_COLD_KEYS, set(cold) ^ CLIENT_COLD_KEYS
@@ -1408,6 +1497,7 @@ async def client_phase(dev, card: str = "") -> dict:
         assert ticks <= 100, ticks
     finally:
         await client.stop()
+    numbers, peak = graph_numbers(engine), torch.cuda.max_memory_allocated(dev)
     # the no-leak law: every page free or held by the prefix cache, every slot free
     free_pages, cached = engine._page_alloc.free_pages, engine._prefix.size
     assert free_pages + cached == rt.pool_pages() - 1, (free_pages, cached)
@@ -1421,6 +1511,7 @@ async def client_phase(dev, card: str = "") -> dict:
         launches=launches, prefill_shapes=prefill_rows, decode_shapes=decode_rows,
         abandon_ticks=ticks, hbm_gb_in_use=live.get("hbm_gb_in_use"),
         render_encode_ms=render_ms, redecode_ms=redecode_ms, text_chars=text_chars,
+        graphs=numbers, max_memory_allocated=peak,
     )
     t1, t2 = result["turn1"], result["turn2"]
     print(
@@ -1442,7 +1533,7 @@ async def client_phase(dev, card: str = "") -> dict:
         f"decode launches by (B, wpages) "
         f"{[(r['B'], r['window'], r['launches']) for r in decode_rows]}; abandoned stream's "
         f"slot back after {ticks} dispatches; pages free {free_pages} + cached {cached} of "
-        f"{rt.pool_pages() - 1}"
+        f"{rt.pool_pages() - 1}; {graph_note(numbers, peak)}"
     )
     return result
 
@@ -1650,6 +1741,7 @@ async def checkpoint_phase(dev, card: str = "") -> dict:
         loaded_cfg = config_from_hf(path)
         assert loaded_cfg == replace(cfg, name="llama-3-8b-random-2-layers"), loaded_cfg
 
+        torch.cuda.reset_peak_memory_stats(dev)
         client = TorchLocalModelClient(
             checkpoint=str(path), tokenizer=tok, runtime=PAGED_RUNTIME, device=dev
         )
@@ -1682,6 +1774,7 @@ async def checkpoint_phase(dev, card: str = "") -> dict:
                 launches = dict(A.launch_counts)
         finally:
             await client.stop()
+        numbers, serve_peak = graph_numbers(engine), torch.cuda.max_memory_allocated(dev)
         first_turn_s = max(t["done"] for t in done) - started
         for t in done:
             response = t["events"][-1].response
@@ -1725,7 +1818,8 @@ async def checkpoint_phase(dev, card: str = "") -> dict:
         disk_gb=disk_gb, write_s=write_s, load_s=load_s, load_int8_s=load8_s,
         first_turn_s=first_turn_s, turn=_turn_numbers(done, started), bf16_weight_bytes=bf16_bytes,
         int8_weight_bytes=q_bytes, int8_load_peak_bytes=peak, launches=launches,
-        prefill_shapes=prefill_rows, decode_shapes=decode_rows,
+        prefill_shapes=prefill_rows, decode_shapes=decode_rows, graphs=numbers,
+        max_memory_allocated=serve_peak,
     )
     print(
         f"  checkpoint: llama-3-8b widths, 2 layers, BF16 in 2 shards ({disk_gb:.2f} GB) "
@@ -1736,8 +1830,8 @@ async def checkpoint_phase(dev, card: str = "") -> dict:
         f"{q_bytes / 1e9:.3f} GB, peak allocation {peak / 1e9:.3f} GB (law: <= "
         f"{1.05 * q_bytes / 1e9:.3f} GB); launches {launches}; prefill (B, Sq, Skv, launches) "
         f"{[(r['B'], r['S'], r['window'], r['launches']) for r in prefill_rows]}, paged decode "
-        f"(B, wpages, launches) {[(r['B'], r['window'], r['launches']) for r in decode_rows]} "
-        f"({card})"
+        f"(B, wpages, launches) {[(r['B'], r['window'], r['launches']) for r in decode_rows]}; "
+        f"turns' {graph_note(numbers, serve_peak)} ({card})"
     )
     return result
 
@@ -1806,6 +1900,7 @@ async def north_star_phase(
     finally:
         await engine.stop()
     peak = torch.cuda.max_memory_allocated(dev)
+    numbers = graph_numbers(engine)
     assert [len(s) for s in streams] == [NORTH_STAR_NEW] * requests
     assert all(0 <= t < cfg.vocab_size for s in streams for t in s)
     assert launches["prefill_attention"] > 0 and launches["paged_decode_attention"] > 0, launches
@@ -1828,7 +1923,7 @@ async def north_star_phase(
         unified_dispatches=stats.unified_dispatches, prefill_waves=stats.prefill_waves,
         requests=requests, tok_s_wall=requests * NORTH_STAR_NEW / wall,
         weight_bytes=weight_bytes, max_memory_allocated=peak, launches=launches,
-        prefill_shapes=prefill_rows, decode_shapes=decode_rows,
+        prefill_shapes=prefill_rows, decode_shapes=decode_rows, graphs=numbers,
     )
     print(
         f"  north star llama-3-8b {name}, {requests} requests x "
@@ -1840,9 +1935,108 @@ async def north_star_phase(
         f"the wall {wall:.2f} s; weights {weight_bytes / 1e9:.3f} GB, max allocated "
         f"{peak / 1e9:.3f} GB; launches {launches}; prefill (B, Sq, Skv, launches) "
         f"{[(r['B'], r['S'], r['window'], r['launches']) for r in prefill_rows]}, paged decode "
-        f"(B, wpages, launches) {[(r['B'], r['window'], r['launches']) for r in decode_rows]}"
+        f"(B, wpages, launches) {[(r['B'], r['window'], r['launches']) for r in decode_rows]}; "
+        f"{graph_note(numbers, peak)}"
     )
     del engine
+    return result
+
+
+# --------------------------------------------------------------------------- #
+# the compiled-dispatch layer: graphs against eager(), the same drives
+# --------------------------------------------------------------------------- #
+
+GRAPH_PEAK_LAW = 1.25  # graph serving's peak allocation over eager()'s, at most
+
+
+async def _graph_drive(cfg, rt, params, dev, jobs, eager: bool, draft: bool = False) -> dict:
+    """A fresh engine on ``params`` serves ``jobs`` at once, under
+    :func:`graphs.eager` or on graphs → its streams and numbers; the peak
+    allocation is counted from before the engine (``params`` already on
+    the card)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with graphs.eager() if eager else contextlib.nullcontext():
+        engine = InferenceEngine(cfg, rt, params=params, device=dev,
+                                 draft_params=params if draft else None)
+        await engine.start()
+        try:
+            streams, ttft, wall = await serve(engine, jobs)
+        finally:
+            await engine.stop()
+        numbers = graph_numbers(engine)
+    peak = torch.cuda.max_memory_allocated(dev)
+    stats = engine.stats
+    assert len(engine._free) == rt.max_batch_size and not engine._active
+    out = dict(
+        streams=streams, wall_s=wall, ttft_median_ms=statistics.median(ttft) * 1e3,
+        decode_tok_s=stats.tokens_per_second, decode_dispatches=stats.decode_dispatches,
+        mean_dispatch_ms=stats.decode_time_s / max(stats.decode_dispatches, 1) * 1e3,
+        max_memory_allocated=peak, engine_peak_bytes=peak - base, graphs=numbers,
+    )
+    del engine
+    return out
+
+
+async def graph_phase(dev, card: str = "") -> dict:
+    """The lockstep dense, paged and speculative paged drives and the bf16
+    north star, each served by a fresh engine under :func:`graphs.eager`
+    and then by one on graphs, on one set of llama-3-8b weights (seed 0):
+    the schedule and the kernels are the same, so every token stream is
+    bit for bit the same; graph serving's peak allocation is at most
+    ``GRAPH_PEAK_LAW`` x eager's at the paged and north-star drives.  The
+    dense drive is the serving phase's six requests (one sampled); the
+    paged ones serve both of the paged phase's bursts at once, 16 new
+    tokens each, the speculative one with ``SpecConfig(k=4)`` and the
+    target as its draft; the north star is its 32 requests of 64 + 128
+    tokens."""
+    cfg = preset("llama-3-8b")
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    burst_a, burst_b = paged_serving_jobs(cfg.vocab_size)
+    paged_jobs = [(p, 16, {}) for p in burst_a + burst_b]
+    lockstep = dict(overlap_dispatch=False)
+    drives = (
+        ("dense", cfg, replace(SERVING_RUNTIME, **lockstep), serving_jobs(cfg.vocab_size)[1],
+         False, False),
+        ("paged", cfg, replace(PAGED_RUNTIME, **lockstep), paged_jobs, False, True),
+        ("spec-paged", cfg, replace(PAGED_RUNTIME, **lockstep,
+                                    speculative=SpecConfig(k=4, draft=cfg)),
+         paged_jobs, True, False),
+        ("north-bf16", replace(cfg, max_seq_len=NORTH_STAR_RUNTIME.max_seq_len),
+         replace(NORTH_STAR_RUNTIME, **lockstep), north_star_jobs(), False, True),
+    )
+    result = {}
+    for name, drive_cfg, rt, jobs, draft, peak_law in drives:
+        eager = await _graph_drive(drive_cfg, rt, params, dev, jobs, eager=True, draft=draft)
+        graphed = await _graph_drive(drive_cfg, rt, params, dev, jobs, eager=False, draft=draft)
+        if dev.type == "cuda":  # (a CPU rehearsal runs every body eagerly)
+            assert eager["graphs"]["eager"] == eager["graphs"]["calls"] > 0, eager["graphs"]
+            assert eager["graphs"]["captures"] == eager["graphs"]["replays"] == 0, eager["graphs"]
+        assert graphed["streams"] == eager["streams"], f"{name}: graph streams differ from eager"
+        ratio = graphed["max_memory_allocated"] / eager["max_memory_allocated"]
+        if peak_law:
+            assert ratio <= GRAPH_PEAK_LAW, (name, ratio)
+        result[name] = dict(
+            eager={k: v for k, v in eager.items() if k != "streams"},
+            graphs={k: v for k, v in graphed.items() if k != "streams"},
+            peak_ratio=ratio, tokens=sum(map(len, graphed["streams"])),
+        )
+        e, g = eager, graphed
+        print(
+            f"  graphs vs eager(), {name} lockstep ({len(jobs)} requests, "
+            f"{result[name]['tokens']} tokens, one run each, no spread; {card}): streams equal "
+            f"bit for bit; wall {e['wall_s']:.2f} -> {g['wall_s']:.2f} s, TTFT median "
+            f"{e['ttft_median_ms']:.1f} -> {g['ttft_median_ms']:.1f} ms, decode "
+            f"{e['decode_tok_s']:.1f} -> {g['decode_tok_s']:.1f} tok/s, mean dispatch "
+            f"{e['mean_dispatch_ms']:.1f} -> {g['mean_dispatch_ms']:.1f} ms; max allocated "
+            f"{e['max_memory_allocated'] / 1e9:.3f} -> {g['max_memory_allocated'] / 1e9:.3f} GB "
+            f"(x{ratio:.3f}{f', law <= {GRAPH_PEAK_LAW}' if peak_law else ''}; above the "
+            f"weights {e['engine_peak_bytes'] / 1e9:.3f} -> {g['engine_peak_bytes'] / 1e9:.3f} "
+            f"GB); {graph_note(g['graphs'], g['max_memory_allocated'])}"
+        )
+    del params
     return result
 
 
@@ -2045,7 +2239,7 @@ async def overload_drive(cfg, rt, params, dev, dump_dir: str) -> dict:
         await engine.stop()
         cancellation.wall_clock = previous
     return dict(engine=engine, outcomes=outcomes, wall_s=wall, burst_s=burst_s, dumps=dumps,
-                sampled=sampled, pool=pool)
+                sampled=sampled, pool=pool, graphs=graph_numbers(engine))
 
 
 def check_overload_run(run: dict, rt) -> dict:
@@ -2114,7 +2308,7 @@ def check_overload_run(run: dict, rt) -> dict:
         prefix_evictions=stats.prefix_evictions, alloc_stalls=stats.alloc_stalls,
         cancelled=stats.cancelled_requests, journal_events=len(journal),
         samples=len(run["sampled"]), dispatch_ewma_ms=stats.dispatch_ewma_ms,
-        wall_s=run["wall_s"], burst_s=run["burst_s"],
+        wall_s=run["wall_s"], burst_s=run["burst_s"], graphs=run["graphs"],
     )
 
 
@@ -2171,18 +2365,26 @@ def check_survivor_streams(cfg, params, prompts, on: dict, off: dict, dev) -> di
 @contextlib.contextmanager
 def _last_paged_tables():
     """While the block runs, keep the block tables and kv lengths of the
-    paged decode wrapper's last call at each (B, 1, wpages)."""
+    paged decode wrapper's last launch at each (B, 1, wpages) (a graph's
+    at its replays, :func:`observe_call`)."""
     inner = A.paged_decode_attention
     last: dict = {}
+    open_ = [True]
 
     def keep(q, pool_k, pool_v, layer, tables, lens, **kw):
-        last[(q.shape[0], 1, kw["wpages"])] = (tables.clone(), lens.clone())
+        key = (q.shape[0], 1, kw["wpages"])
+
+        def record(n, copies):
+            last[key] = tuple(copies)
+
+        observe_call(("tables", key), [tables, lens], record, lambda: open_[0])
         return inner(q, pool_k, pool_v, layer, tables, lens, **kw)
 
     A.paged_decode_attention = keep
     try:
         yield last
     finally:
+        open_[0] = False
         A.paged_decode_attention = inner
 
 
@@ -2282,7 +2484,9 @@ async def overload_phase(dev, params, card: str = "") -> "tuple[dict, list[dict]
         f"over {o['decode_dispatches']} dispatches (EWMA {o['dispatch_ewma_ms']:.1f} ms), "
         f"prefix hits {o['prefix_hits']}, evictions {o['prefix_evictions']}, alloc stalls "
         f"{o['alloc_stalls']}, journal {o['journal_events']} events, {o['samples']} occupancy "
-        f"samples; max allocated {peak / 1e9:.3f} GB; launches {launches}; prefill (B, Sq, Skv, "
+        f"samples; overlapped {graph_note(o['graphs'], peak)}, lockstep graphs "
+        f"{s['graphs']['captures']} captures ({s['graphs']['capture_s']:.2f} s) + "
+        f"{s['graphs']['replays']} replays; launches {launches}; prefill (B, Sq, Skv, "
         f"launches) {[(r['B'], r['S'], r['window'], r['launches']) for r in prefill_rows]}, "
         f"paged decode (B, wpages, launches) "
         f"{[(r['B'], r['window'], r['launches']) for r in decode_rows]}"
@@ -2302,6 +2506,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     print(card)
+    install_tallies()  # before any engine captures a graph
     t0 = time.perf_counter()
     built = kernels.build_all()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
@@ -2344,6 +2549,9 @@ def main() -> int:
         north[key] = asyncio.run(north_star_phase(
             dev, quantization, card, requests, keep=bf16_weights if key == "bf16-8" else None))
         torch.cuda.empty_cache()
+    print("graph phase")
+    graph = asyncio.run(graph_phase(dev, card))
+    torch.cuda.empty_cache()
     print("paged decode and ragged kernels at their serving phases' shapes")
     for name, shapes in (("paged_decode_attention", paged["decode_shapes"]),
                          ("ragged_attention", spec_dense["verify_shapes"]),
@@ -2392,7 +2600,8 @@ def main() -> int:
             json.dump(dict(card=card, cases=cases, exactness=exact, serving=serving,
                            paged_serving=paged, spec_paged_serving=spec_paged,
                            spec_serving=spec_dense, client=client, quant_exactness=quant_exact,
-                           checkpoint=ckpt, north_star=north, overload=overload,
+                           checkpoint=ckpt, north_star=north, graphs=graph,
+                           overload=overload,
                            kernels=line["kernels"]),
                       f, indent=1, default=str)
     print(json.dumps(line))

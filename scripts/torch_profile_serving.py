@@ -23,7 +23,9 @@ on the host (``north_star_params``) or bf16 from the engine's random init.
 Prints one JSON object: the profiled window's wall
 time, the device's busy time (union of kernel intervals) and idle share,
 launches and device time per kernel family, the top kernels by device time,
-and the round's decode dispatches and tokens.  ``--device cpu --preset debug`` rehearses the
+the round's decode dispatches and tokens, and the engine's CUDA graph
+captures and replays over both rounds (the first round captures each
+dispatch key, the profiled one replays).  ``--device cpu --preset debug`` rehearses the
 script on the CPU (no device metrics then).
 """
 
@@ -177,6 +179,9 @@ async def run(args) -> dict:
         prefill_time_s=stats.prefill_time_s, prefix_hits=stats.prefix_hits,
         unified_dispatches=stats.unified_dispatches, spec_rows=stats.spec_rows,
         acceptance_rate=stats.acceptance_rate, tokens_per_dispatch=stats.tokens_per_dispatch,
+        # the compiled-dispatch layer's counts over both rounds (absent
+        # from a tree that has no such layer)
+        graphs=dict(engine._graphs.stats) if hasattr(engine, "_graphs") else None,
     )
 
 

@@ -42,6 +42,7 @@ for name in ("calfkit_tpu_torch.inference.client", "calfkit_tpu_torch.inference.
              "calfkit_tpu_torch.engine.model_client", "calfkit_tpu_torch.models.messages",
              "calfkit_tpu_torch.models.payload", "calfkit_tpu_torch.models.capability",
              "calfkit_tpu_torch.inference.quant", "calfkit_tpu_torch.inference.loader",
+             "calfkit_tpu_torch.inference.graphs",
              "calfkit_tpu_torch.inference._safetensors", "calfkit_tpu_torch.cancellation",
              "calfkit_tpu_torch.leases", "calfkit_tpu_torch.qos",
              "calfkit_tpu_torch.observability.metrics", "calfkit_tpu_torch.observability.flightrec",

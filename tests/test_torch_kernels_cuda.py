@@ -715,3 +715,111 @@ def test_quantized_forward_on_the_card(bits):
     torch.testing.assert_close(
         card.cpu(), _quantized_forward(params, cfg, "cpu", bits), atol=2e-4, rtol=2e-4
     )
+
+
+# --------------------------------------------------------------------------- #
+# the compiled-dispatch layer: graphs captured once and replayed
+# --------------------------------------------------------------------------- #
+
+
+def _graph_engine(dev):
+    """A paged bf16 engine at debug depth with the kernels' head_dim (64):
+    page 16, two rows holding pages of a pool filled with random K/V, each
+    row's table naming its own pages."""
+    from calfkit_tpu_torch.inference.config import RuntimeConfig, preset
+    from calfkit_tpu_torch.inference.engine import InferenceEngine
+
+    cfg = preset("debug", d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, dtype="bfloat16")
+    rt = RuntimeConfig(
+        max_batch_size=4, max_seq_len=512, prefill_chunk=32, decode_steps_per_dispatch=4,
+        kv_layout="paged", page_size=16, chunked_prefill=True, max_prefill_wave=2,
+    )
+    engine = InferenceEngine(cfg, rt, seed=5, device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    for pool in (engine._k, engine._v):
+        pool.copy_(torch.randn(pool.shape, generator=g, device=dev).to(pool.dtype))
+    pmax = rt.pages_per_seq()
+    engine._tables[:2] = 1 + torch.arange(2 * pmax, dtype=torch.int32, device=dev).view(2, pmax)
+    engine._lens[:2] = torch.tensor([37, 101], dtype=torch.int32, device=dev)
+    engine._last[:2] = torch.tensor([3, 250], dtype=torch.int32, device=dev)
+    engine._hard_end[:2] = 500
+    engine._retire_dirty = True
+    return engine
+
+
+def _graph_state(engine):
+    return [t.clone() for t in (
+        engine._k, engine._v, engine._last, engine._lens, engine._done, engine._scratch_flat,
+    )]
+
+
+def _graph_restore(engine, state):
+    for t, saved in zip((
+        engine._k, engine._v, engine._last, engine._lens, engine._done, engine._scratch_flat,
+    ), state):
+        t.copy_(saved)
+
+
+def _graph_drive(engine, steps):
+    """For each i of ``steps``, a paged decode dispatch (one key) and a
+    prefill chunk of two rows at offset 32 i mod 480 (one key) with tokens
+    and last positions drawn from seed 7 + i → (every dispatch's tokens,
+    every chunk's last-position logits), on the host."""
+    import numpy as np
+
+    active = np.asarray([True, True, False, False])
+    toks, logits = [], []
+    for i in steps:
+        block, _, _ = engine._dispatch(active, 512, 4, False, engine._done_zero)
+        toks.append(block.cpu())
+        rng = np.random.default_rng(7 + i)
+        tokens = rng.integers(0, engine.config.vocab_size, (2, 32)).astype(np.int32)
+        offset = np.asarray([(32 * i) % 480], np.int32)
+        last_idx = rng.integers(0, 32, 2).astype(np.int64)
+        logits.append(engine._chunk_graph(32, 2)(tokens, offset, last_idx).cpu())
+    return toks, logits
+
+
+@pytest.mark.cuda
+@cuda_only
+def test_graph_replays_equal_eager_bitwise():
+    """A paged decode dispatch and a prefill chunk, captured and replayed
+    50 times, give eager()'s tokens, logits, pool, scratch and engine state
+    bit for bit in bf16 (the same kernels over the same buffers); their
+    launch counts add the capture's count at each replay; the walk's
+    tickets are all zero after the replays; device memory holds steady
+    across replays."""
+    from calfkit_tpu_torch.inference import graphs
+
+    dev = torch.device("cuda")
+    engine = _graph_engine(dev)
+    start = _graph_state(engine)
+    with graphs.eager():
+        want_toks, want_logits = _graph_drive(engine, range(51))
+    torch.cuda.synchronize()
+    want_state = _graph_state(engine)
+    assert engine._graphs.stats["eager"] == 2 * 51 and engine._graphs.stats["captures"] == 0
+
+    _graph_restore(engine, start)
+    got_toks, got_logits = _graph_drive(engine, range(1))  # the first calls: eager run + capture
+    A.reset_launch_counts()
+    decode = engine._decode_graphs[(32, 4, False, "paged")]
+    chunk = engine._prefill_graphs[("chunk", 32, 2)]
+    assert decode._launches == {"paged_decode_attention": 2 * 4}  # layers x steps
+    assert chunk._launches == {"prefill_attention": 2}  # layers
+    memory = torch.cuda.memory_allocated()
+    toks, logits = _graph_drive(engine, range(1, 51))
+    torch.cuda.synchronize()
+    got_toks += toks
+    got_logits += logits
+    assert torch.cuda.memory_allocated() == memory
+    assert engine._graphs.stats["captures"] == 2 and engine._graphs.stats["replays"] == 2 * 50
+    for name, graph in (("paged_decode_attention", decode), ("prefill_attention", chunk)):
+        assert A.launch_counts[name] == 50 * graph._launches[name], name
+    for a, b in zip(got_toks, want_toks):
+        assert torch.equal(a, b)
+    for a, b in zip(got_logits, want_logits):
+        assert torch.equal(a, b)
+    for a, b in zip(_graph_state(engine), want_state):
+        assert torch.equal(a, b)
+    assert all(int(buf.count_nonzero()) == 0 for buf in A._tickets.values())
