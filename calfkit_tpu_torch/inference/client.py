@@ -352,10 +352,9 @@ class TorchLocalModelClient(ModelClient):
 
         stats = engine.stats
         rt = engine.runtime
-        # per-class QUEUED depth (the port's engine queues in _pending and
-        # _carry; no long lane yet: the multi-device slice); a flagged shed
-        # victim still in the deque is not depth
-        queued = [*engine._pending, *engine._carry]
+        # per-class QUEUED depth (both lanes' queues); a flagged shed victim
+        # still in the deque is not depth
+        queued = [*engine._pending, *engine._carry, *engine._long_pending]
         interactive_pending = sum(1 for r in queued if not r.cancelled and r.priority != "batch")
         batch_pending = sum(1 for r in queued if not r.cancelled and r.priority == "batch")
         ledger = engine._ledger
@@ -368,7 +367,9 @@ class TorchLocalModelClient(ModelClient):
             "active_requests": len(engine._active),
             # admitted but not yet holding a slot: active + pending is the
             # fleet router's queue-depth load signal
-            "pending_requests": len(engine._pending) + len(engine._carry),
+            "pending_requests": (
+                len(engine._pending) + len(engine._carry) + len(engine._long_pending)
+            ),
             "free_slots": len(engine._free),
             "max_batch_size": rt.max_batch_size,
             "kv_layout": rt.kv_layout,

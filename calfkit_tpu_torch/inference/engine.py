@@ -51,10 +51,18 @@ and speculative decoding.
   seed) is captured once per key as a CUDA graph and replayed
   (:mod:`~calfkit_tpu_torch.inference.graphs`), the keys those of the JAX
   engine's jit caches; the bodies read and write the engine's tensors in
-  place, at addresses fixed for the engine's life.
+  place, at addresses fixed for the engine's life;
+- the long-context lane (``RuntimeConfig.long_context``): a prompt of
+  ``max_seq_len`` tokens or more is served one request at a time, its
+  prefill over the whole padded prompt (monolithic, or a chunk per
+  scheduler pass) into a scratch of its own and its decode against that
+  prefix merged with a fresh-token cache
+  (:mod:`~calfkit_tpu_torch.inference.ring_attention` at sp = 1), one
+  long dispatch per scheduler pass between the short lane's.
 
-The multi-device parts of the reference engine (tp/dp, the long-context
-lane) are not ported and raise ``ValueError`` at construction.
+The multi-device parts of the reference engine (tp/dp, and the long lane's
+sequence sharding over several devices) are not ported: tp/dp raise
+``ValueError`` at construction.
 """
 
 from __future__ import annotations
@@ -85,6 +93,7 @@ from calfkit_tpu_torch.exceptions import (
 from calfkit_tpu_torch.inference import graphs
 from calfkit_tpu_torch.inference import model as M
 from calfkit_tpu_torch.inference import ragged as ragged_math
+from calfkit_tpu_torch.inference import ring_attention as RA
 from calfkit_tpu_torch.inference.config import ModelConfig, RuntimeConfig
 from calfkit_tpu_torch.inference.paged import (
     TRASH_PAGE,
@@ -197,6 +206,18 @@ def _engine_metrics(
         ),
     )
     return out
+
+
+def _call_weak(method: "weakref.WeakMethod", *args: Any) -> Any:
+    """Run an engine method on the ``asyncio.to_thread`` worker through a
+    weak reference: the worker keeps its work item (and so this function's
+    arguments) for a moment after the call returns, and a strong bound
+    method there would keep a dropped engine alive.  The engine is held
+    only by this frame, while the call runs."""
+    fn = method()
+    if fn is None:
+        raise InferenceError("the engine was dropped before its dispatch ran")
+    return fn(*args)
 
 
 def _deliver_batch(deliveries: "list[tuple[asyncio.Queue, list]]") -> None:
@@ -337,8 +358,9 @@ class EngineStats:
     spec_accepted: int = 0
     spec_emitted: int = 0
     spec_rows: int = 0
-    # the long-context sequence-parallel lane's requests and dispatches:
-    # 0 until the multi-device slice of the port serves that lane
+    # the long-context lane's requests (counted at their prefill's landing)
+    # and decode dispatches (landed; not decode_dispatches, whose count is
+    # mean_occupancy's denominator)
     long_requests: int = 0
     long_dispatches: int = 0
     # admission sheds, deadline expiries, their per-class splits, delivery
@@ -455,14 +477,11 @@ class EngineStats:
 def _check_runtime(rt: RuntimeConfig) -> None:
     """Refuse what this engine does not serve yet (the multi-device knobs),
     and the configurations the reference refuses."""
-    for knob, requested in (
-        ("long_context", rt.long_context), ("tp/dp > 1", rt.tp > 1 or rt.dp > 1),
-    ):
-        if requested:
-            raise ValueError(
-                f"{knob} is not served by the PyTorch engine yet "
-                "(a later slice of the port: multi-device)"
-            )
+    if rt.tp > 1 or rt.dp > 1:
+        raise ValueError(
+            "tp/dp > 1 is not served by the PyTorch engine yet "
+            "(a later slice of the port: multi-device)"
+        )
     if rt.quantization is not None:
         bits_of(rt.quantization)
     if rt.chunked_prefill and rt.max_seq_len % rt.prefill_chunk:
@@ -638,6 +657,30 @@ class InferenceEngine:
             2 * config.n_layers * rows * config.n_kv_heads * S * config.head_dim,
             dtype=self._k.dtype, device=dev,
         )
+        # the long-context lane's buffers, at fixed addresses too (its
+        # graphs, in ``_long_graphs``, replay them): the prefix scratch
+        # [L, 1, K, P, hd] in the KV dtype for the longest padded prompt P,
+        # of which a prompt padded to p takes the [..., :p, :] views; the
+        # fresh-token cache [L, 1, K, cap, hd] in f32, as the JAX engine's;
+        # and the token that enters the lane's next decode dispatch
+        self._long_graphs: dict[tuple, graphs.CapturedDispatch] = {}
+        if rt.long_context:
+            L, K, hd = config.n_layers, config.n_kv_heads, config.head_dim
+            prefix = (L, 1, K, self._long_padded(self._long_max_prompt()), hd)
+            fresh = (L, 1, K, self._long_fresh_cap(), hd)
+            self._long_scratch = tuple(
+                torch.zeros(prefix, dtype=self._k.dtype, device=dev) for _ in range(2)
+            )
+            self._long_fresh = tuple(
+                torch.zeros(fresh, dtype=torch.float32, device=dev) for _ in range(2)
+            )
+            self._long_last = torch.zeros((1,), dtype=torch.int32, device=dev)
+            logger.info(
+                "long-context lane: prefix scratch of %d positions, fresh cache of %d "
+                "(%.2f GB)", prefix[3], fresh[3], sum(
+                    t.numel() * t.element_size() for t in (*self._long_scratch, *self._long_fresh)
+                ) / 1e9,
+            )
         # the launched-but-not-landed decode dispatch (overlap mode only)
         self._pend: "dict | None" = None
         self._last_sync_t: "float | None" = None  # the previous landing's clock
@@ -681,6 +724,11 @@ class InferenceEngine:
         self._inflight: "dict | None" = None  # chunked-prefill wave in flight
         self._carry: list[GenRequest] = []  # wave-trimmed, ahead of the queue
         self._pending: deque[GenRequest] = deque()
+        # the long-context lane: its queue, its chunked prefill in flight,
+        # and the request it decodes (one at a time)
+        self._long_pending: deque[GenRequest] = deque()
+        self._long_inflight: "dict | None" = None
+        self._long: "dict | None" = None
         # ragged unified waves: effective only where the fused dispatch has
         # both of its substrates, the chunk lane to absorb from and the
         # overlap launch path to ride; anything else runs the bifurcated
@@ -799,6 +847,14 @@ class InferenceEngine:
             self._inflight = None
         while self._pending:
             self._pending.popleft().out.put_nowait(_DONE)
+        if self._long is not None:
+            self._long["request"].out.put_nowait(_DONE)
+            self._long = None
+        if self._long_inflight is not None:
+            self._long_inflight["request"].out.put_nowait(_DONE)
+            self._long_inflight = None
+        while self._long_pending:
+            self._long_pending.popleft().out.put_nowait(_DONE)
 
     # -------------------------------------------------------------- submit
     async def generate(
@@ -863,11 +919,17 @@ class InferenceEngine:
             self.stats.orphaned_requests += 1
             self._journal.append(flightrec.EV_ORPHAN, corr, -1, 0)
             raise RunOrphanedError("caller lease lapsed before admission", lease_id=lease[0])
-        if len(prompt) >= self.runtime.max_seq_len:
+        long_lane = len(prompt) >= self.runtime.max_seq_len
+        if long_lane and not self.runtime.long_context:
             raise InferenceError(
                 f"prompt of {len(prompt)} tokens exceeds max_seq_len "
-                f"{self.runtime.max_seq_len} (the long-context lane is a later "
-                "slice of the port)"
+                f"{self.runtime.max_seq_len} (enable RuntimeConfig(long_context=True) "
+                "to serve it through the long-context lane)"
+            )
+        if long_lane and len(prompt) > self._long_max_prompt():
+            raise InferenceError(
+                f"prompt of {len(prompt)} tokens exceeds long_max_prompt "
+                f"{self._long_max_prompt()}"
             )
         request = GenRequest(
             prompt=list(prompt),
@@ -883,16 +945,36 @@ class InferenceEngine:
         if lease is not None:
             request.lease_id, request.lease_ttl = lease
         self._journal.append(flightrec.EV_SUBMIT, corr, -1, len(request.prompt), max_new_tokens)
+        if long_lane:
+            self._queue_long(request)
+        else:
+            self._queue_short(request)
+        self._submit_deadline(request)
+        self._submit_lease(request)
+        self._wake.set()
+        inner = self._consume(request)
+        try:
+            async for item in inner:
+                yield item
+        finally:
+            # aclose() on OUR iterator must cancel NOW, not whenever the
+            # asyncgen finalizer gets around to collecting the inner one
+            await inner.aclose()
+
+    def _queue_short(self, request: GenRequest) -> None:
+        """Queue a short-lane request behind the checks of what it asks for
+        and the lane's bounded admission."""
         if self._drafter is not None:
-            request.history = list(prompt)  # the drafters read prompt + output
+            # the drafters read prompt + output (the long lane never speculates)
+            request.history = list(request.prompt)
         if (
             self.runtime.overlap_dispatch or self._spec is not None
-        ) and len(stop_tokens) > self.runtime.max_stop_tokens:
+        ) and len(request.stop_tokens) > self.runtime.max_stop_tokens:
             # device-side retirement (overlapped decode, and every verify
             # dispatch) scans a fixed-shape per-slot stop table; silently
             # truncating the set would MISS stops
             raise InferenceError(
-                f"request has {len(stop_tokens)} stop tokens but device-side"
+                f"request has {len(request.stop_tokens)} stop tokens but device-side"
                 f" retirement caps the per-slot table at max_stop_tokens="
                 f"{self.runtime.max_stop_tokens}; raise "
                 "RuntimeConfig.max_stop_tokens (or set overlap_dispatch=False "
@@ -901,7 +983,7 @@ class InferenceEngine:
         if self._paged:
             # reject what the pool could NEVER serve: re-queueing it would
             # wait (and starve everything behind it) forever
-            reserve = self._reserve_pages(request, self._bucket_of(len(prompt)))
+            reserve = self._reserve_pages(request, self._bucket_of(len(request.prompt)))
             usable = self._page_alloc.num_pages - 1
             if reserve > usable:
                 raise InferenceError(
@@ -914,17 +996,35 @@ class InferenceEngine:
             "short", len(self._pending) + len(self._carry) + len(self._admitting), request
         )
         self._pending.append(request)
-        self._submit_deadline(request)
-        self._submit_lease(request)
-        self._wake.set()
-        inner = self._consume(request)
-        try:
-            async for item in inner:
-                yield item
-        finally:
-            # aclose() on OUR iterator must cancel NOW, not whenever the
-            # asyncgen finalizer gets around to collecting the inner one
-            await inner.aclose()
+
+    def _queue_long(self, request: GenRequest) -> None:
+        """Queue a long-lane request: its token budget against the fresh
+        cache's static size (a typed fault, or the clamp the runtime opted
+        into), the greedy-only warning, and the lane's bounded admission."""
+        rt = self.runtime
+        if request.max_new_tokens > rt.long_new_cap:
+            # the fresh cache is sized by the cap: the budget cannot be
+            # honored, and shrinking it silently would break the caller's
+            # accounting, unless the runtime opted into the clamp
+            if not rt.long_clamp_new_tokens:
+                raise InferenceError(
+                    f"long-context request asked for {request.max_new_tokens} new tokens "
+                    f"but long_new_cap is {rt.long_new_cap}; lower max_new_tokens, raise "
+                    "RuntimeConfig.long_new_cap, or opt in to clamping with "
+                    "RuntimeConfig(long_clamp_new_tokens=True)"
+                )
+            request.max_new_tokens = rt.long_new_cap
+            logger.warning(
+                "long request clamped to long_new_cap=%d new tokens "
+                "(long_clamp_new_tokens=True)", rt.long_new_cap,
+            )
+        if not self._effective_sampling(request).is_greedy:
+            logger.warning(
+                "long-context lane decodes greedily; sampling settings are ignored "
+                "for this request"
+            )
+        self._shed_if_full("long", len(self._long_pending), request)
+        self._long_pending.append(request)
 
     # ------------------------------------------------- overload protection
     def _count_shed_class(self, priority: str) -> None:
@@ -939,16 +1039,20 @@ class InferenceEngine:
         else:
             self.stats.interactive_expired += 1
 
-    def _shed_victim(self) -> "GenRequest | None":
+    def _shed_victim(self, lane: str) -> "GenRequest | None":
         """The QUEUED batch-class request to evict so an arriving
         interactive request takes its place at a full lane: among batch
         requests, the one whose caller lease has the OLDEST beat (un-leased
         or never-beaten requests read age 0, the most alive).  Only queued
-        entries are candidates: evicting an active slot would discard paid
-        prefill work.  None when no batch request is queued."""
+        entries of ``lane`` are candidates: evicting an active slot would
+        discard paid prefill work.  None when no batch request is queued."""
+        queued = (
+            self._long_pending if lane == "long"
+            else (*self._carry, *self._pending, *self._admitting)
+        )
         victim: "GenRequest | None" = None
         victim_age = -1.0
-        for r in (*self._carry, *self._pending, *self._admitting):
+        for r in queued:
             if r.cancelled or not qos.class_rank(r.priority):
                 continue
             age = leases.lease_age(r.lease_id)
@@ -981,7 +1085,7 @@ class InferenceEngine:
         if not limit or pending < limit:
             return
         if not qos.class_rank(request.priority):
-            victim = self._shed_victim()
+            victim = self._shed_victim(lane)
             if victim is not None:
                 self._shed_queued(victim, lane, pending, limit)
                 return  # admitted in the victim's place
@@ -1019,7 +1123,14 @@ class InferenceEngine:
         """Is this request still queued or holding engine resources?"""
         if request.slot != -1:
             return True
-        return any(r is request for r in (*self._carry, *self._pending, *self._admitting))
+        if self._long is not None and self._long["request"] is request:
+            return True
+        if self._long_inflight is not None and self._long_inflight["request"] is request:
+            return True
+        return any(
+            r is request
+            for r in (*self._carry, *self._pending, *self._long_pending, *self._admitting)
+        )
 
     def _check_deadlines(self) -> None:
         """Reap queued AND active requests whose deadline passed, through
@@ -1125,6 +1236,10 @@ class InferenceEngine:
         if not bound:
             return
         stalled = [r for r in self._active.values() if not r.cancelled and r.out.qsize() > bound]
+        if self._long is not None:
+            r = self._long["request"]
+            if not r.cancelled and r.out.qsize() > bound:
+                stalled.append(r)
         for request in stalled:
             request.stalled = True
             request.cancelled = True
@@ -1142,18 +1257,26 @@ class InferenceEngine:
 
     def _watchdog_requests(self) -> "list[GenRequest]":
         """Every request the engine owes an outcome: active slots, the
-        queues, mid-admission prefills and the inflight chunked wave."""
+        queues, mid-admission prefills, the inflight chunked wave and the
+        long lane."""
         out: list[GenRequest] = [
             *self._active.values(), *self._carry, *self._pending, *self._admitting,
+            *self._long_pending,
         ]
         if self._inflight is not None:
             out.extend(self._inflight["wave"])
+        if self._long is not None:
+            out.append(self._long["request"])
+        if self._long_inflight is not None:
+            out.append(self._long_inflight["request"])
         return out
 
     def _work_pending(self) -> bool:
         return bool(
             self._active or self._pending or self._carry or self._admitting
             or self._inflight is not None or self._pend is not None
+            or self._long is not None or self._long_inflight is not None
+            or self._long_pending
         )
 
     async def _watchdog(self) -> None:
@@ -1242,7 +1365,7 @@ class InferenceEngine:
             try:
                 candidates: list[GenRequest] = [
                     *self._active.values(), *self._carry, *self._pending,
-                    *self._admitting,
+                    *self._long_pending, *self._admitting,
                 ]
                 break
             except RuntimeError:
@@ -1253,6 +1376,10 @@ class InferenceEngine:
             return 0
         if self._inflight is not None:
             candidates += self._inflight["wave"]
+        if self._long is not None:
+            candidates.append(self._long["request"])
+        if self._long_inflight is not None:
+            candidates.append(self._long_inflight["request"])
         matched = 0
         for request in candidates:
             if request.corr == corr and not request.cancelled:
@@ -1343,27 +1470,30 @@ class InferenceEngine:
                     # ragged unified waves: ONE scheduler lane — the pass
                     # forms/advances the admission wave and the decode rows
                     # through a single fused dispatch per tick
-                    if not await self._ragged_pass():
+                    progressed = await self._ragged_pass()
+                    progressed |= await self._advance_long()
+                    if not progressed:
                         self._wake.clear()
-                        if not self._pending and not self._carry:
+                        if not self._queued_work():
                             await self._wake.wait()
                     continue
                 if self.runtime.chunked_prefill:
                     progressed = await self._admit_chunked()
                 else:
                     progressed = await self._admit()
+                progressed |= await self._advance_long()
                 if self._active:
-                    await asyncio.to_thread(
+                    await self._on_worker(
                         self._spec_decode_tick if self._drafter is not None
                         else self._decode_tick
                     )
                 elif self._pend is not None:
                     # every participant retired/cancelled while a dispatch
                     # was in flight: land it so the deferred frees happen
-                    await asyncio.to_thread(self._drain_decode)
+                    await self._on_worker(self._drain_decode)
                 elif not progressed and self._inflight is None:
                     self._wake.clear()
-                    if not self._pending and not self._carry:
+                    if not self._queued_work():
                         await self._wake.wait()
         except Exception as exc:  # noqa: BLE001 - the loop's crash rail
             logger.exception("inference engine scheduler crashed")
@@ -1377,6 +1507,16 @@ class InferenceEngine:
             except Exception:  # noqa: BLE001
                 logger.exception("flight-recorder fault dump failed")
             self._finish_all()
+
+    def _queued_work(self) -> bool:
+        """Work that a scheduler pass can take up without a wake-up."""
+        return bool(self._pending or self._carry or self._long_pending or self._long is not None)
+
+    async def _on_worker(self, method: Any, *args: Any) -> Any:
+        """Every dispatch of the engine runs on an ``asyncio.to_thread``
+        worker through :func:`_call_weak`, so no worker thread holds the
+        engine once the call has returned."""
+        return await asyncio.to_thread(_call_weak, weakref.WeakMethod(method), *args)
 
     def _drain_deferred_cancels(self) -> None:
         if not self._deferred_cancels:
@@ -1428,6 +1568,19 @@ class InferenceEngine:
                 else:
                     kept_q.append(request)
             self._pending = kept_q
+        if self._long is not None and self._long["request"].cancelled:
+            self._note_cancel(self._long["request"])
+            self._long["request"].out.put_nowait(_DONE)
+            self._long = None
+        if any(r.cancelled for r in self._long_pending):
+            kept_l: deque[GenRequest] = deque()
+            for request in self._long_pending:
+                if request.cancelled:
+                    self._note_cancel(request)
+                    request.out.put_nowait(_DONE)
+                else:
+                    kept_l.append(request)
+            self._long_pending = kept_l
 
     def _next_pending(self) -> GenRequest | None:
         while self._carry or self._pending:
@@ -1670,12 +1823,284 @@ class InferenceEngine:
             wave, wave_bucket = formed
             self._admitting = wave
             try:
-                await asyncio.to_thread(self._prefill_wave, wave, wave_bucket)
+                await self._on_worker(self._prefill_wave, wave, wave_bucket)
             finally:
                 self._admitting = []
             self._activate_wave(wave)
             admitted = True
         return admitted
+
+    # ------------------------------------------------- long-context lane
+    # Prompts that cannot fit a short-lane slot are served one at a time:
+    # the prefill runs over the whole padded prompt into the lane's own
+    # scratch (monolithic, or one chunk per scheduler pass under chunked
+    # prefill), and decode runs against that prefix merged with a
+    # fresh-token cache (``ring_attention.decode_sp_dispatch``).  One long
+    # dispatch per scheduler pass interleaves with the short lane's ticks,
+    # so short streams' inter-token latency stays bounded while a long
+    # request is in flight.  Every dispatch is a graph of ``_long_graphs``.
+
+    def _long_max_prompt(self) -> int:
+        rt = self.runtime
+        return rt.long_max_prompt or 8 * rt.max_seq_len
+
+    def _long_fresh_cap(self) -> int:
+        """Static size of the fresh-token cache: one buffer (and one decode
+        graph per prefix bucket) whatever a request's max_new_tokens."""
+        steps = self.runtime.decode_steps_per_dispatch
+        return -(-self.runtime.long_new_cap // steps) * steps
+
+    def _long_padded(self, n: int) -> int:
+        """Pad to a power-of-two multiple of the prefill chunk (the JAX
+        engine's lcm(sp, prefill_chunk) at sp = 1): power-of-two bucketing
+        bounds the lane's graphs at log(range) prefix lengths."""
+        g = self.runtime.prefill_chunk
+        units = -(-n // g)
+        p2 = 1
+        while p2 < units:
+            p2 *= 2
+        return g * p2
+
+    def _long_prefix(self, padded: int) -> "tuple[torch.Tensor, torch.Tensor]":
+        """The [L, 1, K, padded, hd] views of the lane's prefix scratch."""
+        return tuple(side[:, :, :, :padded] for side in self._long_scratch)
+
+    async def _advance_long(self) -> bool:
+        if not self.runtime.long_context:
+            return False
+        if self._long is not None:
+            await self._on_worker(self._long_decode_tick)
+            return True
+        if self._long_inflight is not None:
+            await self._on_worker(self._advance_long_prefill)
+            return True
+        request = None
+        while self._long_pending:
+            candidate = self._long_pending.popleft()
+            if candidate.cancelled:
+                self._note_cancel(candidate)
+                candidate.out.put_nowait(_DONE)
+                continue
+            request = candidate
+            break
+        if request is None:
+            return False
+        self._journal.append(flightrec.EV_ADMIT_LONG, request.corr, -1, len(request.prompt))
+        if self.runtime.chunked_prefill:
+            # resumable: one chunk per scheduler pass, the short lane's
+            # ticks run between chunks
+            self._start_long_inflight(request)
+            return True
+        self._admitting = [request]
+        try:
+            await self._on_worker(self._long_prefill, request)
+        finally:
+            self._admitting = []
+        return True
+
+    def _long_tokens(self, request: GenRequest, padded: int) -> np.ndarray:
+        tokens = np.zeros((1, padded), np.int32)
+        tokens[0, : len(request.prompt)] = request.prompt
+        return tokens
+
+    def _install_long_state(
+        self, request: GenRequest, padded: int, n: int, first: int, started: float
+    ) -> None:
+        """Shared landing of both long-prefill paths (the first token is in
+        ``_long_last`` on the device too): emit it and stage the decode
+        state."""
+        request.prefill_ms = (time.perf_counter() - started) * 1000.0
+        self.stats.prefill_tokens += n
+        self.stats.long_requests += 1
+        self._note_progress()  # a long prefill landing is watchdog progress
+        self._observe("prefill_ms", request.prefill_ms)
+        ttft_ms = (time.perf_counter() - request.started_at) * 1000.0
+        self._observe("ttft_ms", ttft_ms)
+        # the long lane's wait is everything before its prefill started
+        self._observe("queue_wait_ms", max(0.0, ttft_ms - request.prefill_ms))
+        if self._emit_long(request, first):
+            return
+        self._long = dict(
+            request=request, padded=padded, prefix_len=n, t=0, cap=self._long_fresh_cap()
+        )
+
+    def _long_prefill_graph(self, padded: int) -> graphs.CapturedDispatch:
+        """The monolithic long prefill: the whole padded prompt through
+        ``prefill_sequence_parallel``, its K/V written into the prefix
+        scratch, the first token (greedy) into ``_long_last`` →
+        fn(tokens [1, padded], n [1]) → ``_long_last``."""
+
+        def build():
+            eng, cfg = weakref.proxy(self), self.config
+            prefix = self._long_prefix(padded)
+
+            def prefill(tokens, n):
+                logits, _ = RA.prefill_sequence_parallel(eng.params, cfg, tokens, n, prefix)
+                eng._long_last.copy_(torch.argmax(logits, dim=-1))
+                return eng._long_last
+
+            return prefill, [((1, padded), torch.int32), ((1,), torch.int32)]
+
+        return self._cached(self._long_graphs, ("prefill_sp", padded), build)
+
+    def _long_prefill(self, request: GenRequest) -> None:
+        n = len(request.prompt)
+        padded = self._long_padded(n)
+        started = time.perf_counter()
+        first = self._long_prefill_graph(padded)(
+            self._long_tokens(request, padded), np.asarray([n], np.int32)
+        )
+        (first,) = self._sync_host(self._stage_host((first,)))
+        self._install_long_state(request, padded, n, int(first[0]), started)
+
+    def _long_chunk_graph(self, chunk: int, padded: int) -> graphs.CapturedDispatch:
+        """One chunk of the chunked long prefill: the short lane's chunk
+        body over the prefix scratch's first ``padded`` positions, and the
+        greedy token at ``last_idx`` into ``_long_last`` → fn(tokens [1,
+        chunk], offset [1], last_idx [1]) → ``_long_last``."""
+
+        def build():
+            eng = weakref.proxy(self)
+            chunk_step = self._chunk_body(chunk, 1, self._long_prefix(padded))
+
+            def long_chunk(tokens, offset, last_idx):
+                logits = chunk_step(tokens, offset, last_idx)
+                eng._long_last.copy_(torch.argmax(logits, dim=-1))
+                return eng._long_last
+
+            return long_chunk, self._chunk_specs(chunk, 1)
+
+        return self._cached(self._long_graphs, ("chunk", chunk, 1, padded), build)
+
+    def _start_long_inflight(self, request: GenRequest) -> None:
+        """Host-side setup of a resumable chunked long prefill over the
+        prefix scratch.  Only the chunks that cover the prompt run; the
+        positions past it are never attended (the decode masks them)."""
+        n = len(request.prompt)
+        padded = self._long_padded(n)
+        chunk = min(self.runtime.prefill_chunk, padded)
+        self._long_inflight = dict(
+            request=request, tokens=self._long_tokens(request, padded), true_len=n,
+            padded=padded, chunk=chunk, n_chunks=-(-n // chunk), idx=0,
+            started=time.perf_counter(),
+        )
+
+    def _advance_long_prefill(self) -> None:
+        """One chunk of the inflight long prefill; land on the last."""
+        inf = self._long_inflight
+        request = inf["request"]
+        if request.cancelled:
+            self._note_cancel(request)
+            self._long_inflight = None
+            # runs on the to_thread worker: queue puts marshal to the loop
+            self._loop.call_soon_threadsafe(request.out.put_nowait, _DONE)
+            return
+        chunk, idx, n = inf["chunk"], inf["idx"], inf["true_len"]
+        offset = idx * chunk
+        # the last prompt-covering chunk holds the final valid position
+        last_idx = (n - 1) - (inf["n_chunks"] - 1) * chunk if idx + 1 == inf["n_chunks"] else 0
+        first = self._long_chunk_graph(chunk, inf["padded"])(
+            inf["tokens"][:, offset:offset + chunk], np.asarray([offset], np.int32),
+            np.asarray([last_idx], np.int64),
+        )
+        inf["idx"] = idx + 1
+        if inf["idx"] < inf["n_chunks"]:
+            return
+        (first,) = self._sync_host(self._stage_host((first,)))
+        self._long_inflight = None
+        self._install_long_state(request, inf["padded"], n, int(first[0]), inf["started"])
+
+    def _long_decode_graph(self, steps: int, padded: int) -> graphs.CapturedDispatch:
+        """The long lane's decode dispatch: ``steps`` greedy tokens from
+        ``_long_last`` against the prefix's first ``padded`` positions and
+        the fresh cache (written in place at t0 + i), ``_long_last``
+        advanced in place → fn(t0 [1], prefix_len [1]) → toks [1, steps]."""
+        cap = self._long_fresh_cap()
+
+        def build():
+            eng, cfg = weakref.proxy(self), self.config
+            prefix, fresh = self._long_prefix(padded), self._long_fresh
+
+            def decode(t0, prefix_len):
+                toks, last, _ = RA.decode_sp_dispatch(
+                    eng.params, cfg, eng._long_last, prefix, prefix_len, fresh, t0, steps
+                )
+                eng._long_last.copy_(last)
+                return toks
+
+            return decode, [((1,), torch.int32), ((1,), torch.int32)]
+
+        return self._cached(self._long_graphs, ("decode_sp", steps, 1, cap, padded), build)
+
+    def _long_decode_tick(self) -> None:
+        """One long-lane pass.  Overlap mode launches the next dispatch
+        before it lands the previous one, as the short lane does; the
+        block's host copy is staged right after its launch, before the
+        follow-up replays over the graph's output.  A stop token found in
+        the landed block abandons the launched follow-up (its steps count
+        as ``overlap_wasted_tokens``; what it writes into the lane's
+        buffers is overwritten by the next request before it is read)."""
+        state = self._long
+        request = state["request"]
+        pend = state.pop("pend", None)
+        launched: "dict | None" = None
+        if state["t"] < state["cap"]:
+            steps = min(self.runtime.decode_steps_per_dispatch, state["cap"] - state["t"])
+            started = time.perf_counter()
+            toks = self._long_decode_graph(steps, state["padded"])(
+                np.asarray([state["t"]], np.int32), np.asarray([state["prefix_len"]], np.int32)
+            )
+            state["t"] += steps
+            launched = dict(staged=self._stage_host((toks,)), steps=steps, started=started)
+        if self.runtime.overlap_dispatch:
+            # double-buffered: the block launched THIS pass lands next pass,
+            # with its follow-up already in flight
+            state["pend"] = launched
+            landing = pend
+        else:
+            landing = launched
+        if landing is None:
+            return  # the first overlapped pass: launch only
+        (block,) = self._sync_host(landing["staged"])  # [1, steps]: the lane's sync
+        now = time.perf_counter()
+        start = landing["started"]
+        last_sync = state.get("synced_at")
+        if last_sync is not None and last_sync > start:
+            start = last_sync  # exclusive wall (see _land_decode)
+        state["synced_at"] = now
+        # NOT decode_dispatches: that counts mean_occupancy's denominator,
+        # and a long dispatch holds no slot
+        self._note_progress()
+        self.stats.long_dispatches += 1
+        self.stats.decode_time_s += now - start
+        done = False
+        for token in block[0]:
+            done = self._emit_long(request, int(token))
+            if done:
+                break
+        inflight = state.get("pend")
+        if done:
+            if inflight is not None:
+                # one-dispatch-late retirement: the launched follow-up's
+                # block is all pad now
+                self.stats.overlap_wasted_tokens += inflight["steps"]
+            self._drop_deadline(request)
+            self._drop_lease(request)
+            self._long = None
+        elif state["t"] >= state["cap"] and inflight is None:
+            self._drop_deadline(request)
+            self._drop_lease(request)
+            self._loop.call_soon_threadsafe(request.out.put_nowait, _DONE)
+            self._long = None
+
+    def _emit_long(self, request: GenRequest, token: int) -> bool:
+        """Record one long-lane token (on the to_thread worker) → True when
+        the request retired."""
+        items: list = []
+        done = self._record_token(request, token, items, long=True)
+        if items:
+            self._loop.call_soon_threadsafe(_deliver_batch, [(request.out, items)])
+        return done
 
     # ------------------------------------------------------- device work
     def _stage_host(self, tensors: "tuple[torch.Tensor, ...]") -> tuple:
@@ -1917,7 +2342,7 @@ class InferenceEngine:
             if formed is None:
                 return False
             self._start_inflight_wave(*formed)
-        if await asyncio.to_thread(self._advance_inflight):
+        if await self._on_worker(self._advance_inflight):
             wave = self._inflight["wave"]
             self._inflight = None
             self._activate_wave(wave)
@@ -1973,13 +2398,14 @@ class InferenceEngine:
 
         return self._cached(self._prefill_graphs, ("seed", bucket, n_pages, rows), build)
 
-    def _chunk_body(self, chunk: int, rows: int) -> Any:
-        """The prefill-chunk body, shared by the chunk and the ragged
-        graphs: a forward of [R, chunk] tokens at a device offset into the
-        wave's scratch (written in place) → fn(tokens, offset [1],
-        last_idx [R]) → the logits [R, V] at each row's ``last_idx``."""
+    def _chunk_body(self, chunk: int, rows: int, scratch: "tuple | None" = None) -> Any:
+        """The prefill-chunk body, shared by the chunk, the ragged and the
+        long lane's chunk graphs: a forward of [R, chunk] tokens at a device
+        offset into ``scratch`` (default: the wave's), written in place →
+        fn(tokens, offset [1], last_idx [R]) → the logits [R, V] at each
+        row's ``last_idx``."""
         eng, cfg, dev = weakref.proxy(self), self.config, self.device
-        scratch = self._scratch(rows)
+        scratch = self._scratch(rows) if scratch is None else scratch
 
         def chunk_step(tokens, offset, last_idx):
             pos = (offset + torch.arange(chunk, dtype=torch.int32, device=dev)).expand(rows, chunk)
@@ -2086,7 +2512,7 @@ class InferenceEngine:
                 self._start_inflight_wave(*formed)
                 progressed = True
         if self._active or self._inflight is not None or self._pend is not None:
-            if await asyncio.to_thread(self._ragged_tick):
+            if await self._on_worker(self._ragged_tick):
                 wave = self._inflight["wave"]
                 self._inflight = None
                 self._activate_wave(wave)
@@ -2828,11 +3254,13 @@ class InferenceEngine:
         self._untrack_retirement(request)
         self._update_active_gauge()
 
-    def _record_token(self, request: GenRequest, token: int, items: list) -> bool:
-        """THE retirement authority of host-side retirement: bump
-        ``generated``, classify stop/exhaustion, reclaim the slot on
-        retirement.  Appends deliverable tokens (and the _DONE sentinel) to
-        ``items``; returns True when the request retired."""
+    def _record_token(
+        self, request: GenRequest, token: int, items: list, *, long: bool = False
+    ) -> bool:
+        """THE retirement authority of host-side retirement (and of the
+        long lane): bump ``generated``, classify stop/exhaustion, reclaim
+        the slot on retirement.  Appends deliverable tokens (and the _DONE
+        sentinel) to ``items``; returns True when the request retired."""
         request.generated += 1
         hit_stop = token in request.stop_tokens
         if not hit_stop:
@@ -2840,9 +3268,17 @@ class InferenceEngine:
             self.stats.decode_tokens += 1
             if request.history is not None:  # speculation: drafter context
                 request.history.append(token)
-        # exhaustion == the retire heap's bound formula reaching zero
-        done = hit_stop or self._retirement_bound(request) <= 0
+        if long:
+            # the long lane holds no slot, and its room is the fresh cache,
+            # which long_new_cap bounds: its retirement is recorded here
+            done = hit_stop or request.generated >= request.max_new_tokens
+            if done:
+                self._journal.append(flightrec.EV_RETIRE, request.corr, -1, request.generated)
+        else:
+            # exhaustion == the retire heap's bound formula reaching zero
+            done = hit_stop or self._retirement_bound(request) <= 0
+            if done:
+                self._retire_slot(request)
         if done:
-            self._retire_slot(request)
             items.append(_DONE)
         return done

@@ -140,6 +140,7 @@ class CapturedDispatch:
         self._launches: dict[str, int] = {}  # kernel launches of one replay
         self._hooks: dict[Any, list] = {}  # on_replay's, by tag
         self.calls = 0
+        self.capture_s = 0.0  # its first call's seconds on a card (eager run + capture)
 
     def __call__(self, *args: "np.ndarray | torch.Tensor") -> Any:
         if len(args) != len(self.inputs):
@@ -195,6 +196,7 @@ class CapturedDispatch:
                 self._launches[name] = n - before[name]
                 A.launch_counts[name] = before[name]
         self._graph, self._outputs = graph, captured
+        self.capture_s = time.perf_counter() - started
         owner.stats["captures"] += 1
-        owner.stats["capture_s"] += time.perf_counter() - started
+        owner.stats["capture_s"] += self.capture_s
         return out

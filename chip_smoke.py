@@ -104,7 +104,31 @@ the final ``ok`` line is never printed:
    ``stop()``, the same endings in both runs and the survivors' streams
    equal; then the prefill kernel and the paged decode kernel (over the
    phase's own pool after eviction, through its last block tables) against
-   their plain versions at the phase's most launched shapes.
+   their plain versions at the phase's most launched shapes;
+14. the long-context lane (``RuntimeConfig(long_context=True)``, sp = 1):
+   (a) a 5,000- and a 1,500-token prompt, 32 new tokens, on the f32
+   exactness model at ``max_seq_len`` 1024, through the monolithic and the
+   chunked long prefill, overlapped and lockstep: every stream equals the
+   short lane of a roomier engine (``max_seq_len`` 8192) and the
+   step-by-step recompute, and the lane lands the JAX engine's count of
+   dispatches; (b) the full llama-3-8b preset in bf16 (the last bf16
+   north-star drive's weights) on the north star's runtime with the lane
+   on: 8 short requests decode when the two long prompts (64 new tokens
+   each) arrive, chunked (the lane's main path: #1 and #5 counted and
+   tallied by shape) and monolithic; the long streams equal a plain
+   recompute up to a bf16 tie, no dispatch runs outside a graph, and after
+   ``stop()`` every slot and page is free; it prints each long request's
+   TTFT and prefill seconds, the lane's decode tok/s and mean dispatch, the
+   short streams' largest inter-token gap while a long prefill is in
+   flight, the lane's graphs, the scratch's bytes and the peak allocation;
+   (c) the chunked drive lockstep under ``graphs.eager()`` and on graphs:
+   streams bit for bit, peak at most 1.25 x eager's; (d) an agent turn
+   longer than ``max_seq_len`` through ``TorchLocalModelClient``, served
+   by the lane; (e) #5 on a whole 8,192-position prompt (5,000 valid) as
+   the ring passes its K/V and on a 128-token chunk at offset 4,992 of
+   the 8,192 scratch, and #1 at B = 1 over W = 8,192 (5,000 valid),
+   against their plain versions, SDPA and the bound; the ``kernels`` line
+   reports them under ``long_lane`` beside the lane's launches.
 
 The kernel phase also holds the ragged multi-query kernels (speculative
 verify shapes S = 5, a mixed-row case with prefill-kind and fresh rows, page
@@ -383,14 +407,17 @@ def paged_decode_case(dev, dtype, B, K, G, hd, page, lens, wpages, seed, layer=1
     )
 
 
-def prefill_case(dev, dtype, R, S, H, K, hd, seed, offset=0, Skv=None, lens=None):
+def prefill_case(dev, dtype, R, S, H, K, hd, seed, offset=0, Skv=None, lens=None,
+                 seq_major=False):
     """``R`` rows of ``S`` queries at positions ``offset``.. against a cache
     of ``Skv`` positions (default ``S``), ``offset + S`` of them valid: a
     whole prompt from position 0, or a chunk of the chunk lane, whose
     scratch holds the wave's whole bucket.  With ``lens`` (one a row), row
     b's queries end at its len instead (a row of len 0 sees nothing) and
     K/V are a layer of a [2, R, K, Skv, hd] cache: the draft model's
-    forwards over its window."""
+    forwards over its window; with ``seq_major`` too, K/V are the
+    [R, K, Skv, hd] views of [R, Skv, K, hd] tensors, as the long lane's
+    ring passes a layer's fresh K/V (``ring_attention``)."""
     Skv = S if Skv is None else Skv
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((R, S, H, hd), generator=g, device=dev).to(dtype)
@@ -400,8 +427,12 @@ def prefill_case(dev, dtype, R, S, H, K, hd, seed, offset=0, Skv=None, lens=None
         pos = (offset + torch.arange(S, dtype=torch.int32, device=dev)).expand(R, S).contiguous()
         lens_t = torch.full((R,), offset + S, dtype=torch.int32, device=dev)
     else:
-        cache = torch.randn((2, R, K, Skv, hd), generator=g, device=dev).to(dtype)
-        k, v = cache[0], cache[1]
+        if seq_major:
+            cache = torch.randn((2, R, Skv, K, hd), generator=g, device=dev).to(dtype)
+            k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+        else:
+            cache = torch.randn((2, R, K, Skv, hd), generator=g, device=dev).to(dtype)
+            k, v = cache[0], cache[1]
         pos = torch.tensor([[max(n, S) - S + j for j in range(S)] for n in lens],
                            dtype=torch.int32, device=dev)
         lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -432,10 +463,18 @@ def prefill_case(dev, dtype, R, S, H, K, hd, seed, offset=0, Skv=None, lens=None
                               causal=offset == 0)
         shape = dict(R=R, S=S, q_pos0=offset, Skv=Skv, H=H, K=K, hd=hd, dtype=str(dtype))
     else:
-        w = torch.arange(Skv, device=dev)[None, None, :]
-        mask = ((w <= pos[:, :, None]) & (w < lens_t[:, None, None]))[:, None]
-        library_ms = _sdpa_ms(q.transpose(1, 2), k, v, mask=mask)
         shape = dict(R=R, S=S, lens=list(lens), Skv=Skv, H=H, K=K, hd=hd, dtype=str(dtype))
+        if seq_major:
+            # the ring's case, q_pos = arange(S): SDPA's causal attention
+            # over the valid positions gives every row below its length
+            shape["kv"] = "seq-major"
+            n = max(lens)
+            library_ms = _sdpa_ms(q[:, :n].transpose(1, 2), k[:, :, :n], v[:, :, :n],
+                                  causal=True)
+        else:
+            w = torch.arange(Skv, device=dev)[None, None, :]
+            mask = ((w <= pos[:, :, None]) & (w < lens_t[:, None, None]))[:, None]
+            library_ms = _sdpa_ms(q.transpose(1, 2), k, v, mask=mask)
     return dict(
         name="prefill_attention", shape=shape, max_abs_err=err, tol=PREFILL_TOL[dtype],
         ms=time_ms(lambda: A.prefill_attention(q, k, v, pos, lens_t), iters=5),
@@ -814,9 +853,9 @@ def graph_numbers(engine) -> dict:
     them; fails if a dispatch ran outside a graph while :func:`eager` is
     off (every call is a capture or a replay)."""
     out = dict(engine._graphs.stats)
-    out["calls"] = sum(fn.calls for fn in (
-        *engine._decode_graphs.values(), *engine._prefill_graphs.values()))
-    out["keys"] = len(engine._decode_graphs) + len(engine._prefill_graphs)
+    tables = (engine._decode_graphs, engine._prefill_graphs, engine._long_graphs)
+    out["calls"] = sum(fn.calls for table in tables for fn in table.values())
+    out["keys"] = sum(map(len, tables))
     if engine.device.type == "cuda" and not graphs.eager_active():
         assert out["eager"] == 0 and out["calls"] == out["captures"] + out["replays"], out
     return out
@@ -2494,6 +2533,416 @@ async def overload_phase(dev, params, card: str = "") -> "tuple[dict, list[dict]
     return result, cases
 
 
+# --------------------------------------------------------------------------- #
+# phase 14: the long-context lane
+# --------------------------------------------------------------------------- #
+
+LONG_LENS = (5000, 1500)  # padded to 8,192 and 2,048 positions
+LONG_NEW = 64
+LONG_EXACT_NEW = 32
+LONG_SHORT_NEW = 128
+# the exactness runtime: dense, 8B widths; its roomier twin serves the same
+# prompts through the short lane
+LONG_EXACT_RT = RuntimeConfig(
+    max_batch_size=2, max_seq_len=1024, prefill_chunk=128, decode_steps_per_dispatch=8,
+    long_context=True,
+)
+LONG_ROOMY_RT = RuntimeConfig(
+    max_batch_size=2, max_seq_len=8192, prefill_chunk=128, decode_steps_per_dispatch=8,
+)
+# the north star's runtime with the lane on (its own dense prefix of 8,192
+# positions beside the paged pool)
+LONG_RUNTIME = replace(NORTH_STAR_RUNTIME, long_context=True)
+
+
+def long_prompts(vocab_size: int, seed: int) -> "list[list[int]]":
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab_size, n).tolist() for n in LONG_LENS]
+
+
+def long_landings(new_tokens: "list[int]", steps: int) -> int:
+    """The long dispatches the JAX engine's lane lands for requests of
+    ``new_tokens`` (the first token comes from the prefill; one landing a
+    dispatch of ``steps``; an overlapped follow-up abandoned at a retirement
+    does not land)."""
+    return sum(-(-(n - 1) // steps) for n in new_tokens)
+
+
+class LaneEngine(InferenceEngine):
+    """The engine with the long lane's clocks, read by phase 14: each long
+    prefill's (prompt tokens, start, landing), and each landed long
+    dispatch's exclusive wall (what the engine adds to ``decode_time_s``)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.long_prefills: list = []
+        self.long_walls: list = []
+
+    def _install_long_state(self, request, padded, n, first, started):
+        self.long_prefills.append((n, started, time.perf_counter()))
+        super()._install_long_state(request, padded, n, first, started)
+
+    def _long_decode_tick(self):
+        before, landed = self.stats.decode_time_s, self.stats.long_dispatches
+        super()._long_decode_tick()
+        if self.stats.long_dispatches > landed:
+            self.long_walls.append(self.stats.decode_time_s - before)
+
+
+class LaneDecodeTally:
+    """Phase 14's tally of the dense decode wrapper's launches by (B, 1, W),
+    as :func:`_tally` does: the wrapper is installed while the object is
+    entered (its engines capture their graphs inside it, so the earlier
+    phases' graphs carry no observer of this wrapper), and counts only
+    inside :meth:`window`."""
+
+    def __init__(self):
+        self.tally: "dict | None" = None
+        self._inner = None
+
+    def __enter__(self):
+        inner = self._inner = A.decode_attention
+
+        def tallied(q, k_cache, v_cache, lens):
+            key = (q.shape[0], 1, k_cache.shape[2])
+
+            def record(n, copies):
+                entry = self.tally.setdefault(key, [0, None])
+                entry[0] += n
+                entry[1] = copies[0]
+
+            observe_call(("decode_attention", key), [lens], record,
+                         lambda: self.tally is not None)
+            return inner(q, k_cache, v_cache, lens)
+
+        A.decode_attention = tallied
+        return self
+
+    def __exit__(self, *exc):
+        A.decode_attention = self._inner
+
+    @contextlib.contextmanager
+    def window(self):
+        self.tally = {}
+        try:
+            yield self.tally
+        finally:
+            self.tally = None
+
+
+async def _timed_stream(engine, prompt, n, arrivals: list) -> "list[int]":
+    """A greedy stream, with each token's arrival on the host clock (the
+    submit first)."""
+    arrivals.append(time.perf_counter())
+    out = []
+    async for tok in engine.generate(prompt, max_new_tokens=n):
+        arrivals.append(time.perf_counter())
+        out.append(tok)
+    return out
+
+
+def _gaps_during(arrivals: "list[list[float]]", windows: "list[tuple]") -> float:
+    """The longest stretch of a window (start, end) in which a stream, once
+    it had its first token, received none: each gap between two token
+    arrivals clipped to the window → seconds (0 when none overlaps)."""
+    worst = 0.0
+    for times in arrivals:
+        for a, b in zip(times[1:], times[2:]):  # from the first token on
+            for start, end in windows:
+                worst = max(worst, min(b, end) - max(a, start))
+    return worst
+
+
+async def _long_exact_streams(cfg, rt, params, dev, prompts) -> "tuple[list, EngineStats]":
+    torch.cuda.reset_peak_memory_stats(dev)
+    engine = InferenceEngine(cfg, rt, params=params, device=dev)
+    await engine.start()
+    try:
+        streams = (await serve(engine, [(p, LONG_EXACT_NEW, {}) for p in prompts]))[0]
+    finally:
+        await engine.stop()
+    numbers = graph_numbers(engine)
+    assert engine._long is None and not engine._long_pending and len(engine._free) == 2
+    print(f"    {graph_note(numbers, torch.cuda.max_memory_allocated(dev))}")
+    return streams, engine.stats
+
+
+async def long_exactness(dev) -> dict:
+    """Phase 14 (a): a 1,500- and a 5,000-token prompt, 32 new tokens, on
+    the f32 exactness model (8B widths, 4 layers) at ``max_seq_len`` 1024:
+    the monolithic and the chunked long prefill, each overlapped and
+    lockstep; every stream equals the short lane of a roomier engine
+    (``max_seq_len`` 8192) and a step-by-step recompute with the plain
+    attention, and the lane lands the JAX engine's count of dispatches."""
+    cfg = preset("llama-3-8b", n_layers=4, dtype="float32")
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(1))
+    prompts = long_prompts(cfg.vocab_size, 14)
+    roomy, _ = await _long_exact_streams(cfg, LONG_ROOMY_RT, params, dev, prompts)
+    landings = long_landings([LONG_EXACT_NEW] * 2, LONG_EXACT_RT.decode_steps_per_dispatch)
+    runs = {}
+    for name, over in (("monolithic", {}), ("chunked", dict(chunked_prefill=True)),
+                       ("monolithic-lockstep", dict(overlap_dispatch=False)),
+                       ("chunked-lockstep", dict(chunked_prefill=True, overlap_dispatch=False))):
+        streams, st = await _long_exact_streams(
+            cfg, replace(LONG_EXACT_RT, **over), params, dev, prompts)
+        assert streams == roomy, f"{name}: the long lane's streams differ from the short lane's"
+        assert st.long_requests == 2 and st.long_dispatches == landings, vars(st)
+        assert st.decode_dispatches == 0, vars(st)
+        wasted = 0 if "lockstep" in name else 2 * LONG_EXACT_RT.decode_steps_per_dispatch
+        assert st.overlap_wasted_tokens == wasted, vars(st)
+        runs[name] = dict(long_requests=st.long_requests, long_dispatches=st.long_dispatches,
+                          overlap_wasted_tokens=st.overlap_wasted_tokens)
+    _check_recompute(cfg, params, prompts, roomy, dev)
+    print(f"  long lane exactness (f32, 8B widths, 4 layers; prompts {list(LONG_LENS)}, "
+          f"{LONG_EXACT_NEW} new tokens): monolithic == chunked == short lane (max_seq_len "
+          f"8192) == recompute, overlapped and lockstep; {runs}")
+    del params
+    return dict(runs=runs, landings=landings, streams=roomy)
+
+
+async def _lane_round(engine, prompts, shorts) -> dict:
+    """One round of phase 14 (b)'s drive on a started engine: the short
+    requests decode; at the scheduler tick where all of them hold a first
+    token, the long prompts arrive → streams and each token's arrival."""
+    pace = Pace()
+    engine._chaos = pace
+    short_arrivals = [[] for _ in shorts]
+    long_arrivals = [[] for _ in prompts]
+    long_jobs: list = []
+    pace.when(
+        lambda: len(engine._active) == len(shorts)
+        and all(r.generated >= 1 for r in engine._active.values()),
+        lambda: long_jobs.extend(
+            asyncio.ensure_future(_timed_stream(engine, p, LONG_NEW, arr))
+            for p, arr in zip(prompts, long_arrivals)),
+    )
+    t0 = time.perf_counter()
+    short_streams = await asyncio.gather(*[
+        _timed_stream(engine, p, n, arr) for (p, n, _), arr in zip(shorts, short_arrivals)
+    ])
+    await _settle(lambda: len(long_jobs) == len(prompts), what="the long arrivals")
+    long_streams = await asyncio.gather(*long_jobs)
+    torch.cuda.synchronize()
+    return dict(short_streams=short_streams, long_streams=long_streams,
+                short_arrivals=short_arrivals, long_arrivals=long_arrivals,
+                wall_s=time.perf_counter() - t0)
+
+
+async def long_drive(cfg, rt, params, dev, prompts, shorts, eager=False, warm=True,
+                     count=contextlib.nullcontext) -> dict:
+    """Phase 14 (b)'s drive (:func:`_lane_round`) on a fresh engine: a
+    warm-up round that captures every graph key of the round (``warm``),
+    then the measured round inside ``count()`` → streams, clocks and
+    numbers of the measured round, the capture seconds of both."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with graphs.eager() if eager else contextlib.nullcontext():
+        engine = LaneEngine(cfg, rt, params=params, device=dev)
+        await engine.start()
+        try:
+            if warm:
+                await _lane_round(engine, prompts, shorts)
+            warm_graphs = dict(engine._graphs.stats)
+            engine.stats = EngineStats()
+            engine.long_prefills.clear()
+            engine.long_walls.clear()
+            with count():
+                r = await _lane_round(engine, prompts, shorts)
+        finally:
+            await engine.stop()
+        numbers = graph_numbers(engine)
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the no-leak law: every slot free, every page free (no prefix cache)
+    assert engine._page_alloc.free_pages == rt.pool_pages() - 1, engine._page_alloc.free_pages
+    assert len(engine._free) == rt.max_batch_size and not engine._active
+    assert engine._long is None and engine._long_inflight is None and not engine._long_pending
+    st = engine.stats
+    windows = [(start, end) for _, start, end in engine.long_prefills]
+    long_tokens = sum(len(s) - 1 for s in r["long_streams"])
+    return dict(
+        engine=engine, short_streams=r["short_streams"], long_streams=r["long_streams"],
+        wall_s=r["wall_s"],
+        ttft_ms=[(arr[1] - arr[0]) * 1e3 for arr in r["long_arrivals"]],
+        prefill_s=[end - start for _, start, end in engine.long_prefills],
+        prefill_lens=[n for n, _, _ in engine.long_prefills],
+        long_decode_tok_s=long_tokens / sum(engine.long_walls),
+        mean_long_dispatch_ms=sum(engine.long_walls) / len(engine.long_walls) * 1e3,
+        short_gap_during_prefill_ms=_gaps_during(r["short_arrivals"], windows) * 1e3,
+        short_gap_max_ms=_gaps_during(r["short_arrivals"], [(0.0, float("inf"))]) * 1e3,
+        long_requests=st.long_requests, long_dispatches=st.long_dispatches,
+        decode_dispatches=st.decode_dispatches, overlap_wasted_tokens=st.overlap_wasted_tokens,
+        scratch_bytes=sum(t.numel() * t.element_size() for t in engine._long_scratch),
+        fresh_bytes=sum(t.numel() * t.element_size() for t in engine._long_fresh),
+        max_memory_allocated=peak, engine_peak_bytes=peak - base, graphs=numbers,
+        warm_graphs=warm_graphs,
+        long_graphs=_lane_graphs(engine),
+    )
+
+
+def _lane_graphs(engine) -> dict:
+    """The lane's own graphs (``_long_graphs``): keys, calls, captures,
+    replays and capture seconds (on the CPU every call runs eagerly)."""
+    fns = engine._long_graphs.values()
+    captured = [fn for fn in fns if fn.capture_s > 0]
+    calls = sum(fn.calls for fn in fns)
+    return dict(keys=sorted(map(str, engine._long_graphs)), calls=calls,
+                captures=len(captured), replays=calls - len(captured) if captured else 0,
+                capture_s=sum(fn.capture_s for fn in captured))
+
+
+def _lane_note(name: str, r: dict) -> str:
+    return (
+        f"{name}: long TTFT {[round(x, 1) for x in r['ttft_ms']]} ms, prefill "
+        f"{[round(x, 3) for x in r['prefill_s']]} s for {r['prefill_lens']} tokens; long "
+        f"decode {r['long_decode_tok_s']:.1f} tok/s, mean long dispatch "
+        f"{r['mean_long_dispatch_ms']:.1f} ms over {r['long_dispatches']} dispatches; short "
+        f"requests' longest stretch without a token while a long prefill is in flight "
+        f"{r['short_gap_during_prefill_ms']:.1f} ms (largest gap over the drive "
+        f"{r['short_gap_max_ms']:.1f} ms); wall {r['wall_s']:.2f} s; long scratch "
+        f"{r['scratch_bytes'] / 1e9:.3f} GB + fresh cache {r['fresh_bytes'] / 1e9:.3f} GB; "
+        f"{graph_note(r['graphs'], r['max_memory_allocated'])} (of them before the measured "
+        f"round: {r['warm_graphs']['captures']} captures, {r['warm_graphs']['capture_s']:.2f} "
+        f"s); the lane's graphs {r['long_graphs']['keys']}: {r['long_graphs']['calls']} "
+        f"calls, {r['long_graphs']['captures']} captures "
+        f"({r['long_graphs']['capture_s']:.2f} s), {r['long_graphs']['replays']} replays"
+    )
+
+
+async def long_lane_phase(dev, params, card: str = "") -> "tuple[dict, list[dict]]":
+    """Phase 14: the long-context lane (``RuntimeConfig.long_context``) on
+    the card.  (a) :func:`long_exactness`.  (b) the full ``llama-3-8b``
+    preset in bf16 on ``params`` (the last bf16 north-star drive's weights)
+    with the north star's runtime and the lane on: 8 short requests of 64 +
+    128 tokens decode when a 5,000- and a 1,500-token prompt (64 new tokens
+    each) arrive; chunked (the main path: #1 and #5 counted and tallied by
+    shape) and monolithic; the long streams equal a plain bf16 recompute up
+    to a tie (:func:`tie_gaps`), no dispatch runs outside a graph, and
+    every slot and page is free after ``stop()``.  (c) the chunked drive
+    lockstep under ``graphs.eager()`` and on graphs: streams equal bit for
+    bit, graph peak at most ``GRAPH_PEAK_LAW`` x eager's.  (d) one agent
+    turn through ``TorchLocalModelClient`` on (b)'s chunked engine whose
+    rendered conversation is longer than ``max_seq_len``.  (e) #5 on a
+    whole 8,192-position prompt (5,000 valid) as the ring passes it and on
+    a 128-token chunk at offset 4,992 of the 8,192 scratch, and #1 at B = 1
+    over W = 8,192 (5,000 valid), against their plain versions and SDPA."""
+    exact = await long_exactness(dev)
+    torch.cuda.empty_cache()
+    cfg = preset("llama-3-8b")
+    rt = LONG_RUNTIME
+    prompts = long_prompts(cfg.vocab_size, 15)
+    shorts = [(p, LONG_SHORT_NEW, kw) for p, _, kw in north_star_jobs(8)]
+    counted: dict = {}
+
+    @contextlib.contextmanager
+    def count():
+        # the lane's main path: the counts set to 0 just before the measured
+        # round of the chunked drive, read just after it
+        A.reset_launch_counts()
+        with prefill_shapes() as prefills, lane.window() as decodes:
+            yield
+            counted.update(launches=dict(A.launch_counts), prefills=prefills, decodes=decodes)
+
+    with LaneDecodeTally() as lane:
+        chunked = await long_drive(cfg, rt, params, dev, prompts, shorts, count=count)
+        monolithic = await long_drive(cfg, replace(rt, chunked_prefill=False), params, dev,
+                                      prompts, shorts)
+    launches = counted["launches"]
+    prefill_rows, decode_rows = _shape_rows(counted["prefills"]), _shape_rows(counted["decodes"])
+    assert launches["decode_attention"] > 0 and launches["prefill_attention"] > 0, launches
+    assert sum(r["launches"] for r in decode_rows) == launches["decode_attention"], decode_rows
+    assert sum(r["launches"] for r in prefill_rows) == launches["prefill_attention"]
+    assert (1, 1, 8192) in {(r["B"], r["S"], r["window"]) for r in decode_rows}, decode_rows
+    engine = chunked.pop("engine")
+    monolithic.pop("engine")
+    landings = long_landings([LONG_NEW] * 2, rt.decode_steps_per_dispatch)
+    ties = {}
+    for name, r in (("chunked", chunked), ("monolithic", monolithic)):
+        assert [len(s) for s in r["long_streams"]] == [LONG_NEW] * 2, name
+        assert [len(s) for s in r["short_streams"]] == [LONG_SHORT_NEW] * 8, name
+        assert r["long_requests"] == 2 and r["long_dispatches"] == landings, (name, r)
+        gaps = [tie_gaps(cfg, params, p, s, dev) for p, s in zip(prompts, r["long_streams"])]
+        assert all(g <= band for steps in gaps for g, band in steps), (name, gaps)
+        ties[name] = dict(tokens_below_top=sum(g > 0 for steps in gaps for g, _ in steps),
+                          max_gap=max(g for steps in gaps for g, _ in steps))
+        print(f"  long lane llama-3-8b bf16 ({card}; one run, no spread), {_lane_note(name, r)}; "
+              f"against a plain recompute every token within a bf16 tie of its step's top "
+              f"logit ({ties[name]})")
+    print(f"  long lane launches (chunked drive): {launches}; #1 (B, 1, W, launches) "
+          f"{[(r['B'], r['window'], r['launches']) for r in decode_rows]}; #5 (B, Sq, Skv, "
+          f"launches) {[(r['B'], r['S'], r['window'], r['launches']) for r in prefill_rows]}")
+
+    # (c) graphs against eager(), the chunked drive lockstep
+    lockstep = replace(rt, overlap_dispatch=False)
+    eager = await long_drive(cfg, lockstep, params, dev, prompts, shorts, eager=True, warm=False)
+    eager.pop("engine")
+    graphed = await long_drive(cfg, lockstep, params, dev, prompts, shorts, warm=False)
+    graphed.pop("engine")
+    assert graphed["long_streams"] == eager["long_streams"], "long streams: graphs != eager"
+    assert graphed["short_streams"] == eager["short_streams"], "short streams: graphs != eager"
+    if dev.type == "cuda":  # (a CPU rehearsal runs every body eagerly)
+        assert eager["graphs"]["eager"] == eager["graphs"]["calls"] > 0, eager["graphs"]
+    ratio = graphed["max_memory_allocated"] / eager["max_memory_allocated"]
+    assert ratio <= GRAPH_PEAK_LAW, ratio
+    print(f"  long lane graphs vs eager(), chunked lockstep ({card}): streams equal bit for bit; "
+          f"max allocated {eager['max_memory_allocated'] / 1e9:.3f} -> "
+          f"{graphed['max_memory_allocated'] / 1e9:.3f} GB (x{ratio:.3f}, law <= "
+          f"{GRAPH_PEAK_LAW}); eager {_lane_note('eager', eager)}; graphs "
+          f"{_lane_note('graphs', graphed)}")
+
+    # (d) one agent turn longer than max_seq_len through the client
+    tok = CharTokenizer()
+    client = TorchLocalModelClient(engine=engine, tokenizer=tok)
+    plans = " ".join(f"Plan a trip to {city}: flights, a hotel and the weather, within a "
+                     "budget." for city in AGENT_CITIES[:4])
+    messages = [ModelRequest(instructions=AGENT_INSTRUCTIONS, parts=[UserPart(content=plans)])]
+    request_params = ModelRequestParameters(tool_defs=AGENT_TOOLS)
+    # the client's prompt: BOS and the rendered conversation; longer than
+    # max_seq_len, within (b)'s 2,048-position bucket, whose graphs it replays
+    rendered = 1 + len(tok.encode(render_messages(messages, request_params)))
+    assert rt.max_seq_len <= rendered <= 2048, rendered
+    before = engine.stats.long_requests
+    try:
+        turn = await _client_turn(client, messages, request_params)
+    finally:
+        await client.stop()
+    assert engine.stats.long_requests == before + 1, engine.stats.long_requests
+    done = turn["events"][-1]
+    assert isinstance(done, ResponseDone) and "first" in turn, turn["events"][-3:]
+    assert done.response.usage.input_tokens == rendered, done.response.usage
+    assert 0 < done.response.usage.output_tokens <= CLIENT_MAX_TOKENS, done.response.usage
+    assert engine._page_alloc.free_pages == rt.pool_pages() - 1
+    assert len(engine._free) == rt.max_batch_size and engine._long is None
+    client_numbers = dict(rendered_tokens=rendered, ttft_ms=(turn["first"] - turn["submit"]) * 1e3,
+                          turn_s=turn["done"] - turn["submit"],
+                          output_tokens=done.response.usage.output_tokens,
+                          graphs=graph_numbers(engine))
+    print(f"  long lane client turn ({card}): a {rendered}-token conversation through "
+          f"TorchLocalModelClient served by the lane, TTFT {client_numbers['ttft_ms']:.1f} ms, "
+          f"{CLIENT_MAX_TOKENS} tokens in {client_numbers['turn_s']:.2f} s")
+    del engine, client
+
+    # (e) the kernels at the lane's shapes
+    bf16 = torch.bfloat16
+    cases = run_cases(dev, [
+        ("prefill_attention", prefill_case,
+         (bf16, 1, 8192, 32, 8, 128, 70, 0, 8192, [LONG_LENS[0]], True)),
+        ("prefill_attention", prefill_case, (bf16, 1, 128, 32, 8, 128, 71, 4992, 8192)),
+        ("decode_attention", decode_case, (bf16, 1, 8, 4, 128, 8192, [LONG_LENS[0]], 72, bf16)),
+    ])
+    result = dict(
+        exactness=exact, chunked={k: v for k, v in chunked.items() if "streams" not in k},
+        monolithic={k: v for k, v in monolithic.items() if "streams" not in k},
+        graphs=dict(eager={k: v for k, v in eager.items() if "streams" not in k},
+                    graphs={k: v for k, v in graphed.items() if "streams" not in k},
+                    peak_ratio=ratio),
+        client=client_numbers, ties=ties, launches=launches, prefill_shapes=prefill_rows,
+        decode_shapes=decode_rows,
+    )
+    return result, cases
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2508,35 +2957,39 @@ def main() -> int:
     print(card)
     install_tallies()  # before any engine captures a graph
     t0 = time.perf_counter()
+
+    def stage(name: str) -> None:
+        print(f"{name} (at {time.perf_counter() - t0:.0f} s)", flush=True)
+
     built = kernels.build_all()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
 
-    print("kernel phase")
+    stage("kernel phase")
     cases, main_cases = kernel_phase(dev)
-    print("exactness phase")
+    stage("exactness phase")
     exact = asyncio.run(exactness_phase(dev))
     torch.cuda.empty_cache()
-    print("serving phase")
+    stage("serving phase")
     serving = asyncio.run(serving_phase(dev))
     torch.cuda.empty_cache()
-    print("paged serving phase")
+    stage("paged serving phase")
     paged = asyncio.run(paged_serving_phase(dev))
     torch.cuda.empty_cache()
-    print("speculative serving phases")
+    stage("speculative serving phases")
     spec_paged = asyncio.run(paged_serving_phase(dev, speculative=True))
     torch.cuda.empty_cache()
     spec_dense = asyncio.run(spec_serving_phase(dev))
     torch.cuda.empty_cache()
-    print("client phase")
+    stage("client phase")
     client = asyncio.run(client_phase(dev, card))
     torch.cuda.empty_cache()
-    print("quantized exactness phase")
+    stage("quantized exactness phase")
     quant_exact = asyncio.run(quant_exactness_phase(dev))
     torch.cuda.empty_cache()
-    print("checkpoint phase")
+    stage("checkpoint phase")
     ckpt = asyncio.run(checkpoint_phase(dev, card))
     torch.cuda.empty_cache()
-    print("north-star drives")
+    stage("north-star drives")
     north = {}
     bf16_weights: dict = {}  # the last bf16 drive's weights, for phase 13
     # int4 serves one wave of 8: the script's time stays down (its weights'
@@ -2549,19 +3002,19 @@ def main() -> int:
         north[key] = asyncio.run(north_star_phase(
             dev, quantization, card, requests, keep=bf16_weights if key == "bf16-8" else None))
         torch.cuda.empty_cache()
-    print("graph phase")
+    stage("graph phase")
     graph = asyncio.run(graph_phase(dev, card))
     torch.cuda.empty_cache()
-    print("paged decode and ragged kernels at their serving phases' shapes")
+    stage("paged decode and ragged kernels at their serving phases' shapes")
     for name, shapes in (("paged_decode_attention", paged["decode_shapes"]),
                          ("ragged_attention", spec_dense["verify_shapes"]),
                          ("ragged_attention_paged", spec_paged["verify_shapes"])):
         main_cases[name] = path_case(dev, name, shapes)
         cases.append(main_cases[name])
-    print("prefill and paged decode kernels at the client phase's shapes")
+    stage("prefill and paged decode kernels at the client phase's shapes")
     cases += [path_case(dev, "prefill_attention", client["prefill_shapes"]),
               path_case(dev, "paged_decode_attention", client["decode_shapes"], "client")]
-    print("prefill and paged decode kernels at the checkpoint phase's and the int8 north "
+    stage("prefill and paged decode kernels at the checkpoint phase's and the int8 north "
           "star's shapes")
     cases += [
         path_case(dev, "prefill_attention", ckpt["prefill_shapes"]),
@@ -2570,9 +3023,15 @@ def main() -> int:
         path_case(dev, "paged_decode_attention", north["int8"]["decode_shapes"],
                   "north star int8", n_pages=NORTH_STAR_RUNTIME.pool_pages()),
     ]
-    print("overload phase")
-    overload, overload_cases = asyncio.run(overload_phase(dev, bf16_weights.pop("params"), card))
+    stage("overload phase")
+    weights = bf16_weights.pop("params")
+    overload, overload_cases = asyncio.run(overload_phase(dev, weights, card))
     cases += overload_cases
+    torch.cuda.empty_cache()
+    stage("long-context lane phase")
+    long_lane, long_cases = asyncio.run(long_lane_phase(dev, weights, card))
+    cases += long_cases
+    del weights
     torch.cuda.empty_cache()
 
     # each kernel's launches from the path it serves, beside its case at a
@@ -2594,6 +3053,15 @@ def main() -> int:
         )
         if name in ("paged_decode_attention", "ragged_attention_paged"):
             entry.update(sdpa_gathered_ms=c["sdpa_gathered_ms"], gather_sdpa_ms=c["gather_sdpa_ms"])
+        if name in ("decode_attention", "prefill_attention"):
+            # the long lane's path (phase 14's chunked drive) and the kernel
+            # at the lane's shapes
+            entry["long_lane"] = dict(
+                launches=long_lane["launches"][name],
+                cases=[{k: lc[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}
+                       for lc in long_cases if lc["name"] == name],
+            )
         line["kernels"].append(entry)
     if args.out:
         with open(args.out, "w") as f:
@@ -2601,9 +3069,10 @@ def main() -> int:
                            paged_serving=paged, spec_paged_serving=spec_paged,
                            spec_serving=spec_dense, client=client, quant_exactness=quant_exact,
                            checkpoint=ckpt, north_star=north, graphs=graph,
-                           overload=overload,
+                           overload=overload, long_lane=long_lane,
                            kernels=line["kernels"]),
                       f, indent=1, default=str)
+    print(f"all phases in {time.perf_counter() - t0:.0f} s")
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

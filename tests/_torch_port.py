@@ -472,3 +472,170 @@ async def drills(weights, name) -> "tuple[dict, dict]":
     return _DRILLS[name]
 
 
+
+
+# --------------------------------------------------------------------------- #
+# the long-context lane's drill: one scripted drive through either engine
+# --------------------------------------------------------------------------- #
+
+LONG_BASE = dict(
+    max_batch_size=2, max_seq_len=64, prefill_chunk=16, decode_steps_per_dispatch=4,
+    long_context=True, long_new_cap=24, long_max_prompt=128, max_pending=3,
+    flightrec_events=1 << 14,
+)
+LONG_PAGED = dict(kv_layout="paged", page_size=8, chunked_prefill=True, prefix_cache=True)
+# name → (runtime, speculative k or None): dense (the monolithic long
+# prefill), paged + prefix cache + chunked prefill with ragged waves (the
+# chunked long prefill), and that with speculation, each overlapped and
+# lockstep
+LONG_CONFIGS = {
+    f"{name}-{mode}": (dict(LONG_BASE, **over, overlap_dispatch=mode == "overlap"), k)
+    for name, over, k in (("dense", {}, None), ("paged", LONG_PAGED, None),
+                          ("paged-spec", LONG_PAGED, 3))
+    for mode in ("overlap", "lockstep")
+}
+# the drill's long prompts (each >= max_seq_len 64), by request
+LONG_PROMPTS = {
+    "alone": [(7 * i + 3) % 512 for i in range(100)],
+    "inter": [(3 * i + 1) % 512 for i in range(90)],
+    "cx": [(i + 2) % 512 for i in range(80)],
+    "prog": [(i + 4) % 512 for i in range(120)],
+    "budget": [(i + 9) % 512 for i in range(70)],
+    "reap": [(5 * i + 7) % 512 for i in range(75)],
+}
+
+
+def long_idle(engine) -> bool:
+    """Nothing queued, admitting, in flight or active in either lane."""
+    return (quiescent(engine) and engine._long is None and engine._long_inflight is None
+            and not engine._long_pending)
+
+
+def _long_live(engine, corr):
+    """The long request tagged ``corr`` while the lane decodes it."""
+    state = engine._long
+    return state["request"] if state is not None and state["request"].corr == corr else None
+
+
+async def long_lane_drill(engine, pkg, clock, tag: str) -> dict:
+    """Drive a started-to-be engine (either package's) through the long
+    lane's cases in one run, phase after phase, each action fired by
+    :class:`Pace` at a scheduler tick when a state condition holds, so both
+    engines take it at the same point:
+
+    1. a long prompt alone; 2. a long prompt and three short ones at once;
+    3. a cancel by correlation id while the lane decodes, one while the
+       chunked long prefill is in flight (chunked runtimes), and the lane
+       serving again after them;
+    4. a budget over ``long_new_cap`` (a typed fault) and a prompt over
+       ``long_max_prompt`` (refused), then a budget within the cap;
+    5. a short and a long prompt at once: the short stream decodes while
+       the long prompt is admitted (the short tokens that arrive while a
+       chunked long prefill is in flight are counted);
+    6. a deadline and a lapsed lease reaping the long request mid-decode;
+    7. five long submits at once past ``max_pending`` 3: the queued batch
+       request is shed for an interactive one, then an interactive one is
+       refused."""
+    pace = Pace()
+    engine._chaos = pace
+    outcomes: dict = {}
+    during = [0]
+    P = LONG_PROMPTS
+    TYPED = tuple(getattr(pkg.exceptions, name) for name in (
+        "EngineOverloadedError", "DeadlineExceededError", "RunOrphanedError", "InferenceError",
+    ))
+
+    async def run(corr, p, n, *, count_during=False, **kw):
+        toks = []
+        agen = engine.generate(p, max_new_tokens=n, corr=corr, **kw)
+        try:
+            async for tok in agen:
+                toks.append(tok)
+                if count_during and engine._long_inflight is not None:
+                    during[0] += 1
+            outcomes[corr] = ("ok", toks)
+        except TYPED as exc:
+            outcomes[corr] = _outcome(exc)
+        finally:
+            await agen.aclose()
+
+    async def phase(*jobs):
+        await asyncio.gather(*jobs)
+        for _ in range(400):
+            if long_idle(engine):
+                break
+            await asyncio.sleep(0.01)
+        assert long_idle(engine), f"{tag}: engine never settled"
+        await asyncio.sleep(0.02)
+
+    await engine.start()
+    try:
+        await phase(run("alone", P["alone"], 8))
+        await phase(run("inter-long", P["inter"], 12),
+                    *[run(f"inter-{i}", [5 + i, 6, 7], 6) for i in range(3)])
+        pace.when(lambda: (r := _long_live(engine, "cx-decode")) is not None and r.generated >= 1,
+                  lambda: engine.cancel_correlation("cx-decode"))
+        await phase(run("cx-decode", P["cx"], 24))
+        if engine.runtime.chunked_prefill:
+            pace.when(lambda: (inf := engine._long_inflight) is not None and inf["idx"] >= 2,
+                      lambda: engine.cancel_correlation("cx-prefill"))
+            await phase(run("cx-prefill", P["prog"], 8))
+        await phase(run("cx-after", P["cx"], 4))
+        await phase(run("over-cap", P["budget"], 1000), run("ceiling", list(range(200)), 4))
+        await phase(run("in-budget", P["budget"], 4))
+        # submitted together, before the scheduler's next pass (a submit
+        # racing a dispatch on the worker thread would order the journal
+        # by timing): the short is admitted, the long follows in the lane
+        await phase(run("prog-short", [5, 6, 7], 24, count_during=True),
+                    run("prog-long", P["prog"], 8))
+        now = clock.now
+        pace.when(lambda: (r := _long_live(engine, "dl")) is not None and r.generated >= 2,
+                  lambda: clock.advance(10.0))
+        await phase(run("dl", P["reap"], 16, deadline=now + 5))
+        dead = f"{tag}-dead"
+        pkg.leases.note_beat(dead, 5.0)
+        pace.when(lambda: (r := _long_live(engine, "or")) is not None and r.generated >= 2,
+                  lambda: clock.advance(6.0))
+        await phase(run("or", P["reap"], 16, lease=(dead, 5.0)))
+        classes = ["batch", "interactive", "interactive", "interactive", "interactive"]
+        await phase(*[run(f"shed-{i}", P["reap"][i:] + P["cx"][:i], 4, priority=c)
+                      for i, c in enumerate(classes)])
+    finally:
+        await engine.stop()
+    counters = engine.stats.counters()
+    counters.pop("decode_time_s")
+    return dict(
+        outcomes=outcomes, counters=counters, during_prefill=during[0],
+        journal=journal_rows(engine, pkg.flightrec.EVENT_NAMES),
+        free=sorted(engine._free),
+        pages=(engine._page_alloc.free_pages + (engine._prefix.size if engine._prefix else 0)
+               if engine._paged else None),
+        idle=long_idle(engine),
+    )
+
+
+_LONG_DRILLS: dict = {}
+
+
+async def long_drills(weights, name) -> "tuple[dict, dict, dict]":
+    """(the JAX engine's long-lane drill, the port's, the port engine) for
+    configuration ``name`` of :data:`LONG_CONFIGS`, on the f32 debug
+    weights, run once per process."""
+    if name not in _LONG_DRILLS:
+        from calfkit_tpu.inference.config import SpecConfig as JaxSpec
+        from calfkit_tpu_torch.inference.config import SpecConfig as TorchSpec
+
+        rt, k = LONG_CONFIGS[name]
+        with virtual_clock() as clock:
+            ref = await long_lane_drill(
+                JaxEngine(_JAX_F32, JaxRuntime(**rt, attention_impl="pallas_interpret",
+                                               speculative=JaxSpec(k=k) if k else None),
+                          params=weights[0]),
+                _JAX_PKG, clock, name,
+            )
+        engine = InferenceEngine(_TORCH_F32, TorchRuntime(
+            **rt, speculative=TorchSpec(k=k) if k else None), params=weights[1], device="cpu")
+        with virtual_clock() as clock:
+            port = await long_lane_drill(engine, _PORT_PKG, clock, name)
+        _LONG_DRILLS[name] = ref, port, engine
+    return _LONG_DRILLS[name]

@@ -169,13 +169,13 @@ async def test_sampled_stream_independent_of_batch(weights):
     "over",
     [
         dict(kv_layout="paged"), dict(kv_layout="ring"),
-        dict(speculative=SpecConfig(k=0)), dict(long_context=True),
+        dict(speculative=SpecConfig(k=0)),
         dict(quantization="fp8"), dict(tp=2), dict(prefix_cache=True),
         dict(attention_impl="xla"),
     ],
     ids=[
         "paged-page64-does-not-divide-chunk16", "unknown-kv-layout",
-        "speculative", "long-context", "unsupported-quantization", "tp2",
+        "speculative", "unsupported-quantization", "tp2",
         "prefix-cache-without-paged", "attention-impl-xla",
     ],
 )

@@ -10,6 +10,10 @@
   over them: the code a card captures).
 - The ``done_prev`` chain: a row that retired in the previous decode
   dispatch is frozen in the next one through the engine's ``_done`` buffer.
+- The long-context lane's graphs (``_long_graphs``) against the programs
+  the JAX lane traced: its lru keys and the padded length each retraces on.
+- A dropped engine is freed at once, even while a dispatch worker thread
+  still holds the work item of its last call.
 
 The card-side laws (replay == ``eager()`` bit for bit, launch counts,
 tickets, steady memory) are in ``tests/test_torch_kernels_cuda.py``.
@@ -101,6 +105,102 @@ async def test_graph_keys_equal_the_reference_jit_keys(weights, name):
     assert set(port._prefill_graphs) == set(reference._prefill_jits)
     # every dispatch went through the layer: each cache entry was called
     assert all(fn.calls for fn in (*port._decode_graphs.values(), *port._prefill_graphs.values()))
+
+
+# the long-context lane beside the short one: long prompts (>= max_seq_len
+# 128) of three padded lengths (256, 256, 512) and a second one of 256
+# while short bursts run, dense (the monolithic long prefill) and paged +
+# chunked + prefix + ragged (the chunked long prefill)
+LONG_DRIVE = [
+    [(_tail(200, 7), 6, False), (_tail(150, 8), 5, False)] + DRIVE[0][2:],
+    [(_tail(300, 9), 4, False), (_tail(140, 3), 6, False)] + DRIVE[1],
+]
+LONG_RT = dict(long_context=True, long_new_cap=16, long_max_prompt=512)
+LONG_CONFIGS = {"dense-long": dict(window_buckets=(32, 64)), "paged-chunked-long": PAGED}
+
+
+async def _drive_bursts(engine, bursts):
+    async def one(prompt, n, _sampled):
+        return [tok async for tok in engine.generate(prompt, max_new_tokens=n)]
+
+    await engine.start()
+    try:
+        for burst in bursts:
+            await asyncio.gather(*[one(*job) for job in burst])
+    finally:
+        await engine.stop()
+
+
+@pytest.mark.parametrize("name", list(LONG_CONFIGS))
+async def test_long_lane_graph_keys_equal_the_reference_traces(weights, name, monkeypatch):
+    """The lane's graphs (``_long_graphs``) against the JAX lane's traced
+    programs after the same drive: its ``_prefill_sp_jit`` and
+    ``_decode_sp_jit`` (process-wide lru caches, cleared first) and the
+    chunk jit that serves both lanes, each of which retraces per padded
+    length.  Equal: the port's keys and the reference's (lru key, traced
+    padded length) pairs; each kind's count of graphs and its jits'
+    ``_cache_size()``; and the short lane's tables as they were."""
+    from calfkit_tpu.inference import ring_attention as JR
+
+    traced: set = set()
+    jits: dict = {"prefill_sp": [], "decode_sp": []}
+
+    def recording(kind, build, padded_of):
+        def wrapped(config, mesh, axis, *key):
+            fn = build(config, mesh, axis, *key)
+            jits[kind].append(fn)
+
+            def call(params, *args):
+                traced.add((kind, *key, padded_of(args)))
+                return fn(params, *args)
+
+            call._cache_size = fn._cache_size
+            return call
+
+        return wrapped
+
+    # prefill_sp(params, tokens [B, S], ...); decode_sp(params, token, k_prefix [L, B, K, S, hd], ...)
+    monkeypatch.setattr(JR, "_build_prefill_sp", recording(
+        "prefill_sp", JR._build_prefill_sp, lambda args: args[0].shape[1]))
+    monkeypatch.setattr(JR, "_build_decode_sp", recording(
+        "decode_sp", JR._build_decode_sp, lambda args: args[1].shape[3]))
+    JR._prefill_sp_jit.cache_clear()
+    JR._decode_sp_jit.cache_clear()
+    over = LONG_CONFIGS[name]
+    try:
+        reference = JaxEngine(JAX_CFG, JaxRuntime(**BASE, **over, **LONG_RT,
+                                                  attention_impl="pallas_interpret"),
+                              params=weights[0])
+        await _drive_bursts(reference, LONG_DRIVE)
+    finally:
+        JR._prefill_sp_jit.cache_clear()
+        JR._decode_sp_jit.cache_clear()
+    port = InferenceEngine(TORCH_CFG, RuntimeConfig(**BASE, **over, **LONG_RT),
+                           params=weights[1], device="cpu")
+    await _drive_bursts(port, LONG_DRIVE)
+    long_keys = set(port._long_graphs)
+    chunks = {key for key in long_keys if key[0] == "chunk"}
+    assert long_keys - chunks == traced
+    assert chunks == ({("chunk", 16, 1, p) for p in (256, 512)} if "paged" in name else set())
+    # a JAX jit also keys a trace on whether its array arguments are
+    # committed to a device: a carried program (decode_sp, a chunk) traces a
+    # shape twice, for a request's first call on fresh arrays and for the
+    # later calls on the previous call's outputs; one graph serves both
+    carried = {"prefill_sp": 1, "decode_sp": 2}
+    for kind, times in carried.items():
+        assert sum(fn._cache_size() for fn in jits[kind]) == times * sum(
+            key[0] == kind for key in long_keys)
+    # the reference's ("chunk", chunk, 1) serves both lanes; the port's
+    # short table keeps exactly the short lane's keys
+    assert set(port._decode_graphs) == set(reference._decode_jits)
+    assert set(port._prefill_graphs) | {key[:3] for key in chunks} == set(reference._prefill_jits)
+    for key in {key[:3] for key in chunks}:
+        short = 1 if key in port._prefill_graphs else 0
+        assert reference._prefill_jits[key]._cache_size() == 2 * (short + sum(
+            k[:3] == key for k in chunks))
+    assert port.stats.long_requests == reference.stats.long_requests == 4
+    assert port.stats.long_dispatches == reference.stats.long_dispatches
+    assert all(fn.calls for fn in port._long_graphs.values())
 
 
 def test_static_buffers_equal_fresh_eager_calls():
@@ -197,6 +297,37 @@ async def test_graphs_do_not_keep_a_dropped_engine_alive(weights):
     )
     await _drive(engine, SamplingParams, spec=False)
     assert engine._decode_graphs and engine._prefill_graphs
+    ref = weakref.ref(engine)
+    gc.disable()
+    try:
+        del engine
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
+async def test_dropped_engine_freed_while_worker_lingers(weights, monkeypatch):
+    """A dispatch worker of ``asyncio.to_thread`` keeps its work item (the
+    function and arguments it ran) after the call returned, until its
+    loop drops it: held there for 0.3 s after every call, as a loaded
+    machine may hold it, a stopped engine is still freed as soon as its
+    last reference goes, without the cycle collector."""
+    import concurrent.futures.thread as worker
+    import gc
+    import time
+    import weakref
+
+    run = worker._WorkItem.run
+
+    def lingering(item):
+        run(item)
+        time.sleep(0.3)
+
+    monkeypatch.setattr(worker._WorkItem, "run", lingering)
+    engine = InferenceEngine(
+        TORCH_CFG, RuntimeConfig(**BASE, **PAGED), params=weights[1], device="cpu"
+    )
+    await _drive(engine, SamplingParams, spec=False)
     ref = weakref.ref(engine)
     gc.disable()
     try:

@@ -823,3 +823,54 @@ def test_graph_replays_equal_eager_bitwise():
     for a, b in zip(_graph_state(engine), want_state):
         assert torch.equal(a, b)
     assert all(int(buf.count_nonzero()) == 0 for buf in A._tickets.values())
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("chunked", [False, True], ids=["monolithic", "chunked"])
+def test_long_lane_graphs_equal_eager_bitwise(chunked):
+    """A long-context drive (two long prompts of 300 and 140 tokens beside
+    two short ones on a bf16 engine at debug depth, max_seq_len 128) on
+    graphs gives ``eager()``'s streams bit for bit; every dispatch of the
+    lane is a graph of ``_long_graphs``, and the lane runs #1 and #5."""
+    import asyncio
+    import contextlib
+
+    from calfkit_tpu_torch.inference import graphs
+    from calfkit_tpu_torch.inference.config import RuntimeConfig, preset
+    from calfkit_tpu_torch.inference.engine import InferenceEngine
+
+    dev = torch.device("cuda")
+    cfg = preset("debug", d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, dtype="bfloat16")
+    rt = RuntimeConfig(
+        max_batch_size=4, max_seq_len=128, prefill_chunk=32, decode_steps_per_dispatch=4,
+        long_context=True, long_new_cap=32, chunked_prefill=chunked,
+    )
+    V = cfg.vocab_size
+    jobs = [([(7 * i + 3) % V for i in range(300)], 24), ([(3 * i + 1) % V for i in range(140)], 20),
+            ([5, 6, 7], 12), ([(11 * i) % V for i in range(40)], 16)]
+
+    async def drive(eager):
+        with graphs.eager() if eager else contextlib.nullcontext():
+            engine = InferenceEngine(cfg, rt, seed=5, device=dev)
+            await engine.start()
+            try:
+                streams = await asyncio.gather(*[
+                    _collect(engine, prompt, n) for prompt, n in jobs])
+            finally:
+                await engine.stop()
+        return streams, engine
+
+    async def _collect(engine, prompt, n):
+        return [tok async for tok in engine.generate(prompt, max_new_tokens=n)]
+
+    want, _ = asyncio.run(drive(True))
+    A.reset_launch_counts()
+    got, engine = asyncio.run(drive(False))
+    assert got == want and [len(s) for s in got] == [n for _, n in jobs]
+    stats = engine._graphs.stats
+    calls = sum(fn.calls for table in (engine._decode_graphs, engine._prefill_graphs,
+                                       engine._long_graphs) for fn in table.values())
+    assert stats["eager"] == 0 and calls == stats["captures"] + stats["replays"]
+    assert engine.stats.long_requests == 2 and len(engine._long_graphs) == 4
+    assert A.launch_counts["decode_attention"] > 0 and A.launch_counts["prefill_attention"] > 0
