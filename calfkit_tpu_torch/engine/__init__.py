@@ -1,5 +1,7 @@
-"""The model-client contract of the PyTorch backend: the port's own copy of
-the JAX package's seam between an agent turn and a model backend."""
+"""The agent-turn engine of the port: the model-client contract, the
+function-signature → JSON-schema extraction, deterministic test models,
+and the one-model-turn runner — the port's own copies of the JAX package's
+modules of the same names."""
 
 from calfkit_tpu_torch.engine.model_client import (
     ModelClient,
@@ -10,13 +12,28 @@ from calfkit_tpu_torch.engine.model_client import (
     StreamEvent,
     TextDelta,
 )
+from calfkit_tpu_torch.engine.schema import FunctionSchema, function_schema
+from calfkit_tpu_torch.engine.turn import FINAL_RESULT_TOOL, TurnOutcome, run_turn
+from calfkit_tpu_torch.engine.testing import (
+    EchoModelClient,
+    FunctionModelClient,
+    TestModelClient,
+)
 
 __all__ = [
+    "EchoModelClient",
+    "FINAL_RESULT_TOOL",
+    "FunctionModelClient",
+    "FunctionSchema",
     "ModelClient",
     "ModelRequestParameters",
     "ModelSettings",
     "ResponseDone",
     "ResumeOffset",
     "StreamEvent",
+    "TestModelClient",
     "TextDelta",
+    "TurnOutcome",
+    "function_schema",
+    "run_turn",
 ]

@@ -13,12 +13,13 @@ import abc
 from dataclasses import dataclass, field
 from typing import Any, AsyncIterator, Union
 
+from calfkit_tpu_torch.models._wire import Wire
 from calfkit_tpu_torch.models.capability import ToolDef
 from calfkit_tpu_torch.models.messages import ModelMessage, ModelResponse
 
 
 @dataclass(kw_only=True)
-class ModelSettings:
+class ModelSettings(Wire):
     """Per-request generation knobs (all optional; backends ignore unknowns)."""
 
     max_tokens: int | None = None
@@ -37,7 +38,7 @@ class ModelSettings:
 
 
 @dataclass(kw_only=True)
-class ModelRequestParameters:
+class ModelRequestParameters(Wire):
     """What the agent loop hands the model besides messages."""
 
     tool_defs: list[ToolDef] = field(default_factory=list)

@@ -1,8 +1,11 @@
 """Model-turn message vocabulary: the input and output of the model client.
 
-The port's own copy of the JAX package's message types, as dataclasses
-with the same class names, field names, defaults and methods, so either
-package's message can be built from the other's fields.  Requests and
+The port's own copy of the JAX package's message types, as wire dataclasses
+(:mod:`calfkit_tpu_torch.models._wire`) with the same class names, field
+names, defaults and methods, so either package's message can be built from
+the other's fields and each reads the other's JSON.  This vocabulary is both
+the wire format of conversation state and the input and output of the
+model client.  Requests and
 responses carry an optional ``author`` (the agent name) so multi-agent
 histories can be re-projected per point of view.
 """
@@ -13,11 +16,12 @@ import json
 from dataclasses import dataclass, field
 from typing import Any, Literal, Union
 
+from calfkit_tpu_torch.models._wire import Wire
 from calfkit_tpu_torch.models.payload import ContentPart
 
 
 @dataclass(kw_only=True)
-class Usage:
+class Usage(Wire):
     input_tokens: int = 0
     output_tokens: int = 0
     cache_read_tokens: int = 0
@@ -36,20 +40,20 @@ class Usage:
 
 
 @dataclass(kw_only=True)
-class SystemPart:
+class SystemPart(Wire):
     kind: Literal["system"] = "system"
     content: str
 
 
 @dataclass(kw_only=True)
-class UserPart:
+class UserPart(Wire):
     kind: Literal["user"] = "user"
     content: Union[str, list[ContentPart]]
     author: str | None = None  # attribution for POV projection
 
 
 @dataclass(kw_only=True)
-class ToolReturnPart:
+class ToolReturnPart(Wire):
     kind: Literal["tool_return"] = "tool_return"
     tool_call_id: str
     tool_name: str
@@ -57,7 +61,7 @@ class ToolReturnPart:
 
 
 @dataclass(kw_only=True)
-class RetryPart:
+class RetryPart(Wire):
     """Ask the model to retry: validation failure or tool-requested retry."""
 
     kind: Literal["retry"] = "retry"
@@ -70,7 +74,7 @@ RequestPart = Union[SystemPart, UserPart, ToolReturnPart, RetryPart]
 
 
 @dataclass(kw_only=True)
-class ModelRequest:
+class ModelRequest(Wire):
     role: Literal["request"] = "request"
     parts: list[RequestPart] = field(default_factory=list)
     instructions: str | None = None
@@ -82,19 +86,19 @@ class ModelRequest:
 
 
 @dataclass(kw_only=True)
-class TextOutput:
+class TextOutput(Wire):
     kind: Literal["text"] = "text"
     text: str
 
 
 @dataclass(kw_only=True)
-class ThinkingOutput:
+class ThinkingOutput(Wire):
     kind: Literal["thinking"] = "thinking"
     text: str
 
 
 @dataclass(kw_only=True)
-class ToolCallOutput:
+class ToolCallOutput(Wire):
     kind: Literal["tool_call"] = "tool_call"
     tool_call_id: str
     tool_name: str
@@ -116,7 +120,7 @@ ResponsePart = Union[TextOutput, ThinkingOutput, ToolCallOutput]
 
 
 @dataclass(kw_only=True)
-class ModelResponse:
+class ModelResponse(Wire):
     role: Literal["response"] = "response"
     parts: list[ResponsePart] = field(default_factory=list)
     usage: Usage = field(default_factory=Usage)

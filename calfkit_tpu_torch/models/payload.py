@@ -1,8 +1,9 @@
 """Content parts: the unit of user-visible payloads a model turn renders.
 
-The port's own copy of the JAX package's content-part vocabulary, as plain
-dataclasses with the same class names, field names and defaults, so either
-package's part can be built from the other's fields.
+The port's own copy of the JAX package's content-part vocabulary, as wire
+dataclasses (:mod:`calfkit_tpu_torch.models._wire`) with the same class
+names, field names and defaults, so either package's part can be built from
+the other's fields and each reads the other's JSON.
 """
 
 from __future__ import annotations
@@ -11,9 +12,13 @@ import json
 from dataclasses import dataclass, field
 from typing import Any, Literal, Union
 
+from calfkit_tpu_torch.models._wire import Wire, invalid
+
+RETRY_KEY = "mesh.retry"
+
 
 @dataclass(kw_only=True)
-class _Part:
+class _Part(Wire):
     metadata: dict[str, Any] | None = None
 
 
@@ -34,8 +39,11 @@ class FilePart(_Part):
     uri: str | None = None
 
     def __post_init__(self) -> None:
+        super().__post_init__()
         if (self.data_base64 is None) == (self.uri is None):
-            raise ValueError("FilePart requires exactly one of data_base64 or uri")
+            raise invalid(
+                "FilePart", None, "FilePart requires exactly one of data_base64 or uri", self
+            )
 
 
 @dataclass(kw_only=True)
@@ -74,3 +82,17 @@ def render_parts_as_text(parts: list[ContentPart]) -> str:
         elif isinstance(part, ToolCallPart):
             chunks.append(f"[tool call: {part.tool_name}]")
     return "\n".join(chunks)
+
+
+def retry_text_part(text: str) -> TextPart:
+    """A text part marked as a model-retry request (tool asked the model to
+    try again, e.g. bad arguments)."""
+    return TextPart(text=text, metadata={RETRY_KEY: True})
+
+
+def is_retry(part: ContentPart) -> bool:
+    return bool(part.metadata and part.metadata.get(RETRY_KEY))
+
+
+def text_parts(*texts: str) -> list[ContentPart]:
+    return [TextPart(text=t) for t in texts]

@@ -5,12 +5,12 @@ same behaviour).  A :class:`TraceContext` (trace_id / span_id /
 parent_span_id) travels with a call; :data:`current_context` carries it
 to in-process children, so the model client opens ``engine.generate``
 with ``engine.prefill`` and ``engine.decode`` children under the caller's
-span with no plumbing.  Finished spans are :class:`SpanRecord`
-dataclasses (the reference's is a pydantic model; the card's machine has
-no pydantic).  Every export lands in a bounded in-process ring; while a
-``collect_spans`` sink is installed, exports are also appended there for
-the sink's owner to publish.  Publishing spans to the mesh's
-``mesh.traces`` topic belongs to the mesh, not to this package.
+span with no plumbing.  Finished spans are
+:class:`~calfkit_tpu_torch.models.records.SpanRecord` wire records.  Every
+export lands in a bounded in-process ring; while a ``collect_spans`` sink
+is installed, exports are also appended there, and the hop that owns a
+transport publishes them to the compacted ``mesh.traces`` topic
+(:func:`publish_spans_soon`).
 
 Failure policy: tracing is telemetry.  ``start_span`` / ``end`` /
 ``export`` never raise; a broken exporter loses spans, not requests.
@@ -22,8 +22,11 @@ import time
 import uuid
 from collections import deque
 from contextvars import ContextVar, Token
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Any, Iterable
+
+from calfkit_tpu_torch import protocol
+from calfkit_tpu_torch.models.records import SpanRecord
 
 __all__ = [
     "SpanRecord",
@@ -35,34 +38,6 @@ __all__ = [
     "collect_spans",
     "release_spans",
 ]
-
-
-# the mesh's header names for a trace context
-HDR_TRACE = "x-mesh-trace"
-HDR_SPAN = "x-mesh-span"
-
-
-@dataclass
-class SpanRecord:
-    """One finished trace span, with the fields of the mesh's
-    ``SpanRecord``.  ``trace_id`` equals the run's correlation id by client
-    convention."""
-
-    trace_id: str
-    span_id: str
-    parent_span_id: str | None = None
-    name: str = ""
-    # client | dispatch | agent | tool | consumer | toolbox | engine | internal
-    kind: str = "internal"
-    emitter: str = ""
-    start_s: float = 0.0  # wall clock (epoch seconds)
-    duration_ms: float = 0.0
-    status: str = "ok"  # ok | error | cancelled
-    attrs: dict[str, Any] = field(default_factory=dict)
-
-    def span_key(self) -> str:
-        """Compaction key: latest record per span survives."""
-        return f"{self.trace_id}/{self.span_id}"
 
 
 def new_span_id() -> str:
@@ -79,20 +54,20 @@ class TraceContext:
 
     def headers(self) -> dict[str, str]:
         return {
-            HDR_TRACE: self.trace_id,
-            HDR_SPAN: self.span_id,
+            protocol.HDR_TRACE: self.trace_id,
+            protocol.HDR_SPAN: self.span_id,
         }
 
     @classmethod
     def from_headers(cls, headers: dict[str, str]) -> "TraceContext | None":
         """Decode a remote context; ``None`` when the record carries no
         trace (consumers must tolerate missing headers)."""
-        trace_id = headers.get(HDR_TRACE)
+        trace_id = headers.get(protocol.HDR_TRACE)
         if not trace_id:
             return None
         return cls(
             trace_id=trace_id,
-            span_id=headers.get(HDR_SPAN) or "",
+            span_id=headers.get(protocol.HDR_SPAN) or "",
         )
 
 
@@ -246,3 +221,45 @@ class Tracer:
 
 TRACER = Tracer()
 
+
+
+def publish_spans_soon(
+    publish: Any,
+    records: "list[SpanRecord]",
+    tasks: "set[Any]",
+    *,
+    on_error: Any = None,
+) -> None:
+    """Fire-and-forget export of finished spans to ``mesh.traces`` via an
+    async ``publish(topic, value, key=..., headers=...)`` callable — the
+    one copy of the export pattern the client and the node kernel share.
+    The export rides a task held in ``tasks`` until done (GC safety).
+    Strictly fail-open: a failed export degrades to ring-buffer-only
+    visibility; ``on_error`` (if given) is called once with the exception."""
+    if not records:
+        return
+
+    async def export() -> None:
+        try:
+            for record in records:
+                await publish(
+                    protocol.TRACES_TOPIC,
+                    record.to_wire(),
+                    key=record.span_key().encode("utf-8"),
+                    headers={protocol.HDR_WIRE: "span"},
+                )
+        except Exception as exc:  # noqa: BLE001 - telemetry never faults
+            if on_error is not None:
+                try:
+                    on_error(exc)
+                except Exception:  # noqa: BLE001
+                    pass
+
+    try:
+        import asyncio
+
+        task = asyncio.get_running_loop().create_task(export())
+        tasks.add(task)  # hold a ref until done (GC safety)
+        task.add_done_callback(tasks.discard)
+    except Exception:  # noqa: BLE001 - no loop / shutting down: ring only
+        pass

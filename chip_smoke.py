@@ -128,7 +128,29 @@ the final ``ok`` line is never printed:
    the ring passes its K/V and on a 128-token chunk at offset 4,992 of
    the 8,192 scratch, and #1 at B = 1 over W = 8,192 (5,000 valid),
    against their plain versions, SDPA and the bound; the ``kernels`` line
-   reports them under ``long_lane`` beside the lane's launches.
+   reports them under ``long_lane`` beside the lane's launches;
+15. the agent mesh (``agent_mesh_phase``): ``Worker([Agent, 3 tools])`` on
+   the port's ``InMemoryMesh``, the agent's model a scripted first step
+   (``FunctionModelClient``: a ``get_weather`` call) and then
+   ``TorchLocalModelClient`` serving the full llama-3-8b preset in bf16
+   (the last bf16 north-star drive's weights) on the client phase's paged
+   runtime at ``max_seq_len`` 4096, ``stream_tokens=True``; the three ``@agent_tool`` functions'
+   derived schemas must equal ``MESH_TOOLS`` (``AGENT_TOOLS`` with the
+   keys a derived schema adds); 8 conversations x 2 turns
+   through ``Client.execute`` after two warm-up rounds, the client's ids
+   seeded (the same dispatch lanes every run), launch counts reset just
+   before the measured round and read just after; every run ends with a
+   result, turn 2 reuses more prefix tokens than turn 1, every token of
+   each engine turn and of a direct ``request`` on the same messages lies
+   within the bf16 tie band of the plain forward's top logit, the two
+   parting only at such a tie (phase 13's law), #5 and #2 launch, and
+   after ``stop()`` every page is free or cached; it prints TTFT through
+   the mesh and the engine's own per turn, the mesh's added ms (apart for
+   conversations alone on their lane), the lanes' wait share, tok/s and
+   the records published by topic; then #5
+   and #2 against their plain versions at the phase's most launched
+   shapes; the ``kernels`` line reports its launches under
+   ``agent_mesh``.
 
 The kernel phase also holds the ragged multi-query kernels (speculative
 verify shapes S = 5, a mixed-row case with prefill-kind and fresh rows, page
@@ -168,12 +190,14 @@ import asyncio
 import contextlib
 import json
 import math
+import random
 import statistics
 import struct
 import subprocess
 import sys
 import tempfile
 import time
+import uuid
 from dataclasses import replace
 from pathlib import Path
 
@@ -181,13 +205,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from calfkit_tpu_torch import kernels
+from calfkit_tpu_torch import Agent, Client, Worker, kernels
+from calfkit_tpu_torch.client import caller
 from calfkit_tpu_torch.engine import (
+    FunctionModelClient,
+    ModelClient,
     ModelRequestParameters,
     ModelSettings,
     ResponseDone,
     TextDelta,
 )
+from calfkit_tpu_torch.fleet.selection import lane_of
 from calfkit_tpu_torch.inference import attention as A
 from calfkit_tpu_torch.inference import graphs
 from calfkit_tpu_torch.inference import model as M
@@ -198,7 +226,20 @@ from calfkit_tpu_torch.inference.engine import EngineStats, InferenceEngine
 from calfkit_tpu_torch.inference.loader import config_from_hf, load_params
 from calfkit_tpu_torch.inference.sampler import SamplingParams
 from calfkit_tpu_torch.inference.tokenizer import ByteTokenizer
-from calfkit_tpu_torch.models import ModelRequest, ToolDef, ToolReturnPart, UserPart, user_message
+from calfkit_tpu_torch.keying import partition_key
+from calfkit_tpu_torch.mesh import InMemoryMesh
+from calfkit_tpu_torch.models import (
+    ModelRequest,
+    ModelResponse,
+    ToolCallOutput,
+    ToolDef,
+    ToolReturnPart,
+    UserPart,
+    user_message,
+)
+from calfkit_tpu_torch.nodes import agent_tool
+from calfkit_tpu_torch.observability.metrics import REGISTRY
+from calfkit_tpu_torch.observability.trace import current_context
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # tensor-core bf16; f32 CUDA cores
@@ -1379,6 +1420,38 @@ AGENT_TOOLS = [
         "type": "object",
         "properties": {"city": {"type": "string"}, "nights": {"type": "integer"}}}),
 ]
+# AGENT_TOOLS as the mesh's schema extraction derives them from the
+# functions below: each derived schema adds "additionalProperties": false
+# and "required" (every parameter: none has a default), its keys sorted as
+# pydantic's are (phase 15 holds the port's pydantic-free extraction equal
+# to these; the JAX package's pydantic extraction gives the same)
+MESH_TOOLS = [
+    t.model_copy(update={"parameters_schema": dict(sorted({
+        **t.parameters_schema, "additionalProperties": False,
+        "required": list(t.parameters_schema["properties"])}.items()))})
+    for t in AGENT_TOOLS
+]
+
+
+def get_weather(city: str) -> dict:
+    """Forecast for a city"""
+    # three days: phase 15's turn-1 prompts pass 2,048 tokens, so turn 2
+    # reuses a fourth whole chunk of 512 beyond the shared instructions
+    return {"city": city, "days": [
+        {"day": d, "sky": sky, "high_c": 10 + len(city) + d, "low_c": 2 + d, "rain_mm": 3 * d}
+        for d, sky in enumerate(("clear", "cloudy", "showers"))]}
+
+
+def search_flights(origin: str, destination: str, date: str) -> list:
+    """Flights on a date"""
+    return [{"from": origin, "to": destination, "date": date, "price_eur": 120}]
+
+
+def book_hotel(city: str, nights: int) -> dict:
+    """Reserve a hotel room"""
+    return {"city": city, "nights": nights, "booked": False}
+
+
 AGENT_CITIES = ["Lisbon", "Oslo", "Kyoto", "Lima", "Nairobi", "Hanoi", "Quebec", "Tbilisi"]
 CLIENT_MAX_TOKENS = 32
 
@@ -2373,32 +2446,39 @@ def tie_gaps(cfg, params, prompt: "list[int]", stream: "list[int]", dev) -> "lis
     return list(zip((top - chosen).tolist(), band.tolist()))
 
 
-def check_survivor_streams(cfg, params, prompts, on: dict, off: dict, dev) -> dict:
-    """The survivors' greedy streams of the overlapped and the lockstep run:
-    equal, or equal up to a step where the two runs chose two tokens both
-    within the tie band of that step's top logit (:func:`tie_gaps`); and
-    every token of both runs within that band of its step's top logit (a
-    wrong K/V page would put a token far below it)."""
+def tie_law(cfg, params, cases, dev, labels=("overlapped", "lockstep")) -> dict:
+    """Phase 13's law over ``cases`` of (name, prompt, stream, other), two
+    greedy runs of one prompt: the streams equal, or equal up to a step
+    where the two runs chose two tokens both within the tie band of that
+    step's top logit (:func:`tie_gaps`); and every token of both runs
+    within that band of its step's top logit in the plain forward (a wrong
+    K/V page would put a token far below it)."""
     diverged, off_top, max_gap = [], 0, 0.0
-    for corr, (kind, stream) in on.items():
-        if kind != "ok":
-            continue
-        prompt = prompts[OVERLOAD_REQUESTS + 4] if corr == "wg-after" else prompts[int(corr[3:])]
-        other = off[corr][1]
-        gaps = {"overlapped": tie_gaps(cfg, params, prompt, stream, dev),
-                "lockstep": tie_gaps(cfg, params, prompt, other, dev)}
+    for name, prompt, stream, other in cases:
+        gaps = {labels[0]: tie_gaps(cfg, params, prompt, stream, dev),
+                labels[1]: tie_gaps(cfg, params, prompt, other, dev)}
         for run, steps in gaps.items():
-            assert all(g <= band for g, band in steps), (corr, run, steps)
+            assert all(g <= band for g, band in steps), (name, run, steps)
             off_top += sum(1 for g, _ in steps if g > 0)
-            max_gap = max(max_gap, max(g for g, _ in steps))
+            max_gap = max(max_gap, max((g for g, _ in steps), default=0.0))
         d = next((i for i, (a, b) in enumerate(zip(stream, other)) if a != b), None)
         if d is not None:
             # the common prefix gives step d the same logits in both forwards
-            diverged.append(dict(corr=corr, step=d, gap_overlapped=gaps["overlapped"][d][0],
-                                 gap_lockstep=gaps["lockstep"][d][0],
-                                 band=gaps["overlapped"][d][1]))
-    return dict(survivors=sum(1 for o in on.values() if o[0] == "ok"), diverged=diverged,
-                tokens_below_top=off_top, max_gap=max_gap)
+            diverged.append({"corr": name, "step": d, f"gap_{labels[0]}": gaps[labels[0]][d][0],
+                             f"gap_{labels[1]}": gaps[labels[1]][d][0],
+                             "band": gaps[labels[0]][d][1]})
+    return dict(diverged=diverged, tokens_below_top=off_top, max_gap=max_gap)
+
+
+def check_survivor_streams(cfg, params, prompts, on: dict, off: dict, dev) -> dict:
+    """The survivors' greedy streams of the overlapped and the lockstep run
+    under :func:`tie_law`."""
+    cases = [
+        (corr, prompts[OVERLOAD_REQUESTS + 4] if corr == "wg-after" else prompts[int(corr[3:])],
+         stream, off[corr][1])
+        for corr, (kind, stream) in on.items() if kind == "ok"
+    ]
+    return dict(survivors=len(cases), **tie_law(cfg, params, cases, dev))
 
 
 @contextlib.contextmanager
@@ -2943,6 +3023,337 @@ async def long_lane_phase(dev, params, card: str = "") -> "tuple[dict, list[dict
     return result, cases
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: the agent mesh (Agent, agent_tool, Worker, Client, InMemoryMesh)
+# --------------------------------------------------------------------------- #
+
+MESH_AGENT = "travel_desk"
+# the client phase's paged runtime with room for the mesh's turn 2, which
+# re-sends turn 1's scripted tool call, the tool's return and the answer
+# (~2,300 tokens against the client phase's ~1,700)
+MESH_RUNTIME = replace(PAGED_RUNTIME, max_seq_len=4096)
+MESH_LANES = 8  # the Worker's max_workers: dispatcher lanes a subscription
+MESH_ID_SEED = 0  # the client's ids, so every run puts the conversations on the same lanes
+# every dispatcher's lane waits (ms a record sat queued behind its key's lane)
+LANE_WAIT = REGISTRY.histogram("calfkit_dispatch_queue_wait_ms")
+
+
+@contextlib.contextmanager
+def seeded_client_ids(seed: int):
+    """The client's run, correlation and task ids (``client.caller.new_id``)
+    from a seeded generator for the block.  A conversation's task id picks
+    its dispatch lane (crc32 % lanes), and the client mints its ids in
+    ``execute``'s order, so a fixed seed gives every run the same lanes."""
+    rng = random.Random(seed)
+    original = caller.new_id
+    caller.new_id = lambda: uuid.UUID(int=rng.getrandbits(128), version=4).hex
+    try:
+        yield
+    finally:
+        caller.new_id = original
+
+
+class MeshTurnModel(ModelClient):
+    """Phase 15's agent model: the first step of a conversation is scripted
+    (the port's ``FunctionModelClient``: a ``get_weather`` call for the
+    conversation's city); every later step is the local engine's turn
+    through ``local`` (a ``TorchLocalModelClient``), recorded with its
+    correlation id, its request and its clocks (call, first ``TextDelta``,
+    done)."""
+
+    def __init__(self, local: TorchLocalModelClient):
+        self.local = local
+        self.scripted = FunctionModelClient(self._first_step, name="travel-desk-script")
+        self.calls: "list[dict]" = []
+        # the engine-stats advert of an engine-backed agent
+        self.stats_snapshot = local.stats_snapshot
+
+    @property
+    def model_name(self) -> str:
+        return self.local.model_name
+
+    @staticmethod
+    def _first_step(messages, params) -> ModelResponse:
+        text = messages[-1].parts[-1].content
+        city = next(c for c in AGENT_CITIES if c in text)
+        return ModelResponse(parts=[ToolCallOutput(
+            tool_call_id=f"call_{city}", tool_name="get_weather", args={"city": city})])
+
+    async def request(self, messages, settings=None, params=None):
+        async for event in self.request_stream(messages, settings, params):
+            if isinstance(event, ResponseDone):
+                return event.response
+        raise RuntimeError("stream ended without a terminal response")
+
+    async def request_stream(self, messages, settings=None, params=None):
+        if not any(isinstance(m, ModelResponse) for m in messages):
+            async for event in self.scripted.request_stream(messages, settings, params):
+                yield event
+            return
+        trace = current_context.get()
+        call = dict(corr=trace.trace_id if trace is not None else None, messages=list(messages),
+                    settings=settings, params=params, submit=time.perf_counter())
+        async for event in self.local.request_stream(messages, settings, params):
+            if isinstance(event, TextDelta) and "first" not in call:
+                call["first"] = time.perf_counter()
+            if isinstance(event, ResponseDone):
+                # recorded before the terminal is handed on: the consumer
+                # stops iterating at it
+                call.update(response=event.response, done=time.perf_counter())
+                self.calls.append(call)
+            yield event
+
+
+def _mesh_prompts(round_: str) -> "list[list[str]]":
+    """A round's two turns of user text, one per conversation."""
+    n = len(AGENT_CITIES)
+    return [
+        [f"{round_} trip {i}: weather in {city} on 2026-0{i + 1}-1{i}, and a hotel for "
+         f"{i + 2} nights?" for i, city in enumerate(AGENT_CITIES)],
+        [f"Thanks. Flights from {city} to {AGENT_CITIES[(i + 1) % n]} on 2026-0{i + 1}-2{i}, "
+         "within 400 EUR?" for i, city in enumerate(AGENT_CITIES)],
+    ]
+
+
+async def _mesh_round(client, engine, model, prompts, first_token) -> dict:
+    """Every conversation's two turns through ``Client.execute``, a turn's
+    conversations concurrently; per turn the executes' clocks and results,
+    the engine calls, the engine's prefix counters and the lanes' waits over
+    the turn."""
+    gateway = client.agent(MESH_AGENT)
+    histories: "list[list | None]" = [None] * len(AGENT_CITIES)
+    turns = []
+    started = time.perf_counter()
+    for turn, texts in enumerate(prompts):
+        hits, reused = engine.stats.prefix_hits, engine.stats.prefix_reused_tokens
+        calls_before, waited = len(model.calls), LANE_WAIT.sum
+
+        async def one(i: int, text: str) -> dict:
+            t = time.perf_counter()
+            result = await gateway.execute(text, message_history=histories[i], timeout=600)
+            return dict(start=t, end=time.perf_counter(), result=result)
+
+        runs = await asyncio.gather(*[one(i, text) for i, text in enumerate(texts)])
+        for i, run in enumerate(runs):
+            result = run["result"]
+            assert isinstance(result.output, str) and result.output, (turn, i, result.output)
+            histories[i] = result.state.message_history
+            run["first_token"] = first_token.get(result.correlation_id)
+        turns.append(dict(
+            runs=runs, calls=model.calls[calls_before:], lane_wait_ms=LANE_WAIT.sum - waited,
+            prefix_hits=engine.stats.prefix_hits - hits,
+            prefix_reused_tokens=engine.stats.prefix_reused_tokens - reused,
+        ))
+    return dict(turns=turns, started=started, wall_s=time.perf_counter() - started)
+
+
+def _stream_ids(tok, response) -> "list[int]":
+    # every id decodes to one character: the text is the stream
+    return tok.encode(response.text())
+
+
+def _mesh_turn_numbers(turn: dict, lanes: int) -> dict:
+    calls = {c["corr"]: c for c in turn["calls"]}
+    # the worker's dispatcher serves a key's deliveries on lane
+    # crc32(task id) % lanes, one at a time: conversations sharing a lane
+    # wait for one another's whole hop (the model turn included); a
+    # conversation alone on its lane adds only the codec's and the hops'
+    # host time
+    lane = [lane_of(partition_key(r["result"].task_id), lanes) for r in turn["runs"]]
+    mesh, engine_ttft, added, free, shared = [], [], [], [], []
+    for run, at in zip(turn["runs"], lane):
+        call = calls[run["result"].correlation_id]
+        assert run["first_token"] is not None and "first" in call, "no token step"
+        mesh.append((run["first_token"] - run["start"]) * 1e3)
+        engine_ttft.append((call["first"] - call["submit"]) * 1e3)
+        added.append(mesh[-1] - engine_ttft[-1])
+        (free if lane.count(at) == 1 else shared).append(added[-1])
+    tokens = sum(c["response"].usage.output_tokens for c in turn["calls"])
+    wall = max(r["end"] for r in turn["runs"]) - min(r["start"] for r in turn["runs"])
+    execute_ms = sum(r["end"] - r["start"] for r in turn["runs"]) * 1e3
+    return dict(
+        lanes_occupied=len(set(lane)),
+        mesh_ttft_ms=mesh, mesh_ttft_median_ms=statistics.median(mesh),
+        mesh_ttft_max_ms=max(mesh), engine_ttft_median_ms=statistics.median(engine_ttft),
+        engine_ttft_max_ms=max(engine_ttft), added_ms=added,
+        added_median_ms=statistics.median(added), added_max_ms=max(added),
+        free_lane_runs=len(free),
+        free_lane_added_median_ms=statistics.median(free) if free else None,
+        free_lane_added_max_ms=max(free, default=None),
+        shared_lane_added_median_ms=statistics.median(shared) if shared else None,
+        # the records' lane waits (every dispatcher) over the executes' time
+        lane_wait_ms=turn["lane_wait_ms"], lane_wait_share=turn["lane_wait_ms"] / execute_ms,
+        output_tokens=tokens, wall_s=wall, tok_s=tokens / wall,
+        prefix_hits=turn["prefix_hits"], prefix_reused_tokens=turn["prefix_reused_tokens"],
+    )
+
+
+async def agent_mesh_phase(dev, params, card: str = "") -> dict:
+    """Phase 15: the agent mesh on the card.  ``Worker([Agent, 3 tools])`` on
+    an ``InMemoryMesh``; the agent's model is :class:`MeshTurnModel` over a
+    ``TorchLocalModelClient`` serving the full ``llama-3-8b`` preset in bf16
+    on ``params`` (the last bf16 north-star drive's weights) with the
+    client phase's paged runtime at ``max_seq_len`` 4096
+    (``MESH_RUNTIME``) and :class:`CharTokenizer`, 32 new tokens
+    a step, greedy, ``stream_tokens=True``.  The tools are ``@agent_tool``
+    functions whose port-derived schemas must equal ``MESH_TOOLS``
+    (``AGENT_TOOLS`` with the keys a derived schema adds).  8
+    conversations x 2 turns run through ``Client.execute``, a turn's 8
+    concurrently: turn 1 is the scripted ``get_weather`` call, the tool's
+    hop, and the engine's answer over the history holding its return; turn
+    2 re-sends the history.  The client's ids come from a seeded generator
+    (:func:`seeded_client_ids`), so every run puts the conversations on the
+    same dispatch lanes.  Two warm-up rounds of other text capture the
+    graph keys; the measured round follows with every launch count reset.
+    Checks: every run ends with a result; turn 2 has prefix hits and more
+    reused tokens than turn 1; each of the measured round's 16 engine turns
+    and a direct ``request`` on the same messages (a turn's 8 again
+    concurrently, after the round) hold phase 13's law (:func:`tie_law`):
+    every token of both within the bf16 tie band of its step's top logit in
+    the plain forward, and the two equal or parting at a step where both
+    tokens are within it; #5 and #2 launched in the round; after ``stop()``
+    every page is free or cached and every slot free.  Prints the TTFT
+    through the mesh (``execute`` to the first token step on the client's
+    firehose) and the engine's own (the model client's ``request_stream``
+    to its first ``TextDelta``) per turn, the mesh's added ms (apart for
+    the conversations alone on their lane: the codec's and the hops' host
+    time), the lanes' wait share, tok/s and the records published by
+    topic."""
+    cfg = preset("llama-3-8b")
+    rt = MESH_RUNTIME
+    tok = CharTokenizer()
+    tools = [agent_tool(fn) for fn in (get_weather, search_flights, book_hotel)]
+    derived = [t.schema.tool_def for t in tools]
+    assert derived == MESH_TOOLS, [t.model_dump() for t in derived]
+    torch.cuda.reset_peak_memory_stats(dev)
+    engine = InferenceEngine(cfg, rt, params=params, device=dev)
+    local = TorchLocalModelClient(engine=engine, tokenizer=tok, max_new_tokens=CLIENT_MAX_TOKENS)
+    model = MeshTurnModel(local)
+    agent = Agent(
+        MESH_AGENT, model=model, instructions=AGENT_INSTRUCTIONS, tools=tools,
+        model_settings=ModelSettings(max_tokens=CLIENT_MAX_TOKENS), stream_tokens=True,
+    )
+    mesh = InMemoryMesh()
+    published: "dict[str, int]" = {}
+    publish = mesh.publish
+
+    async def counted(topic, value, *, key=None, headers=None):
+        published[topic] = published.get(topic, 0) + 1
+        return await publish(topic, value, key=key, headers=headers)
+
+    mesh.publish = counted
+    first_token: "dict[str, float]" = {}
+    await local.start()
+    try:
+        with seeded_client_ids(MESH_ID_SEED):
+            async with Worker([agent, *tools], mesh=mesh, max_workers=MESH_LANES):
+                client = Client.connect(mesh)
+                firehose = client.events()
+
+                async def watch() -> None:
+                    async for event in firehose:
+                        if event.step.kind == "token":
+                            first_token.setdefault(event.correlation_id, time.perf_counter())
+
+                watcher = asyncio.create_task(watch())
+                try:
+                    # two warm-up rounds: a round's waves (and so its graph
+                    # keys) depend on when each conversation reaches the engine
+                    for name in ("Warm-up", "Warm-up again"):
+                        await _mesh_round(client, engine, model, _mesh_prompts(name), first_token)
+                    model.calls.clear()
+                    published.clear()
+                    engine.stats = EngineStats()
+                    graphs_before = graph_numbers(engine)
+                    A.reset_launch_counts()
+                    with prefill_shapes() as prefills, decode_shapes() as decodes:
+                        measured = await _mesh_round(
+                            client, engine, model, _mesh_prompts("Trip desk"), first_token)
+                        launches = dict(A.launch_counts)
+                    graphs_after = graph_numbers(engine)
+                    records = dict(sorted(published.items()))
+                finally:
+                    firehose.close()
+                    watcher.cancel()
+                    with contextlib.suppress(asyncio.CancelledError):
+                        await watcher
+                    await client.close()
+        # a direct request on each engine turn's messages, a turn's 8 at once
+        direct = []
+        for turn in measured["turns"]:
+            direct += await asyncio.gather(*[
+                local.request(c["messages"], c["settings"], c["params"]) for c in turn["calls"]])
+    finally:
+        await local.stop()
+    peak = torch.cuda.max_memory_allocated(dev)
+    calls = [c for turn in measured["turns"] for c in turn["calls"]]
+    streams = tie_law(cfg, params, [
+        (c["corr"], [tok.bos_id, *tok.encode(render_messages(c["messages"], c["params"]))],
+         _stream_ids(tok, c["response"]), _stream_ids(tok, d))
+        for c, d in zip(calls, direct)
+    ], dev, labels=("mesh", "direct"))
+    t1, t2 = (_mesh_turn_numbers(t, MESH_LANES) for t in measured["turns"])
+    assert t2["prefix_hits"] >= 1 and t2["prefix_reused_tokens"] > t1["prefix_reused_tokens"], \
+        (t1["prefix_reused_tokens"], t2["prefix_reused_tokens"])
+    assert launches["prefill_attention"] > 0 and launches["paged_decode_attention"] > 0, launches
+    prefill_rows, decode_rows = _shape_rows(prefills), _shape_rows(decodes)
+    assert sum(r["launches"] for r in prefill_rows) == launches["prefill_attention"]
+    assert sum(r["launches"] for r in decode_rows) == launches["paged_decode_attention"]
+    # the no-leak law
+    free_pages, cached = engine._page_alloc.free_pages, engine._prefix.size
+    assert free_pages + cached == rt.pool_pages() - 1, (free_pages, cached)
+    assert len(engine._free) == rt.max_batch_size and not engine._active
+    tokens = t1["output_tokens"] + t2["output_tokens"]
+    captures = graphs_after["captures"] - graphs_before["captures"]
+    result = dict(
+        turn1=t1, turn2=t2, output_tokens=tokens, tok_s=tokens / measured["wall_s"],
+        wall_s=measured["wall_s"], records=records, records_total=sum(records.values()),
+        launches=launches, prefill_shapes=prefill_rows, decode_shapes=decode_rows,
+        engine_turns=len(calls), streams=streams,
+        measured_captures=captures, graphs=graphs_after, max_memory_allocated=peak,
+    )
+
+    def lane_note(t: dict) -> str:
+        if not t["free_lane_runs"]:
+            return "no conversation alone on its lane"
+        return (f"{t['free_lane_runs']} alone on their lane, added median "
+                f"{t['free_lane_added_median_ms']:.1f} max {t['free_lane_added_max_ms']:.1f}")
+
+    print(
+        f"  agent mesh llama-3-8b bf16, Worker([Agent, 3 tools]) on an InMemoryMesh, 8 "
+        f"conversations x 2 turns through Client.execute, <= {CLIENT_MAX_TOKENS} tokens an "
+        f"engine step (one run, no spread; {card}): TTFT through the mesh (execute -> first "
+        f"token step) turn 1 median {t1['mesh_ttft_median_ms']:.1f} ms max "
+        f"{t1['mesh_ttft_max_ms']:.1f} ms, turn 2 median {t2['mesh_ttft_median_ms']:.1f} ms "
+        f"max {t2['mesh_ttft_max_ms']:.1f} ms; the engine's own (request_stream -> first "
+        f"TextDelta) turn 1 median {t1['engine_ttft_median_ms']:.1f} ms max "
+        f"{t1['engine_ttft_max_ms']:.1f} ms, turn 2 median {t2['engine_ttft_median_ms']:.1f} "
+        f"ms max {t2['engine_ttft_max_ms']:.1f} ms; the mesh's added ms turn 1 median "
+        f"{t1['added_median_ms']:.1f} max {t1['added_max_ms']:.1f} (the scripted step and "
+        f"the tool's hop included; {lane_note(t1)}), turn 2 median "
+        f"{t2['added_median_ms']:.1f} max {t2['added_max_ms']:.1f} ({lane_note(t2)}); the 8 "
+        f"conversations' task ids (seed {MESH_ID_SEED}) on {t1['lanes_occupied']} (turn 1) "
+        f"and {t2['lanes_occupied']} (turn 2) of the worker's {MESH_LANES} dispatch lanes, "
+        f"lane waits {t1['lane_wait_share']:.3f} and {t2['lane_wait_share']:.3f} of the "
+        f"executes' time; {tokens} tokens at {result['tok_s']:.1f} tok/s over the "
+        f"round's {measured['wall_s']:.2f} s (turn 1 {t1['tok_s']:.1f}, turn 2 "
+        f"{t2['tok_s']:.1f}); prefix reuse turn 1 {t1['prefix_hits']} hits "
+        f"({t1['prefix_reused_tokens']} tokens), turn 2 {t2['prefix_hits']} "
+        f"({t2['prefix_reused_tokens']}); {result['records_total']} records published "
+        f"{records}; the {len(calls)} engine turns and their direct requests within the "
+        f"bf16 tie band of the plain forward at every token ({streams['tokens_below_top']} "
+        f"tokens below the top logit, max gap {streams['max_gap']}), "
+        f"{len(calls) - len(streams['diverged'])} equal, the rest parting at a tie "
+        f"{[(d['step'], d['gap_mesh'], d['gap_direct']) for d in streams['diverged']]}"
+        f"; launches {launches}; prefill launches by (B, Sq, Skv) "
+        f"{[(r['B'], r['S'], r['window'], r['launches']) for r in prefill_rows]}, paged decode "
+        f"by (B, wpages) {[(r['B'], r['window'], r['launches']) for r in decode_rows]}; "
+        f"captures in the measured round {captures}; pages free {free_pages} + cached {cached} "
+        f"of {rt.pool_pages() - 1}; {graph_note(graphs_after, peak)}"
+    )
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -3031,8 +3442,15 @@ def main() -> int:
     stage("long-context lane phase")
     long_lane, long_cases = asyncio.run(long_lane_phase(dev, weights, card))
     cases += long_cases
+    torch.cuda.empty_cache()
+    stage("agent mesh phase")
+    agent_mesh = asyncio.run(agent_mesh_phase(dev, weights, card))
     del weights
     torch.cuda.empty_cache()
+    stage("prefill and paged decode kernels at the agent mesh phase's shapes")
+    cases += [path_case(dev, "prefill_attention", agent_mesh["prefill_shapes"]),
+              path_case(dev, "paged_decode_attention", agent_mesh["decode_shapes"],
+                        "agent mesh")]
 
     # each kernel's launches from the path it serves, beside its case at a
     # shape of that path (MAIN_SHAPES, path_case): the dense decode kernel
@@ -3062,6 +3480,9 @@ def main() -> int:
                                            "bound_by", "library_ms")}
                        for lc in long_cases if lc["name"] == name],
             )
+        if agent_mesh["launches"].get(name):
+            # the agent mesh's path (phase 15's measured round)
+            entry["agent_mesh"] = dict(launches=agent_mesh["launches"][name])
         line["kernels"].append(entry)
     if args.out:
         with open(args.out, "w") as f:
@@ -3070,7 +3491,7 @@ def main() -> int:
                            spec_serving=spec_dense, client=client, quant_exactness=quant_exact,
                            checkpoint=ckpt, north_star=north, graphs=graph,
                            overload=overload, long_lane=long_lane,
-                           kernels=line["kernels"]),
+                           agent_mesh=agent_mesh, kernels=line["kernels"]),
                       f, indent=1, default=str)
     print(f"all phases in {time.perf_counter() - t0:.0f} s")
     print(json.dumps(line))

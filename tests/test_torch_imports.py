@@ -1,8 +1,10 @@
 """The import law of the PyTorch port: ``calfkit_tpu_torch`` and
 ``chip_smoke.py`` import neither ``jax`` nor anything of ``calfkit_tpu``,
-nor ``pydantic``, ``safetensors``, ``ml_dtypes`` or ``transformers`` (the
-card's machine has none of them): the one exception is ``HFTokenizer``'s
-lazy import of ``transformers`` when one is built.  The engine and the
+nor ``pydantic``, ``pydantic_core``, ``httpx``, ``click``, ``safetensors``,
+``ml_dtypes`` or ``transformers`` (the card's machine has none of them):
+the one exception is ``HFTokenizer``'s lazy import of ``transformers``
+when one is built.  Every module of the port, the agent mesh's included,
+imports with those packages blocked.  The engine and the
 model client refuse to fall back to the CPU when no card is present."""
 
 import ast
@@ -15,7 +17,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "calfkit_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-BANNED = ("jax", "jaxlib", "calfkit_tpu", "pydantic", "safetensors", "ml_dtypes", "transformers")
+BANNED = ("jax", "jaxlib", "calfkit_tpu", "pydantic", "pydantic_core", "httpx", "click",
+          "safetensors", "ml_dtypes", "transformers")
 # (file, enclosing function, package): the lazy imports the law allows
 LAZY_ALLOWED = {
     ("calfkit_tpu_torch/inference/tokenizer.py", "HFTokenizer.__init__", "transformers"),
@@ -30,7 +33,8 @@ class Block:
             raise ImportError(f"blocked import of {name}")
         return None
 
-BLOCKED = ("jax", "calfkit_tpu", "pydantic", "safetensors", "transformers", "ml_dtypes")
+BLOCKED = ("jax", "calfkit_tpu", "pydantic", "pydantic_core", "httpx", "click",
+           "safetensors", "transformers", "ml_dtypes")
 sys.meta_path.insert(0, Block())
 for name in BLOCKED:
     sys.modules[name] = None
@@ -46,8 +50,39 @@ for name in ("calfkit_tpu_torch.inference.client", "calfkit_tpu_torch.inference.
              "calfkit_tpu_torch.inference._safetensors", "calfkit_tpu_torch.cancellation",
              "calfkit_tpu_torch.leases", "calfkit_tpu_torch.qos",
              "calfkit_tpu_torch.observability.metrics", "calfkit_tpu_torch.observability.flightrec",
-             "calfkit_tpu_torch.observability.capacity", "calfkit_tpu_torch.observability.trace"):
+             "calfkit_tpu_torch.observability.capacity", "calfkit_tpu_torch.observability.trace",
+             # the agent mesh
+             "calfkit_tpu_torch.protocol", "calfkit_tpu_torch.keying", "calfkit_tpu_torch.routing",
+             "calfkit_tpu_torch.tuning", "calfkit_tpu_torch.effects", "calfkit_tpu_torch.utils_names",
+             "calfkit_tpu_torch.exceptions", "calfkit_tpu_torch.models._wire",
+             "calfkit_tpu_torch.models.session_context", "calfkit_tpu_torch.models.state",
+             "calfkit_tpu_torch.models.actions", "calfkit_tpu_torch.models.reply",
+             "calfkit_tpu_torch.models.error_report", "calfkit_tpu_torch.models.marker",
+             "calfkit_tpu_torch.models.tool_dispatch", "calfkit_tpu_torch.models.step",
+             "calfkit_tpu_torch.models.node_result", "calfkit_tpu_torch.models.agents",
+             "calfkit_tpu_torch.models.fanout", "calfkit_tpu_torch.models.records",
+             "calfkit_tpu_torch.mesh", "calfkit_tpu_torch.mesh.tables",
+             "calfkit_tpu_torch.mesh.transport", "calfkit_tpu_torch.mesh.dispatch",
+             "calfkit_tpu_torch.mesh.memory", "calfkit_tpu_torch.mesh.urls",
+             "calfkit_tpu_torch.fleet", "calfkit_tpu_torch.fleet.selection",
+             "calfkit_tpu_torch.engine.schema", "calfkit_tpu_torch.engine.turn",
+             "calfkit_tpu_torch.engine.testing", "calfkit_tpu_torch.nodes",
+             "calfkit_tpu_torch.nodes.registry", "calfkit_tpu_torch.nodes.seams",
+             "calfkit_tpu_torch.nodes.steps", "calfkit_tpu_torch.nodes.fanout_store",
+             "calfkit_tpu_torch.nodes.base", "calfkit_tpu_torch.nodes.projection",
+             "calfkit_tpu_torch.nodes.tool", "calfkit_tpu_torch.nodes.agent",
+             "calfkit_tpu_torch.peers", "calfkit_tpu_torch.peers.directory",
+             "calfkit_tpu_torch.peers.handoff", "calfkit_tpu_torch.peers.messaging",
+             "calfkit_tpu_torch.controlplane", "calfkit_tpu_torch.controlplane.config",
+             "calfkit_tpu_torch.controlplane.publisher", "calfkit_tpu_torch.controlplane.view",
+             "calfkit_tpu_torch.controlplane.plane", "calfkit_tpu_torch.worker",
+             "calfkit_tpu_torch.worker.lifecycle", "calfkit_tpu_torch.worker.worker",
+             "calfkit_tpu_torch.client", "calfkit_tpu_torch.client.events",
+             "calfkit_tpu_torch.client.hub", "calfkit_tpu_torch.client.caller",
+             "calfkit_tpu_torch.client.mesh", "calfkit_tpu_torch.observability.runledger"):
     assert name in names, name
+from calfkit_tpu_torch import Agent, Client, Worker, agent_tool
+from calfkit_tpu_torch.mesh import InMemoryMesh
 from calfkit_tpu_torch.inference import TorchLocalModelClient
 import chip_smoke
 assert not any(m.split(".")[0] in BLOCKED for m, v in sys.modules.items() if v is not None)
