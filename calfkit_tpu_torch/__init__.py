@@ -11,7 +11,9 @@ Public API (lazy — importing :mod:`calfkit_tpu_torch` pulls in nothing):
 - ``Client`` / ``Worker`` — caller surface and serving host;
 - ``Agent`` / ``StatelessAgent`` / ``agent_tool`` — node kinds;
 - ``Tools`` / ``Messaging`` / ``Handoff`` — selectors and peers;
-- ``InMemoryMesh`` — the in-process mesh;
+- ``InMemoryMesh`` / ``TcpMesh`` / ``KafkaWireMesh`` — the in-process mesh,
+  the native ``meshd`` broker's and the Kafka wire protocol's transports;
+- ``ProvisioningConfig`` — the worker's topic provisioning;
 - ``TorchLocalModelClient`` — the local CUDA inference provider.
 """
 
@@ -51,14 +53,19 @@ _LAZY: dict[str, str] = {
     "FaultTypes": "calfkit_tpu_torch.models",
     "ErrorReport": "calfkit_tpu_torch.models",
     "ExceptionInfo": "calfkit_tpu_torch.models",
-    # control plane + tuning
+    # control plane + provisioning + tuning
     "ControlPlaneConfig": "calfkit_tpu_torch.controlplane",
     "ControlPlaneRecord": "calfkit_tpu_torch.controlplane",
     "ControlPlaneStamp": "calfkit_tpu_torch.controlplane",
     "ControlPlaneView": "calfkit_tpu_torch.controlplane",
+    "ProvisioningConfig": "calfkit_tpu_torch.provisioning",
     "FanoutConfig": "calfkit_tpu_torch.tuning",
     # transports
     "InMemoryMesh": "calfkit_tpu_torch.mesh",
+    "TcpMesh": "calfkit_tpu_torch.mesh",
+    "KafkaWireMesh": "calfkit_tpu_torch.mesh",
+    "ConnectionProfile": "calfkit_tpu_torch.mesh",
+    "WireSecurity": "calfkit_tpu_torch.mesh",
     # observability: tracing + metrics (dependency-free)
     "TraceContext": "calfkit_tpu_torch.observability.trace",
     "Tracer": "calfkit_tpu_torch.observability.trace",

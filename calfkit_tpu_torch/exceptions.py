@@ -30,6 +30,7 @@ __all__ = [
     "RegistryConfigError",
     "SeamContractError",
     "LifecycleConfigError",
+    "ProvisioningError",
     "InferenceError",
     "EngineOverloadedError",
     "EngineWedgedError",
@@ -100,6 +101,13 @@ class SeamContractError(CalfkitError):
 
 class LifecycleConfigError(CalfkitError):
     """Worker lifecycle hook/resource misconfiguration."""
+
+    code = FaultTypes.LIFECYCLE_ERROR
+
+
+class ProvisioningError(CalfkitError):
+    """Topic provisioning failed at worker boot (unauthorized, fatal, or
+    transient trouble past the provisioner's attempts)."""
 
     code = FaultTypes.LIFECYCLE_ERROR
 
@@ -205,6 +213,7 @@ FAULT_TYPE_BY_EXCEPTION: dict[type[BaseException], str] = {
     DeserializationError: FaultTypes.DESERIALIZATION_ERROR,
     InferenceError: FaultTypes.MODEL_ERROR,
     MeshUnavailableError: FaultTypes.CAPABILITY_UNAVAILABLE,
+    ProvisioningError: FaultTypes.LIFECYCLE_ERROR,
     LifecycleConfigError: FaultTypes.LIFECYCLE_ERROR,
 }
 

@@ -1,37 +1,41 @@
 """Mesh URL resolution — one grammar for the Client and the Worker.
 
-The port's own copy of ``calfkit_tpu.mesh.urls``.  Only ``memory://``
-resolves: the TCP and Kafka transports are not ported yet, and their URLs
-raise :class:`~calfkit_tpu_torch.exceptions.MeshUnavailableError` naming
-the ROADMAP item that ports them.
+The port's own copy of ``calfkit_tpu.mesh.urls``: ``memory://``,
+``tcp://`` (the native ``meshd`` broker) and ``kafka://`` (the native Kafka
+wire client).
 """
 
 from __future__ import annotations
 
 import os
 
-from calfkit_tpu_torch.exceptions import MeshUnavailableError
 from calfkit_tpu_torch.mesh.transport import MeshTransport
 
 MESH_URL_ENV = "CALFKIT_MESH_URL"
 
 
 def mesh_from_url(url: str) -> MeshTransport:
-    """``memory://``; ``tcp://host:port`` and ``kafka://host:port[,...]``
-    (``kafka+wire://``) are refused with a typed
-    :class:`MeshUnavailableError` until their transports are ported."""
+    """``memory://`` | ``tcp://host:port`` | ``kafka://host:port[,...]``
+    (``kafka+wire://`` is an accepted alias).
+
+    ``kafka://`` resolves to the native wire-protocol client
+    (:class:`KafkaWireMesh`) — the framework's only Kafka transport:
+    leader/coordinator routing, TLS and SASL are spoken natively.
+    Secured clusters need an ssl_context/credentials a URL cannot carry:
+    construct ``KafkaWireMesh(profile=ConnectionProfile(...))`` directly."""
     if url.startswith("memory://"):
         from calfkit_tpu_torch.mesh.memory import InMemoryMesh
 
         return InMemoryMesh()
-    if url.startswith(("tcp://", "kafka+wire://", "kafka://")):
-        scheme = url.split("://", 1)[0]
-        raise MeshUnavailableError(
-            f"mesh url {url!r}: the {scheme}:// transport is not ported to "
-            "calfkit_tpu_torch yet (ROADMAP Queue 1, the TCP and Kafka "
-            "transports); use an InMemoryMesh",
-            reason="not_ported",
-        )
+    if url.startswith("tcp://"):
+        from calfkit_tpu_torch.mesh.tcp import TcpMesh
+
+        return TcpMesh(url.removeprefix("tcp://"))
+    if url.startswith("kafka+wire://") or url.startswith("kafka://"):
+        from calfkit_tpu_torch.mesh.kafka_wire import KafkaWireMesh
+
+        bootstrap = url.removeprefix("kafka+wire://").removeprefix("kafka://")
+        return KafkaWireMesh(bootstrap)
     raise ValueError(
         f"unsupported mesh url {url!r} "
         "(use memory://, tcp://host:port, or kafka://host:port)"

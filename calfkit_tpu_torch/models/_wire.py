@@ -18,7 +18,7 @@ of the JAX package's pydantic models of the same names, without pydantic
   lists, dicts, nested wire types, discriminated unions on ``kind`` /
   ``role``), defaults and ``default_factory`` for absent fields, unknown
   keys dropped (forward compatibility) unless the class keeps them
-  (``__wire_extra__ = "allow"``), and the
+  (``__wire_extra__ = "allow"``) or refuses them (``"forbid"``), and the
   lax scalar law of :func:`coerce` (``"3"`` for an ``int``, ``1`` for a
   ``float``, ``"yes"`` for a ``bool``);
 - **construction** copies list and dict fields (a caller's later mutation
@@ -452,6 +452,9 @@ def _load_wire(cls: type, v: Any) -> Any:
         elif f.default is _MISSING and f.default_factory is _MISSING:
             fails.append(_Fail("missing", "Field required", v, (f.name,)))
     extras = {k: val for k, val in v.items() if k not in names}
+    if cls.__wire_extra__ == "forbid":
+        fails += [_Fail("extra_forbidden", "Extra inputs are not permitted", val, (key,))
+                  for key, val in extras.items()]
     if fails:
         if len(fails) == 1:
             raise fails[0]

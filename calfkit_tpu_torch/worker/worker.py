@@ -4,9 +4,7 @@ The port's own copy of ``calfkit_tpu.worker.worker``.  Responsibilities:
 
 - register each node's key-ordered subscriber (input + return topics, one
   consumer group per node name → horizontal scaling via group membership);
-- create the topics its nodes and the framework tables use at boot (the
-  JAX package's provisioner with its default configuration; the
-  configurable provisioner is not ported yet, ROADMAP Queue 1);
+- provision topics at boot;
 - provide per-node durable fan-out stores;
 - run the lifecycle brackets (see :mod:`calfkit_tpu_torch.worker.lifecycle`) with
   rollback on failed boot;
@@ -26,7 +24,6 @@ import logging
 import signal
 from typing import Any, Sequence
 
-from calfkit_tpu_torch import protocol
 from calfkit_tpu_torch.exceptions import LifecycleConfigError
 from calfkit_tpu_torch.mesh.transport import MeshTransport, Subscription
 from calfkit_tpu_torch.nodes.base import BaseNodeDef
@@ -47,7 +44,7 @@ class Worker(LifecycleHookMixin):
         owns_transport: bool = False,
         control_plane: Any = None,
         fanout: Any = None,  # FanoutConfig | None
-        provisioning: Any = None,  # not ported: must stay None
+        provisioning: Any = None,  # ProvisioningConfig | None
         qos: Any = None,  # qos.TenantRateLimiter | None
     ):
         super().__init__()
@@ -72,11 +69,16 @@ class Worker(LifecycleHookMixin):
                 f"fanout must be a FanoutConfig, got {type(fanout).__name__}"
             )
         self.fanout_config = fanout
-        if provisioning is not None:
+        from calfkit_tpu_torch.provisioning import ProvisioningConfig
+
+        if provisioning is not None and not isinstance(
+            provisioning, ProvisioningConfig
+        ):
             raise LifecycleConfigError(
-                "provisioning= is not ported to calfkit_tpu_torch yet "
-                "(ROADMAP Queue 1); the worker creates its topics itself"
+                "provisioning must be a ProvisioningConfig, got "
+                f"{type(provisioning).__name__}"
             )
+        self.provisioning_config = provisioning
         # control plane default ON: pass False (or a disabled config) to opt
         # out; a ControlPlaneConfig customizes; a ControlPlane is used as-is
         from calfkit_tpu_torch.controlplane import ControlPlane, ControlPlaneConfig
@@ -162,12 +164,20 @@ class Worker(LifecycleHookMixin):
         await self._enter_resources(self.resources)
         await self.mesh.start()
 
-        # create every topic the nodes touch, then the framework tables
-        # (compacted); downstream starters (fan-out store, control plane)
-        # then skip their own ensure_topics
-        await self.mesh.ensure_topics(_node_topics(self.nodes), compacted=False)
-        await self.mesh.ensure_topics(_framework_topics(self.nodes), compacted=True)
-        ensure_framework = False
+        # provision every topic the nodes touch, through the classifying
+        # provisioner (retry on transient broker trouble; an unauthorized
+        # cluster fails loudly instead of looking flaky)
+        from calfkit_tpu_torch.provisioning import ProvisioningConfig, provision
+
+        await provision(self.mesh, self.nodes, self.provisioning_config)
+        # downstream starters (fan-out store, control plane) skip their own
+        # ensure_topics when the provisioner covered the framework tables —
+        # AND when provisioning is disabled outright: enabled=False is the
+        # operator saying "topics pre-exist; issue no admin round-trips at
+        # all" (e.g. an ACL-restricted cluster), and a raw ensure here would
+        # bypass the provisioner's unauthorized/retry classification
+        prov = self.provisioning_config or ProvisioningConfig()
+        ensure_framework = prov.enabled and not prov.include_framework
 
         for node in self.nodes:
             node.bind(self.mesh)
@@ -285,27 +295,3 @@ class Worker(LifecycleHookMixin):
     def run(self) -> None:
         """Blocking entrypoint: boot, serve until SIGINT/SIGTERM, drain."""
         asyncio.run(self.serve_forever())
-
-
-def _node_topics(nodes: Sequence[BaseNodeDef]) -> list[str]:
-    """Every topic the nodes themselves consume or publish."""
-    topics: set[str] = set()
-    for node in nodes:
-        topics.update(node.all_topics())
-    return sorted(topics)
-
-
-def _framework_topics(nodes: Sequence[BaseNodeDef]) -> list[str]:
-    """Framework-owned topics backing the nodes: control plane + durable
-    fan-out tables (compacted)."""
-    topics: set[str] = {
-        protocol.AGENTS_TOPIC,
-        protocol.CAPABILITIES_TOPIC,
-        protocol.ENGINE_STATS_TOPIC,
-        protocol.TRACES_TOPIC,
-        protocol.CALLER_LIVENESS_TOPIC,
-    }
-    for node in nodes:
-        topics.add(protocol.fanout_state_topic(node.node_id))
-        topics.add(protocol.fanout_basestate_topic(node.node_id))
-    return sorted(topics)

@@ -2,6 +2,7 @@
 """Drive the PyTorch port (``calfkit_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--out PATH]
+    python3 chip_smoke.py --wire-client URL   (phase 16's client process)
 
 Phases, in order; any failed check raises, so the exit code is non-zero and
 the final ``ok`` line is never printed:
@@ -142,15 +143,41 @@ the final ``ok`` line is never printed:
    before the measured round and read just after; every run ends with a
    result, turn 2 reuses more prefix tokens than turn 1, every token of
    each engine turn and of a direct ``request`` on the same messages lies
-   within the bf16 tie band of the plain forward's top logit, the two
-   parting only at such a tie (phase 13's law), #5 and #2 launch, and
+   within ``TIE_SPACINGS`` bf16 spacings of the f32 plain forward's top
+   logit, the two parting only at such a tie (phase 13's law), #5 and #2 launch, and
    after ``stop()`` every page is free or cached; it prints TTFT through
    the mesh and the engine's own per turn, the mesh's added ms (apart for
    conversations alone on their lane), the lanes' wait share, tok/s and
    the records published by topic; then #5
    and #2 against their plain versions at the phase's most launched
    shapes; the ``kernels`` line reports its launches under
-   ``agent_mesh``.
+   ``agent_mesh``;
+16. the wire transports (``wire_mesh_phase``): the brokers and the CRC
+   library are built from ``native/``'s sources with its Makefile's flags
+   into ``calfkit_tpu_torch/_build/native/`` beside the kernels (phase 1
+   prints the compilers and the seconds) and ``$CALFKIT_MESHD``,
+   ``$CALFKIT_KAFKAD`` and ``$CALFKIT_CRC32C`` point at them; then phase
+   15's agent and engine (the same weights) serve behind
+   ``Worker(provisioning=ProvisioningConfig())`` on the port's
+   ``KafkaWireMesh`` against ``kafkad`` on port 0, and again on its
+   ``TcpMesh`` against ``meshd``, while the ``Client`` runs in a child
+   process (``chip_smoke.py --wire-client URL``, no CUDA context): two
+   warm-up rounds, then the measured round of 8 conversations x 2 turns.
+   Checks: the wire client's CRC is the native library's in both
+   processes; the topics provisioned equal ``topics_for_nodes`` ∪
+   ``framework_topics_for_nodes``; phase 15's checks (results, prefix
+   reuse, the tie law on the 16 engine turns and their direct requests,
+   #5 and #2 launched, no leak); a second worker's boot on the same broker
+   boots on the topics as they are (over ``kafka://`` the broker answers
+   TOPIC_ALREADY_EXISTS for each, which the wire mesh takes without
+   raising, so the provisioner's classifier is not reached).  It prints per
+   turn the TTFT through the mesh and the engine's own, the added ms and
+   its excess over phase 15's, apart for conversations alone on their
+   lane, the lanes' wait share, tok/s, the records by topic, the worker's
+   boot seconds and its subscriptions' seconds to the first assignment;
+   then #5 and #2 against their plain versions at the ``kafka://`` run's
+   most launched shapes; the ``kernels`` line reports both transports'
+   launches under ``wire_mesh``.
 
 The kernel phase also holds the ragged multi-query kernels (speculative
 verify shapes S = 5, a mixed-row case with prefill-kind and fresh rows, page
@@ -187,9 +214,11 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import concurrent.futures
 import contextlib
 import json
 import math
+import os
 import random
 import statistics
 import struct
@@ -200,6 +229,7 @@ import time
 import uuid
 from dataclasses import replace
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -227,7 +257,7 @@ from calfkit_tpu_torch.inference.loader import config_from_hf, load_params
 from calfkit_tpu_torch.inference.sampler import SamplingParams
 from calfkit_tpu_torch.inference.tokenizer import ByteTokenizer
 from calfkit_tpu_torch.keying import partition_key
-from calfkit_tpu_torch.mesh import InMemoryMesh
+from calfkit_tpu_torch.mesh import InMemoryMesh, _native
 from calfkit_tpu_torch.models import (
     ModelRequest,
     ModelResponse,
@@ -2446,28 +2476,89 @@ def tie_gaps(cfg, params, prompt: "list[int]", stream: "list[int]", dev) -> "lis
     return list(zip((top - chosen).tolist(), band.tolist()))
 
 
+# Phase 13's law: a greedy token of a bf16 run lies within this many bf16
+# spacings (at its step's top logit's magnitude) of the top logit of the f32
+# plain forward.  Set on the card (scripts/torch_agent_mesh.py; PERF.md §6,
+# PR 13) between the largest gap of the sound bf16 streams (the engine's,
+# and the plain forward's own greedy ones: 2.94 at most) and that of the
+# plain forward's own greedy streams with its K/V rounded to 3 mantissa bits
+# (3.86).
+TIE_SPACINGS = 3
+
+
+class _F32Rows:
+    """A stacked layer leaf read one layer at a time, in f32."""
+
+    def __init__(self, stacked: torch.Tensor):
+        self.stacked = stacked
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return self.stacked[i].float()
+
+
+def f32_params(params) -> dict:
+    """bf16 ``params`` for the f32 plain forward: the embedding, the final
+    norm and the head in f32, each layer's leaves cast to f32 when the
+    forward reaches that layer (4 GB at llama-3-8b's widths, not a 32 GB
+    copy)."""
+    return {**{k: v.float() for k, v in params.items() if k != "layers"},
+            "layers": {k: _F32Rows(v) for k, v in params["layers"].items()}}
+
+
+def witness_gaps(cfg, params, prompt: "list[int]", streams: "list[list[int]]",
+                 dev) -> "list[list[tuple]]":
+    """Each of ``streams``, greedy continuations of ``prompt``, teacher-forced
+    through the plain forward in f32 (``model.forward`` with the plain
+    attention, one row, ``params`` cast to f32 layer by layer) → per stream,
+    per step (the top logit - the chosen token's logit, one bf16 spacing at
+    the top logit's magnitude).  The prompt runs once; each stream then runs
+    as one chunk on its cache."""
+    cfg32, p32 = replace(cfg, dtype="float32"), f32_params(params)
+    n = len(prompt)
+    cache = M.make_empty_cache(cfg32, 1, n + max(len(s) for s in streams), device=dev)
+
+    def run(tokens: "list[int]", at: int) -> torch.Tensor:
+        logits, _ = M.forward(
+            p32, cfg32, torch.tensor([tokens], dtype=torch.int32, device=dev),
+            torch.arange(at, at + len(tokens), dtype=torch.int32, device=dev)[None], cache,
+            torch.tensor([at + len(tokens)], dtype=torch.int32, device=dev), attn_impl="plain")
+        return logits[0]
+
+    first = run(prompt, 0)[-1:]  # predicts each stream's first token
+    out = []
+    for stream in streams:
+        lg = torch.cat([first, run(stream[:-1], n)]) if len(stream) > 1 else first[:len(stream)]
+        top = lg.max(dim=1).values
+        chosen = lg.gather(1, torch.tensor(stream, device=dev, dtype=torch.long)[:, None])[:, 0]
+        spacing = torch.exp2(torch.floor(torch.log2(top.abs().clamp_min(2.0 ** -126))) - 7)
+        out.append(list(zip((top - chosen).tolist(), spacing.tolist())))
+    return out
+
+
 def tie_law(cfg, params, cases, dev, labels=("overlapped", "lockstep")) -> dict:
     """Phase 13's law over ``cases`` of (name, prompt, stream, other), two
-    greedy runs of one prompt: the streams equal, or equal up to a step
-    where the two runs chose two tokens both within the tie band of that
-    step's top logit (:func:`tie_gaps`); and every token of both runs
-    within that band of its step's top logit in the plain forward (a wrong
-    K/V page would put a token far below it)."""
+    greedy bf16 runs of one prompt: every token of both runs within
+    :data:`TIE_SPACINGS` bf16 spacings of its step's top logit in the f32
+    plain forward (:func:`witness_gaps`; a wrong K/V page would put a token
+    far below it), and the streams equal, or equal up to a step where the
+    two runs chose two tokens both within that band.  Gaps are reported in
+    spacings."""
     diverged, off_top, max_gap = [], 0, 0.0
     for name, prompt, stream, other in cases:
-        gaps = {labels[0]: tie_gaps(cfg, params, prompt, stream, dev),
-                labels[1]: tie_gaps(cfg, params, prompt, other, dev)}
+        both = witness_gaps(cfg, params, prompt, [stream] if other == stream else [stream, other],
+                            dev)
+        gaps = {labels[0]: [g / s for g, s in both[0]], labels[1]: [g / s for g, s in both[-1]]}
         for run, steps in gaps.items():
-            assert all(g <= band for g, band in steps), (name, run, steps)
-            off_top += sum(1 for g, _ in steps if g > 0)
-            max_gap = max(max_gap, max((g for g, _ in steps), default=0.0))
+            assert all(g <= TIE_SPACINGS for g in steps), (name, run, TIE_SPACINGS, steps)
+            off_top += sum(1 for g in steps if g > 0)
+            max_gap = max(max_gap, max(steps, default=0.0))
         d = next((i for i, (a, b) in enumerate(zip(stream, other)) if a != b), None)
         if d is not None:
             # the common prefix gives step d the same logits in both forwards
-            diverged.append({"corr": name, "step": d, f"gap_{labels[0]}": gaps[labels[0]][d][0],
-                             f"gap_{labels[1]}": gaps[labels[1]][d][0],
-                             "band": gaps[labels[0]][d][1]})
-    return dict(diverged=diverged, tokens_below_top=off_top, max_gap=max_gap)
+            diverged.append({"corr": name, "step": d, f"gap_{labels[0]}": gaps[labels[0]][d],
+                             f"gap_{labels[1]}": gaps[labels[1]][d]})
+    return dict(diverged=diverged, tokens_below_top=off_top, max_gap=max_gap,
+                band=TIE_SPACINGS)
 
 
 def check_survivor_streams(cfg, params, prompts, on: dict, off: dict, dev) -> dict:
@@ -2595,10 +2686,11 @@ async def overload_phase(dev, params, card: str = "") -> "tuple[dict, list[dict]
         f"{o['burst_s']:.2f} s), again {checked['repeat']['wall_s']:.2f} s, lockstep "
         f"{s['wall_s']:.2f} s; endings {o['endings']} (batch shed {o['shed_batch']}, "
         f"interactive shed {o['shed_interactive']}), {o['survivors']} full streams, the "
-        f"repeat's bit for bit; against lockstep {len(streams['diverged'])} diverge at a bf16 "
-        f"tie {[(d['corr'], d['step'], d['gap_overlapped'], d['gap_lockstep']) for d in streams['diverged']]}"
+        f"repeat's bit for bit; against lockstep {len(streams['diverged'])} diverge at a tie "
+        f"(gaps in bf16 spacings under the f32 plain forward, band {TIE_SPACINGS}) "
+        f"{[(d['corr'], d['step'], round(d['gap_overlapped'], 3), round(d['gap_lockstep'], 3)) for d in streams['diverged']]}"
         f" (tokens below their step's top logit {streams['tokens_below_top']}, largest gap "
-        f"{streams['max_gap']}); lockstep evictions {s['prefix_evictions']}; decode "
+        f"{streams['max_gap']:.3f}); lockstep evictions {s['prefix_evictions']}; decode "
         f"{o['decode_tok_s']:.1f} tok/s "
         f"over {o['decode_dispatches']} dispatches (EWMA {o['dispatch_ewma_ms']:.1f} ms), "
         f"prefix hits {o['prefix_hits']}, evictions {o['prefix_evictions']}, alloc stalls "
@@ -3147,6 +3239,17 @@ async def _mesh_round(client, engine, model, prompts, first_token) -> dict:
     return dict(turns=turns, started=started, wall_s=time.perf_counter() - started)
 
 
+def counting(mesh, published: dict) -> None:
+    """Count every record ``mesh`` publishes, by topic, into ``published``."""
+    publish = mesh.publish
+
+    async def counted(topic, value, *, key=None, headers=None):
+        published[topic] = published.get(topic, 0) + 1
+        return await publish(topic, value, key=key, headers=headers)
+
+    mesh.publish = counted
+
+
 def _stream_ids(tok, response) -> "list[int]":
     # every id decodes to one character: the text is the stream
     return tok.encode(response.text())
@@ -3209,8 +3312,8 @@ async def agent_mesh_phase(dev, params, card: str = "") -> dict:
     reused tokens than turn 1; each of the measured round's 16 engine turns
     and a direct ``request`` on the same messages (a turn's 8 again
     concurrently, after the round) hold phase 13's law (:func:`tie_law`):
-    every token of both within the bf16 tie band of its step's top logit in
-    the plain forward, and the two equal or parting at a step where both
+    every token of both within the tie band of its step's top logit in
+    the f32 plain forward, and the two equal or parting at a step where both
     tokens are within it; #5 and #2 launched in the round; after ``stop()``
     every page is free or cached and every slot free.  Prints the TTFT
     through the mesh (``execute`` to the first token step on the client's
@@ -3235,13 +3338,7 @@ async def agent_mesh_phase(dev, params, card: str = "") -> dict:
     )
     mesh = InMemoryMesh()
     published: "dict[str, int]" = {}
-    publish = mesh.publish
-
-    async def counted(topic, value, *, key=None, headers=None):
-        published[topic] = published.get(topic, 0) + 1
-        return await publish(topic, value, key=key, headers=headers)
-
-    mesh.publish = counted
+    counting(mesh, published)
     first_token: "dict[str, float]" = {}
     await local.start()
     try:
@@ -3340,11 +3437,12 @@ async def agent_mesh_phase(dev, params, card: str = "") -> dict:
         f"{t2['tok_s']:.1f}); prefix reuse turn 1 {t1['prefix_hits']} hits "
         f"({t1['prefix_reused_tokens']} tokens), turn 2 {t2['prefix_hits']} "
         f"({t2['prefix_reused_tokens']}); {result['records_total']} records published "
-        f"{records}; the {len(calls)} engine turns and their direct requests within the "
-        f"bf16 tie band of the plain forward at every token ({streams['tokens_below_top']} "
-        f"tokens below the top logit, max gap {streams['max_gap']}), "
+        f"{records}; the {len(calls)} engine turns and their direct requests within "
+        f"{TIE_SPACINGS} bf16 spacings of the f32 plain forward's top logit at every token "
+        f"({streams['tokens_below_top']} tokens below it, max gap {streams['max_gap']:.3f} "
+        f"spacings), "
         f"{len(calls) - len(streams['diverged'])} equal, the rest parting at a tie "
-        f"{[(d['step'], d['gap_mesh'], d['gap_direct']) for d in streams['diverged']]}"
+        f"{[(d['step'], round(d['gap_mesh'], 3), round(d['gap_direct'], 3)) for d in streams['diverged']]}"
         f"; launches {launches}; prefill launches by (B, Sq, Skv) "
         f"{[(r['B'], r['S'], r['window'], r['launches']) for r in prefill_rows]}, paged decode "
         f"by (B, wpages) {[(r['B'], r['window'], r['launches']) for r in decode_rows]}; "
@@ -3354,10 +3452,460 @@ async def agent_mesh_phase(dev, params, card: str = "") -> dict:
     return result
 
 
+# --------------------------------------------------------------------------- #
+# phase 16: the agent mesh over the wire transports
+# --------------------------------------------------------------------------- #
+
+# two warm-up rounds, then the measured round: a round's waves, and so its
+# graph keys, depend on when each conversation reaches the engine; after one
+# warm-up round the first card call still captured 3 keys in the measured
+# round over kafka://
+WIRE_ROUNDS = ("Warm-up", "Warm-up again", "Trip desk")
+WIRE_TRANSPORTS = ("kafka", "tcp")
+KAFKA_TOPIC_EXISTS = 36  # CreateTopics' TOPIC_ALREADY_EXISTS
+# the two processes' clocks: time.perf_counter is CLOCK_MONOTONIC on Linux,
+# one clock for every process of the machine, so the client process's
+# readings and the worker's subtract
+
+
+def _say(event: dict) -> None:
+    sys.stdout.write(json.dumps(event) + "\n")
+    sys.stdout.flush()
+
+
+def wire_crc() -> str:
+    """The name of the CRC function the Kafka wire client loaded:
+    ``_crc32c_native`` (the native library) or ``_crc32c_py`` (the
+    pure-Python fallback)."""
+    from calfkit_tpu_torch.mesh import kafka_wire
+
+    return kafka_wire.crc32c.__name__
+
+
+def timed_subscribes(mesh, joins: list) -> None:
+    """Record (group, seconds) of every ``mesh.subscribe`` (group ``None``: a
+    broadcast tap): over ``kafka://`` it returns at the consumer's first
+    assignment, over ``tcp://`` when meshd has answered every SUB (meshd
+    assigns the group's partitions as it answers)."""
+    subscribe = mesh.subscribe
+
+    async def timed(topics, handler, **kw):
+        t = time.perf_counter()
+        sub = await subscribe(topics, handler, **kw)
+        joins.append((kw.get("group_id"), time.perf_counter() - t))
+        return sub
+
+    mesh.subscribe = timed
+
+
+async def wire_client(url: str) -> int:
+    """``chip_smoke.py --wire-client URL``: phase 16's ``Client``, in a process
+    of its own that starts no CUDA context, on its own connection to the
+    broker at ``url``.  It runs :data:`WIRE_ROUNDS`, each phase 15's 8
+    conversations x 2 turns (a turn's 8 ``execute`` calls at once), with
+    the ids of :func:`seeded_client_ids`.  Before each turn it prints a
+    ``turn`` line and waits for ``go`` on its standard input, so the worker's
+    process can read its counters at the turn's edges; after each turn it
+    prints the turn's runs (clocks, ids, output), the lane waits of its own
+    dispatchers and the records it published by topic; at the end, the CRC
+    its wire client loaded and its subscriptions' seconds to their first
+    assignment.  One JSON object a line on standard output."""
+    from calfkit_tpu_torch.mesh.urls import mesh_from_url
+
+    mesh = mesh_from_url(url)
+    published: "dict[str, int]" = {}
+    joins: list = []
+    first_token: "dict[str, float]" = {}
+    counting(mesh, published)
+    timed_subscribes(mesh, joins)
+    loop = asyncio.get_running_loop()
+    with seeded_client_ids(MESH_ID_SEED):
+        client = Client.connect(mesh)
+        firehose = client.events()
+
+        async def watch() -> None:
+            async for event in firehose:
+                if event.step.kind == "token":
+                    first_token.setdefault(event.correlation_id, time.perf_counter())
+
+        watcher = asyncio.create_task(watch())
+        gateway = client.agent(MESH_AGENT)
+        try:
+            for round_ in WIRE_ROUNDS:
+                histories: "list[list | None]" = [None] * len(AGENT_CITIES)
+                for turn, texts in enumerate(_mesh_prompts(round_)):
+                    _say({"event": "turn", "round": round_, "turn": turn})
+                    go = await loop.run_in_executor(None, sys.stdin.readline)
+                    if go.strip() != "go":
+                        raise RuntimeError(f"wire client: expected go, got {go!r}")
+                    published.clear()
+                    waited = LANE_WAIT.sum
+
+                    async def one(i: int, text: str):
+                        t = time.perf_counter()
+                        result = await gateway.execute(
+                            text, message_history=histories[i], timeout=600)
+                        return t, time.perf_counter(), result
+
+                    done = await asyncio.gather(*[one(i, t) for i, t in enumerate(texts)])
+                    # the token steps precede the terminal on the mesh, but
+                    # the firehose is another subscription: let it catch up
+                    for _ in range(500):
+                        if all(r.correlation_id in first_token for _, _, r in done):
+                            break
+                        await asyncio.sleep(0.01)
+                    runs = []
+                    for i, (start, end, result) in enumerate(done):
+                        assert isinstance(result.output, str) and result.output, (turn, i)
+                        histories[i] = result.state.message_history
+                        runs.append(dict(
+                            start=start, end=end,
+                            first_token=first_token.get(result.correlation_id),
+                            correlation_id=result.correlation_id, task_id=result.task_id,
+                            output=result.output))
+                    _say({"event": "done", "round": round_, "turn": turn, "runs": runs,
+                          "lane_wait_ms": LANE_WAIT.sum - waited, "records": dict(published)})
+        finally:
+            firehose.close()
+            watcher.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await watcher
+            await client.close()
+            await mesh.stop()
+    _say({"event": "end", "crc": wire_crc() if url.startswith("kafka") else None,
+          "joins": joins})
+    return 0
+
+
+async def second_boot(transport: str, address: str) -> dict:
+    """A second ``Worker`` of phase 15's nodes (its model a scripted one)
+    booting through ``provision()`` on the broker where the first provisioned
+    every topic it needs, on a plain ``KafkaWireMesh`` or ``TcpMesh``.  The
+    topics it ensures are recorded; over ``kafka://`` so are the broker's
+    CreateTopics answers (its producer's ``create_topics`` wrapped, its
+    answers passed on as they are) and every call of the provisioner's
+    classifier.  The wire mesh's ``ensure_topics`` drops the broker's
+    per-topic answers, so TOPIC_ALREADY_EXISTS raises nothing and the
+    classifier is not reached; meshd's ENSURE answers OK whether a topic
+    exists or not."""
+    from calfkit_tpu_torch.mesh import KafkaWireMesh, TcpMesh
+    from calfkit_tpu_torch.provisioning import (
+        ProvisioningConfig,
+        framework_topics_for_nodes,
+        provisioner,
+        topics_for_nodes,
+    )
+
+    mesh = KafkaWireMesh(address) if transport == "kafka" else TcpMesh(address)
+    ensured: "list[str]" = []
+    codes: "dict[str, int]" = {}
+    ensure = mesh.ensure_topics
+
+    async def recorded(names, *, compacted=False):
+        ensured.extend(names)
+        producer = getattr(mesh, "_producer", None)  # made by the mesh's start()
+        if producer is not None and "create_topics" not in vars(producer):
+            create = producer.create_topics
+
+            async def answered(topics, partitions, *, compacted=False):
+                out = await create(topics, partitions, compacted=compacted)
+                for name, code in out.items():
+                    codes.setdefault(name, code)  # each topic's first answer
+                return out
+
+            producer.create_topics = answered
+        return await ensure(names, compacted=compacted)
+
+    mesh.ensure_topics = recorded
+    classified: "list[str]" = []
+    classify = provisioner.classify_topic_error
+
+    def recording(exc):
+        classified.append(classify(exc))
+        return classified[-1]
+
+    tools = [agent_tool(fn) for fn in (get_weather, search_flights, book_hotel)]
+    nodes = [Agent(MESH_AGENT, model=FunctionModelClient(MeshTurnModel._first_step),
+                   instructions=AGENT_INSTRUCTIONS, tools=tools), *tools]
+    provisioner.classify_topic_error = recording
+    try:
+        async with Worker(nodes, mesh=mesh, owns_transport=True,
+                          provisioning=ProvisioningConfig()):
+            pass
+    finally:
+        provisioner.classify_topic_error = classify
+    expected = set(topics_for_nodes(nodes)) | set(framework_topics_for_nodes(nodes))
+    return dict(ensured=sorted(set(ensured)), classified=classified, codes=codes,
+                expected=sorted(expected))
+
+
+async def wire_mesh_phase(dev, params, transport: str, in_memory: "dict | None",
+                          card: str = "") -> dict:
+    """Phase 16: phase 15's agent served over a wire transport, driven from
+    another process.  ``transport`` is ``kafka`` (``kafkad`` on port 0, the
+    port's ``KafkaWireMesh``) or ``tcp`` (``meshd`` on port 0, ``TcpMesh``);
+    the brokers are the ones :func:`calfkit_tpu_torch.mesh._native.build_native`
+    built.  The worker's process holds the engine: ``Worker([Agent, 3
+    tools], provisioning=ProvisioningConfig())`` on the transport, the agent's
+    model :class:`MeshTurnModel` over a ``TorchLocalModelClient`` serving the
+    full ``llama-3-8b`` preset in bf16 on ``params`` with ``MESH_RUNTIME`` and
+    :class:`CharTokenizer`, ``stream_tokens=True``, as phase 15.  The
+    ``Client`` runs in a child process (:func:`wire_client`, no CUDA
+    context): two warm-up rounds, then the measured round, each 8
+    conversations x 2 turns, the client's ids seeded.  Launch counts are
+    reset at the measured round's first turn and read after its last.
+    Checks: the wire client uses the native CRC (in both processes, over
+    ``kafka://``); the topics the worker provisioned equal
+    ``topics_for_nodes`` ∪ ``framework_topics_for_nodes``, and over
+    ``kafka://`` the broker holds them after the boot (it also holds the
+    ones it created when a metadata request named them: printed); every run
+    ends with a result; turn 2 reuses more prefix tokens than turn 1; #5 and
+    #2 launch; after ``stop()`` every page is free or cached; a second
+    worker booting on the same broker (:func:`second_boot`) succeeds (over
+    ``kafka://``: the broker answers TOPIC_ALREADY_EXISTS for every topic,
+    and the classifier is not reached).  Prints per turn TTFT through the mesh
+    (the client's ``execute`` to the first token step on its firehose) and
+    the engine's own, the added ms and its excess over phase 15's
+    (``in_memory``, its result, when given), apart for conversations alone on their lane; the
+    lanes' wait share (both processes' dispatchers); tok/s; records by
+    topic; the worker's boot seconds and its subscriptions' seconds to their
+    first assignment.  Last, after those numbers are printed: every token of
+    the 16 engine turns and of a direct ``request`` on the same messages
+    lies within the tie band of the f32 plain forward's top logit
+    (:func:`tie_law`, phase 13's law)."""
+    from calfkit_tpu_torch.mesh import KafkaWireMesh, TcpMesh
+    from calfkit_tpu_torch.mesh.kafka_wire import spawn_kafkad
+    from calfkit_tpu_torch.mesh.tcp import spawn_meshd
+    from calfkit_tpu_torch.provisioning import (
+        ProvisioningConfig,
+        framework_topics_for_nodes,
+        topics_for_nodes,
+    )
+
+    cfg = preset("llama-3-8b")
+    rt = MESH_RUNTIME
+    tok = CharTokenizer()
+    tools = [agent_tool(fn) for fn in (get_weather, search_flights, book_hotel)]
+    assert [t.schema.tool_def for t in tools] == MESH_TOOLS
+    crc = None
+    if transport == "kafka":
+        crc = wire_crc()
+        assert crc == "_crc32c_native", f"the wire client loaded the pure-Python CRC ({crc})"
+    broker = spawn_kafkad(0) if transport == "kafka" else spawn_meshd(0)
+    address = f"127.0.0.1:{broker.kafkad_port if transport == 'kafka' else broker.meshd_port}"
+    child = None
+    torch.cuda.reset_peak_memory_stats(dev)
+    engine = InferenceEngine(cfg, rt, params=params, device=dev)
+    local = TorchLocalModelClient(engine=engine, tokenizer=tok, max_new_tokens=CLIENT_MAX_TOKENS)
+    model = MeshTurnModel(local)
+    agent = Agent(
+        MESH_AGENT, model=model, instructions=AGENT_INSTRUCTIONS, tools=tools,
+        model_settings=ModelSettings(max_tokens=CLIENT_MAX_TOKENS), stream_tokens=True,
+    )
+    nodes = [agent, *tools]
+    expected = set(topics_for_nodes(nodes)) | set(framework_topics_for_nodes(nodes))
+    mesh = KafkaWireMesh(address) if transport == "kafka" else TcpMesh(address)
+    published: "dict[str, int]" = {}
+    joins: list = []
+    ensured: "list[str]" = []
+    counting(mesh, published)
+    timed_subscribes(mesh, joins)
+    ensure = mesh.ensure_topics
+
+    async def recorded(names, *, compacted=False):
+        ensured.extend(names)
+        return await ensure(names, compacted=compacted)
+
+    mesh.ensure_topics = recorded
+    measured_round = WIRE_ROUNDS[-1]
+    turns: "dict[str, list]" = {r: [] for r in WIRE_ROUNDS}
+    await local.start()
+    try:
+        worker = Worker(nodes, mesh=mesh, max_workers=MESH_LANES, owns_transport=True,
+                        provisioning=ProvisioningConfig())
+        t = time.perf_counter()
+        await worker.start()
+        boot_s = time.perf_counter() - t
+        try:
+            assert set(ensured) == expected, sorted(set(ensured) ^ expected)
+            on_broker = None
+            if transport == "kafka":
+                # the broker also holds the topics kafkad created when a
+                # metadata request named them (the runs feed and the SLO
+                # adverts, which no provisioner lists)
+                on_broker = set((await mesh._producer.metadata(None))["topics"])
+                assert on_broker >= expected, sorted(expected - on_broker)
+            child = await asyncio.create_subprocess_exec(
+                sys.executable, str(Path(__file__).resolve()), "--wire-client",
+                f"{transport}://{address}", stdin=asyncio.subprocess.PIPE,
+                stdout=asyncio.subprocess.PIPE, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+            )
+            with contextlib.ExitStack() as tallies:
+                while True:
+                    line = await asyncio.wait_for(child.stdout.readline(), timeout=600)
+                    assert line, "the client process ended before its last report"
+                    event = json.loads(line)
+                    if event["event"] == "end":
+                        end = event
+                        break
+                    if event["event"] == "turn":
+                        if event["round"] == measured_round and event["turn"] == 0:
+                            model.calls.clear()
+                            published.clear()
+                            engine.stats = EngineStats()
+                            graphs_before = graph_numbers(engine)
+                            A.reset_launch_counts()
+                            prefills = tallies.enter_context(prefill_shapes())
+                            decodes = tallies.enter_context(decode_shapes())
+                            measured_start = time.perf_counter()
+                        mark = dict(calls=len(model.calls), hits=engine.stats.prefix_hits,
+                                    reused=engine.stats.prefix_reused_tokens, waited=LANE_WAIT.sum)
+                        child.stdin.write(b"go\n")
+                        await child.stdin.drain()
+                        continue
+                    runs = [dict(start=r["start"], end=r["end"], first_token=r["first_token"],
+                                 result=SimpleNamespace(task_id=r["task_id"],
+                                                        correlation_id=r["correlation_id"]))
+                            for r in event["runs"]]
+                    turns[event["round"]].append(dict(
+                        runs=runs, calls=model.calls[mark["calls"]:],
+                        lane_wait_ms=LANE_WAIT.sum - mark["waited"] + event["lane_wait_ms"],
+                        prefix_hits=engine.stats.prefix_hits - mark["hits"],
+                        prefix_reused_tokens=engine.stats.prefix_reused_tokens - mark["reused"],
+                        client_records=event["records"],
+                    ))
+                    if event["round"] == measured_round and len(turns[measured_round]) == 2:
+                        launches = dict(A.launch_counts)
+                        measured_wall = time.perf_counter() - measured_start
+                        graphs_after = graph_numbers(engine)
+                        worker_records = dict(published)
+            assert await asyncio.wait_for(child.wait(), timeout=60) == 0, child.returncode
+        finally:
+            await worker.stop()
+        again = await second_boot(transport, address)
+        measured = turns[measured_round]
+        # a direct request on each engine turn's messages, a turn's 8 at once
+        direct = []
+        for turn in measured:
+            direct += await asyncio.gather(*[
+                local.request(c["messages"], c["settings"], c["params"]) for c in turn["calls"]])
+    finally:
+        if child is not None and child.returncode is None:
+            child.kill()
+            await child.wait()
+        await local.stop()
+        broker.terminate()
+        broker.wait(timeout=10)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if transport == "kafka":
+        assert end["crc"] == "_crc32c_native", f"the client process's CRC: {end['crc']}"
+        # the second boot succeeded; the broker answered TOPIC_ALREADY_EXISTS
+        # for every topic it asked for, all of which the first worker
+        # provisioned, and the wire mesh took those answers without raising
+        assert set(again["expected"]) <= expected, sorted(set(again["expected"]) - expected)
+        assert again["codes"] == {n: KAFKA_TOPIC_EXISTS for n in again["expected"]}, again["codes"]
+        assert not again["classified"], again["classified"]
+    assert set(again["ensured"]) == set(again["expected"]), again["ensured"]
+    calls = [c for turn in measured for c in turn["calls"]]
+    t1, t2 = (_mesh_turn_numbers(t, MESH_LANES) for t in measured)
+    assert len(calls) == 2 * len(AGENT_CITIES), len(calls)
+    assert t2["prefix_hits"] >= 1 and t2["prefix_reused_tokens"] > t1["prefix_reused_tokens"], \
+        (t1["prefix_reused_tokens"], t2["prefix_reused_tokens"])
+    assert launches["prefill_attention"] > 0 and launches["paged_decode_attention"] > 0, launches
+    prefill_rows, decode_rows = _shape_rows(prefills), _shape_rows(decodes)
+    assert sum(r["launches"] for r in prefill_rows) == launches["prefill_attention"]
+    assert sum(r["launches"] for r in decode_rows) == launches["paged_decode_attention"]
+    free_pages, cached = engine._page_alloc.free_pages, engine._prefix.size
+    assert free_pages + cached == rt.pool_pages() - 1, (free_pages, cached)
+    assert len(engine._free) == rt.max_batch_size and not engine._active
+    records = dict(worker_records)
+    for turn in measured:
+        for topic, n in turn["client_records"].items():
+            records[topic] = records.get(topic, 0) + n
+    records = dict(sorted(records.items()))
+    tokens = t1["output_tokens"] + t2["output_tokens"]
+    worker_joins = [s for group, s in joins if group]
+    over = {}
+    for name, t in (("turn1", t1), ("turn2", t2)):
+        base = (in_memory or {}).get(name, dict(added_median_ms=math.nan,
+                                                free_lane_added_median_ms=None))
+        over[name] = dict(
+            added_median_ms=t["added_median_ms"] - base["added_median_ms"],
+            free_lane_added_median_ms=(
+                t["free_lane_added_median_ms"] - base["free_lane_added_median_ms"]
+                if t["free_lane_added_median_ms"] is not None
+                and base["free_lane_added_median_ms"] is not None else None),
+        )
+    result = dict(
+        transport=transport, turn1=t1, turn2=t2, over_in_memory=over, output_tokens=tokens,
+        tok_s=tokens / measured_wall, wall_s=measured_wall, records=records,
+        records_total=sum(records.values()), launches=launches, prefill_shapes=prefill_rows,
+        decode_shapes=decode_rows, engine_turns=len(calls), boot_s=boot_s,
+        worker_joins=joins, client_joins=end["joins"],
+        first_assignment_s=max(worker_joins), crc=crc, topics=sorted(expected),
+        broker_topics=sorted(on_broker) if on_broker is not None else None,
+        second_boot=again, measured_captures=graphs_after["captures"] - graphs_before["captures"],
+        graphs=graphs_after, max_memory_allocated=peak,
+    )
+
+    def ms(x) -> str:
+        return "n/a" if x is None else f"{x:.1f}"
+
+    def turn_note(name: str, t: dict) -> str:
+        o = over[name]
+        return (f"{name}: TTFT through the mesh median {t['mesh_ttft_median_ms']:.1f} ms max "
+                f"{t['mesh_ttft_max_ms']:.1f} ms, the engine's own median "
+                f"{t['engine_ttft_median_ms']:.1f} ms max {t['engine_ttft_max_ms']:.1f} ms, "
+                f"added median {t['added_median_ms']:.1f} max {t['added_max_ms']:.1f} ms "
+                f"({ms(o['added_median_ms'])} over phase 15's in-memory median), "
+                f"{t['free_lane_runs']} alone on their lane: added median "
+                f"{ms(t['free_lane_added_median_ms'])} ({ms(o['free_lane_added_median_ms'])} "
+                f"over in-memory), lanes {t['lanes_occupied']}, lane waits "
+                f"{t['lane_wait_share']:.3f} of the executes' time, {t['tok_s']:.1f} tok/s, "
+                f"prefix reuse {t['prefix_hits']} hits ({t['prefix_reused_tokens']} tokens)")
+
+    print(
+        f"  wire mesh over {transport}:// ({'kafkad' if transport == 'kafka' else 'meshd'} on "
+        f"port {address.rsplit(':', 1)[1]}, CRC {crc or 'n/a'}), llama-3-8b bf16, the Client in "
+        f"another process, 8 conversations x 2 turns after two warm-up rounds (one run, no "
+        f"spread; {card}): {turn_note('turn1', t1)}; {turn_note('turn2', t2)}; {tokens} tokens "
+        f"at {result['tok_s']:.1f} tok/s over {measured_wall:.2f} s; {result['records_total']} "
+        f"records {records}; worker boot {boot_s:.3f} s, its {len(worker_joins)} group "
+        f"subscriptions to their first assignment max {max(worker_joins):.3f} s, every "
+        f"subscription {[(g, round(s, 4)) for g, s in joins]}, the client's "
+        f"{[(g, round(s, 4)) for g, s in end['joins']]}; {len(expected)} topics provisioned "
+        f"(= topics_for_nodes | framework_topics_for_nodes; on the broker besides them: "
+        f"{sorted(on_broker - expected) if on_broker is not None else 'n/a'}); second boot: "
+        f"{len(again['ensured'])} topics ensured, classified {sorted(set(again['classified']))} "
+        f"x {len(again['classified'])}; launches {launches}; prefill by (B, Sq, Skv) "
+        f"{[(r['B'], r['S'], r['window'], r['launches']) for r in prefill_rows]}, paged decode "
+        f"by (B, wpages) {[(r['B'], r['window'], r['launches']) for r in decode_rows]}; "
+        f"captures in the measured round {result['measured_captures']}; pages free "
+        f"{free_pages} + cached {cached} of {rt.pool_pages() - 1}; {graph_note(graphs_after, peak)}"
+    )
+    # phase 13's law last, so a run it fails has printed its numbers
+    result["streams"] = streams = tie_law(cfg, params, [
+        (c["corr"], [tok.bos_id, *tok.encode(render_messages(c["messages"], c["params"]))],
+         _stream_ids(tok, c["response"]), _stream_ids(tok, d))
+        for c, d in zip(calls, direct)
+    ], dev, labels=("mesh", "direct"))
+    print(f"  wire mesh over {transport}://: the {len(calls)} engine turns and their direct "
+          f"requests within {TIE_SPACINGS} bf16 spacings of the f32 plain forward's top logit "
+          f"at every token ({streams['tokens_below_top']} tokens below it, max gap "
+          f"{streams['max_gap']:.3f} spacings), {len(calls) - len(streams['diverged'])} equal, "
+          f"the rest parting at a tie "
+          f"{[(d['step'], round(d['gap_mesh'], 3), round(d['gap_direct'], 3)) for d in streams['diverged']]}")
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
+    parser.add_argument("--wire-client", metavar="URL",
+                        help="run phase 16's Client against URL (the phase starts this)")
     args = parser.parse_args()
+    if args.wire_client:
+        return asyncio.run(wire_client(args.wire_client))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3372,8 +3920,20 @@ def main() -> int:
     def stage(name: str) -> None:
         print(f"{name} (at {time.perf_counter() - t0:.0f} s)", flush=True)
 
-    built = kernels.build_all()
-    print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    # the brokers and the CRC library build beside the kernels; the wire
+    # client, first imported in phase 16, loads the CRC built here
+    def build_native() -> "tuple[dict, float]":
+        t = time.perf_counter()
+        return _native.build_native(), time.perf_counter() - t
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native = pool.submit(build_native)
+        built = kernels.build_all()
+        print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+        native_built, native_s = native.result()
+    _native.use_native_builds(native_built)
+    print(f"built {sorted(native_built)} from native/ with {_native.compiler_versions()} in "
+          f"{native_s:.1f} s (beside the kernels)")
 
     stage("kernel phase")
     cases, main_cases = kernel_phase(dev)
@@ -3445,12 +4005,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     stage("agent mesh phase")
     agent_mesh = asyncio.run(agent_mesh_phase(dev, weights, card))
-    del weights
     torch.cuda.empty_cache()
     stage("prefill and paged decode kernels at the agent mesh phase's shapes")
     cases += [path_case(dev, "prefill_attention", agent_mesh["prefill_shapes"]),
               path_case(dev, "paged_decode_attention", agent_mesh["decode_shapes"],
                         "agent mesh")]
+    wire_mesh = {}
+    for transport in WIRE_TRANSPORTS:
+        stage(f"wire mesh phase over {transport}://")
+        wire_mesh[transport] = asyncio.run(
+            wire_mesh_phase(dev, weights, transport, agent_mesh, card))
+        torch.cuda.empty_cache()
+    del weights
+    stage("prefill and paged decode kernels at the wire mesh phase's shapes")
+    cases += [path_case(dev, "prefill_attention", wire_mesh["kafka"]["prefill_shapes"]),
+              path_case(dev, "paged_decode_attention", wire_mesh["kafka"]["decode_shapes"],
+                        "wire mesh over kafka://")]
 
     # each kernel's launches from the path it serves, beside its case at a
     # shape of that path (MAIN_SHAPES, path_case): the dense decode kernel
@@ -3483,6 +4053,10 @@ def main() -> int:
         if agent_mesh["launches"].get(name):
             # the agent mesh's path (phase 15's measured round)
             entry["agent_mesh"] = dict(launches=agent_mesh["launches"][name])
+        if any(w["launches"].get(name) for w in wire_mesh.values()):
+            # the wire transports' path (phase 16's measured rounds)
+            entry["wire_mesh"] = {t: dict(launches=w["launches"][name])
+                                  for t, w in wire_mesh.items()}
         line["kernels"].append(entry)
     if args.out:
         with open(args.out, "w") as f:
@@ -3491,7 +4065,8 @@ def main() -> int:
                            spec_serving=spec_dense, client=client, quant_exactness=quant_exact,
                            checkpoint=ckpt, north_star=north, graphs=graph,
                            overload=overload, long_lane=long_lane,
-                           agent_mesh=agent_mesh, kernels=line["kernels"]),
+                           agent_mesh=agent_mesh, wire_mesh=wire_mesh,
+                           kernels=line["kernels"]),
                       f, indent=1, default=str)
     print(f"all phases in {time.perf_counter() - t0:.0f} s")
     print(json.dumps(line))

@@ -361,8 +361,17 @@ SCENARIOS = {
 }
 
 
+def fresh_run_stores() -> None:
+    """Both packages' process-wide runs stores emptied: the SLO advert a
+    worker publishes at stop folds every run the process's store saw inside
+    its window, other tests' workers' runs included."""
+    for root in ROOTS.values():
+        importlib.import_module(f"{root}.observability.runledger").reset_run_window_store()
+
+
 async def drive(name: str, scenario: str) -> dict:
     log: list = []
+    fresh_run_stores()
     with seeded_ids():
         out = await SCENARIOS[scenario](pkg(name), log)
     out["records"] = [(topic, key, _parsed(value)) for topic, key, value in log]
@@ -417,12 +426,15 @@ def test_refusals_are_typed():
     from calfkit_tpu_torch.engine import EchoModelClient
     from calfkit_tpu_torch.engine.schema import ToolSchemaError
     from calfkit_tpu_torch.exceptions import MeshUnavailableError
-    from calfkit_tpu_torch.mesh import InMemoryMesh
+    from calfkit_tpu_torch.mesh import InMemoryMesh, KafkaWireMesh, TcpMesh
     from calfkit_tpu_torch.mesh.urls import mesh_from_url
 
-    for url in ("tcp://localhost:9092", "kafka://localhost:9092", "kafka+wire://h:1"):
-        with pytest.raises(MeshUnavailableError, match="ROADMAP"):
-            mesh_from_url(url)
+    # the transports resolve to the port's own classes (not the JAX package's)
+    assert type(mesh_from_url("tcp://localhost:9092")) is TcpMesh
+    assert type(mesh_from_url("kafka://localhost:9092")) is KafkaWireMesh
+    assert type(mesh_from_url("kafka+wire://h:1")) is KafkaWireMesh
+    assert TcpMesh.__module__ == "calfkit_tpu_torch.mesh.tcp"
+    assert KafkaWireMesh.__module__ == "calfkit_tpu_torch.mesh.kafka_wire"
     assert isinstance(mesh_from_url("memory://"), InMemoryMesh)
     with pytest.raises(MeshUnavailableError, match="ROADMAP"):
         Client(InMemoryMesh(), router="least-loaded")

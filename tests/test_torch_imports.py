@@ -3,8 +3,8 @@
 nor ``pydantic``, ``pydantic_core``, ``httpx``, ``click``, ``safetensors``,
 ``ml_dtypes`` or ``transformers`` (the card's machine has none of them):
 the one exception is ``HFTokenizer``'s lazy import of ``transformers``
-when one is built.  Every module of the port, the agent mesh's included,
-imports with those packages blocked.  The engine and the
+when one is built.  Every module of the port, the agent mesh's and its wire
+transports' included, imports with those packages blocked.  The engine and the
 model client refuse to fall back to the CPU when no card is present."""
 
 import ast
@@ -64,6 +64,10 @@ for name in ("calfkit_tpu_torch.inference.client", "calfkit_tpu_torch.inference.
              "calfkit_tpu_torch.mesh", "calfkit_tpu_torch.mesh.tables",
              "calfkit_tpu_torch.mesh.transport", "calfkit_tpu_torch.mesh.dispatch",
              "calfkit_tpu_torch.mesh.memory", "calfkit_tpu_torch.mesh.urls",
+             # the wire transports and the provisioner
+             "calfkit_tpu_torch.mesh._native", "calfkit_tpu_torch.mesh.connection",
+             "calfkit_tpu_torch.mesh.tcp", "calfkit_tpu_torch.mesh.kafka_wire",
+             "calfkit_tpu_torch.provisioning", "calfkit_tpu_torch.provisioning.provisioner",
              "calfkit_tpu_torch.fleet", "calfkit_tpu_torch.fleet.selection",
              "calfkit_tpu_torch.engine.schema", "calfkit_tpu_torch.engine.turn",
              "calfkit_tpu_torch.engine.testing", "calfkit_tpu_torch.nodes",
@@ -82,7 +86,8 @@ for name in ("calfkit_tpu_torch.inference.client", "calfkit_tpu_torch.inference.
              "calfkit_tpu_torch.client.mesh", "calfkit_tpu_torch.observability.runledger"):
     assert name in names, name
 from calfkit_tpu_torch import Agent, Client, Worker, agent_tool
-from calfkit_tpu_torch.mesh import InMemoryMesh
+from calfkit_tpu_torch.mesh import InMemoryMesh, KafkaWireMesh, TcpMesh
+from calfkit_tpu_torch.provisioning import ProvisioningConfig, provision
 from calfkit_tpu_torch.inference import TorchLocalModelClient
 import chip_smoke
 assert not any(m.split(".")[0] in BLOCKED for m, v in sys.modules.items() if v is not None)
