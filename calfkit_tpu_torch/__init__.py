@@ -11,6 +11,8 @@ Public API (lazy — importing :mod:`calfkit_tpu_torch` pulls in nothing):
 - ``Client`` / ``Worker`` — caller surface and serving host;
 - ``Agent`` / ``StatelessAgent`` / ``agent_tool`` — node kinds;
 - ``Tools`` / ``Messaging`` / ``Handoff`` — selectors and peers;
+- ``FleetRouter`` / ``FailoverPolicy`` — replica placement and in-flight
+  failover for ``Client(router=, failover=)``;
 - ``InMemoryMesh`` / ``TcpMesh`` / ``KafkaWireMesh`` — the in-process mesh,
   the native ``meshd`` broker's and the Kafka wire protocol's transports;
 - ``ProvisioningConfig`` — the worker's topic provisioning;
@@ -43,6 +45,10 @@ _LAZY: dict[str, str] = {
     "surface_to_model": "calfkit_tpu_torch.nodes",
     "Messaging": "calfkit_tpu_torch.peers",
     "Handoff": "calfkit_tpu_torch.peers",
+    # fleet routing (replicated engines) and in-flight failover
+    "FleetRouter": "calfkit_tpu_torch.fleet",
+    "FailoverPolicy": "calfkit_tpu_torch.fleet",
+    "ReplicaRegistry": "calfkit_tpu_torch.fleet",
     # faults + exceptions
     "NodeFaultError": "calfkit_tpu_torch.exceptions",
     "ClientTimeoutError": "calfkit_tpu_torch.exceptions",

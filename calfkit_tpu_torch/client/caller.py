@@ -18,18 +18,20 @@ import logging
 import random
 import uuid
 from dataclasses import dataclass
-from typing import Any, AsyncIterator, Callable, Generic, TypeVar
+from typing import TYPE_CHECKING, Any, AsyncIterator, Callable, Generic, TypeVar
 
 from calfkit_tpu_torch import cancellation, protocol
 from calfkit_tpu_torch.exceptions import (
     RETRIABLE_FAULT_TYPES,
     ClientClosedError,
     ClientTimeoutError,
-    MeshUnavailableError,
     NodeFaultError,
 )
-from calfkit_tpu_torch.models.error_report import FaultTypes
+from calfkit_tpu_torch.models.error_report import ErrorReport, FaultTypes
 
+if TYPE_CHECKING:  # pragma: no cover
+    from calfkit_tpu_torch.fleet.failover import FailoverPolicy, StreamLedger
+    from calfkit_tpu_torch.models.step import StepEvent
 from calfkit_tpu_torch.keying import partition_key
 from calfkit_tpu_torch.mesh.transport import MeshTransport, Subscription
 from calfkit_tpu_torch.models.messages import ModelMessage
@@ -103,8 +105,8 @@ class Client:
         client_id: str | None = None,
         default_timeout: float = DEFAULT_TIMEOUT,
         retry: "RetryPolicy | None" = None,
-        router: Any = None,  # not ported: must stay None
-        failover: Any = None,  # not ported: must stay None
+        router: Any = None,  # FleetRouter | policy name | None
+        failover: "FailoverPolicy | None" = None,
         lease_ttl: "float | None" = None,
         priority: "str | None" = None,
     ):
@@ -123,15 +125,25 @@ class Client:
         # older behavior; retries change at-most-once semantics for
         # non-idempotent agents, so the caller must choose them)
         self.retry = retry
-        # fleet routing and in-flight failover (a FleetRouter / policy
-        # name, a FailoverPolicy) are not ported yet: refused, typed
-        if router is not None or failover is not None:
-            raise MeshUnavailableError(
-                "Client(router=/failover=): fleet placement and failover are "
-                "not ported to calfkit_tpu_torch yet (ROADMAP Queue 1); calls "
-                "ride the shared agent topic",
-                reason="not_ported",
-            )
+        # opt-in fleet routing: a FleetRouter (or a policy name
+        # — "least-loaded" / "p2c" / "prefix-affinity" — that builds one
+        # over this client's transport) replaces the hardcoded shared
+        # agent topic with a per-call replica placement; None = the
+        # pre-fleet behavior (shared topic, consumer-group balancing).
+        # The router's lifecycle is owned here: close() stops it.
+        if isinstance(router, str):
+            from calfkit_tpu_torch.fleet import FleetRouter
+
+            router = FleetRouter(mesh, router)
+        self.router = router
+        # opt-in in-flight failure recovery: with a router AND a
+        # FailoverPolicy, execute()/stream() supervise each outstanding
+        # placement against the dead-placement law and re-dispatch (fresh
+        # correlation id, remaining deadline, dead replica excluded, old
+        # correlation cancel-tombstoned) when the placed replica dies
+        # mid-run.  None = calls ride their placement to the caller's
+        # timeout, the older behavior.
+        self.failover = failover
         # opt-in caller liveness lease: with a TTL set, every
         # call carries an ``x-mesh-lease`` header and — while any run is
         # outstanding — this client heartbeats the compacted
@@ -177,7 +189,7 @@ class Client:
         default_timeout: float = DEFAULT_TIMEOUT,
         retry: "RetryPolicy | None" = None,
         router: Any = None,
-        failover: Any = None,
+        failover: "FailoverPolicy | None" = None,
         lease_ttl: "float | None" = None,
         priority: "str | None" = None,
     ) -> "Client":
@@ -466,6 +478,11 @@ class Client:
             with contextlib.suppress(Exception):
                 await self._subscription.stop()
             self._subscription = None
+        if self.router is not None:
+            # the router's registry holds a table reader on this client's
+            # transport: stop it before the transport goes away
+            with contextlib.suppress(Exception):
+                await self.router.stop()
         if self._owns_mesh:
             # connect() built this transport from a url: stop it too, or a
             # per-job client would leak sockets and reader tasks
@@ -649,6 +666,48 @@ class AgentGateway(Generic[OutputT]):
             return [TextPart(text=prompt)]
         return list(prompt)
 
+    # the affinity key only ever reads the page-aligned head (64-char
+    # pages × 4 max pages — see fleet/policy.py); collecting more would
+    # copy a whole long-history prompt per routed call for nothing
+    _AFFINITY_TEXT_CAP = 256
+
+    @classmethod
+    def _prompt_text(cls, parts: list[ContentPart]) -> str:
+        """The prompt's text-projection HEAD, for affinity hashing only."""
+        out: list[str] = []
+        length = 0
+        for p in parts:
+            text = getattr(p, "text", "") or ""
+            if not text:
+                continue
+            out.append(text[: cls._AFFINITY_TEXT_CAP - length])
+            length += len(out[-1])
+            if length >= cls._AFFINITY_TEXT_CAP:
+                break
+        return "".join(out)
+
+    async def _route_topic(
+        self,
+        parts: list[ContentPart],
+        correlation_id: str,
+        exclude_replicas: "frozenset[str]",
+    ) -> "tuple[str, Any]":
+        """The engine/topic-selection seam: with a fleet
+        router on the client, each call is placed on a specific
+        replica's addressed topic; without one (or with no eligible
+        replica) the shared agent topic load-balances as before.
+        Returns ``(topic, Replica | None)``."""
+        router = self._client.router
+        if router is None:
+            return self.input_topic, None
+        route = await router.route(
+            self.name,
+            prompt_text=self._prompt_text(parts),
+            correlation_id=correlation_id,
+            exclude=exclude_replicas,
+        )
+        return route.topic, route.replica
+
     async def start(
         self,
         prompt: str | list[ContentPart],
@@ -657,6 +716,7 @@ class AgentGateway(Generic[OutputT]):
         deps: dict[str, Any] | None = None,
         route: str = "run",
         timeout: float | None = None,
+        exclude_replicas: "frozenset[str]" = frozenset(),
         mark: "str | None" = None,
         run_id: "str | None" = None,
         attempt_no: int = 0,
@@ -670,11 +730,14 @@ class AgentGateway(Generic[OutputT]):
         (or an explicit ``handle.cancel()``) publishes a mesh ``cancel``
         record so downstream engines abandon the run's work.
 
-        The call rides the agent's shared input topic (the JAX package's
-        fleet placement and ``exclude_replicas`` come with the fleet
-        router, ROADMAP Queue 1).  ``mark`` stamps the call's
-        ``x-mesh-attempt`` header ("failover" | "hedge") so the serving
-        replica's advert counts recovery arrivals.
+        ``exclude_replicas`` (fleet-routed clients only) bars specific
+        replica instances from this placement — the shed-retry loop in
+        :meth:`execute` passes the instances that already refused.  The
+        placement lands on ``handle.routed_replica`` /
+        ``handle.routed_replica_key`` (None = shared topic).  ``mark``
+        stamps the call's ``x-mesh-attempt`` header ("failover" |
+        "hedge") so the serving replica's advert counts
+        recovery arrivals.
 
         ``run_id``/``attempt_no``/``attempt_kind`` are the
         run identity: minted here for a bare ``start()``/``send()``,
@@ -689,13 +752,23 @@ class AgentGateway(Generic[OutputT]):
             timeout if timeout is not None else client.default_timeout
         )
         parts = self._as_parts(prompt)
-        target_topic = self.input_topic
+        # place BEFORE minting the deadline: the first routed call may
+        # pay the registry's table catch-up (seconds on a slow broker),
+        # and that setup cost must not be charged against the caller's
+        # serving budget — an expired-at-publish call would fault
+        # non-retriable DeadlineExceeded for work that never started
+        target_topic, routed = await self._route_topic(
+            parts, correlation_id, exclude_replicas
+        )
+        routed_replica = routed.instance_id if routed is not None else None
         now = cancellation.wall_clock()
         deadline = (
             now + effective_timeout if effective_timeout is not None else None
         )
 
         async def publish_cancel() -> None:
+            # the cancel follows the CALL's placement: a replica-routed
+            # run is abandoned on the replica's topic
             await client._publish_cancel(
                 target_topic, correlation_id, task_id
             )
@@ -714,6 +787,8 @@ class AgentGateway(Generic[OutputT]):
             on_abandon=publish_cancel,
             task_registry=client._cancel_tasks,
         )
+        handle.routed_replica = routed_replica
+        handle.routed_replica_key = routed.key if routed is not None else None
         # run ledger: record the attempt BEFORE publish (the
         # terminal callback below may fire the moment the reply lands),
         # and fold its terminal in when it does — first signal wins, so
@@ -743,7 +818,7 @@ class AgentGateway(Generic[OutputT]):
             attempt_no=attempt_no,
             correlation_id=correlation_id,
             kind=attempt_kind,
-            placement="",
+            placement=routed.key if routed is not None else "",
             agent=self.name,
             started_at=now,
         )
@@ -754,6 +829,20 @@ class AgentGateway(Generic[OutputT]):
                 client._record_attempt_terminal(r, c, f, finish=fin)
             )
         )
+        router = client.router if routed is not None else None
+        if router is not None:
+            # least-request accounting, keyed by the FULL replica key
+            # (instance ids may be operator-pinned and collide across
+            # agents): the router counts this run against the replica
+            # until its terminal reply lands (TTL sweep covers terminals
+            # that never arrive)
+            replica_key = routed.key
+            router.note_dispatch(replica_key, correlation_id)
+            channel.terminal.add_done_callback(
+                lambda _f, r=router, k=replica_key, c=correlation_id: (
+                    r.note_done(k, c)
+                )
+            )
         try:
             await client._publish_call(
                 target_topic,
@@ -774,6 +863,8 @@ class AgentGateway(Generic[OutputT]):
             # would bias placement away from a healthy replica for the
             # whole TTL — and retire the run from the lease's
             # outstanding set (its terminal can never arrive)
+            if router is not None:
+                router.note_done(routed.key, correlation_id)
             client._note_run_terminal(correlation_id)
             raise
         return handle
@@ -804,6 +895,7 @@ class AgentGateway(Generic[OutputT]):
         route: str = "run",
         timeout: float | None = None,
         retry: "RetryPolicy | None" = None,
+        failover: "FailoverPolicy | None" = None,
         priority: "str | None" = None,
     ) -> InvocationResult[OutputT]:
         """Run to a typed result.  With a :class:`RetryPolicy` (here or on
@@ -812,16 +904,49 @@ class AgentGateway(Generic[OutputT]):
         retry is a FRESH run (new correlation id, new deadline).  Timeouts
         and non-retriable faults surface immediately.
 
-        (The JAX package's fleet-routed placement, replica exclusion and
-        in-flight failover come with the fleet router, ROADMAP Queue 1.)"""
+        Fleet-routed clients retry ``mesh.overloaded`` sheds against a
+        DIFFERENT replica: the shed source's instance id is excluded from
+        every subsequent attempt's placement, so a retry storm
+        spreads across the fleet instead of hammering the replica that
+        just refused.
+
+        With a :class:`~calfkit_tpu_torch.fleet.failover.FailoverPolicy` (here
+        or on the client) on a fleet-routed client, the call is
+        additionally SUPERVISED in flight: the placed replica's
+        health is probed while awaiting the terminal, a dead placement
+        (heartbeat lapsed, advert gone, unready without drain) is
+        re-dispatched to a surviving replica under the REMAINING deadline
+        with the old correlation cancel-tombstoned, and an optional
+        ``hedge_after`` races a duplicate on a second replica — first
+        terminal wins, the loser is cancelled."""
         policy = retry if retry is not None else self._client.retry
+        fo = failover if failover is not None else self._client.failover
         client = self._client
         # run identity: ONE run id for the whole logical call
         # — every retry/failover/hedge placement below records into the
         # same ledger entry and carries the same x-mesh-run header
         run_id = new_id()
+        if fo is not None and client.router is not None:
+            try:
+                result = await self._execute_failover(
+                    prompt,
+                    message_history=message_history,
+                    deps=deps,
+                    route=route,
+                    timeout=timeout,
+                    policy=policy,
+                    failover=fo,
+                    run_id=run_id,
+                    priority=priority,
+                )
+            except BaseException as exc:
+                client._finish_run_exc(run_id, exc)
+                raise
+            client._finish_run_soon(run_id, outcome="ok")
+            return result
         attempts = policy.attempts if policy is not None else 1
         last: BaseException | None = None
+        shed_sources: set[str] = set()
         try:
             for attempt in range(max(1, attempts)):
                 if attempt:
@@ -832,6 +957,7 @@ class AgentGateway(Generic[OutputT]):
                     deps=deps,
                     route=route,
                     timeout=timeout,
+                    exclude_replicas=frozenset(shed_sources),
                     run_id=run_id,
                     attempt_no=attempt,
                     attempt_kind="first" if attempt == 0 else "retry",
@@ -843,6 +969,14 @@ class AgentGateway(Generic[OutputT]):
                     if policy is None or not RetryPolicy.retriable(exc):
                         raise
                     last = exc
+                    if handle.routed_replica is not None:
+                        # EVERY retriable fault excludes the replica that
+                        # produced it, not just sheds: a hung replica
+                        # faulting mesh.timeout would otherwise be re-picked
+                        # deterministically (affinity re-homes there;
+                        # fail-fast keeps it the least-loaded minimum) while
+                        # a healthy replica sits idle
+                        shed_sources.add(handle.routed_replica)
                     continue
                 client._finish_run_soon(run_id, outcome="ok")
                 return result
@@ -852,6 +986,320 @@ class AgentGateway(Generic[OutputT]):
             client._finish_run_exc(run_id, exc)
             raise
 
+    # ================================================== failure recovery
+    # (laws in calfkit_tpu_torch/fleet/failover.py, docs/robustness.md
+    # "Failure recovery")
+
+    @staticmethod
+    async def _first_terminal(
+        handles: "list[InvocationHandle]", timeout: float
+    ) -> "InvocationHandle | None":
+        """Park until the FIRST of ``handles`` lands a terminal, or
+        ``timeout`` (one probe tick) elapses — whichever is sooner.
+        Returns the finished handle, or None on a quiet tick.
+
+        ``timeout <= 0`` is the busy-poll mode (the fleet simulator's
+        deterministic probing: a yield, not a timer) — one bare
+        event-loop yield instead of waiter-task churn, because hundreds
+        of outstanding supervised calls each allocating tasks per tick
+        is the difference between a simulation step and a stall."""
+        for handle in handles:
+            if handle.terminal_arrived:
+                return handle
+        if timeout is not None and timeout <= 0:
+            await asyncio.sleep(0)
+            for handle in handles:
+                if handle.terminal_arrived:
+                    return handle
+            return None
+        waiters = [
+            asyncio.ensure_future(h.wait(timeout)) for h in handles
+        ]
+        try:
+            await asyncio.wait(waiters, return_when=asyncio.FIRST_COMPLETED)
+        finally:
+            for w in waiters:
+                w.cancel()
+        for handle in handles:
+            if handle.terminal_arrived:
+                return handle
+        return None
+
+    async def _await_placement(
+        self,
+        exclude: "frozenset[str]",
+        *,
+        probe_interval: float,
+        remaining: "Callable[[], float | None]",
+    ) -> None:
+        """Park until the router can place a call on SOME eligible
+        replica outside ``exclude`` (a dead fleet usually means one
+        heartbeat interval of waiting — a replica re-advertises or a
+        fresh one boots), bounded by the remaining budget."""
+        router = self._client.router
+        while router.select(self.name, exclude=exclude) is None:
+            rem = remaining()
+            if rem is not None and rem <= 0:
+                raise ClientTimeoutError(
+                    "no eligible replica for the failover re-dispatch "
+                    "within the remaining budget"
+                )
+            await asyncio.sleep(
+                probe_interval if rem is None else min(probe_interval, rem)
+            )
+
+    def _no_placement_fault(self, reason: str) -> NodeFaultError:
+        """The typed, RETRIABLE fault raised when a run keeps losing its
+        placements past the failover budget: the fleet cannot currently
+        hold this call — the caller may back off and try again."""
+        return NodeFaultError(
+            ErrorReport.build_safe(
+                FaultTypes.CAPABILITY_UNAVAILABLE,
+                f"run lost its placement ({reason}) and the failover "
+                "budget is spent; the fleet cannot hold this call "
+                "right now",
+            )
+        )
+
+    async def _execute_failover(
+        self,
+        prompt: str | list[ContentPart],
+        *,
+        message_history: list[ModelMessage] | None,
+        deps: dict[str, Any] | None,
+        route: str,
+        timeout: float | None,
+        policy: "RetryPolicy | None",
+        failover: "FailoverPolicy",
+        run_id: "str | None" = None,
+        priority: "str | None" = None,
+    ) -> InvocationResult[OutputT]:
+        """The supervised execute: one absolute budget, N placements.
+
+        The loop holds one PRIMARY handle (plus at most one HEDGE) and
+        alternates between waiting for a terminal and probing each
+        outstanding placement against the dead-placement law.  Every
+        re-dispatch runs under the REMAINING budget (the mesh deadline is
+        absolute), a fresh correlation id, and the accumulated exclusion
+        set (shed sources AND dead replicas — one set, so a failover
+        never re-picks a replica that already refused, and a shed retry
+        never lands on a corpse)."""
+        client = self._client
+        router = client.router
+        effective = timeout if timeout is not None else client.default_timeout
+        deadline = (
+            cancellation.wall_clock() + effective
+            if effective is not None else None
+        )
+        exclude: set[str] = set()
+        failovers = 0
+        fault_attempts = 1  # terminals consumed (the original counts)
+        max_fault_attempts = max(1, policy.attempts) if policy else 1
+        run_id = run_id or new_id()
+        attempt_no = 0  # ledger attempt counter (every placement)
+
+        def remaining() -> "float | None":
+            if deadline is None:
+                return None
+            return deadline - cancellation.wall_clock()
+
+        async def dispatch(
+            mark: "str | None",
+            extra_exclude: "frozenset[str]" = frozenset(),
+        ) -> InvocationHandle[OutputT]:
+            rem = remaining()
+            if rem is not None and rem <= 0:
+                raise ClientTimeoutError(
+                    f"budget spent after {failovers} failover(s); "
+                    "no terminal reply"
+                )
+            if mark is not None:
+                # a failover/hedge re-dispatch must NOT fail open to the
+                # shared topic: the shared consumer group may still count
+                # the corpse as a member (a dead consumer holds its
+                # partitions until the broker's session timeout), which is
+                # exactly the blackhole failover exists to escape.  Wait —
+                # within the remaining budget — for an eligible replica.
+                await self._await_placement(
+                    frozenset(exclude | set(extra_exclude)),
+                    probe_interval=failover.probe_interval,
+                    remaining=remaining,
+                )
+            nonlocal attempt_no
+            # the ledger marker: the wire mark where one exists
+            # ("failover"/"hedge"), else first vs plain-retry
+            kind = (
+                mark
+                if mark is not None
+                else ("first" if attempt_no == 0 else "retry")
+            )
+            handle = await self.start(
+                prompt,
+                message_history=message_history,
+                deps=deps,
+                route=route,
+                timeout=remaining(),
+                exclude_replicas=frozenset(exclude | set(extra_exclude)),
+                mark=mark,
+                run_id=run_id,
+                attempt_no=attempt_no,
+                attempt_kind=kind,
+                priority=priority,
+            )
+            attempt_no += 1
+            return handle
+
+        primary = await dispatch(None)
+        dispatched_at = cancellation.wall_clock()
+        hedge: "InvocationHandle[OutputT] | None" = None
+        hedged = False  # at most one hedge per call
+
+        while True:
+            live = [h for h in (primary, hedge) if h is not None]
+            winner = await self._first_terminal(live, failover.probe_interval)
+
+            if winner is not None:
+                loser = hedge if winner is primary else primary
+                try:
+                    result = await winner.result()
+                except NodeFaultError as exc:
+                    if policy is None or not RetryPolicy.retriable(exc):
+                        if loser is not None and loser is not winner:
+                            await loser.cancel()
+                            client._note_attempt_superseded(
+                                run_id, loser, "hedge_lost"
+                            )
+                        raise
+                    if winner.routed_replica is not None:
+                        exclude.add(winner.routed_replica)
+                    if loser is not None and loser is not winner:
+                        # the duplicate may still answer: promote it and
+                        # keep supervising instead of burning a retry
+                        primary, hedge = loser, None
+                        continue
+                    fault_attempts += 1
+                    if fault_attempts > max_fault_attempts:
+                        raise
+                    await asyncio.sleep(policy.delay(fault_attempts - 2))
+                    primary = await dispatch(None)
+                    dispatched_at = cancellation.wall_clock()
+                    hedge = None
+                    continue
+                if loser is not None and loser is not winner:
+                    # first terminal wins: cancel the duplicate through
+                    # the ordinary cancel propagation (tombstone included
+                    # — a zombie cannot execute the losing correlation)
+                    await loser.cancel()
+                    client._note_attempt_superseded(
+                        run_id, loser, "hedge_lost"
+                    )
+                return result
+
+            # ---- quiet probe tick: budget, then placement health
+            rem = remaining()
+            if rem is not None and rem <= 0:
+                for h in live:
+                    h._cancel_soon()
+                raise ClientTimeoutError(
+                    f"run produced no terminal reply within {effective}s "
+                    f"({failovers} failover(s) attempted)"
+                )
+            if hedge is not None and hedge.routed_replica_key is not None:
+                hedge_verdict = router.placement_verdict(
+                    hedge.routed_replica_key
+                )
+                if hedge_verdict != "alive":
+                    # a dead hedge is simply dropped (and its correlation
+                    # tombstoned) — the primary is still supervised
+                    if hedge.routed_replica is not None:
+                        exclude.add(hedge.routed_replica)
+                    await hedge.cancel()
+                    client._note_attempt_superseded(
+                        run_id, hedge, hedge_verdict
+                    )
+                    # uncharge the corpse NOW: its terminal can never
+                    # arrive, so the done-callback that normally clears
+                    # the router's least-request entry never fires — the
+                    # phantom in-flight would bias placement away from
+                    # the replica for the whole TTL after it heals
+                    router.note_done(
+                        hedge.routed_replica_key, hedge.correlation_id
+                    )
+                    hedge = None
+            if primary.routed_replica_key is not None:
+                verdict = router.placement_verdict(primary.routed_replica_key)
+                if verdict != "alive":
+                    # dead placement: tombstone the orphaned correlation
+                    # FIRST (a zombie that resumes consuming must fault
+                    # the old call at its admission gate), then exclude
+                    # the corpse and re-dispatch under what's left
+                    if primary.routed_replica is not None:
+                        exclude.add(primary.routed_replica)
+                    await primary.cancel()
+                    client._note_attempt_superseded(
+                        run_id, primary, verdict
+                    )
+                    # uncharge the corpse (see the dead-hedge branch):
+                    # no terminal will ever clear this entry, and a
+                    # healed replica must not carry phantom load.
+                    # note_done is pop-idempotent, so a zombie that DOES
+                    # later publish a terminal double-clears harmlessly.
+                    router.note_done(
+                        primary.routed_replica_key, primary.correlation_id
+                    )
+                    if hedge is not None:
+                        # the duplicate is already running elsewhere:
+                        # promote it instead of spending a failover
+                        primary, hedge = hedge, None
+                        dispatched_at = cancellation.wall_clock()
+                        continue
+                    failovers += 1
+                    if failovers > failover.max_failovers:
+                        raise self._no_placement_fault(verdict)
+                    primary = await dispatch("failover")
+                    dispatched_at = cancellation.wall_clock()
+                    continue
+            # ---- tail-latency hedge (execute() only): race a duplicate
+            if (
+                not hedged
+                and failover.hedge_after is not None
+                and cancellation.wall_clock() - dispatched_at
+                >= failover.hedge_after
+                and primary.routed_replica is not None
+                and router.select(
+                    self.name,
+                    exclude=frozenset(exclude | {primary.routed_replica}),
+                ) is not None
+            ):
+                hedged = True
+                hedge = await dispatch(
+                    "hedge",
+                    extra_exclude=frozenset({primary.routed_replica}),
+                )
+
+    def _filter_step(
+        self, event: "StepEvent", ledger: "StreamLedger"
+    ) -> "StepEvent | None":
+        """Apply the stream-resume dedupe law to one step event: token
+        steps pass through the ledger (suppressing the replayed prefix
+        after a failover); None = fully-replayed, drop it.  Offset-
+        stamped steps align the ledger exactly — a resumed
+        attempt's first chunk arrives at the delivered-prefix offset and
+        passes through whole.  Non-token steps pass through unchanged —
+        they carry no offsets to dedupe on, so a failover may repeat
+        them (documented)."""
+        step = event.step
+        if getattr(step, "kind", "") != "token":
+            return event
+        text = ledger.filter(step.text, getattr(step, "offset", None))
+        if not text:
+            return None
+        if text != step.text:
+            return event.model_copy(
+                update={"step": step.model_copy(update={"text": text})}
+            )
+        return event
+
     async def stream(
         self,
         prompt: str | list[ContentPart],
@@ -860,28 +1308,238 @@ class AgentGateway(Generic[OutputT]):
         deps: dict[str, Any] | None = None,
         route: str = "run",
         timeout: float | None = None,
+        failover: "FailoverPolicy | None" = None,
         priority: "str | None" = None,
     ) -> "AsyncIterator[Any]":
-        """Stream a run's step events live, ending with the typed result:
-        ``start()`` + ``handle.stream()`` under one run id.  (The JAX
-        package's in-flight failover of a fleet-routed stream comes with
-        the fleet router, ROADMAP Queue 1.)"""
+        """Stream a run's step events live, ending with the typed result
+        — ``handle.stream()`` with in-flight failure recovery.
+
+        On a fleet-routed client with a FailoverPolicy, the placement is
+        supervised while streaming: when the placed replica dies
+        mid-stream (or faults typed-retriable), the call is re-issued as
+        a continuation on a surviving replica — same prompt (it rides
+        the prefix cache there), remaining deadline, old correlation
+        cancel-tombstoned, ``deps["calfkit.resume_text"]`` carrying the
+        already-delivered text — and the replayed token prefix is
+        suppressed so the caller observes ONE contiguous stream (the
+        :class:`~calfkit_tpu_torch.fleet.failover.StreamLedger` law).  Without
+        a policy (or a router) this is plain ``start()+stream()``."""
         client = self._client
-        run_id = new_id()
-        handle = await self.start(
-            prompt, message_history=message_history, deps=deps,
-            route=route, timeout=timeout, run_id=run_id,
-            priority=priority,
+        fo = failover if failover is not None else client.failover
+        if fo is None or client.router is None:
+            run_id = new_id()
+            handle = await self.start(
+                prompt, message_history=message_history, deps=deps,
+                route=route, timeout=timeout, run_id=run_id,
+                priority=priority,
+            )
+            try:
+                async for item in handle.stream():
+                    step = getattr(item, "step", None)
+                    if step is not None and getattr(step, "kind", "") == "token":
+                        client.run_ledger.add_tokens(
+                            run_id, handle.correlation_id, 1
+                        )
+                    yield item
+            except BaseException as exc:
+                client._finish_run_exc(run_id, exc)
+                raise
+            client._finish_run_soon(run_id, outcome="ok")
+            return
+        from calfkit_tpu_torch.fleet.failover import StreamLedger
+
+        router = client.router
+        ledger = StreamLedger()
+        effective = timeout if timeout is not None else client.default_timeout
+        deadline = (
+            cancellation.wall_clock() + effective
+            if effective is not None else None
         )
+
+        def remaining() -> "float | None":
+            if deadline is None:
+                return None
+            return deadline - cancellation.wall_clock()
+
+        exclude: set[str] = set()
+        failovers = 0
+        # run identity: ONE run id across the original
+        # placement and every failover/resume re-dispatch below — the
+        # whole try/except boundary closes the run with the outcome the
+        # CALLER observed (ok / timeout / fault / cancelled)
+        run_id = new_id()
+        attempt_no = 0
+        # decode-from-offset resume is a SINGLE-TURN contract: the hint
+        # seeds the re-attempt's first model turn, so a run that already
+        # dispatched tool calls (its delivered text spans turns) must
+        # replay wholly instead — the ledger's cumulative law keeps the
+        # stream contiguous either way
+        multi_turn = False
         try:
-            async for item in handle.stream():
-                step = getattr(item, "step", None)
-                if step is not None and getattr(step, "kind", "") == "token":
-                    client.run_ledger.add_tokens(
-                        run_id, handle.correlation_id, 1
+            handle = await self.start(
+                prompt, message_history=message_history, deps=deps,
+                route=route, timeout=effective,
+                run_id=run_id, attempt_no=attempt_no, attempt_kind="first",
+                priority=priority,
+            )
+            attempt_no += 1
+            while True:
+                dead_reason: "str | None" = None
+                pending_exc: "NodeFaultError | None" = None
+                channel = handle._channel
+                step_task: asyncio.Task = asyncio.ensure_future(
+                    channel.steps.get()
+                )
+                try:
+                    while dead_reason is None:
+                        rem = remaining()
+                        if rem is not None and rem <= 0:
+                            handle._cancel_soon()
+                            raise ClientTimeoutError(
+                                f"stream produced no terminal within "
+                                f"{effective}s ({failovers} failover(s))"
+                            )
+                        tick = (
+                            fo.probe_interval if rem is None
+                            else min(fo.probe_interval, rem)
+                        )
+                        done, _ = await asyncio.wait(
+                            [step_task, channel.terminal],
+                            timeout=tick,
+                            return_when=asyncio.FIRST_COMPLETED,
+                        )
+                        if step_task in done:
+                            raw = step_task.result()
+                            if getattr(raw.step, "kind", "") in (
+                                "tool_call", "tool_result", "handoff"
+                            ):
+                                multi_turn = True
+                            event = self._filter_step(raw, ledger)
+                            if event is not None:
+                                if getattr(event.step, "kind", "") == "token":
+                                    # delivered (post-dedupe) tokens only:
+                                    # a replayed prefix never double-counts
+                                    client.run_ledger.add_tokens(
+                                        run_id, handle.correlation_id, 1
+                                    )
+                                yield event
+                            step_task = asyncio.ensure_future(
+                                channel.steps.get()
+                            )
+                            continue
+                        if channel.terminal.done():
+                            while not channel.steps.empty():
+                                event = self._filter_step(
+                                    channel.steps.get_nowait(), ledger
+                                )
+                                if event is not None:
+                                    if getattr(event.step, "kind", "") == "token":
+                                        client.run_ledger.add_tokens(
+                                            run_id, handle.correlation_id, 1
+                                        )
+                                    yield event
+                            try:
+                                final = await handle.result()
+                            except NodeFaultError as exc:
+                                if not RetryPolicy.retriable(exc):
+                                    raise
+                                # a retriable fault ends THIS attempt, not
+                                # the stream: re-dispatch and resume
+                                dead_reason = (
+                                    f"fault:{exc.report.error_type}"
+                                )
+                                pending_exc = exc
+                                continue
+                            yield final
+                            client._finish_run_soon(run_id, outcome="ok")
+                            return
+                        # quiet tick: probe the placement
+                        if handle.routed_replica_key is not None:
+                            verdict = router.placement_verdict(
+                                handle.routed_replica_key
+                            )
+                            if verdict != "alive":
+                                dead_reason = verdict
+                finally:
+                    step_task.cancel()
+                # ---- failover re-dispatch (dead placement / retriable fault)
+                failovers += 1
+                if failovers > fo.max_failovers:
+                    if pending_exc is not None:
+                        raise pending_exc
+                    raise self._no_placement_fault(dead_reason or "unknown")
+                if handle.routed_replica is not None:
+                    exclude.add(handle.routed_replica)
+                # tombstone the orphan BEFORE the replacement publishes: a
+                # zombie that resumes consuming faults the old correlation
+                # at its admission gate instead of executing it
+                await handle.cancel()
+                # ledger verdict for the abandoned attempt (first signal
+                # wins: a fault that already landed keeps its outcome)
+                client._note_attempt_superseded(
+                    run_id, handle, dead_reason or "superseded"
+                )
+                ledger.begin_attempt()
+                rem = remaining()
+                if rem is not None and rem <= 0:
+                    if pending_exc is not None:
+                        raise pending_exc
+                    raise ClientTimeoutError(
+                        f"stream placement died ({dead_reason}) with no "
+                        "budget left to re-dispatch"
                     )
-                yield item
+                if pending_exc is None:
+                    # DEATH re-dispatch: never fail open to the shared topic
+                    # — the shared group may still count the corpse as a
+                    # member — wait for an eligible replica instead
+                    await self._await_placement(
+                        frozenset(exclude),
+                        probe_interval=fo.probe_interval,
+                        remaining=remaining,
+                    )
+                else:
+                    # FAULT re-dispatch: the replica is alive and answering
+                    # (it shed/wedged us, typed) — a brief backoff, then
+                    # fail-open placement is SAFE and required: on a fleet
+                    # with no alternative replica, waiting on the exclusion
+                    # set would burn the whole deadline for a transient shed
+                    # that the shared topic (or the same replica, recovered)
+                    # can absorb in milliseconds
+                    rem = remaining()
+                    await asyncio.sleep(
+                        fo.probe_interval if rem is None
+                        else min(fo.probe_interval, max(rem, 0.0))
+                    )
+                resume_deps = dict(deps or {})
+                if ledger.text and not multi_turn:
+                    # the continuation hint: prompt + already-delivered text.
+                    # The agent's first model turn CONSUMES it (decode-from-
+                    # offset); multi-turn runs omit it — delivered
+                    # text spanning tool-call turns would corrupt the first
+                    # turn's continuation — and replay wholly instead (the
+                    # dedupe ledger guarantees contiguity either way)
+                    resume_deps["calfkit.resume_text"] = ledger.text
+                handle = await self.start(
+                    prompt,
+                    message_history=message_history,
+                    deps=resume_deps,
+                    route=route,
+                    timeout=remaining(),
+                    exclude_replicas=frozenset(exclude),
+                    mark="failover",
+                    run_id=run_id,
+                    attempt_no=attempt_no,
+                    # the ledger distinguishes a decode-from-offset
+                    # resume from a whole-replay failover; the wire mark
+                    # stays "failover" (x-mesh-attempt vocabulary)
+                    attempt_kind=(
+                        "resume"
+                        if "calfkit.resume_text" in resume_deps
+                        else "failover"
+                    ),
+                    priority=priority,
+                )
+                attempt_no += 1
         except BaseException as exc:
             client._finish_run_exc(run_id, exc)
             raise
-        client._finish_run_soon(run_id, outcome="ok")

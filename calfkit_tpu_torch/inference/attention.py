@@ -33,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -48,9 +49,30 @@ _HEAD_DIMS = (64, 128)
 _MAX_DECODE_GROUP = 8
 
 
+# engines dispatch on their own worker threads: counts change under a lock,
+# and a launch made while this thread captures a CUDA graph goes to that
+# capture's count (``_capturing.counts``; graphs.py adds it at each replay)
+_count_lock = threading.Lock()
+_capturing = threading.local()
+
+
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+
+
+def add_launches(name: str, n: int) -> None:
+    with _count_lock:
+        launch_counts[name] += n
+
+
+def _launched(name: str) -> None:
+    counts = getattr(_capturing, "counts", None)
+    if counts is not None:  # captured: counted at each replay
+        counts[name] = counts.get(name, 0) + 1
+    else:
+        add_launches(name, 1)
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -371,7 +393,7 @@ def _launch_stats(
             n_splits, split_pos, 1.0 / math.sqrt(hd), stream, *source, *extra,
         )
     _check_status(name, status)
-    launch_counts[name] += 1
+    _launched(name)
     return o, m, z
 
 
@@ -658,7 +680,7 @@ def prefill_attention(
             1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _check_status("prefill_attention", status)
-    launch_counts["prefill_attention"] += 1
+    _launched("prefill_attention")
     return out
 
 

@@ -53,6 +53,11 @@ _eager_depth = 0
 _eager_lock = threading.Lock()
 # the replay hooks of the capture running on this thread (on_replay)
 _capture = threading.local()
+# one capture at a time in the process: entering a capture synchronizes the
+# device and empties the allocator's cache, which CUDA refuses while another
+# thread's capture is open (two engines in one process, each dispatching
+# on its own worker thread, would otherwise break each other's captures)
+_capture_lock = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -161,7 +166,7 @@ class CapturedDispatch:
         except RuntimeError as exc:
             raise InferenceError(f"CUDA graph replay failed: {exc}") from exc
         for name, n in self._launches.items():
-            A.launch_counts[name] += n
+            A.add_launches(name, n)
         for n, fn in self._hooks.values():
             fn(n)
         owner.stats["replays"] += 1
@@ -178,11 +183,12 @@ class CapturedDispatch:
         with torch.cuda.stream(owner.stream):
             out = self._body(*self.inputs)
         current.wait_stream(owner.stream)
-        before = dict(A.launch_counts)
         graph = torch.cuda.CUDAGraph()
         _capture.hooks = self._hooks
+        # a capture launches nothing: its wrapper calls count at each replay
+        A._capturing.counts = self._launches
         try:
-            with torch.cuda.graph(
+            with _capture_lock, torch.cuda.graph(
                 graph, pool=owner.pool, stream=owner.stream, capture_error_mode="thread_local"
             ):
                 captured = self._body(*self.inputs)
@@ -190,11 +196,7 @@ class CapturedDispatch:
             raise InferenceError(f"CUDA graph capture failed: {exc}") from exc
         finally:
             _capture.hooks = None
-        # a capture launches nothing: its wrapper calls count at each replay
-        for name, n in A.launch_counts.items():
-            if n != before[name]:
-                self._launches[name] = n - before[name]
-                A.launch_counts[name] = before[name]
+            A._capturing.counts = None
         self._graph, self._outputs = graph, captured
         self.capture_s = time.perf_counter() - started
         owner.stats["captures"] += 1

@@ -177,7 +177,31 @@ the final ``ok`` line is never printed:
    boot seconds and its subscriptions' seconds to the first assignment;
    then #5 and #2 against their plain versions at the ``kafka://`` run's
    most launched shapes; the ``kernels`` line reports both transports'
-   launches under ``wire_mesh``.
+   launches under ``wire_mesh``;
+17. the serving fleet (``fleet_phase``): two replicas of phase 15's agent
+   (``r0``, ``r1``), each on a fresh engine with its own pool and graph
+   pool over ONE set of phase 15's weights, under the port's
+   ``FleetTopology`` on one ``InMemoryMesh`` (the tools on a third
+   ``Worker``), the ``Client`` on ``FleetRouter(mesh, "prefix-affinity")``
+   and ``FailoverPolicy``; three drives: the routed round (two warm-up
+   rounds, then phase 15's measured round: every call on its prompt's
+   ``PrefixAffinity`` home, both replicas used, no failover, the tie law
+   on its 16 engine turns and their direct requests, #5 and #2 launched
+   on both engines, their per-engine launches adding up to the round's);
+   a kill mid-stream (a long greedy ``Agent.stream`` killed on its replica
+   after its first token steps: one contiguous stream, equal to an
+   unkilled run's up to the tie law, one failover, the survivor decoding
+   only the remaining tokens after prefilling the delivered prefix); a
+   drain handoff (the drained replica admits no new call, its in-flight
+   runs finish).  Checks also one copy of the weights (both engines'
+   tensors are the caller's; the peak allocation is bounded) and no leak
+   on either engine after ``stop()``.  It prints per replica its
+   placements, prefix reuse, captures and launches, TTFT through the
+   fleet against phase 15's, tok/s, the seconds from the kill to the
+   first resumed token and the resumed offset; then #5 and #2 against
+   their plain versions at the phase's most launched shapes; the
+   ``kernels`` line reports its launches, and each replica's, under
+   ``fleet``.
 
 The kernel phase also holds the ragged multi-query kernels (speculative
 verify shapes S = 5, a mixed-row case with prefill-kind and fresh rows, page
@@ -216,6 +240,7 @@ import argparse
 import asyncio
 import concurrent.futures
 import contextlib
+import gc
 import json
 import math
 import os
@@ -225,8 +250,10 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import uuid
+import weakref
 from dataclasses import replace
 from pathlib import Path
 from types import SimpleNamespace
@@ -236,7 +263,7 @@ import torch
 import torch.nn.functional as F
 
 from calfkit_tpu_torch import Agent, Client, Worker, kernels
-from calfkit_tpu_torch.client import caller
+from calfkit_tpu_torch.client import InvocationResult, caller
 from calfkit_tpu_torch.engine import (
     FunctionModelClient,
     ModelClient,
@@ -245,6 +272,13 @@ from calfkit_tpu_torch.engine import (
     ResponseDone,
     TextDelta,
 )
+from calfkit_tpu_torch.fleet import (
+    FailoverPolicy,
+    FleetRouter,
+    PrefixAffinity,
+    RouteRequest,
+    affinity_key_for,
+)
 from calfkit_tpu_torch.fleet.selection import lane_of
 from calfkit_tpu_torch.inference import attention as A
 from calfkit_tpu_torch.inference import graphs
@@ -252,7 +286,7 @@ from calfkit_tpu_torch.inference import model as M
 from calfkit_tpu_torch.inference import quant as Q
 from calfkit_tpu_torch.inference.client import TorchLocalModelClient, render_messages
 from calfkit_tpu_torch.inference.config import RuntimeConfig, SpecConfig, preset
-from calfkit_tpu_torch.inference.engine import EngineStats, InferenceEngine
+from calfkit_tpu_torch.inference.engine import EngineStats, InferenceEngine, _call_weak
 from calfkit_tpu_torch.inference.loader import config_from_hf, load_params
 from calfkit_tpu_torch.inference.sampler import SamplingParams
 from calfkit_tpu_torch.inference.tokenizer import ByteTokenizer
@@ -270,6 +304,7 @@ from calfkit_tpu_torch.models import (
 from calfkit_tpu_torch.nodes import agent_tool
 from calfkit_tpu_torch.observability.metrics import REGISTRY
 from calfkit_tpu_torch.observability.trace import current_context
+from calfkit_tpu_torch.sim import FleetTopology, settle
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # tensor-core bf16; f32 CUDA cores
@@ -837,6 +872,7 @@ TALLY_KEYS = {
     "prefill_attention": lambda q, args, kw: (q.shape[0], q.shape[1], args[0].shape[2]),
 }
 _OPEN_TALLIES: dict = {}  # wrapper name → the open tally {key: [calls, kv_lens]}
+_TALLY_LOCK = threading.Lock()
 
 
 def observe_call(tag, tensors: "list[torch.Tensor]", record, wanted=lambda: True) -> None:
@@ -874,9 +910,10 @@ def install_tallies() -> None:
             k = _key(q, args, kw)
 
             def record(n, copies, _k=k):
-                entry = _OPEN_TALLIES[_name].setdefault(_k, [0, None])
-                entry[0] += n
-                entry[1] = copies[0]  # kv_lens, on the device: no sync
+                with _TALLY_LOCK:  # two engines' worker threads may record at once
+                    entry = _OPEN_TALLIES[_name].setdefault(_k, [0, None])
+                    entry[0] += n
+                    entry[1] = copies[0]  # kv_lens, on the device: no sync
 
             observe_call((_name, k), [args[-1]], record, lambda: _name in _OPEN_TALLIES)
             return _inner(q, *args, **kw)
@@ -3177,8 +3214,12 @@ class MeshTurnModel(ModelClient):
                 return event.response
         raise RuntimeError("stream ended without a terminal response")
 
+    def _scripted_first(self, messages) -> bool:
+        """Whether this step is a conversation's scripted first step."""
+        return not any(isinstance(m, ModelResponse) for m in messages)
+
     async def request_stream(self, messages, settings=None, params=None):
-        if not any(isinstance(m, ModelResponse) for m in messages):
+        if self._scripted_first(messages):
             async for event in self.scripted.request_stream(messages, settings, params):
                 yield event
             return
@@ -3207,18 +3248,19 @@ def _mesh_prompts(round_: str) -> "list[list[str]]":
     ]
 
 
-async def _mesh_round(client, engine, model, prompts, first_token) -> dict:
+async def _mesh_round(client, engines, models, prompts, first_token) -> dict:
     """Every conversation's two turns through ``Client.execute``, a turn's
     conversations concurrently; per turn the executes' clocks and results,
-    the engine calls, the engine's prefix counters and the lanes' waits over
-    the turn."""
+    the engine calls (of every model in ``models``), the prefix counters of
+    ``engines`` (summed, and each engine's) and the lanes' waits over the
+    turn."""
     gateway = client.agent(MESH_AGENT)
     histories: "list[list | None]" = [None] * len(AGENT_CITIES)
     turns = []
     started = time.perf_counter()
     for turn, texts in enumerate(prompts):
-        hits, reused = engine.stats.prefix_hits, engine.stats.prefix_reused_tokens
-        calls_before, waited = len(model.calls), LANE_WAIT.sum
+        prefix = [(e.stats.prefix_hits, e.stats.prefix_reused_tokens) for e in engines]
+        calls_before, waited = [len(m.calls) for m in models], LANE_WAIT.sum
 
         async def one(i: int, text: str) -> dict:
             t = time.perf_counter()
@@ -3231,10 +3273,13 @@ async def _mesh_round(client, engine, model, prompts, first_token) -> dict:
             assert isinstance(result.output, str) and result.output, (turn, i, result.output)
             histories[i] = result.state.message_history
             run["first_token"] = first_token.get(result.correlation_id)
+        per_engine = [(e.stats.prefix_hits - h, e.stats.prefix_reused_tokens - r)
+                      for e, (h, r) in zip(engines, prefix)]
         turns.append(dict(
-            runs=runs, calls=model.calls[calls_before:], lane_wait_ms=LANE_WAIT.sum - waited,
-            prefix_hits=engine.stats.prefix_hits - hits,
-            prefix_reused_tokens=engine.stats.prefix_reused_tokens - reused,
+            runs=runs, calls=[c for m, n in zip(models, calls_before) for c in m.calls[n:]],
+            lane_wait_ms=LANE_WAIT.sum - waited,
+            prefix_hits=sum(h for h, _ in per_engine),
+            prefix_reused_tokens=sum(r for _, r in per_engine), per_engine_prefix=per_engine,
         ))
     return dict(turns=turns, started=started, wall_s=time.perf_counter() - started)
 
@@ -3357,7 +3402,8 @@ async def agent_mesh_phase(dev, params, card: str = "") -> dict:
                     # two warm-up rounds: a round's waves (and so its graph
                     # keys) depend on when each conversation reaches the engine
                     for name in ("Warm-up", "Warm-up again"):
-                        await _mesh_round(client, engine, model, _mesh_prompts(name), first_token)
+                        await _mesh_round(client, [engine], [model], _mesh_prompts(name),
+                                          first_token)
                     model.calls.clear()
                     published.clear()
                     engine.stats = EngineStats()
@@ -3365,7 +3411,7 @@ async def agent_mesh_phase(dev, params, card: str = "") -> dict:
                     A.reset_launch_counts()
                     with prefill_shapes() as prefills, decode_shapes() as decodes:
                         measured = await _mesh_round(
-                            client, engine, model, _mesh_prompts("Trip desk"), first_token)
+                            client, [engine], [model], _mesh_prompts("Trip desk"), first_token)
                         launches = dict(A.launch_counts)
                     graphs_after = graph_numbers(engine)
                     records = dict(sorted(published.items()))
@@ -3898,6 +3944,493 @@ async def wire_mesh_phase(dev, params, transport: str, in_memory: "dict | None",
     return result
 
 
+# --------------------------------------------------------------------------- #
+# phase 17: the serving fleet (two replicas behind FleetRouter, failover)
+# --------------------------------------------------------------------------- #
+
+FLEET_REPLICAS = ("r0", "r1")  # pinned instance ids, so the placements are fixed
+FLEET_HEARTBEAT_S = 0.2
+FLEET_STALE_AFTER = 3.0  # the router's staleness bound: heartbeat x 15
+FLEET_PROBE_S = 0.05  # FailoverPolicy.probe_interval
+FLEET_STREAM_TOKENS = 160  # the kill drive's answer (>= 128 tokens)
+# token steps the caller receives before the kill: a step carries the
+# engine's first token, then 24 characters at a time (the agent's flush)
+FLEET_KILL_AFTER = 2
+# names no city, so the replica's model sends it straight to the engine;
+# prefix affinity homes it on r0
+FLEET_STREAM_PROMPT = (
+    "Write a long travel diary of a slow train journey along the coast, one stop at a time.")
+
+_REPLICA = threading.local()  # .tag: the replica whose dispatch runs on this thread
+
+
+def _replica_call(tag: str, method, *args):
+    _REPLICA.tag = tag
+    try:
+        return _call_weak(method, *args)
+    finally:
+        _REPLICA.tag = None
+
+
+class ReplicaEngine(InferenceEngine):
+    """Phase 17's replica engine: every dispatch runs on its
+    ``asyncio.to_thread`` worker under the replica's ``tag``, so a launch
+    tally tells the replicas apart (:func:`replica_launches`)."""
+
+    def __init__(self, *args, tag: str, **kw):
+        super().__init__(*args, **kw)
+        self.tag = tag
+
+    async def _on_worker(self, method, *args):
+        return await asyncio.to_thread(_replica_call, self.tag, weakref.WeakMethod(method), *args)
+
+
+@contextlib.contextmanager
+def replica_launches(names=("prefill_attention", "paged_decode_attention")):
+    """While the block runs, count the launches of the wrappers ``A.<names>``
+    by the replica whose dispatch made them (the tag of the thread,
+    :class:`ReplicaEngine`): an eager call at once, a graph's calls at each
+    replay (:func:`observe_call`) → {tag: {name: launches}}.  The wrappers
+    and their launch counts are unchanged."""
+    counts: dict = {}
+    inner = {name: getattr(A, name) for name in names}
+    open_ = [True]
+
+    def wrap(name: str):
+        def counted(*args, **kw):
+            def record(n, copies):
+                tag = getattr(_REPLICA, "tag", None)
+                if tag is not None:
+                    per = counts.setdefault(tag, {})
+                    per[name] = per.get(name, 0) + n
+
+            observe_call(("replica", name), [], record, lambda: open_[0])
+            return inner[name](*args, **kw)
+
+        counted.tallied = True  # install_tallies: already wrapped
+        return counted
+
+    for name in names:
+        setattr(A, name, wrap(name))
+    try:
+        yield counts
+    finally:
+        open_[0] = False
+        for name, fn in inner.items():
+            setattr(A, name, fn)
+
+
+class FleetTurnModel(MeshTurnModel):
+    """Phase 17's replica model: phase 15's, except that a conversation
+    whose first text names no city (the kill drive's long answer) goes
+    straight to the engine, with ``FLEET_STREAM_TOKENS`` to generate."""
+
+    @staticmethod
+    def _names_a_city(messages) -> bool:
+        text = getattr(messages[-1].parts[-1], "content", "")
+        return isinstance(text, str) and any(c in text for c in AGENT_CITIES)
+
+    def _long_answer(self, messages) -> bool:
+        return super()._scripted_first(messages) and not self._names_a_city(messages)
+
+    def _scripted_first(self, messages) -> bool:
+        return super()._scripted_first(messages) and self._names_a_city(messages)
+
+    async def request_stream(self, messages, settings=None, params=None):
+        if self._long_answer(messages):
+            settings = (settings or ModelSettings()).model_copy(
+                update={"max_tokens": FLEET_STREAM_TOKENS})
+        async for event in super().request_stream(messages, settings, params):
+            yield event
+
+
+def _leaves(tree) -> "list[torch.Tensor]":
+    return [x for v in tree.values() for x in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def _placed(fleet, corr: str) -> "str | None":
+    """The instance whose worker admitted the call ``corr`` (the topology's
+    delivery ledgers)."""
+    return next((fleet.instance_id(i) for i in range(len(fleet.agents))
+                 if corr in fleet.delivered[i]), None)
+
+
+def _affinity_home(router, text: str) -> str:
+    """The port's ``PrefixAffinity`` pick for a prompt over every replica of
+    the agent the registry holds."""
+    replicas = router.registry.replicas(agent=MESH_AGENT)
+    assert len(replicas) == len(FLEET_REPLICAS), [r.key for r in replicas]
+    request = RouteRequest(agent=MESH_AGENT, affinity_key=affinity_key_for(text))
+    return PrefixAffinity().select(replicas, request).instance_id
+
+
+async def _fleet_stream(gateway, kill=None) -> dict:
+    """``Agent.stream`` of :data:`FLEET_STREAM_PROMPT` → its token steps'
+    texts, offsets and arrival clocks, and the result; with ``kill``, also
+    the clock at which ``kill()`` ran (after :data:`FLEET_KILL_AFTER` token
+    steps)."""
+    out = dict(texts=[], offsets=[], at=[], result=None, killed_at=None)
+    async for item in gateway.stream(FLEET_STREAM_PROMPT, timeout=600):
+        if isinstance(item, InvocationResult):
+            out["result"] = item
+            continue
+        if getattr(item.step, "kind", "") != "token":
+            continue
+        out["texts"].append(item.step.text)
+        out["offsets"].append(item.step.offset)
+        out["at"].append(time.perf_counter())
+        if kill is not None and out["killed_at"] is None \
+                and len(out["texts"]) == FLEET_KILL_AFTER:
+            out["killed_at"] = time.perf_counter()
+            kill()
+    assert out["result"] is not None, "the stream ended without a result"
+    return out
+
+
+async def fleet_phase(dev, params, agent_mesh: "dict | None" = None, card: str = "") -> dict:
+    """Phase 17: the serving fleet on the card.  Two replicas of phase 15's
+    agent (its model :class:`FleetTurnModel` over a ``TorchLocalModelClient``
+    on a fresh :class:`ReplicaEngine` each: phase 15's paged runtime at
+    ``max_seq_len`` 4096, its own pool and graph pool, both over ONE set of
+    bf16 llama-3-8b weights, ``params``) run under the port's
+    ``FleetTopology`` on one ``InMemoryMesh`` as instances ``r0`` and ``r1``
+    (heartbeat every :data:`FLEET_HEARTBEAT_S` s, stale after
+    :data:`FLEET_STALE_AFTER` s), the 3 tools on a third ``Worker``.  The
+    ``Client`` routes by ``FleetRouter(mesh, "prefix-affinity")`` and
+    recovers by ``FailoverPolicy(probe_interval=0.05, max_failovers=2)``,
+    its ids seeded as phase 15's.  Three drives:
+
+    1. routed round: two warm-up rounds capture each replica's graph keys;
+       the measured round is phase 15's 8 conversations x 2 turns.  Checks:
+       every run ends with a result; every call is placed on its prompt's
+       ``PrefixAffinity`` home over {r0, r1}, and both replicas take calls;
+       no failover; the tie law (:func:`tie_law`) on every engine turn and
+       a direct ``request`` on its messages on the same replica; #5 and #2
+       launch on both engines, and the two engines' launches add up to the
+       round's.
+    2. kill mid-stream: an unkilled ``Agent.stream`` of a long greedy
+       answer (>= 128 tokens), then the same stream killed
+       (``FleetTopology.kill``) on the replica that holds it after
+       :data:`FLEET_KILL_AFTER` token steps.  Checks: one contiguous stream
+       (each token step's offset is the text before it, their text is the
+       result's); its text and the unkilled one's under the tie law; the
+       survivor decodes only the remaining tokens and prefills the
+       prompt and the delivered prefix (#5 launched there); exactly one
+       failover.  The killed replica then resumes (its buffered cancel
+       first) and re-advertises.
+    3. drain handoff: a round's first turn in flight, ``drain`` of r1 once
+       its calls are admitted, then 8 new calls when the registry shows r1
+       draining.  Checks: r1 admits none of them; every run, the in-flight
+       ones on r1 too, ends with a result.
+
+    One set of weights: every weight tensor of both engines is
+    ``params``'s own, each engine's memory beyond its pool is under half
+    the weights, and the peak allocation (before the witness)
+    is under weights + both engines + the graph pools + 4 GB.  After
+    ``stop()`` every page of both engines is free or cached and every slot
+    free.  Prints per replica its placements, prefix hits and reused
+    tokens, captures and launches; TTFT through the fleet against phase
+    15's; tok/s; the seconds from the kill to the first resumed token and
+    the resumed offset."""
+    cfg = preset("llama-3-8b")
+    rt = MESH_RUNTIME
+    tok = CharTokenizer()
+    tools = [agent_tool(fn) for fn in (get_weather, search_flights, book_hotel)]
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    torch.cuda.reset_peak_memory_stats(dev)
+    with replica_launches() as by_replica:
+        engines, locals_, models, static = [], [], [], []
+        for tag in FLEET_REPLICAS:
+            before = torch.cuda.memory_allocated(dev)
+            engine = ReplicaEngine(cfg, rt, params=params, device=dev, tag=tag)
+            static.append(torch.cuda.memory_allocated(dev) - before)
+            local = TorchLocalModelClient(engine=engine, tokenizer=tok,
+                                          max_new_tokens=CLIENT_MAX_TOKENS)
+            engines.append(engine)
+            locals_.append(local)
+            models.append(FleetTurnModel(local))
+        # one set of weights: each engine's tensors are the caller's
+        for engine in engines:
+            assert all(a.data_ptr() == b.data_ptr()
+                       for a, b in zip(_leaves(engine.params), _leaves(params)))
+        pool_bytes = 2 * engines[0]._k.numel() * engines[0]._k.element_size()
+        for s in static:
+            # its pool, scratch and buffers: a copy of the weights would double it
+            assert s - pool_bytes < weight_bytes / 2, (s, pool_bytes, weight_bytes)
+        mesh = InMemoryMesh()
+        fleet = FleetTopology(
+            mesh, models, name=MESH_AGENT, heartbeat_interval=FLEET_HEARTBEAT_S,
+            stale_multiplier=FLEET_STALE_AFTER / FLEET_HEARTBEAT_S, max_workers=MESH_LANES,
+            agent_kwargs=dict(instructions=AGENT_INSTRUCTIONS, tools=tools, stream_tokens=True,
+                              model_settings=ModelSettings(max_tokens=CLIENT_MAX_TOKENS)),
+        )
+        for agent, tag in zip(fleet.agents, FLEET_REPLICAS):
+            agent.instance_id = tag
+        first_token: "dict[str, float]" = {}
+        for local in locals_:
+            await local.start()
+        try:
+            with seeded_client_ids(MESH_ID_SEED):
+                async with Worker(tools, mesh=mesh, max_workers=MESH_LANES), fleet:
+                    router = FleetRouter(mesh, "prefix-affinity",
+                                         stale_after=fleet.config.stale_after)
+                    client = Client.connect(mesh, router=router, failover=FailoverPolicy(
+                        probe_interval=FLEET_PROBE_S, max_failovers=2))
+                    await router.start()
+                    await settle(
+                        lambda: len(router.registry.eligible(MESH_AGENT)) == len(FLEET_REPLICAS),
+                        ticks=600, interval=0.05, message="the fleet never became routable")
+                    firehose = client.events()
+
+                    async def watch() -> None:
+                        async for event in firehose:
+                            if event.step.kind == "token":
+                                first_token.setdefault(event.correlation_id, time.perf_counter())
+
+                    watcher = asyncio.create_task(watch())
+                    try:
+                        out = await _fleet_drives(
+                            dev, params, client, router, fleet, engines, locals_, models,
+                            first_token, by_replica)
+                    finally:
+                        firehose.close()
+                        watcher.cancel()
+                        with contextlib.suppress(asyncio.CancelledError):
+                            await watcher
+                        await client.close()
+        finally:
+            for local in locals_:
+                await local.stop()
+            await mesh.stop()
+    peak = out.pop("peak")
+    # the no-leak law, both engines
+    for engine in engines:
+        free_pages, cached = engine._page_alloc.free_pages, engine._prefix.size
+        assert free_pages + cached == rt.pool_pages() - 1, (engine.tag, free_pages, cached)
+        assert len(engine._free) == rt.max_batch_size and not engine._active, engine.tag
+    memory = dict(weights=weight_bytes, pool=pool_bytes, engines=static,
+                  graphs=out["graph_bytes"], peak=peak)
+    bound = weight_bytes + sum(static) + out["graph_bytes"] + 4e9
+    assert peak <= bound, memory
+    out.update(memory=memory)
+    return _fleet_report(out, engines, agent_mesh, card)
+
+
+async def _fleet_drives(dev, params, client, router, fleet, engines, locals_, models,
+                        first_token, by_replica) -> dict:
+    """Phase 17's three drives (see :func:`fleet_phase`) → their numbers."""
+    cfg, tok = preset("llama-3-8b"), CharTokenizer()
+    gateway = client.agent(MESH_AGENT)
+    n = len(FLEET_REPLICAS)
+    after_boot = torch.cuda.memory_allocated(dev)
+    # ---- drive 1: the routed round
+    for name in ("Warm-up", "Warm-up again"):
+        await _mesh_round(client, engines, models, _mesh_prompts(name), first_token)
+    graph_bytes = torch.cuda.memory_allocated(dev) - after_boot
+    for model, engine in zip(models, engines):
+        model.calls.clear()
+        engine.stats = EngineStats()
+    graphs_before = [graph_numbers(e) for e in engines]
+    failovers_before = [a._failover_requests for a in fleet.agents]
+    A.reset_launch_counts()
+    by_replica.clear()
+    with prefill_shapes() as prefills, decode_shapes() as decodes:
+        measured = await _mesh_round(client, engines, models, _mesh_prompts("Trip desk"),
+                                     first_token)
+        launches = dict(A.launch_counts)
+        replica_counts = {tag: dict(c) for tag, c in by_replica.items()}
+    graphs_after = [graph_numbers(e) for e in engines]
+    assert [a._failover_requests for a in fleet.agents] == failovers_before, "a failover"
+    placements = []
+    for turn, texts in zip(measured["turns"], _mesh_prompts("Trip desk")):
+        for run, text in zip(turn["runs"], texts):
+            placed = _placed(fleet, run["result"].correlation_id)
+            home = _affinity_home(router, text)
+            assert placed == home, (text, placed, home)
+            placements.append(placed)
+    assert set(placements) == set(FLEET_REPLICAS), placements
+    for name in ("prefill_attention", "paged_decode_attention"):
+        per = [replica_counts.get(tag, {}).get(name, 0) for tag in FLEET_REPLICAS]
+        assert all(per) and sum(per) == launches[name], (name, per, launches[name])
+    # the measured round's engine turns, each replayed on its replica
+    owner = {id(c): i for i, m in enumerate(models) for c in m.calls}
+    direct = []
+    for turn in measured["turns"]:
+        direct += await asyncio.gather(*[
+            locals_[owner[id(c)]].request(c["messages"], c["settings"], c["params"])
+            for c in turn["calls"]])
+    peak_round = torch.cuda.max_memory_allocated(dev)
+    # ---- drive 2: kill mid-stream
+    home = _affinity_home(router, FLEET_STREAM_PROMPT)
+    victim = FLEET_REPLICAS.index(home)
+    survivor = 1 - victim
+    calls_before = [len(m.calls) for m in models]
+    unkilled = await _fleet_stream(gateway)
+    assert [len(m.calls) - b for m, b in zip(models, calls_before)] == \
+        [int(i == victim) for i in range(n)], "the unkilled stream left its home"
+    unkilled_call = models[victim].calls[-1]
+    stats0 = [(e.stats.prefill_tokens, e.stats.decode_tokens, e.stats.prefix_reused_tokens)
+              for e in engines]
+    launches0 = {tag: dict(c) for tag, c in by_replica.items()}
+    failovers0 = [a._failover_requests for a in fleet.agents]
+    delivered0 = [fleet.calls_delivered(i) for i in range(n)]
+    killed = await _fleet_stream(gateway, kill=lambda: fleet.kill(victim))
+    failovers = [a._failover_requests - f for a, f in zip(fleet.agents, failovers0)]
+    assert failovers == [int(i == survivor) for i in range(n)], failovers
+    assert [fleet.calls_delivered(i) - d for i, d in enumerate(delivered0)] == [1] * n
+    text = "".join(killed["texts"])
+    assert text == killed["result"].output, "the stream is not the answer"
+    # a resumed attempt stamps its steps with their offset in the answer
+    # (the first attempt's ride the ledger's cumulative law, unstamped)
+    b = next((i for i, o in enumerate(killed["offsets"]) if o is not None), None)
+    assert b is not None and b >= FLEET_KILL_AFTER, ("no resumed step", killed["offsets"])
+    at = 0
+    for i, (chunk, offset) in enumerate(zip(killed["texts"], killed["offsets"])):
+        assert (offset is None) == (i < b) and offset in (None, at), ("offset", i, offset, at)
+        at += len(chunk)  # no duplicate, no gap
+    resumed = killed["offsets"][b]  # the delivered prefix
+    kill_to_resume = killed["at"][b] - killed["killed_at"]
+    total = len(tok.encode(text))
+    assert total >= 128 and len(tok.encode(unkilled["result"].output)) >= 128, total
+    p1, d1, r1 = (engines[survivor].stats.prefill_tokens, engines[survivor].stats.decode_tokens,
+                  engines[survivor].stats.prefix_reused_tokens)
+    p0, d0, r0 = stats0[survivor]
+    prompt_ids = [tok.bos_id, *tok.encode(render_messages(unkilled_call["messages"],
+                                                          unkilled_call["params"]))]
+    survivor_decode, survivor_prefill, survivor_reused = d1 - d0, p1 - p0, r1 - r0
+    assert survivor_decode == total - resumed, (survivor_decode, total, resumed)
+    # the prompt and the delivered prefix enter by prefill (or the prefix cache)
+    assert survivor_prefill + survivor_reused >= len(prompt_ids) + resumed, \
+        (survivor_prefill, survivor_reused, len(prompt_ids), resumed)
+    tag = FLEET_REPLICAS[survivor]
+    survivor_prefill_launches = (by_replica.get(tag, {}).get("prefill_attention", 0)
+                                 - launches0.get(tag, {}).get("prefill_attention", 0))
+    assert survivor_prefill_launches > 0
+    # the zombie returns: its buffered cancel first, then its heartbeat
+    await fleet.resume(victim)
+    await settle(lambda: len(router.registry.eligible(MESH_AGENT)) == n,
+                 ticks=600, interval=0.05, message="the killed replica never re-advertised")
+    # ---- drive 3: drain handoff of r1
+    drained = 1
+    texts = _mesh_prompts("Fleet drain")[0]
+    on_drained = sum(1 for t in texts if _affinity_home(router, t) == FLEET_REPLICAS[drained])
+    before = [fleet.calls_delivered(i) for i in range(n)]
+    inflight = [asyncio.create_task(gateway.execute(t, timeout=600)) for t in texts]
+    await settle(lambda: sum(fleet.calls_delivered(i) - before[i] for i in range(n)) == len(texts),
+                 ticks=1200, interval=0.01, message="the in-flight calls were never admitted")
+    assert fleet.calls_delivered(drained) - before[drained] == on_drained >= 1
+    fleet.drain(drained)
+    at_drain = fleet.calls_delivered(drained)
+    await settle(lambda: [r.instance_id for r in router.registry.eligible(MESH_AGENT)]
+                 == [FLEET_REPLICAS[1 - drained]], ticks=600, interval=0.05,
+                 message="the drain never reached the registry")
+    after = await asyncio.gather(*[gateway.execute(t, timeout=600)
+                                   for t in _mesh_prompts("Fleet after drain")[0]])
+    finished = await asyncio.gather(*inflight)
+    assert all(isinstance(r.output, str) and r.output for r in [*after, *finished])
+    assert fleet.calls_delivered(drained) == at_drain, "the drained replica took a new call"
+    # the witness, last: the tie law on drive 1's engine turns and the two streams
+    calls = [c for turn in measured["turns"] for c in turn["calls"]]
+    streams = tie_law(cfg, params, [
+        (c["corr"], [tok.bos_id, *tok.encode(render_messages(c["messages"], c["params"]))],
+         _stream_ids(tok, c["response"]), _stream_ids(tok, d))
+        for c, d in zip(calls, direct)
+    ], dev, labels=("fleet", "direct"))
+    kill_law = tie_law(cfg, params, [
+        ("kill", prompt_ids, tok.encode(text), tok.encode(unkilled["result"].output))
+    ], dev, labels=("failover", "unkilled"))
+    return dict(
+        measured=measured, launches=launches, replica_launches=replica_counts,
+        prefill_rows=_shape_rows(prefills), decode_rows=_shape_rows(decodes),
+        graphs_before=graphs_before, graphs_after=graphs_after, graph_bytes=graph_bytes,
+        placements=placements, streams=streams, kill_law=kill_law, peak=peak_round,
+        kill=dict(victim=FLEET_REPLICAS[victim], survivor=FLEET_REPLICAS[survivor],
+                  kill_to_resume_s=kill_to_resume, resumed_offset=resumed, tokens=total,
+                  survivor_decode_tokens=survivor_decode,
+                  survivor_prefill_tokens=survivor_prefill,
+                  survivor_reused_tokens=survivor_reused, prompt_tokens=len(prompt_ids),
+                  survivor_prefill_launches=survivor_prefill_launches, failovers=failovers,
+                  equal_to_unkilled=text == unkilled["result"].output),
+        drain=dict(replica=FLEET_REPLICAS[drained], inflight_on_it=on_drained,
+                   new_calls=len(after), delivered_after=[fleet.calls_delivered(i)
+                                                          for i in range(n)]),
+    )
+
+
+def _fleet_report(out: dict, engines, agent_mesh: "dict | None", card: str) -> dict:
+    """Phase 17's numbers (printed) from :func:`_fleet_drives`'s."""
+    t1, t2 = (_mesh_turn_numbers(t, MESH_LANES) for t in out["measured"]["turns"])
+    tokens = t1["output_tokens"] + t2["output_tokens"]
+    per_replica = {}
+    for i, tag in enumerate(FLEET_REPLICAS):
+        hits = sum(t["per_engine_prefix"][i][0] for t in out["measured"]["turns"])
+        reused = sum(t["per_engine_prefix"][i][1] for t in out["measured"]["turns"])
+        per_replica[tag] = dict(
+            placements=out["placements"].count(tag), prefix_hits=hits, prefix_reused_tokens=reused,
+            captures=out["graphs_after"][i]["captures"] - out["graphs_before"][i]["captures"],
+            graphs=out["graphs_after"][i], launches=out["replica_launches"].get(tag, {}))
+    m = out["memory"]
+    result = dict(
+        turn1=t1, turn2=t2, output_tokens=tokens, tok_s=tokens / out["measured"]["wall_s"],
+        wall_s=out["measured"]["wall_s"], replicas=per_replica, launches=out["launches"],
+        prefill_shapes=out["prefill_rows"], decode_shapes=out["decode_rows"],
+        streams=out["streams"], kill=out["kill"], kill_law=out["kill_law"], drain=out["drain"],
+        memory=m, max_memory_allocated=m["peak"],
+    )
+    if agent_mesh is not None:
+        result["vs_phase15"] = {
+            f"turn{k}": dict(
+                mesh_ttft_median_ms=(t["mesh_ttft_median_ms"],
+                                     agent_mesh[f"turn{k}"]["mesh_ttft_median_ms"]),
+                added_median_ms=(t["added_median_ms"], agent_mesh[f"turn{k}"]["added_median_ms"]))
+            for k, t in ((1, t1), (2, t2))}
+    k, s = out["kill"], out["streams"]
+    versus = "".join(
+        f"; phase 15's turn {i} {v['mesh_ttft_median_ms'][1]:.1f} ms, added "
+        f"{v['added_median_ms'][1]:.1f}" for i, v in enumerate(result.get("vs_phase15", {})
+                                                               .values(), 1))
+    print(
+        f"  serving fleet llama-3-8b bf16, replicas {', '.join(FLEET_REPLICAS)} of the agent "
+        f"under FleetTopology on one InMemoryMesh behind FleetRouter(prefix-affinity, stale "
+        f"after {FLEET_STALE_AFTER} s), FailoverPolicy(probe {FLEET_PROBE_S} s) (one run, no "
+        f"spread; {card}): {per_replica_note(per_replica)}; TTFT through the fleet turn 1 "
+        f"median {t1['mesh_ttft_median_ms']:.1f} ms max {t1['mesh_ttft_max_ms']:.1f}, turn 2 "
+        f"median {t2['mesh_ttft_median_ms']:.1f} max {t2['mesh_ttft_max_ms']:.1f}, added "
+        f"median {t1['added_median_ms']:.1f} and {t2['added_median_ms']:.1f}{versus}; "
+        f"{tokens} tokens at {result['tok_s']:.1f} tok/s over {out['measured']['wall_s']:.2f} "
+        f"s; the {len(out['measured']['turns'][0]['calls']) + len(out['measured']['turns'][1]['calls'])} "
+        f"engine turns and their direct requests within {TIE_SPACINGS} bf16 spacings of the "
+        f"f32 plain forward's top logit (max gap {s['max_gap']:.3f}, "
+        f"{len(s['diverged'])} parting at a tie); launches {out['launches']}; prefill "
+        f"launches by (B, Sq, Skv) "
+        f"{[(r['B'], r['S'], r['window'], r['launches']) for r in out['prefill_rows']]}, paged "
+        f"decode by (B, wpages) "
+        f"{[(r['B'], r['window'], r['launches']) for r in out['decode_rows']]}; kill "
+        f"mid-stream: {k['victim']} killed after {FLEET_KILL_AFTER} token steps, the first "
+        f"resumed token {k['kill_to_resume_s']:.3f} s later from {k['survivor']} at offset "
+        f"{k['resumed_offset']} of {k['tokens']} tokens; the survivor decoded "
+        f"{k['survivor_decode_tokens']} tokens and took the prompt ({k['prompt_tokens']}) and "
+        f"the prefix by prefill ({k['survivor_prefill_tokens']} tokens, "
+        f"{k['survivor_prefill_launches']} #5 launches) and the prefix cache "
+        f"({k['survivor_reused_tokens']}); "
+        f"failovers {k['failovers']}; equal to the unkilled stream: {k['equal_to_unkilled']} "
+        f"(max gap {out['kill_law']['max_gap']:.3f}); drain of {out['drain']['replica']} with "
+        f"{out['drain']['inflight_on_it']} of its calls in flight, then "
+        f"{out['drain']['new_calls']} new calls: calls admitted "
+        f"{out['drain']['delivered_after']}; weights {m['weights'] / 1e9:.3f} GB once, a pool "
+        f"{m['pool'] / 1e9:.3f} GB, the engines {[round(x / 1e9, 3) for x in m['engines']]} "
+        f"GB, graph pools {m['graphs'] / 1e9:.3f} GB, max allocated {m['peak'] / 1e9:.3f} GB"
+    )
+    return result
+
+
+def per_replica_note(per_replica: dict) -> str:
+    return "; ".join(
+        f"{tag} {r['placements']} placements, {r['prefix_hits']} prefix hits "
+        f"({r['prefix_reused_tokens']} tokens), {r['captures']} captures in the round, "
+        f"launches {r['launches']}" for tag, r in per_replica.items())
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -3918,7 +4451,15 @@ def main() -> int:
     t0 = time.perf_counter()
 
     def stage(name: str) -> None:
-        print(f"{name} (at {time.perf_counter() - t0:.0f} s)", flush=True)
+        print(f"{name} (at {time.perf_counter() - t0:.0f} s, "
+              f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB allocated)", flush=True)
+
+    def release() -> None:
+        # a finished phase's engine sits in reference cycles (its tasks and
+        # callbacks): collect them before the cache is emptied, or its pool
+        # and graph pools stay allocated into the next phase
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # the brokers and the CRC library build beside the kernels; the wire
     # client, first imported in phase 16, loads the CRC built here
@@ -3939,27 +4480,27 @@ def main() -> int:
     cases, main_cases = kernel_phase(dev)
     stage("exactness phase")
     exact = asyncio.run(exactness_phase(dev))
-    torch.cuda.empty_cache()
+    release()
     stage("serving phase")
     serving = asyncio.run(serving_phase(dev))
-    torch.cuda.empty_cache()
+    release()
     stage("paged serving phase")
     paged = asyncio.run(paged_serving_phase(dev))
-    torch.cuda.empty_cache()
+    release()
     stage("speculative serving phases")
     spec_paged = asyncio.run(paged_serving_phase(dev, speculative=True))
-    torch.cuda.empty_cache()
+    release()
     spec_dense = asyncio.run(spec_serving_phase(dev))
-    torch.cuda.empty_cache()
+    release()
     stage("client phase")
     client = asyncio.run(client_phase(dev, card))
-    torch.cuda.empty_cache()
+    release()
     stage("quantized exactness phase")
     quant_exact = asyncio.run(quant_exactness_phase(dev))
-    torch.cuda.empty_cache()
+    release()
     stage("checkpoint phase")
     ckpt = asyncio.run(checkpoint_phase(dev, card))
-    torch.cuda.empty_cache()
+    release()
     stage("north-star drives")
     north = {}
     bf16_weights: dict = {}  # the last bf16 drive's weights, for phase 13
@@ -3972,10 +4513,10 @@ def main() -> int:
     ):
         north[key] = asyncio.run(north_star_phase(
             dev, quantization, card, requests, keep=bf16_weights if key == "bf16-8" else None))
-        torch.cuda.empty_cache()
+        release()
     stage("graph phase")
     graph = asyncio.run(graph_phase(dev, card))
-    torch.cuda.empty_cache()
+    release()
     stage("paged decode and ragged kernels at their serving phases' shapes")
     for name, shapes in (("paged_decode_attention", paged["decode_shapes"]),
                          ("ragged_attention", spec_dense["verify_shapes"]),
@@ -3998,14 +4539,14 @@ def main() -> int:
     weights = bf16_weights.pop("params")
     overload, overload_cases = asyncio.run(overload_phase(dev, weights, card))
     cases += overload_cases
-    torch.cuda.empty_cache()
+    release()
     stage("long-context lane phase")
     long_lane, long_cases = asyncio.run(long_lane_phase(dev, weights, card))
     cases += long_cases
-    torch.cuda.empty_cache()
+    release()
     stage("agent mesh phase")
     agent_mesh = asyncio.run(agent_mesh_phase(dev, weights, card))
-    torch.cuda.empty_cache()
+    release()
     stage("prefill and paged decode kernels at the agent mesh phase's shapes")
     cases += [path_case(dev, "prefill_attention", agent_mesh["prefill_shapes"]),
               path_case(dev, "paged_decode_attention", agent_mesh["decode_shapes"],
@@ -4015,12 +4556,18 @@ def main() -> int:
         stage(f"wire mesh phase over {transport}://")
         wire_mesh[transport] = asyncio.run(
             wire_mesh_phase(dev, weights, transport, agent_mesh, card))
-        torch.cuda.empty_cache()
-    del weights
+        release()
     stage("prefill and paged decode kernels at the wire mesh phase's shapes")
     cases += [path_case(dev, "prefill_attention", wire_mesh["kafka"]["prefill_shapes"]),
               path_case(dev, "paged_decode_attention", wire_mesh["kafka"]["decode_shapes"],
                         "wire mesh over kafka://")]
+    stage("fleet phase")
+    fleet = asyncio.run(fleet_phase(dev, weights, agent_mesh, card))
+    del weights
+    release()
+    stage("prefill and paged decode kernels at the fleet phase's shapes")
+    cases += [path_case(dev, "prefill_attention", fleet["prefill_shapes"]),
+              path_case(dev, "paged_decode_attention", fleet["decode_shapes"], "fleet")]
 
     # each kernel's launches from the path it serves, beside its case at a
     # shape of that path (MAIN_SHAPES, path_case): the dense decode kernel
@@ -4057,6 +4604,10 @@ def main() -> int:
             # the wire transports' path (phase 16's measured rounds)
             entry["wire_mesh"] = {t: dict(launches=w["launches"][name])
                                   for t, w in wire_mesh.items()}
+        if fleet["launches"].get(name):
+            # the serving fleet's path (phase 17's measured round), by replica
+            entry["fleet"] = dict(launches=fleet["launches"][name], replicas={
+                tag: r["launches"].get(name, 0) for tag, r in fleet["replicas"].items()})
         line["kernels"].append(entry)
     if args.out:
         with open(args.out, "w") as f:
@@ -4065,7 +4616,7 @@ def main() -> int:
                            spec_serving=spec_dense, client=client, quant_exactness=quant_exact,
                            checkpoint=ckpt, north_star=north, graphs=graph,
                            overload=overload, long_lane=long_lane,
-                           agent_mesh=agent_mesh, wire_mesh=wire_mesh,
+                           agent_mesh=agent_mesh, wire_mesh=wire_mesh, fleet=fleet,
                            kernels=line["kernels"]),
                       f, indent=1, default=str)
     print(f"all phases in {time.perf_counter() - t0:.0f} s")

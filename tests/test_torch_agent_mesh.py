@@ -425,7 +425,6 @@ def test_refusals_are_typed():
     from calfkit_tpu_torch import Agent, Client
     from calfkit_tpu_torch.engine import EchoModelClient
     from calfkit_tpu_torch.engine.schema import ToolSchemaError
-    from calfkit_tpu_torch.exceptions import MeshUnavailableError
     from calfkit_tpu_torch.mesh import InMemoryMesh, KafkaWireMesh, TcpMesh
     from calfkit_tpu_torch.mesh.urls import mesh_from_url
 
@@ -436,8 +435,19 @@ def test_refusals_are_typed():
     assert TcpMesh.__module__ == "calfkit_tpu_torch.mesh.tcp"
     assert KafkaWireMesh.__module__ == "calfkit_tpu_torch.mesh.kafka_wire"
     assert isinstance(mesh_from_url("memory://"), InMemoryMesh)
-    with pytest.raises(MeshUnavailableError, match="ROADMAP"):
-        Client(InMemoryMesh(), router="least-loaded")
+    # a policy name builds the client's own FleetRouter; close() stops it
+    from calfkit_tpu_torch.fleet import FleetRouter, LeastLoaded
+
+    async def routed_client():
+        routed = Client(InMemoryMesh(), router="least-loaded")
+        assert isinstance(routed.router, FleetRouter)
+        assert isinstance(routed.router.policy, LeastLoaded)
+        await routed.router.start()
+        assert routed.router._started
+        await routed.close()
+        assert not routed.router._started
+
+    asyncio.run(routed_client())
     with pytest.raises(ToolSchemaError, match="ROADMAP"):
         Agent("typed", model=EchoModelClient(), output_type=dict)
 

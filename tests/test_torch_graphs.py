@@ -335,3 +335,45 @@ async def test_dropped_engine_freed_while_worker_lingers(weights, monkeypatch):
         assert ref() is None
     finally:
         gc.enable()
+
+
+def test_launch_counts_are_per_capture_and_thread_safe():
+    """Engines of one process dispatch on their own worker threads: every
+    launch counts once in ``launch_counts`` under any interleaving, and a
+    wrapper called while its thread captures a CUDA graph counts into that
+    capture only (its launches count at each replay, ``graphs.py``)."""
+    import sys
+    import threading
+
+    from calfkit_tpu_torch.inference import attention as A
+
+    A.reset_launch_counts()
+    captured: dict = {}
+
+    def capture():
+        A._capturing.counts = captured
+        try:
+            for _ in range(1000):
+                A._launched("prefill_attention")
+        finally:
+            A._capturing.counts = None
+
+    def launch():
+        for _ in range(20000):
+            A._launched("prefill_attention")
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=launch) for _ in range(8)]
+        threads.append(threading.Thread(target=capture))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    assert A.launch_counts["prefill_attention"] == 8 * 20000
+    assert captured == {"prefill_attention": 1000}
+    A.reset_launch_counts()

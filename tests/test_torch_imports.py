@@ -69,6 +69,13 @@ for name in ("calfkit_tpu_torch.inference.client", "calfkit_tpu_torch.inference.
              "calfkit_tpu_torch.mesh.tcp", "calfkit_tpu_torch.mesh.kafka_wire",
              "calfkit_tpu_torch.provisioning", "calfkit_tpu_torch.provisioning.provisioner",
              "calfkit_tpu_torch.fleet", "calfkit_tpu_torch.fleet.selection",
+             # the serving fleet and its chaos harness
+             "calfkit_tpu_torch.fleet.registry", "calfkit_tpu_torch.fleet.policy",
+             "calfkit_tpu_torch.fleet.router", "calfkit_tpu_torch.fleet.failover",
+             "calfkit_tpu_torch.sim", "calfkit_tpu_torch.sim.clock",
+             "calfkit_tpu_torch.sim.scenario", "calfkit_tpu_torch.sim.stubs",
+             "calfkit_tpu_torch.sim.transport", "calfkit_tpu_torch.sim.topology",
+             "calfkit_tpu_torch.sim.chaos",
              "calfkit_tpu_torch.engine.schema", "calfkit_tpu_torch.engine.turn",
              "calfkit_tpu_torch.engine.testing", "calfkit_tpu_torch.nodes",
              "calfkit_tpu_torch.nodes.registry", "calfkit_tpu_torch.nodes.seams",
@@ -102,6 +109,28 @@ def test_port_imports_with_jax_and_reference_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
+
+
+_DISPATCH_ONLY = """
+import sys
+import calfkit_tpu_torch.mesh.dispatch
+from calfkit_tpu_torch.fleet import selection
+assert selection.lane_of(b"k", 4) == selection.lane_of(b"k", 4)
+loaded = sorted(m for m in sys.modules if m.startswith("calfkit_tpu_torch.fleet."))
+print(loaded)
+"""
+
+
+def test_the_dispatcher_pulls_in_only_the_fleet_selection():
+    """``mesh/dispatch`` imports ``fleet.selection`` for its lane law; the
+    fleet package's lazy ``__init__`` keeps the router, registry, policies
+    and failover (and the control-plane models they read) out of it."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _DISPATCH_ONLY], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "['calfkit_tpu_torch.fleet.selection']"
 
 
 def _imports(tree: ast.AST) -> "list[tuple[str, str]]":

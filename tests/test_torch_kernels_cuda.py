@@ -874,3 +874,51 @@ def test_long_lane_graphs_equal_eager_bitwise(chunked):
     assert stats["eager"] == 0 and calls == stats["captures"] + stats["replays"]
     assert engine.stats.long_requests == 2 and len(engine._long_graphs) == 4
     assert A.launch_counts["decode_attention"] > 0 and A.launch_counts["prefill_attention"] > 0
+
+
+@pytest.mark.cuda
+@cuda_only
+def test_two_engines_capture_at_once():
+    """Two engines of one process on one set of bf16 weights, serving at
+    once, each dispatching on its own worker thread: their first dispatches
+    capture at the same time (one capture at a time in the process,
+    ``graphs._capture_lock``; a second capture opened beside a first breaks
+    both), and each engine's greedy stream equals the one it gives serving
+    alone."""
+    import asyncio
+
+    from calfkit_tpu_torch.inference.config import RuntimeConfig, preset
+    from calfkit_tpu_torch.inference.engine import InferenceEngine
+
+    dev = torch.device("cuda")
+    cfg = preset("debug", d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, dtype="bfloat16")
+    rt = RuntimeConfig(
+        max_batch_size=4, max_seq_len=256, prefill_chunk=32, decode_steps_per_dispatch=4,
+        kv_layout="paged", page_size=16, chunked_prefill=True, prefix_cache=True,
+    )
+    params = InferenceEngine(cfg, rt, seed=5, device=dev).params
+    V = cfg.vocab_size
+    prompts = [[(7 * i + 3) % V for i in range(100)], [(3 * i + 1) % V for i in range(60)]]
+
+    async def serve(jobs):
+        engines = [InferenceEngine(cfg, rt, params=params, device=dev) for _ in jobs]
+        for engine in engines:
+            await engine.start()
+        try:
+            streams = await asyncio.gather(*[
+                _stream(engine, prompt) for engine, prompt in zip(engines, jobs)])
+        finally:
+            for engine in engines:
+                await engine.stop()
+        return streams, engines
+
+    async def _stream(engine, prompt):
+        return [tok async for tok in engine.generate(prompt, max_new_tokens=40)]
+
+    alone = [asyncio.run(serve([prompt]))[0][0] for prompt in prompts]
+    together, engines = asyncio.run(serve(prompts))
+    assert together == alone and all(len(s) == 40 for s in together)
+    for engine in engines:
+        assert engine._graphs.stats["captures"] > 0 and engine._graphs.stats["eager"] == 0
+        assert all(a.data_ptr() == b.data_ptr() for a, b in zip(
+            engine.params["layers"].values(), params["layers"].values()))
