@@ -9,7 +9,10 @@ entry points run on a CUDA device unless the caller passes
 Public API (lazy — importing :mod:`calfkit_tpu_torch` pulls in nothing):
 
 - ``Client`` / ``Worker`` — caller surface and serving host;
-- ``Agent`` / ``StatelessAgent`` / ``agent_tool`` — node kinds;
+- ``Agent`` / ``StatelessAgent`` / ``agent_tool`` / ``consumer`` — node
+  kinds (an ``Agent(output_type=...)`` answers with a typed result);
+- ``MCPToolboxNode`` / ``Toolbox`` / ``Toolboxes`` / ``MCPServerSpec`` — an
+  MCP server's tools as a mesh node, and their selectors;
 - ``Tools`` / ``Messaging`` / ``Handoff`` — selectors and peers;
 - ``FleetRouter`` / ``FailoverPolicy`` — replica placement and in-flight
   failover for ``Client(router=, failover=)``;
@@ -40,9 +43,15 @@ _LAZY: dict[str, str] = {
     "StatelessAgent": "calfkit_tpu_torch.nodes",
     "BaseNodeDef": "calfkit_tpu_torch.nodes",
     "agent_tool": "calfkit_tpu_torch.nodes",
+    "consumer": "calfkit_tpu_torch.nodes",
+    "ConsumerNode": "calfkit_tpu_torch.nodes",
     "Tools": "calfkit_tpu_torch.nodes",
     "render_fault_for_model": "calfkit_tpu_torch.nodes",
     "surface_to_model": "calfkit_tpu_torch.nodes",
+    "Toolbox": "calfkit_tpu_torch.mcp",
+    "Toolboxes": "calfkit_tpu_torch.mcp",
+    "MCPToolboxNode": "calfkit_tpu_torch.mcp",
+    "MCPServerSpec": "calfkit_tpu_torch.mcp",
     "Messaging": "calfkit_tpu_torch.peers",
     "Handoff": "calfkit_tpu_torch.peers",
     # fleet routing (replicated engines) and in-flight failover
@@ -77,6 +86,7 @@ _LAZY: dict[str, str] = {
     "Tracer": "calfkit_tpu_torch.observability.trace",
     "MetricsRegistry": "calfkit_tpu_torch.observability.metrics",
     "metrics_text": "calfkit_tpu_torch.observability.metrics",
+    "MetricsServer": "calfkit_tpu_torch.observability.http",
     # model clients (the local CUDA path + deterministic test models)
     "TorchLocalModelClient": "calfkit_tpu_torch.inference",
     "EchoModelClient": "calfkit_tpu_torch.engine",

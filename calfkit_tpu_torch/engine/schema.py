@@ -3,21 +3,25 @@
 The port's own copy of ``calfkit_tpu.engine.schema``, without pydantic:
 
 - parameters come from the signature's annotations
-  (``inspect.signature`` + ``get_type_hints``), rendered as the JSON
-  schema the JAX package's pydantic extraction gives for the supported
-  set — ``str``, ``int``, ``float``, ``bool``, ``None``, ``Any``,
-  ``Optional[X]`` / ``X | None``, ``list[X]``, ``dict[str, X]``,
-  ``Literal[...]`` of str/int/bool, and defaults; any other annotation
-  raises :class:`ToolSchemaError` when the tool is defined;
+  (``inspect.signature`` + ``get_type_hints``), rendered by
+  :mod:`calfkit_tpu_torch.models._adapter` as the JSON schema the JAX
+  package's pydantic extraction gives (every type the adapter takes:
+  scalars, ``Literal``, enums, lists, tuples, sets, dicts, unions,
+  dates, dataclasses, ``TypedDict``, wire types and models); an
+  annotation with no schema raises :class:`ToolSchemaError` when the tool
+  is defined;
 - arguments are validated and coerced under the lax law of
-  :func:`calfkit_tpu_torch.models._wire.coerce`, with unknown argument
-  names refused (``extra="forbid"``); a refusal raises
-  :class:`ValidationError`, the model-retry trigger;
+  :func:`calfkit_tpu_torch.models._wire.coerce` (nested dataclasses and
+  models are instantiated), with unknown argument names refused
+  (``extra="forbid"``); a refusal raises :class:`ValidationError`, the
+  model-retry trigger;
 - descriptions come from a Google/NumPy/Sphinx-tolerant docstring scan;
 - a leading ``ctx`` parameter (by name, or annotated with a type whose name
   ends in ``RunContext``/``Context``) receives the node's run context and is
   excluded from the model-facing schema;
-- ``call()`` validates args, injects ctx, and awaits coroutine functions.
+- ``call()`` validates args, injects ctx, and awaits coroutine functions;
+- :func:`output_tool_def` is the structured-output tool an
+  ``Agent(output_type=...)`` offers the model.
 """
 
 from __future__ import annotations
@@ -28,10 +32,8 @@ import re
 from dataclasses import dataclass
 from typing import Any, Callable, get_type_hints
 
-import types
-import typing
-
-from calfkit_tpu_torch.models._wire import ValidationError, _Fail, coerce
+from calfkit_tpu_torch.models._adapter import REQUIRED, Adapter, ToolSchemaError, object_schema
+from calfkit_tpu_torch.models._wire import ValidationError, _Fail, _flat, coerce
 from calfkit_tpu_torch.models.capability import ToolDef
 
 __all__ = [
@@ -41,10 +43,6 @@ __all__ = [
     "function_schema",
     "output_tool_def",
 ]
-
-
-class ToolSchemaError(TypeError):
-    pass
 
 
 _DOC_ARG = re.compile(
@@ -90,65 +88,6 @@ def _is_context_param(name: str, annotation: Any) -> bool:
     return ann_name.endswith(("RunContext", "Context"))
 
 
-_NULL = type(None)
-_SCALAR_TYPES = {str: "string", int: "integer", float: "number", bool: "boolean"}
-
-
-def _literal_type(values: tuple) -> str | None:
-    kinds = {
-        "boolean" if isinstance(v, bool) else _SCALAR_TYPES.get(type(v)) for v in values
-    }
-    return kinds.pop() if len(kinds) == 1 and None not in kinds else None
-
-
-def _annotation_schema(tp: Any, where: str) -> dict[str, Any]:
-    """The JSON schema of one annotation, keys sorted as the JAX package's
-    extraction sorts them; ``ToolSchemaError`` outside the supported set."""
-    if tp is Any or tp is object:
-        return {}
-    if tp is None or tp is _NULL:
-        return {"type": "null"}
-    if tp in _SCALAR_TYPES:
-        return {"type": _SCALAR_TYPES[tp]}
-    origin = typing.get_origin(tp)
-    args = typing.get_args(tp)
-    if origin is typing.Union or origin is types.UnionType:
-        if _NULL not in args or len(args) != 2:
-            raise ToolSchemaError(f"{where}: only X | None unions are supported, got {tp!r}")
-        return {"anyOf": [_annotation_schema(a, where) for a in args]}
-    if origin is typing.Literal:
-        if not all(isinstance(v, (str, int, bool)) or v is None for v in args):
-            raise ToolSchemaError(f"{where}: Literal values must be str, int or bool")
-        out: dict[str, Any] = (
-            {"const": args[0]} if len(args) == 1 else {"enum": list(args)}
-        )
-        kind = _literal_type(args)
-        if kind is not None:
-            out["type"] = kind
-        return out
-    if tp is list or origin is list:
-        items = _annotation_schema(args[0], where) if args else {}
-        return {"items": items, "type": "array"}
-    if tp is dict or origin is dict:
-        if args and args[0] is not str:
-            raise ToolSchemaError(f"{where}: dict keys must be str, got {args[0]!r}")
-        values: Any = True
-        if args and args[1] is not Any:
-            values = _annotation_schema(args[1], where)
-        return {"additionalProperties": values, "type": "object"}
-    raise ToolSchemaError(
-        f"{where}: annotation {tp!r} is not supported by calfkit_tpu_torch's "
-        "tool schemas yet (ROADMAP Queue 1)"
-    )
-
-
-def _property_schema(tp: Any, default: Any, where: str) -> dict[str, Any]:
-    prop = _annotation_schema(tp, where)
-    if default is not ...:
-        prop["default"] = default
-    return dict(sorted(prop.items()))
-
-
 @dataclass
 class _ArgsValidator:
     """Validates a tool's raw argument dict against its parameters."""
@@ -170,9 +109,7 @@ class _ArgsValidator:
                 try:
                     out[name] = coerce(annotation, args[name])
                 except _Fail as fail:
-                    errors.extend(
-                        f.at(name).as_dict() for f in getattr(fail, "fails", [fail])
-                    )
+                    errors.extend(f.as_dict() for f in _flat(fail.at(name)))
             elif default is ...:
                 errors.append(
                     {"type": "missing", "loc": (name,), "msg": "Field required", "input": args}
@@ -248,18 +185,14 @@ def function_schema(
 
     # forbid extras: a model hallucinating an argument name must get a
     # ValidationError (the retry trigger), not have it silently dropped
-    title = f"{fn.__name__}_args"
-    adapter = _ArgsValidator(title, fields)
-    properties: dict[str, Any] = {
-        pname: _property_schema(annotation, default, f"tool {fn.__name__!r} parameter {pname!r}")
-        for pname, (annotation, default) in fields.items()
-    }
-    schema: dict[str, Any] = {"additionalProperties": False, "properties": properties}
-    required = [pname for pname, (_, default) in fields.items() if default is ...]
-    if required:
-        schema["required"] = required
-    schema["type"] = "object"
+    adapter = _ArgsValidator(f"{fn.__name__}_args", fields)
+    schema = object_schema(
+        [(pname, annotation, REQUIRED if default is ... else default)
+         for pname, (annotation, default) in fields.items()],
+        where=f"tool {fn.__name__!r}", extra="forbid",
+    )
     for prop_name, prop in schema.get("properties", {}).items():
+        prop.pop("title", None)
         if prop_name in param_docs:
             prop.setdefault("description", param_docs[prop_name])
 
@@ -277,9 +210,17 @@ def function_schema(
 
 
 def output_tool_def(output_type: type, *, name: str = "final_result") -> ToolDef:
-    """The structured-output tool: not ported yet (ROADMAP Queue 1).
-    Raises :class:`ToolSchemaError`."""
-    raise ToolSchemaError(
-        f"output_type {output_type!r}: structured output is not ported to "
-        "calfkit_tpu_torch yet (ROADMAP Queue 1); use str"
+    """The structured-output tool: the model 'calls' it with the final answer.
+
+    Deliberately does NOT force ``extra="forbid"`` the way tool-args models
+    do: args models are framework-synthesized from a signature (no user
+    config exists, so strictness is ours to choose), while the output type
+    is USER-owned — its own ``extra`` policy is law here.
+    """
+    schema = Adapter(output_type).json_schema()
+    schema.pop("title", None)
+    return ToolDef(
+        name=name,
+        description="Submit the final result of this conversation.",
+        parameters_schema=schema,
     )

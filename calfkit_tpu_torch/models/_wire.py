@@ -19,18 +19,22 @@ of the JAX package's pydantic models of the same names, without pydantic
   ``role``), defaults and ``default_factory`` for absent fields, unknown
   keys dropped (forward compatibility) unless the class keeps them
   (``__wire_extra__ = "allow"``) or refuses them (``"forbid"``), and the
-  lax scalar law of :func:`coerce` (``"3"`` for an ``int``, ``1`` for a
-  ``float``, ``"yes"`` for a ``bool``);
+  lax law of :func:`coerce` (``"3"`` for an ``int``, ``1`` for a
+  ``float``, ``"yes"`` for a ``bool``; tuples, sets, enums, dataclasses,
+  ``TypedDict``, dates and other unions as pydantic's lax mode takes
+  them, a union's choice by its smart mode), which
+  :mod:`calfkit_tpu_torch.models._adapter` validates every type through;
 - **construction** copies list and dict fields (a caller's later mutation
   of the list it passed does not reach the record) and widens an ``int``
   given to a ``float`` field, as validation at construction does there.
 
 Failures raise :class:`ValidationError` (a ``ValueError``).  The same
-scalar law validates tool arguments in :mod:`calfkit_tpu_torch.engine.schema`.
+law validates tool arguments in :mod:`calfkit_tpu_torch.engine.schema`.
 """
 
 from __future__ import annotations
 
+import collections as _collections
 import copy as _copy
 import dataclasses
 import datetime as _dt
@@ -126,6 +130,9 @@ def _int(v: Any) -> int:
         return v
     if isinstance(v, bool):
         return int(v)
+    if isinstance(v, enum.Enum) and not isinstance(v, int) \
+            and isinstance(v.value, (int, str)) and not isinstance(v.value, bool):
+        return v.value  # a plain enum's member stands for its value (as there)
     if isinstance(v, float):
         if not math.isfinite(v):
             raise _Fail("finite_number", "Input should be a finite number", v)
@@ -205,52 +212,158 @@ def _bool(v: Any) -> bool:
 
 def _str(v: Any) -> str:
     if isinstance(v, str):
-        return v
+        return v if type(v) is str or not isinstance(v, enum.Enum) else str.__str__(v)
     if isinstance(v, bytes):
         return v.decode()
+    if isinstance(v, enum.Enum) and isinstance(v.value, (str, int)) \
+            and not isinstance(v.value, bool):
+        return str(v.value)
     raise _Fail("string_type", "Input should be a valid string", v)
 
 
-_SCALARS: dict[Any, Any] = {int: _int, float: _float, bool: _bool, str: _str}
+def _complex(v: Any) -> complex:
+    if isinstance(v, complex):
+        return v
+    if isinstance(v, (int, float)) and not isinstance(v, bool):
+        return complex(v)
+    if isinstance(v, str):
+        try:
+            return complex(v.strip())
+        except ValueError:
+            pass
+    raise _Fail(
+        "complex_type",
+        "Input should be a valid python complex object, a number, or a valid complex string "
+        "following the rules at https://docs.python.org/3/library/functions.html#complex",
+        v,
+    )
+
+
+_SCALARS: dict[Any, Any] = {int: _int, float: _float, bool: _bool, str: _str, complex: _complex}
+
+# how exactly a value matched its type, the key of a union's choice
+# (pydantic's smart mode): coerced, already valid under the strict law
+# (an int for a float, a subclass, an ``Any``), or of exactly the type
+_LAX, _STRICT, _EXACT = 0, 1, 2
+
+
+class _State:
+    """One validation's running exactness, and the count of fields the
+    last record validated (a dataclass, TypedDict or model) took from its
+    input: a union prefers the choice that set more fields, then the more
+    exact one."""
+
+    __slots__ = ("exact", "fields")
+
+    def __init__(self) -> None:
+        self.exact = _EXACT
+        self.fields: "int | None" = None
+
+    def floor(self, level: int) -> None:
+        if level < self.exact:
+            self.exact = level
+
+
+def _scalar_exactness(tp: type, v: Any) -> int:
+    if type(v) is tp:
+        return _EXACT
+    if tp is bool or isinstance(v, bool):
+        return _LAX
+    if isinstance(v, tp) or (tp is float and isinstance(v, int)):
+        return _STRICT
+    return _LAX
+
+
+def _expected(values: "list | tuple") -> str:
+    """pydantic's listing of the allowed values: ``'a', 1 or None``."""
+    shown = [repr(v) for v in values]
+    return shown[0] if len(shown) == 1 else ", ".join(shown[:-1]) + " or " + shown[-1]
 
 
 def _literal(args: tuple, v: Any) -> Any:
+    """The allowed value ``v`` stands for: one of its own type first, then
+    one equal under the lax law (a literal match counts as exact there)."""
+    for allowed in args:
+        if type(v) is type(allowed) and v == allowed:
+            return allowed
     for allowed in args:
         if isinstance(allowed, bool):
-            if isinstance(v, bool) or (type(v) is int and v in (0, 1)):
+            if isinstance(v, bool) or (type(v) in (int, float) and v in (0, 1)):
                 if bool(v) is allowed:
                     return allowed
         elif isinstance(allowed, int):
             if isinstance(v, (bool, int, float)) and not isinstance(v, str) and v == allowed:
                 return allowed
-        elif type(v) is type(allowed) and v == allowed:
-            return allowed
         elif allowed is None and v is None:
             return None
-    expected = " or ".join(repr(a) for a in args)
-    raise _Fail("literal_error", f"Input should be {expected}", v)
+    raise _Fail("literal_error", f"Input should be {_expected(args)}", v)
 
 
-def _strict_ok(tp: Any, v: Any) -> bool:
-    """Whether ``v`` is already exactly of type ``tp`` (a union's first pass)."""
+def _enum(cls: type, v: Any, st: _State) -> Any:
+    if isinstance(v, cls):
+        return v
+    members = list(cls)
+    key = v
+    try:
+        if issubclass(cls, bool):
+            key = _bool(v)
+        elif issubclass(cls, int):
+            key = _int(v)
+        elif issubclass(cls, float):
+            key = _float(v)
+        elif issubclass(cls, str):
+            key = _str(v)
+    except _Fail:
+        key = _MISSING
+    for member in members:
+        try:
+            if member.value == key and hash(member.value) == hash(key):
+                st.floor(_LAX)
+                return member
+        except TypeError:  # an unhashable input matches no member
+            break
+    raise _Fail("enum", f"Input should be {_expected([m.value for m in members])}", v)
+
+
+def _enum_label(cls: type) -> str:
+    for base, name in ((int, "int-enum"), (str, "str-enum"), (float, "float-enum")):
+        if issubclass(cls, base):
+            return f"{name}[{cls.__name__}]"
+    return f"enum[{cls.__name__}]"
+
+
+def _label(tp: Any) -> str:
+    """pydantic's short name of a union choice (an error's location step)."""
     if tp is Any or tp is object:
-        return True
-    if tp is type(None):
-        return v is None
-    if tp in (int, float, str):
-        return type(v) is tp
-    if tp is bool:
-        return isinstance(v, bool)
-    origin = typing.get_origin(tp)
+        return "any"
+    if tp is None or tp is type(None):
+        return "none"
+    if tp in _SCALARS or tp in (_dt.datetime, _dt.date):
+        return tp.__name__
+    members = _union_members(tp)
+    if members is not None:
+        choices = [m for m in members if m is not type(None)]
+        inner = _label(choices[0]) if len(choices) == 1 else (
+            "union[" + ",".join(_label(m) for m in choices) + "]")
+        return f"nullable[{inner}]" if len(choices) < len(members) else inner
+    origin, args = typing.get_origin(tp), typing.get_args(tp)
     if origin is Literal:
-        return any(type(v) is type(a) and v == a for a in typing.get_args(tp))
-    if origin is list or tp is list:
-        return isinstance(v, list)
-    if origin is dict or tp is dict:
-        return isinstance(v, dict)
-    if isinstance(tp, type) and issubclass(tp, Wire):
-        return isinstance(v, tp)
-    return False
+        return "literal[" + ",".join(repr(a) for a in args) + "]"
+    for kind in (list, set, frozenset):
+        if tp is kind or origin is kind:
+            return f"{kind.__name__}[{_label(args[0]) if args else 'any'}]"
+    if tp is tuple or origin is tuple:
+        if not args and tp is tuple:
+            return "tuple[any, ...]"
+        if len(args) == 2 and args[1] is Ellipsis:
+            return f"tuple[{_label(args[0])}, ...]"
+        return "tuple[" + ", ".join(_label(a) for a in args) + "]"
+    if tp is dict or origin is dict:
+        k, v = (_label(a) for a in args) if args else ("any", "any")
+        return f"dict[{k},{v}]"
+    if isinstance(tp, type) and issubclass(tp, enum.Enum):
+        return _enum_label(tp)
+    return getattr(tp, "__name__", repr(tp))
 
 
 def _union_members(tp: Any) -> tuple | None:
@@ -282,10 +395,263 @@ def _discriminator(members: tuple) -> tuple[str, dict[Any, type]] | None:
     return None
 
 
+def _tagged(members: tuple, tag: str, table: dict, v: Any, st: _State) -> Any:
+    for member in members:
+        if isinstance(v, member):
+            return v
+    if not isinstance(v, dict):
+        raise _Fail("model_attributes_type", "Input should be a valid dictionary or object", v)
+    if tag not in v:
+        raise _Fail("union_tag_not_found", f"Unable to extract tag using discriminator '{tag}'", v)
+    member = table.get(v[tag]) if isinstance(v[tag], (str, int)) else None
+    if member is None:
+        expected = ", ".join(repr(k) for k in table)
+        raise _Fail(
+            "union_tag_invalid",
+            f"Input tag {v[tag]!r} found using '{tag}' does not match any of "
+            f"the expected tags: {expected}",
+            v,
+        )
+    try:
+        return _load_wire(member, v, st)
+    except _Fail as fail:
+        raise fail.at(v[tag])
+
+
+def _union(members: tuple, v: Any, st: _State) -> Any:
+    """pydantic's smart mode: every choice is tried; an exact match that
+    set no fields wins at once, else the choice that set the most fields,
+    then the most exact one, then the first."""
+    if v is None and type(None) in members:
+        return None
+    found = _discriminator(members)
+    if found is not None:
+        return _tagged(members, *found, v, st)
+    choices = [m for m in members if m is not type(None)]
+    if len(choices) == 1:
+        return _coerce(choices[0], v, st)
+    best: "tuple[Any, _State] | None" = None
+    fails: list[_Fail] = []
+    for member in choices:
+        sub = _State()
+        try:
+            out = _coerce(member, v, sub)
+        except _Fail as fail:
+            if best is None:
+                fails.extend(_flat(fail.at(_label(member))))
+            continue
+        if sub.exact == _EXACT and sub.fields is None:
+            return out
+        if best is None:
+            best = (out, sub)
+            continue
+        cur = best[1]
+        if cur.fields is not None and sub.fields is not None and cur.fields != sub.fields:
+            better = cur.fields < sub.fields
+        else:
+            better = cur.exact < sub.exact
+        if better:
+            best = (out, sub)
+    if best is None:
+        _raise_all(fails)
+    out, sub = best
+    st.floor(sub.exact)
+    if sub.fields is not None:
+        st.fields = sub.fields
+    return out
+
+
+_ITERABLES = (list, tuple, set, frozenset, _collections.deque, type({}.keys()),
+              type({}.values()), types.GeneratorType)
+
+
+def _items(v: Any, container: type, kind: str, msg: str, st: _State) -> list:
+    """``v``'s items when it can stand for a ``container`` (lax: any of the
+    plain iterables, never a str, bytes or dict)."""
+    if type(v) is container:
+        return list(v)
+    if isinstance(v, _ITERABLES):
+        st.floor(_LAX)
+        return list(v)
+    raise _Fail(kind, msg, v)
+
+
+def _each(tp: Any, items: list, st: _State) -> list:
+    out, fails = [], []
+    for i, item in enumerate(items):
+        try:
+            out.append(_coerce(tp, item, st))
+        except _Fail as fail:
+            fails.extend(_flat(fail.at(i)))
+    _raise_all(fails)
+    return out
+
+
+def _tuple(tp: Any, v: Any, st: _State) -> tuple:
+    items = _items(v, tuple, "tuple_type", "Input should be a valid tuple", st)
+    args = typing.get_args(tp)
+    if tp is tuple or (len(args) == 2 and args[1] is Ellipsis):
+        return tuple(_each(args[0] if args else Any, items, st))
+    if len(items) > len(args):
+        raise _Fail(
+            "too_long",
+            f"Tuple should have at most {len(args)} item{'' if len(args) == 1 else 's'} "
+            f"after validation, not {len(items)}",
+            v,
+        )
+    out, fails = [], []
+    for i, arg in enumerate(args):
+        if i >= len(items):
+            fails.append(_Fail("missing", "Field required", v, (i,)))
+            continue
+        try:
+            out.append(_coerce(arg, items[i], st))
+        except _Fail as fail:
+            fails.extend(_flat(fail.at(i)))
+    _raise_all(fails)
+    return tuple(out)
+
+
+_DT_TEXT = re.compile(
+    r"(\d{4})-(\d{2})-(\d{2})(?:[Tt ](\d{2}):(\d{2})(?::(\d{2})(?:[.,](\d{1,6})\d*)?)?"
+    r"\s*(Z|z|[+-]\d{2}(?::?\d{2})?)?)?"
+)
+
+
+_NUMBER_TEXT = re.compile(r"[+-]?\d+(?:\.\d*)?")
+
+
+def _parse_datetime(text: str, kind: str, what: str, v: Any) -> _dt.datetime:
+    if _NUMBER_TEXT.fullmatch(text) and len(text) < 20:  # a unix timestamp, as text
+        return _timestamp(float(text) if "." in text else int(text), kind, what, v)
+    m = _DT_TEXT.fullmatch(text)
+    if m is None:
+        reason = "input is too short" if len(text) < 10 else "invalid character in year"
+        raise _Fail(kind, f"Input should be a valid {what}, {reason}", v)
+    year, month, day, hour, minute, second, frac, zone = m.groups()
+    tz = None
+    if zone in ("Z", "z"):
+        tz = _dt.timezone.utc
+    elif zone:
+        sign = -1 if zone[0] == "-" else 1
+        digits = zone[1:].replace(":", "")
+        minutes = int(digits[:2]) * 60 + int(digits[2:] or 0)
+        tz = _dt.timezone(sign * _dt.timedelta(minutes=minutes))
+    try:
+        return _dt.datetime(int(year), int(month), int(day), int(hour or 0), int(minute or 0),
+                            int(second or 0), int((frac or "0").ljust(6, "0")), tzinfo=tz)
+    except ValueError as exc:
+        raise _Fail(kind, f"Input should be a valid {what}, {exc}", v) from None
+
+
+def _timestamp(v: "int | float", kind: str, what: str, value: Any) -> _dt.datetime:
+    seconds = v / 1000 if abs(v) > 2e10 else v
+    try:
+        return _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc) + _dt.timedelta(seconds=seconds)
+    except OverflowError:
+        side = "after 9999" if v > 0 else "before 0000"
+        raise _Fail(kind, f"Input should be a valid {what}, dates {side} are not supported as "
+                    "unix timestamps", value) from None
+
+
+def _datetime(v: Any, st: _State) -> _dt.datetime:
+    if isinstance(v, _dt.datetime):
+        return v
+    if isinstance(v, (int, float)) and not isinstance(v, bool):
+        st.floor(_LAX)
+        return _timestamp(v, "datetime_parsing", "datetime", v)
+    if isinstance(v, (str, bytes)):
+        st.floor(_LAX)
+        text = v.decode() if isinstance(v, bytes) else v
+        return _parse_datetime(text, "datetime_from_date_parsing", "datetime or date", v)
+    raise _Fail("datetime_type", "Input should be a valid datetime", v)
+
+
+def _date(v: Any, st: _State) -> _dt.date:
+    if isinstance(v, _dt.date) and not isinstance(v, _dt.datetime):
+        return v
+    if isinstance(v, (int, float, str, bytes, _dt.datetime)) and not isinstance(v, bool):
+        st.floor(_LAX)
+        if isinstance(v, _dt.datetime):
+            at = v
+        elif isinstance(v, (int, float)):
+            at = _timestamp(v, "date_from_datetime_parsing", "date or datetime", v)
+        else:
+            text = v.decode() if isinstance(v, bytes) else v
+            at = _parse_datetime(text, "date_from_datetime_parsing", "date or datetime", v)
+        if at.time() != _dt.time(0):
+            raise _Fail(
+                "date_from_datetime_inexact",
+                "Datetimes provided to dates should have zero time - e.g. be exact dates",
+                v,
+            )
+        return at.date()
+    raise _Fail("date_type", "Input should be a valid date", v)
+
+
+@functools.lru_cache(maxsize=None)
+def _typeddict_fields(cls: type) -> "tuple[tuple[str, Any, bool], ...]":
+    required = getattr(cls, "__required_keys__", frozenset())
+    return tuple((name, hint, name in required)
+                 for name, hint in typing.get_type_hints(cls).items())
+
+
+def _load_typeddict(cls: type, v: Any, st: _State) -> dict:
+    if not isinstance(v, dict):
+        raise _Fail("dict_type", "Input should be a valid dictionary", v)
+    out: dict[str, Any] = {}
+    fails: list[_Fail] = []
+    for name, hint, required in _typeddict_fields(cls):
+        if name in v:
+            try:
+                out[name] = _coerce(hint, v[name], st)
+            except _Fail as fail:
+                fails.extend(_flat(fail.at(name)))
+        elif required:
+            fails.append(_Fail("missing", "Field required", v, (name,)))
+    _raise_all(fails)
+    st.fields = len(out)
+    return out
+
+
+def is_model_type(tp: Any) -> bool:
+    """Whether ``tp`` follows the model protocol (``model_json_schema``,
+    ``model_validate``, ``model_dump``) of a pydantic ``BaseModel`` — found
+    by duck typing, so a user's model works wherever pydantic is
+    installed and this package imports none."""
+    return (isinstance(tp, type) and not issubclass(tp, Wire)
+            and all(callable(getattr(tp, name, None))
+                    for name in ("model_json_schema", "model_validate", "model_dump")))
+
+
+def _load_model(cls: type, v: Any, st: _State) -> Any:
+    if isinstance(v, cls):
+        return v
+    try:
+        out = cls.model_validate(v)
+    except ValueError as exc:  # the model's own ValidationError is a ValueError
+        errors = getattr(exc, "errors", None)
+        if not callable(errors):
+            raise
+        _raise_all([_Fail(e["type"], e["msg"], e.get("input"), tuple(e["loc"]))
+                    for e in errors()])
+        raise
+    st.floor(_STRICT)
+    fields_set = getattr(out, "model_fields_set", None)
+    if fields_set is not None:
+        st.fields = len(fields_set)
+    return out
+
+
 def coerce(tp: Any, v: Any) -> Any:
     """Validate ``v`` against the annotation ``tp`` under the lax law and
     return the coerced value; raises :class:`_Fail` (internal) on refusal."""
+    return _coerce(tp, v, _State())
+
+
+def _coerce(tp: Any, v: Any, st: _State) -> Any:
     if tp is Any or tp is object or isinstance(tp, typing.TypeVar):
+        st.floor(_STRICT)  # in a union, an Any beats a lax coercion
         return v
     if tp is None or tp is type(None):
         if v is None:
@@ -293,68 +659,28 @@ def coerce(tp: Any, v: Any) -> Any:
         raise _Fail("none_required", "Input should be None", v)
     scalar = _SCALARS.get(tp)
     if scalar is not None:
-        return scalar(v)
+        out = scalar(v)
+        st.floor(_scalar_exactness(tp, v))
+        return out
     members = _union_members(tp)
     if members is not None:
-        if v is None and type(None) in members:
-            return None
-        found = _discriminator(members)
-        if found is not None:
-            tag, table = found
-            for member in members:
-                if isinstance(v, member):
-                    return v
-            if not isinstance(v, dict):
-                raise _Fail("model_attributes_type", "Input should be a valid dictionary or object", v)
-            if tag not in v:
-                raise _Fail(
-                    "union_tag_not_found",
-                    f"Unable to extract tag using discriminator '{tag}'",
-                    v,
-                )
-            member = table.get(v[tag]) if isinstance(v[tag], (str, int)) else None
-            if member is None:
-                expected = ", ".join(repr(k) for k in table)
-                raise _Fail(
-                    "union_tag_invalid",
-                    f"Input tag {v[tag]!r} found using '{tag}' does not match any of "
-                    f"the expected tags: {expected}",
-                    v,
-                )
-            try:
-                return _load_wire(member, v)
-            except _Fail as fail:
-                raise fail.at(v[tag])
-        candidates = [m for m in members if m is not type(None)]
-        for member in candidates:
-            if _strict_ok(member, v):
-                return coerce(member, v)
-        first: _Fail | None = None
-        for member in candidates:
-            try:
-                return coerce(member, v)
-            except _Fail as fail:
-                first = first or fail
-        assert first is not None
-        raise first
+        return _union(members, v, st)
     origin = typing.get_origin(tp)
     if origin is Literal:
         return _literal(typing.get_args(tp), v)
     if tp is list or origin is list:
-        if not isinstance(v, (list, tuple, set, frozenset)):
-            raise _Fail("list_type", "Input should be a valid list", v)
+        items = _items(v, list, "list_type", "Input should be a valid list", st)
         args = typing.get_args(tp)
-        if not args:
-            return list(v)
-        out = []
-        fails: list[_Fail] = []
-        for i, item in enumerate(v):
-            try:
-                out.append(coerce(args[0], item))
-            except _Fail as fail:
-                fails.extend(_flat(fail.at(i)))
-        _raise_all(fails)
-        return out
+        return _each(args[0], items, st) if args else items
+    if tp is tuple or origin is tuple:
+        return _tuple(tp, v, st)
+    if tp in (set, frozenset) or origin in (set, frozenset):
+        kind = tp if origin is None else origin
+        items = (_items(v, set, "set_type", "Input should be a valid set", st) if kind is set
+                 else _items(v, frozenset, "frozen_set_type", "Input should be a valid frozenset",
+                             st))
+        args = typing.get_args(tp)
+        return kind(_each(args[0], items, st) if args else items)
     if tp is dict or origin is dict:
         if not isinstance(v, dict):
             raise _Fail("dict_type", "Input should be a valid dictionary", v)
@@ -362,23 +688,42 @@ def coerce(tp: Any, v: Any) -> Any:
         if not args:
             return dict(v)
         out_d = {}
-        fails = []
+        fails: list[_Fail] = []
         for key, item in v.items():
+            # an error's location names a key by its int or str value, else its repr
+            at = (int(key) if isinstance(key, int) else str.__str__(key) if isinstance(key, str)
+                  else repr(key))
+            k = _MISSING
             try:
-                k = coerce(args[0], key)
+                k = _coerce(args[0], key, st)
             except _Fail as fail:
-                fails.extend(_flat(fail.at(key, "[key]")))
+                fails.extend(_flat(fail.at(at, "[key]")))
+            try:
+                item = _coerce(args[1], item, st)
+            except _Fail as fail:
+                fails.extend(_flat(fail.at(at)))
                 continue
-            try:
-                out_d[k] = coerce(args[1], item)
-            except _Fail as fail:
-                fails.extend(_flat(fail.at(key)))
+            if k is not _MISSING:
+                out_d[k] = item
         _raise_all(fails)
         return out_d
-    if isinstance(tp, type) and issubclass(tp, Wire):
-        return _load_wire(tp, v)
-    if isinstance(tp, type) and isinstance(v, tp):
-        return v
+    if isinstance(tp, type):
+        if issubclass(tp, Wire):
+            return _load_wire(tp, v, st)
+        if issubclass(tp, enum.Enum):
+            return _enum(tp, v, st)
+        if dataclasses.is_dataclass(tp):
+            return _load_dataclass(tp, v, st)
+        if typing.is_typeddict(tp):
+            return _load_typeddict(tp, v, st)
+        if tp is _dt.datetime:
+            return _datetime(v, st)
+        if tp is _dt.date:
+            return _date(v, st)
+        if is_model_type(tp):
+            return _load_model(tp, v, st)
+        if isinstance(v, tp):
+            return v
     raise _Fail("is_instance_of", f"Input should be an instance of {tp!r}", v)
 
 
@@ -388,10 +733,11 @@ def coerce(tp: Any, v: Any) -> Any:
 
 
 class _Spec:
-    __slots__ = ("fields", "hints", "copies", "floats")
+    __slots__ = ("fields", "names", "hints", "copies", "floats")
 
     def __init__(self, cls: type):
         self.fields = [f for f in dataclasses.fields(cls) if f.init]
+        self.names = frozenset(f.name for f in self.fields)
         self.hints = typing.get_type_hints(cls)
         self.copies: list[tuple[str, type]] = []
         self.floats: list[str] = []
@@ -429,7 +775,43 @@ def _spec(cls: type) -> _Spec:
     return spec
 
 
-def _load_wire(cls: type, v: Any) -> Any:
+def _load_fields(cls: type, v: Any, st: _State) -> "tuple[dict[str, Any], dict[str, Any]]":
+    """A dataclass's init fields read from the dict ``v``: (the coerced
+    values given, the keys that are no field); a missing field without a
+    default, or a refused value, raises."""
+    spec = _spec(cls)
+    kwargs: dict[str, Any] = {}
+    fails: list[_Fail] = []
+    for f in spec.fields:
+        if f.name in v:
+            try:
+                kwargs[f.name] = _coerce(spec.hints.get(f.name, Any), v[f.name], st)
+            except _Fail as fail:
+                fails.extend(_flat(fail.at(f.name)))
+        elif f.default is _MISSING and f.default_factory is _MISSING:
+            fails.append(_Fail("missing", "Field required", v, (f.name,)))
+    extras = {k: val for k, val in v.items() if k not in spec.names}
+    if getattr(cls, "__wire_extra__", "ignore") == "forbid":
+        fails += [_Fail("extra_forbidden", "Extra inputs are not permitted", val, (key,))
+                  for key, val in extras.items()]
+    _raise_all(fails)
+    st.floor(_STRICT)
+    st.fields = len(kwargs)
+    return kwargs, extras
+
+
+def _load_dataclass(cls: type, v: Any, st: _State) -> Any:
+    if isinstance(v, cls):
+        return v
+    if not isinstance(v, dict):
+        raise _Fail(
+            "dataclass_type", f"Input should be a dictionary or an instance of {cls.__name__}", v
+        )
+    kwargs, _ = _load_fields(cls, v, st)
+    return cls(**kwargs)
+
+
+def _load_wire(cls: type, v: Any, st: "_State | None" = None) -> Any:
     if isinstance(v, cls):
         return v
     if not isinstance(v, dict):
@@ -438,27 +820,7 @@ def _load_wire(cls: type, v: Any) -> Any:
             f"Input should be a valid dictionary or instance of {cls.__name__}",
             v,
         )
-    spec = _spec(cls)
-    kwargs: dict[str, Any] = {}
-    fails: list[_Fail] = []
-    names = set()
-    for f in spec.fields:
-        names.add(f.name)
-        if f.name in v:
-            try:
-                kwargs[f.name] = coerce(spec.hints.get(f.name, Any), v[f.name])
-            except _Fail as fail:
-                fails.append(fail.at(f.name))
-        elif f.default is _MISSING and f.default_factory is _MISSING:
-            fails.append(_Fail("missing", "Field required", v, (f.name,)))
-    extras = {k: val for k, val in v.items() if k not in names}
-    if cls.__wire_extra__ == "forbid":
-        fails += [_Fail("extra_forbidden", "Extra inputs are not permitted", val, (key,))
-                  for key, val in extras.items()]
-    if fails:
-        if len(fails) == 1:
-            raise fails[0]
-        raise _Many(fails)
+    kwargs, extras = _load_fields(cls, v, st or _State())
     try:
         obj = cls(**kwargs)
     except ValidationError as exc:
@@ -532,14 +894,20 @@ def _dump(v: Any, json_mode: int, exclude_none: bool) -> Any:
             f.name: _dump(getattr(v, f.name), json_mode, exclude_none)
             for f in dataclasses.fields(v)
         }
+    if is_model_type(type(v)):
+        return v.model_dump(mode="json" if json_mode else "python", exclude_none=exclude_none)
     if not json_mode:
         return v
     if isinstance(v, enum.Enum):
         return _dump(v.value, json_mode, exclude_none)
     if isinstance(v, (bytes, bytearray)):
         return bytes(v).decode("utf-8")
+    if isinstance(v, _dt.datetime) and v.utcoffset() == _dt.timedelta(0):
+        return v.replace(tzinfo=None).isoformat() + "Z"
     if isinstance(v, (_dt.datetime, _dt.date, _dt.time)):
         return v.isoformat()
+    if isinstance(v, complex):
+        return str(v).strip("()")
     raise TypeError(f"Unable to serialize unknown type: {type(v)!r}")
 
 

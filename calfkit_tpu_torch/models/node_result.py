@@ -7,11 +7,13 @@ type decides how to read them — at read time, not at publish time.
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from typing import Any, Generic, TypeVar
 
+from calfkit_tpu_torch.models._adapter import Adapter
 from calfkit_tpu_torch.models._wire import Wire
-from calfkit_tpu_torch.models.payload import ContentPart, render_parts_as_text
+from calfkit_tpu_torch.models.payload import ContentPart, DataPart, TextPart, render_parts_as_text
 from calfkit_tpu_torch.models.session_context import Envelope
 from calfkit_tpu_torch.models.state import State
 
@@ -60,12 +62,37 @@ def project_output(parts: list[ContentPart], output_type: type[OutputT]) -> Outp
     """Project reply parts into ``output_type``.
 
     - ``str``: rendered text of all parts.
-    - any other type (structured output) is not ported yet: it raises
-      ``TypeError`` naming the ROADMAP item that ports it.
+    - any other type (a dataclass, a model, ...): the first DataPart
+      validated against it, falling back to parsing text parts as JSON
+      (``extract_lenient``, reference: node_result.py:330).
     """
     if output_type is str:
         return render_parts_as_text(parts)  # type: ignore[return-value]
-    raise TypeError(
-        f"output_type {output_type!r}: structured output is not ported to "
-        "calfkit_tpu_torch yet (ROADMAP Queue 1); use str"
-    )
+    adapter = Adapter(output_type)
+    for part in parts:
+        if isinstance(part, DataPart):
+            return adapter.validate_python(part.data)
+    for part in parts:
+        if isinstance(part, TextPart):
+            return extract_lenient(part.text, adapter)
+    raise ValueError(f"no part projects into {output_type!r}")
+
+
+def extract_lenient(text: str, adapter: Adapter) -> Any:
+    """Parse JSON out of model text, tolerating fences and surrounding prose."""
+    candidates = [text.strip()]
+    stripped = text.strip()
+    if stripped.startswith("```"):
+        body = stripped.split("```")[1] if "```" in stripped[3:] else stripped[3:]
+        body = body.removeprefix("json").strip()
+        candidates.insert(0, body)
+    start, end = stripped.find("{"), stripped.rfind("}")
+    if 0 <= start < end:
+        candidates.append(stripped[start : end + 1])
+    last_error: Exception | None = None
+    for cand in candidates:
+        try:
+            return adapter.validate_python(json.loads(cand))
+        except Exception as exc:  # noqa: BLE001 - try the next candidate form
+            last_error = exc
+    raise ValueError(f"could not project text into typed output: {last_error}")

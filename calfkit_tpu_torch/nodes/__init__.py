@@ -1,6 +1,5 @@
 """Node kinds over the shared kernel: the port's own copies of the JAX
-package's agent and tool nodes.  The consumer node is not ported yet
-(ROADMAP Queue 1)."""
+package's agent, tool and consumer nodes."""
 
 from calfkit_tpu_torch.nodes.agent import (
     Agent,
@@ -11,6 +10,7 @@ from calfkit_tpu_torch.nodes.agent import (
 )
 
 from calfkit_tpu_torch.nodes.base import BaseNodeDef, NodeRunContext, handler
+from calfkit_tpu_torch.nodes.consumer import ConsumerContext, ConsumerNode, consumer
 from calfkit_tpu_torch.nodes.fanout_store import (
     FANOUT_STORE_KEY,
     FanoutBatchStore,
@@ -39,6 +39,8 @@ __all__ = [
     "Agent",
     "BaseAgentNodeDef",
     "BaseNodeDef",
+    "ConsumerContext",
+    "ConsumerNode",
     "DeniedCall",
     "FANOUT_STORE_KEY",
     "FanoutBatchStore",
@@ -55,6 +57,7 @@ __all__ = [
     "ToolNodeDef",
     "Tools",
     "agent_tool",
+    "consumer",
     "eager_tools",
     "handler",
 ]

@@ -132,10 +132,6 @@ class BaseAgentNodeDef(BaseNodeDef):
                 f"agent {name!r}: one peer selector per kind (got {kinds}); "
                 "list multiple names inside one selector instead"
             )
-        if output_type is not str:
-            from calfkit_tpu_torch.engine.schema import output_tool_def
-
-            output_tool_def(output_type)  # structured output: not ported, raises
         self.output_type = output_type
         self.description = description
         self.model_settings = model_settings

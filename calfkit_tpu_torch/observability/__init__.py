@@ -8,7 +8,10 @@ package's telemetry modules.
 - :mod:`~calfkit_tpu_torch.observability.capacity` — the page ledger (who
   holds which KV pages) and the occupancy sampler;
 - :mod:`~calfkit_tpu_torch.observability.trace` — trace contexts, spans
-  and the process tracer.
+  and the process tracer;
+- :mod:`~calfkit_tpu_torch.observability.http` — ``MetricsServer``, the
+  optional asyncio endpoint: ``/metrics``, ``/healthz`` (liveness),
+  ``/readyz`` (a readiness probe), ``/flightrec`` and ``/capacity``.
 
 Everything here is fail-open: telemetry errors never fault serving.
 """

@@ -201,7 +201,31 @@ the final ``ok`` line is never printed:
    first resumed token and the resumed offset; then #5 and #2 against
    their plain versions at the phase's most launched shapes; the
    ``kernels`` line reports its launches, and each replica's, under
-   ``fleet``.
+   ``fleet``;
+18. a typed agent (``typed_agent_phase``): ``Worker([Agent("trip_planner",
+   output_type=TripPlan), book, MCPToolboxNode, consumer])`` on an
+   ``InMemoryMesh``, phase 15's runtime and weights; ``TripPlan`` is a
+   dataclass nesting ``Leg`` dataclasses with a ``Literal``, an ``Enum``,
+   an ``int | None`` and a ``tuple[str, ...]``; ``book`` takes a nested
+   ``Leg`` and a tuple; the toolbox node serves a stdio MCP server the
+   phase writes (one ``distance`` tool); a ``MetricsServer(port=0)`` serves
+   the process registry, its readiness probe on the worker and the
+   engine.  Each conversation's first step is scripted (an MCP call and a
+   ``book`` call), attempts 1 and 2 at the typed answer are the engine's
+   turns (their text is no JSON, so the turn runner retries), attempt 3 is
+   scripted: a valid ``final_result`` built from attempt 2's text for the
+   even conversations, an invalid one (``nights: "many"``) for the odd.
+   Two warm-up rounds, then the measured round of 8.  Checks: the typed
+   outputs; the odd conversations' ``mesh.validation_error`` reports after
+   3 attempts; the consumer's records; the retry boundary between the
+   attempts' token steps; attempt 2's prefix reuse of its attempt 1's
+   pages; the ``/metrics`` scrape against ``EngineStats``; ``/readyz`` 200
+   while serving and 503 after ``stop()``; the tie law on the 16 engine
+   turns and their direct requests; #5 and #2 launched; no leak.  It
+   prints the engine's TTFT of attempts 1 and 2, the MCP call's round
+   trip, the scrape's ms and the round's wall; then #5 and #2 against
+   their plain versions at the phase's most launched shapes; the
+   ``kernels`` line reports its launches under ``typed_agent``.
 
 The kernel phase also holds the ragged multi-query kernels (speculative
 verify shapes S = 5, a mixed-row case with prefill-kind and fresh rows, page
@@ -240,11 +264,14 @@ import argparse
 import asyncio
 import concurrent.futures
 import contextlib
+import dataclasses
+import enum
 import gc
 import json
 import math
 import os
 import random
+import re
 import statistics
 import struct
 import subprocess
@@ -257,12 +284,13 @@ import weakref
 from dataclasses import replace
 from pathlib import Path
 from types import SimpleNamespace
+from typing import Literal
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from calfkit_tpu_torch import Agent, Client, Worker, kernels
+from calfkit_tpu_torch import Agent, Client, Worker, kernels, protocol
 from calfkit_tpu_torch.client import InvocationResult, caller
 from calfkit_tpu_torch.engine import (
     FunctionModelClient,
@@ -290,18 +318,26 @@ from calfkit_tpu_torch.inference.engine import EngineStats, InferenceEngine, _ca
 from calfkit_tpu_torch.inference.loader import config_from_hf, load_params
 from calfkit_tpu_torch.inference.sampler import SamplingParams
 from calfkit_tpu_torch.inference.tokenizer import ByteTokenizer
+from calfkit_tpu_torch.exceptions import NodeFaultError
 from calfkit_tpu_torch.keying import partition_key
+from calfkit_tpu_torch.mcp import MCPServerSpec, MCPToolboxNode, Toolbox, mixed_tools
 from calfkit_tpu_torch.mesh import InMemoryMesh, _native
 from calfkit_tpu_torch.models import (
+    DataPart,
     ModelRequest,
     ModelResponse,
+    ReturnMessage,
     ToolCallOutput,
     ToolDef,
     ToolReturnPart,
     UserPart,
     user_message,
 )
-from calfkit_tpu_torch.nodes import agent_tool
+from calfkit_tpu_torch.models._adapter import Adapter
+from calfkit_tpu_torch.nodes import agent_tool, consumer
+from calfkit_tpu_torch.nodes.agent import _TokenTap
+from calfkit_tpu_torch.observability import flightrec
+from calfkit_tpu_torch.observability.http import MetricsServer
 from calfkit_tpu_torch.observability.metrics import REGISTRY
 from calfkit_tpu_torch.observability.trace import current_context
 from calfkit_tpu_torch.sim import FleetTopology, settle
@@ -4431,6 +4467,478 @@ def per_replica_note(per_replica: dict) -> str:
         f"launches {r['launches']}" for tag, r in per_replica.items())
 
 
+# --------------------------------------------------------------------------- #
+# phase 18: a typed agent with an MCP toolbox, a consumer and /metrics
+# --------------------------------------------------------------------------- #
+
+TYPED_AGENT = "trip_planner"
+TYPED_ROUNDS = ("Warm-up", "Warm-up again", "Typed trips")
+TYPED_RETRIES = 2  # Agent(max_output_retries=): three attempts at the typed answer
+TRAVELLERS = ("Ana", "Bo", "Chen", "Dee", "Eli", "Fay", "Gus", "Hal")
+TYPED_INSTRUCTIONS = (
+    "You plan trips for a small agency. Call distance for each leg of the trip, "
+    "book every leg for its travellers, then answer with the final_result tool: "
+    "the plan as JSON matching its schema. Dates are written as YYYY-MM-DD; keep "
+    "the notes short and never invent a booking reference."
+)
+
+
+class TripPace(enum.Enum):
+    RELAXED = "relaxed"
+    BRISK = "brisk"
+
+
+@dataclasses.dataclass
+class Leg:
+    origin: str
+    destination: str
+    km: int
+    mode: Literal["train", "flight", "bus"] = "train"
+
+
+@dataclasses.dataclass
+class TripPlan:
+    traveller: str
+    legs: list[Leg]
+    pace: TripPace
+    budget: Literal["low", "mid", "high"]
+    nights: int | None = None
+    notes: tuple[str, ...] = ()
+
+
+def book(leg: Leg, travellers: tuple[str, ...]) -> dict:
+    """Book one leg of a trip for its travellers.
+
+    Args:
+        leg: The leg to book.
+        travellers: Who travels on it.
+    """
+    assert isinstance(leg, Leg) and isinstance(travellers, tuple)  # instantiated, not dicts
+    return {"booked": f"{leg.origin}-{leg.destination}", "km": leg.km,
+            "travellers": list(travellers)}
+
+
+# phase 18's MCP server: one stdio tool, written to a temporary directory
+MCP_SERVER_SOURCE = r'''"""A stdio MCP server with one tool: distance(origin, destination) -> km."""
+import json
+import sys
+
+TOOL = {
+    "name": "distance",
+    "description": "Road distance between two cities, in km.",
+    "inputSchema": {"type": "object", "properties": {"origin": {"type": "string"},
+                    "destination": {"type": "string"}}, "required": ["origin", "destination"]},
+}
+
+for line in sys.stdin:
+    message = json.loads(line)
+    if "id" not in message:
+        continue  # a notification
+    method, params = message.get("method"), message.get("params") or {}
+    if method == "initialize":
+        result = {"protocolVersion": params.get("protocolVersion"),
+                  "capabilities": {"tools": {}}, "serverInfo": {"name": "geo", "version": "0"}}
+    elif method == "tools/list":
+        result = {"tools": [TOOL]}
+    elif method == "tools/call" and params.get("name") == "distance":
+        args = params.get("arguments") or {}
+        km = 100 + sum(map(ord, args["origin"] + args["destination"])) % 900
+        result = {"content": [{"type": "text", "text": str(km)}]}
+    else:
+        print(json.dumps({"jsonrpc": "2.0", "id": message["id"],
+                          "error": {"code": -32601, "message": f"no method {method}"}}),
+              flush=True)
+        continue
+    print(json.dumps({"jsonrpc": "2.0", "id": message["id"], "result": result}), flush=True)
+'''
+
+
+def typed_prompts(round_: str) -> "list[str]":
+    """A round's user text, one per conversation."""
+    n = len(AGENT_CITIES)
+    return [f"{round_} trip {i}: plan {TRAVELLERS[i]}'s trip from {city} to "
+            f"{AGENT_CITIES[(i + 1) % n]} on 2026-0{i + 1}-1{i}, with {TRAVELLERS[(i + 3) % n]}."
+            for i, city in enumerate(AGENT_CITIES)]
+
+
+def typed_attempt(messages) -> int:
+    """Which step of a typed turn ``messages`` ask for: 0 the conversation's
+    first (the scripted tool calls); then 1, 2, 3, the attempts at the typed
+    answer (one more a retry part since the tools' returns).  Read by role
+    and part kind, so either package's messages serve."""
+    if not any(m.role == "response" for m in messages):
+        return 0
+    retries = 0
+    for message in reversed(messages):
+        kinds = [p.kind for p in message.parts] if message.role == "request" else []
+        if "tool_return" in kinds:
+            break
+        retries += "retry" in kinds
+    return retries + 1
+
+
+def typed_conversation(messages) -> int:
+    text = next(p.content for m in messages if m.role == "request" for p in m.parts
+                if p.kind == "user")
+    return int(re.search(r"trip (\d+):", text).group(1))
+
+
+def typed_legs(i: int) -> "tuple[str, str]":
+    return AGENT_CITIES[i], AGENT_CITIES[(i + 1) % len(AGENT_CITIES)]
+
+
+def typed_final(i: int, km: int, text: str) -> "tuple[dict, TripPlan | None]":
+    """Attempt 3's ``final_result`` arguments, built from the engine's
+    attempt-2 text, and the plan they validate to: valid for an even
+    conversation, for an odd one refused (``nights: "many"``)."""
+    origin, destination = typed_legs(i)
+    pace, budget = ("brisk", "relaxed")[len(text) % 2], ("low", "mid", "high")[len(text) % 3]
+    nights = (len(text) % 5) or None
+    args = {"traveller": TRAVELLERS[i],
+            "legs": [{"origin": origin, "destination": destination, "km": km, "mode": "train"}],
+            "pace": pace, "budget": budget, "nights": nights if i % 2 == 0 else "many",
+            "notes": [text]}
+    plan = TripPlan(TRAVELLERS[i], [Leg(origin, destination, km)], TripPace(pace), budget,
+                    nights, (text,)) if i % 2 == 0 else None
+    return args, plan
+
+
+def typed_step(P, messages):
+    """The scripted steps of a typed conversation, on package ``P``'s
+    ``ModelResponse`` and ``ToolCallOutput``: the first (an MCP ``distance``
+    call and a ``book`` call with nested arguments) and attempt 3."""
+    i = typed_conversation(messages)
+    origin, destination = typed_legs(i)
+    n = len(TRAVELLERS)
+    if typed_attempt(messages) == 0:
+        return P.ModelResponse(parts=[
+            P.ToolCallOutput(tool_call_id=f"km_{i}", tool_name="toolbox.geo__distance",
+                             args={"origin": origin, "destination": destination}),
+            P.ToolCallOutput(tool_call_id=f"book_{i}", tool_name="book", args={
+                "leg": {"origin": origin, "destination": destination, "km": str(100 + i)},
+                "travellers": [TRAVELLERS[i], TRAVELLERS[(i + 3) % n]]}),
+        ])
+    km = next(int(str(p.content)) for m in messages if m.role == "request" for p in m.parts
+              if p.kind == "tool_return" and p.tool_name.endswith("distance"))
+    text = next(m for m in reversed(messages) if m.role == "response").text()
+    args, _ = typed_final(i, km, text)
+    return P.ModelResponse(parts=[P.ToolCallOutput(
+        tool_call_id=f"plan_{i}", tool_name="final_result", args=args)])
+
+
+class TypedTurnModel(MeshTurnModel):
+    """Phase 18's agent model: a conversation's first step and attempt 3 at
+    the typed answer are scripted (:func:`typed_step`); attempts 1 and 2 are
+    the local engine's turns, recorded as :class:`MeshTurnModel` records
+    them.  On random weights the engine's text is no JSON, so each attempt
+    fails and the turn runner sends its retry part back."""
+
+    def __init__(self, local: TorchLocalModelClient):
+        super().__init__(local)
+        models = SimpleNamespace(ModelResponse=ModelResponse, ToolCallOutput=ToolCallOutput)
+        self.scripted = FunctionModelClient(lambda messages, params: typed_step(models, messages),
+                                            name="trip-planner-script")
+
+        self.steps: "list[tuple[int, int]]" = []  # (conversation, attempt) of every step
+
+    def _scripted_first(self, messages) -> bool:
+        self.steps.append((typed_conversation(messages), typed_attempt(messages)))
+        return typed_attempt(messages) in (0, 3)
+
+
+class TimedToolbox(MCPToolboxNode):
+    """``MCPToolboxNode`` whose session times every ``tools/call`` round
+    trip (the JSON-RPC request to the server's answer, ms)."""
+
+    def __init__(self, spec: MCPServerSpec):
+        super().__init__(spec)
+        self.call_ms: "list[float]" = []
+
+    async def start_session(self) -> None:
+        await super().start_session()
+        call_tool = self._session.call_tool
+
+        async def timed(name, args):
+            t = time.perf_counter()
+            try:
+                return await call_tool(name, args)
+            finally:
+                self.call_ms.append((time.perf_counter() - t) * 1e3)
+
+        self._session.call_tool = timed
+
+
+async def http_get(port: int, path: str) -> "tuple[str, str, float]":
+    """(status line, body, ms) of one ``GET`` on the loopback."""
+    t = time.perf_counter()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.0\r\n\r\n".encode())
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    head, _, body = raw.decode().partition("\r\n\r\n")
+    return head.splitlines()[0], body, (time.perf_counter() - t) * 1e3
+
+
+def scrape_values(text: str, names: "tuple[str, ...]") -> "dict[str, float]":
+    """The values of unlabelled samples ``names`` in a Prometheus text."""
+    out = {}
+    for line in text.splitlines():
+        name, _, value = line.partition(" ")
+        if name in names:
+            out[name] = float(value)
+    return out
+
+
+TYPED_SCRAPED = ("calfkit_engine_decode_tokens_total", "calfkit_engine_prefill_tokens_total",
+                 "calfkit_engine_ttft_ms_count")
+
+
+async def typed_agent_phase(dev, params, card: str = "") -> dict:
+    """Phase 18: a typed agent with an MCP toolbox, a consumer and the
+    ``/metrics`` endpoint on the card.  ``Worker([Agent("trip_planner",
+    output_type=TripPlan), book, MCPToolboxNode, consumer])`` on an
+    ``InMemoryMesh``: the agent's tools are ``mixed_tools(book,
+    Toolbox("geo"))`` (``book`` takes a nested ``Leg`` and a
+    ``tuple[str, ...]``; the toolbox node serves a stdio MCP server this
+    phase writes to a temporary directory, :data:`MCP_SERVER_SOURCE`); its
+    model is :class:`TypedTurnModel` over a ``TorchLocalModelClient`` on
+    phase 15's runtime and weights (``MESH_RUNTIME``, ``llama-3-8b`` bf16,
+    :class:`CharTokenizer`, 32 new tokens a step), ``stream_tokens=True``;
+    the consumer taps the agent's publish topic; a ``MetricsServer(port=0)``
+    serves the process registry with a readiness probe on the worker and
+    the engine.  Two warm-up rounds, then the measured round of 8
+    conversations through ``client.agent(..., output_type=TripPlan)
+    .execute``, the client's ids seeded, launch counts reset just before
+    and read just after.  Checks: an even conversation's output is the
+    ``TripPlan`` attempt 3's arguments give; an odd one ends in
+    ``NodeFaultError`` carrying the turn's ``mesh.validation_error``
+    report after exactly 3 attempts; the consumer saw each typed result
+    once, its ``DataPart`` equal to ``Adapter(TripPlan).dump(output)``;
+    each conversation's token steps are attempt 1's text, the retry
+    boundary, attempt 2's text and the boundary again; attempt 2 reuses
+    more prefix tokens than attempt 1 (its own attempt 1's full pages);
+    the ``/metrics`` scrape's engine counters moved as ``EngineStats``
+    did over the round and its first-token count by the round's engine
+    turns; ``/readyz`` answers 200 while serving and 503 after ``stop()``;
+    the 16 engine turns and a direct ``request`` on each turn's messages
+    hold phase 13's law (:func:`tie_law`); #5 and #2 launch; no leak."""
+    cfg = preset("llama-3-8b")
+    rt = MESH_RUNTIME
+    tok = CharTokenizer()
+    torch.cuda.reset_peak_memory_stats(dev)
+    engine = InferenceEngine(cfg, rt, params=params, device=dev)
+    local = TorchLocalModelClient(engine=engine, tokenizer=tok, max_new_tokens=CLIENT_MAX_TOKENS)
+    model = TypedTurnModel(local)
+    book_tool = agent_tool(book)
+    seen: "list[tuple[str | None, list]]" = []
+
+    @consumer(topics=[protocol.agent_publish_topic(TYPED_AGENT)], name="trip_audit")
+    def trip_audit(ctx) -> None:
+        reply = ctx.envelope.reply if ctx.envelope is not None else None
+        if isinstance(reply, ReturnMessage):
+            seen.append((ctx.correlation_id, [p.data for p in reply.parts
+                                              if isinstance(p, DataPart)]))
+
+    agent = Agent(
+        TYPED_AGENT, model=model, instructions=TYPED_INSTRUCTIONS,
+        tools=mixed_tools(book_tool, Toolbox("geo")), output_type=TripPlan,
+        max_output_retries=TYPED_RETRIES,
+        model_settings=ModelSettings(max_tokens=CLIENT_MAX_TOKENS), stream_tokens=True,
+    )
+    adapter = Adapter(TripPlan)
+    tokens: "dict[str, list[str]]" = {}
+    scrapes: list = []
+    with tempfile.TemporaryDirectory() as tmp:
+        server_path = Path(tmp) / "geo_mcp_server.py"
+        server_path.write_text(MCP_SERVER_SOURCE)
+        toolbox = TimedToolbox(MCPServerSpec(name="geo", command=[sys.executable,
+                                                                   str(server_path)]))
+        mesh = InMemoryMesh()
+        worker = Worker([agent, book_tool, toolbox, trip_audit], mesh=mesh,
+                        max_workers=MESH_LANES)
+        metrics = MetricsServer(port=0, registry=REGISTRY, readiness=lambda: (
+            worker.ready()[0] and local.ready()[0], "worker + engine"))
+        await local.start()
+        await metrics.start()
+        try:
+            with seeded_client_ids(MESH_ID_SEED):
+                async with worker:
+                    client = Client.connect(mesh)
+                    firehose = client.events()
+
+                    async def watch() -> None:
+                        async for event in firehose:
+                            if event.step.kind == "token":
+                                tokens.setdefault(event.correlation_id, []).append(event.step.text)
+
+                    watcher = asyncio.create_task(watch())
+                    try:
+                        for name in TYPED_ROUNDS[:-1]:
+                            await _typed_round(client, typed_prompts(name))
+                        ready = await http_get(metrics.port, "/readyz")
+                        model.calls.clear()
+                        model.steps.clear()
+                        tokens.clear()
+                        seen.clear()
+                        toolbox.call_ms.clear()
+                        engine._sync_metric_counters()  # the registry's counters up to date
+                        stats_before = engine.stats.counters()
+                        scrapes.append(await http_get(metrics.port, "/metrics"))
+                        graphs_before = graph_numbers(engine)
+                        A.reset_launch_counts()
+                        with prefill_shapes() as prefills, decode_shapes() as decodes:
+                            measured = await _typed_round(client, typed_prompts(TYPED_ROUNDS[-1]))
+                            launches = dict(A.launch_counts)
+                        measured["calls"] = list(model.calls)
+                        graphs_after = graph_numbers(engine)
+                        engine._sync_metric_counters()
+                        stats_after = engine.stats.counters()
+                        scrapes.append(await http_get(metrics.port, "/metrics"))
+                        await asyncio.sleep(0.2)  # the consumer's and the firehose's last records
+                    finally:
+                        firehose.close()
+                        watcher.cancel()
+                        with contextlib.suppress(asyncio.CancelledError):
+                            await watcher
+                        await client.close()
+            # a direct request on each engine turn's messages, an attempt's 8 at once
+            direct = []
+            for attempt in (1, 2):
+                direct += await asyncio.gather(*[
+                    local.request(c["messages"], c["settings"], c["params"])
+                    for c in measured["calls"] if typed_attempt(c["messages"]) == attempt])
+        finally:
+            await local.stop()
+            stopped = await http_get(metrics.port, "/readyz")
+            await metrics.stop()
+    peak = torch.cuda.max_memory_allocated(dev)
+    calls = sorted(measured["calls"], key=lambda c: typed_attempt(c["messages"]))
+    by_conv = {typed_conversation(c["messages"]): c["corr"] for c in calls}
+    # typed results and typed faults
+    for i, run in enumerate(measured["runs"]):
+        steps = sorted(a for conv, a in model.steps if conv == i)
+        assert steps == [0, 1, 2, 3], (i, steps)  # the tools' step, then 3 attempts
+        engine_text = {typed_attempt(c["messages"]): c["response"].text()
+                       for c in calls if c["corr"] == by_conv[i]}
+        if i % 2 == 0:
+            assert isinstance(run, InvocationResult) and isinstance(run.output, TripPlan), run
+            km = run.output.legs[0].km
+            assert run.output == typed_final(i, km, engine_text[2])[1], (i, run.output)
+            assert [d for c, d in seen if c == run.correlation_id] == [[adapter.dump(run.output)]]
+        else:
+            assert isinstance(run, NodeFaultError), (i, run)
+            message = str(run.report.message)
+            assert "mesh.validation_error" in message and "after 3 attempts" in message, message
+        # the token steps: attempt 1, the boundary, attempt 2, the boundary
+        boundary = _TokenTap.RETRY_BOUNDARY
+        assert "".join(tokens.get(by_conv[i], [])) == (
+            engine_text[1] + boundary + engine_text[2] + boundary), (i, tokens.get(by_conv[i]))
+    assert len(seen) == len(measured["runs"]) // 2, seen
+    # attempt 2 reuses its own attempt 1's full pages
+    admits = [(corr, b) for _, _, code, corr, _, a, b, _ in engine._journal.snapshot()
+              if code == flightrec.EV_ADMIT and corr in by_conv.values()]
+    reuse = {corr: [b for c, b in admits if c == corr][-2:] for corr in by_conv.values()}
+    align = math.lcm(rt.page_size, rt.prefill_chunk)
+    for i, corr in by_conv.items():
+        first, second = reuse[corr]
+        prompt1 = next(len(tok.encode(render_messages(c["messages"], c["params"])))
+                       for c in calls if c["corr"] == corr and typed_attempt(c["messages"]) == 1)
+        assert second > first and second >= (prompt1 // align - 1) * align, (i, reuse[corr],
+                                                                             prompt1)
+    # /metrics and /readyz
+    (status0, text0, _), (status1, text1, scrape_ms) = scrapes
+    assert status0.endswith("200 OK") and status1.endswith("200 OK")
+    v0, v1 = scrape_values(text0, TYPED_SCRAPED), scrape_values(text1, TYPED_SCRAPED)
+    moved = {k: v1[k] - v0[k] for k in TYPED_SCRAPED}
+    assert moved["calfkit_engine_decode_tokens_total"] == (
+        stats_after["decode_tokens"] - stats_before["decode_tokens"]), moved
+    assert moved["calfkit_engine_prefill_tokens_total"] == (
+        stats_after["prefill_tokens"] - stats_before["prefill_tokens"]), moved
+    assert moved["calfkit_engine_ttft_ms_count"] == len(calls), (moved, len(calls))
+    assert ready[0].endswith("200 OK") and stopped[0].endswith("503 Service Unavailable"), (
+        ready, stopped)
+    # the tie law on every engine turn and its direct request
+    streams = tie_law(cfg, params, [
+        (f"{c['corr']}#{typed_attempt(c['messages'])}",
+         [tok.bos_id, *tok.encode(render_messages(c["messages"], c["params"]))],
+         _stream_ids(tok, c["response"]), _stream_ids(tok, d))
+        for c, d in zip(calls, direct)
+    ], dev, labels=("typed", "direct"))
+    assert launches["prefill_attention"] > 0 and launches["paged_decode_attention"] > 0, launches
+    prefill_rows, decode_rows = _shape_rows(prefills), _shape_rows(decodes)
+    assert sum(r["launches"] for r in prefill_rows) == launches["prefill_attention"]
+    assert sum(r["launches"] for r in decode_rows) == launches["paged_decode_attention"]
+    free_pages, cached = engine._page_alloc.free_pages, engine._prefix.size
+    assert free_pages + cached == rt.pool_pages() - 1, (free_pages, cached)
+    assert len(engine._free) == rt.max_batch_size and not engine._active
+    ttft = {a: [(c["first"] - c["submit"]) * 1e3 for c in calls if typed_attempt(c["messages"]) == a]
+            for a in (1, 2)}
+    prompt_tokens = {a: [1 + len(tok.encode(render_messages(c["messages"], c["params"])))
+                         for c in calls if typed_attempt(c["messages"]) == a] for a in (1, 2)}
+    result = dict(
+        ttft_ms={a: dict(median=statistics.median(v), max=max(v)) for a, v in ttft.items()},
+        prompt_tokens={a: dict(min=min(v), max=max(v)) for a, v in prompt_tokens.items()},
+        mcp_call_ms=dict(median=statistics.median(toolbox.call_ms), min=min(toolbox.call_ms),
+                         max=max(toolbox.call_ms), calls=len(toolbox.call_ms)),
+        # the round's decode dispatches: an attempt 2 arriving while others
+        # decode waits for the dispatch in flight before each of its chunks
+        decode_dispatches=stats_after["decode_dispatches"] - stats_before["decode_dispatches"],
+        decode_dispatch_ms=1e3 * (stats_after["decode_time_s"] - stats_before["decode_time_s"])
+        / max(1, stats_after["decode_dispatches"] - stats_before["decode_dispatches"]),
+        scrape_ms=scrape_ms, reuse=reuse, wall_s=measured["wall_s"], engine_turns=len(calls),
+        typed=sum(1 for r in measured["runs"] if isinstance(r, InvocationResult)),
+        faults=sum(1 for r in measured["runs"] if isinstance(r, NodeFaultError)),
+        launches=launches, prefill_shapes=prefill_rows, decode_shapes=decode_rows,
+        streams=streams, scraped=moved, measured_captures=graphs_after["captures"]
+        - graphs_before["captures"], graphs=graphs_after, max_memory_allocated=peak,
+    )
+    print(
+        f"  typed agent llama-3-8b bf16, Worker([Agent(output_type=TripPlan), book, "
+        f"MCPToolboxNode, consumer]) on an InMemoryMesh, 8 conversations (one run, no spread; "
+        f"{card}): {result['typed']} typed TripPlan results and {result['faults']} "
+        f"mesh.validation_error faults after 3 attempts each; the engine's TTFT (request_stream "
+        f"-> first TextDelta) attempt 1 median {result['ttft_ms'][1]['median']:.1f} ms max "
+        f"{result['ttft_ms'][1]['max']:.1f} ms, attempt 2 median "
+        f"{result['ttft_ms'][2]['median']:.1f} ms max {result['ttft_ms'][2]['max']:.1f} ms "
+        f"(prompts of {result['prompt_tokens'][1]['min']}-{result['prompt_tokens'][1]['max']} "
+        f"and {result['prompt_tokens'][2]['min']}-{result['prompt_tokens'][2]['max']} tokens); "
+        f"prefix reuse (attempt 1, attempt 2) by conversation "
+        f"{[reuse[by_conv[i]] for i in sorted(by_conv)]} tokens; the MCP tools/call round trip "
+        f"through the toolbox node median {result['mcp_call_ms']['median']:.2f} ms min "
+        f"{result['mcp_call_ms']['min']:.2f} max {result['mcp_call_ms']['max']:.2f} ms over "
+        f"{len(toolbox.call_ms)} calls; {result['decode_dispatches']} decode dispatches of "
+        f"{result['decode_dispatch_ms']:.1f} ms on average; /metrics "
+        f"scrape {scrape_ms:.2f} ms (engine counters moved {moved}); the round's wall "
+        f"{measured['wall_s']:.2f} s; the {len(calls)} engine turns and their direct requests "
+        f"within {TIE_SPACINGS} bf16 spacings of the f32 plain forward's top logit at every "
+        f"token ({streams['tokens_below_top']} tokens below it, max gap "
+        f"{streams['max_gap']:.3f} spacings), {len(calls) - len(streams['diverged'])} equal; "
+        f"launches {launches}; prefill launches by (B, Sq, Skv) "
+        f"{[(r['B'], r['S'], r['window'], r['launches']) for r in prefill_rows]}, paged decode "
+        f"by (B, wpages) {[(r['B'], r['window'], r['launches']) for r in decode_rows]}; "
+        f"captures in the measured round {result['measured_captures']}; pages free "
+        f"{free_pages} + cached {cached} of {rt.pool_pages() - 1}; {graph_note(graphs_after, peak)}"
+    )
+    return result
+
+
+async def _typed_round(client, prompts) -> dict:
+    """One round: every conversation's typed ``execute`` at once; per
+    conversation its ``InvocationResult`` or its ``NodeFaultError``."""
+    gateway = client.agent(TYPED_AGENT, output_type=TripPlan)
+
+    async def one(text: str):
+        try:
+            return await gateway.execute(text, timeout=600)
+        except NodeFaultError as exc:
+            return exc
+
+    started = time.perf_counter()
+    runs = await asyncio.gather(*[one(text) for text in prompts])
+    return dict(runs=list(runs), wall_s=time.perf_counter() - started)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -4563,11 +5071,17 @@ def main() -> int:
                         "wire mesh over kafka://")]
     stage("fleet phase")
     fleet = asyncio.run(fleet_phase(dev, weights, agent_mesh, card))
-    del weights
     release()
     stage("prefill and paged decode kernels at the fleet phase's shapes")
     cases += [path_case(dev, "prefill_attention", fleet["prefill_shapes"]),
               path_case(dev, "paged_decode_attention", fleet["decode_shapes"], "fleet")]
+    stage("typed agent phase")
+    typed = asyncio.run(typed_agent_phase(dev, weights, card))
+    del weights
+    release()
+    stage("prefill and paged decode kernels at the typed agent phase's shapes")
+    cases += [path_case(dev, "prefill_attention", typed["prefill_shapes"]),
+              path_case(dev, "paged_decode_attention", typed["decode_shapes"], "typed agent")]
 
     # each kernel's launches from the path it serves, beside its case at a
     # shape of that path (MAIN_SHAPES, path_case): the dense decode kernel
@@ -4608,6 +5122,9 @@ def main() -> int:
             # the serving fleet's path (phase 17's measured round), by replica
             entry["fleet"] = dict(launches=fleet["launches"][name], replicas={
                 tag: r["launches"].get(name, 0) for tag, r in fleet["replicas"].items()})
+        if typed["launches"].get(name):
+            # the typed agent's path (phase 18's measured round)
+            entry["typed_agent"] = dict(launches=typed["launches"][name])
         line["kernels"].append(entry)
     if args.out:
         with open(args.out, "w") as f:
@@ -4617,7 +5134,7 @@ def main() -> int:
                            checkpoint=ckpt, north_star=north, graphs=graph,
                            overload=overload, long_lane=long_lane,
                            agent_mesh=agent_mesh, wire_mesh=wire_mesh, fleet=fleet,
-                           kernels=line["kernels"]),
+                           typed_agent=typed, kernels=line["kernels"]),
                       f, indent=1, default=str)
     print(f"all phases in {time.perf_counter() - t0:.0f} s")
     print(json.dumps(line))

@@ -4,8 +4,9 @@
 imports from ``calfkit_tpu`` bound to the port's name of the same module,
 and its own functions and classes (the test classes among them) rebuilt
 over those globals; imports inside a rebuilt body resolve ``calfkit_tpu.*``
-to ``calfkit_tpu_torch.*`` (and ``pydantic`` to the port's wire codec,
-whose ``ValidationError`` the port raises), and string constants naming a
+to ``calfkit_tpu_torch.*`` (and ``pydantic``'s ``ValidationError`` to the
+port's wire codec's, which the port raises; its other names stay
+pydantic's), and string constants naming a
 ``calfkit_tpu.`` module (a ``monkeypatch`` target, a logger) name the
 port's.  Names a suite takes from ``tests._chaos`` (the JAX package's
 chaos harness, re-exported) are bound to their port twins of the same
@@ -40,9 +41,27 @@ def _port_name(name: str) -> str:
     return name
 
 
+@functools.cache
+def _pydantic_twin() -> types.ModuleType:
+    """``pydantic`` as a suite's body imports it: its ``ValidationError`` is
+    the port's (what the port raises), every other name pydantic's own (a
+    user's ``BaseModel`` works on the port through the model protocol)."""
+    import pydantic
+
+    twin = types.ModuleType("pydantic")
+    twin.__getattr__ = lambda name: getattr(pydantic, name)
+    twin.ValidationError = importlib.import_module(f"{PORT}.models._wire").ValidationError
+    return twin
+
+
 def _port_import(name, globals=None, locals=None, fromlist=(), level=0):
     if name == CHAOS and level == 0 and fromlist:
         return _chaos_twins()
+    if name == "pydantic" and level == 0:
+        try:
+            return _pydantic_twin()
+        except ImportError:
+            pass
     return builtins.__import__(_port_name(name) if level == 0 else name,
                                globals, locals, fromlist, level)
 
@@ -143,7 +162,20 @@ def _rebind_class(cls: type, g: dict, module_name: str) -> type:
     )
     body = {k: _rebind_member(v, g) for k, v in vars(cls).items()
             if k not in ("__dict__", "__weakref__")}
-    return type(cls)(cls.__name__, bases, body)
+    new = type(cls)(cls.__name__, bases, body)
+    # a method calling super() holds the class in its __class__ cell: the
+    # rebuilt class's methods must hold the rebuilt class
+    for name, value in body.items():
+        fn = value.__func__ if isinstance(value, (staticmethod, classmethod)) else value
+        if isinstance(fn, types.FunctionType) and "__class__" in fn.__code__.co_freevars:
+            cells = tuple(types.CellType(new) if free == "__class__" else cell
+                          for free, cell in zip(fn.__code__.co_freevars, fn.__closure__))
+            out = types.FunctionType(fn.__code__, fn.__globals__, fn.__name__,
+                                     fn.__defaults__, cells)
+            out.__kwdefaults__, out.__qualname__ = fn.__kwdefaults__, fn.__qualname__
+            out.__dict__.update(fn.__dict__)
+            setattr(new, name, type(value)(out) if fn is not value else out)
+    return new
 
 
 def _imported_names(module) -> "dict[str, tuple[str, str | None]]":

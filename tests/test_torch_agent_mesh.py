@@ -448,8 +448,19 @@ def test_refusals_are_typed():
         assert not routed.router._started
 
     asyncio.run(routed_client())
-    with pytest.raises(ToolSchemaError, match="ROADMAP"):
-        Agent("typed", model=EchoModelClient(), output_type=dict)
+    # a structured agent is no refusal: it offers the reference's output
+    # tool and advertises structured output; a type with no schema is
+    # refused when the output tool is derived, as pydantic refuses it
+    from calfkit_tpu.engine.schema import output_tool_def as ref_output_tool_def
+    from calfkit_tpu_torch.engine.schema import output_tool_def
+
+    typed = Agent("typed", model=EchoModelClient(), output_type=dict)
+    assert typed.output_type is dict
+    assert typed.agent_card().structured_output is True
+    assert output_tool_def(dict).model_dump(mode="json") == \
+        ref_output_tool_def(dict).model_dump(mode="json")
+    with pytest.raises(ToolSchemaError):
+        output_tool_def(type("NoSchema", (), {}))
 
 
 # --------------------------------------------------------------------------- #
@@ -577,3 +588,50 @@ async def test_local_engine_turns_match_reference(weights, with_tool):
         assert call["corr"] and call["run"] and call["deadline"] is not None
         assert call["lease"] is not None and call["priority"] == "batch"
     assert [c["corr"] for c in port["calls"]] == [corr for _, corr in port["submits"]]
+
+
+async def _faulted_turn(P, local, point: str) -> dict:
+    """One agent turn on ``local``'s engine with an exception raised through
+    the engine's chaos seam at ``point`` ("tick": before the prompt's
+    prefill; "dispatch": at the first decode tick, after the prefill's
+    token)."""
+    engine = local._engine
+
+    def chaos(at: str) -> None:
+        if at == point:
+            raise RuntimeError("injected engine fault")
+
+    engine._chaos = chaos
+    agent = P.Agent(name="local", model=local, instructions=INSTRUCTIONS)
+    mesh = P.InMemoryMesh()
+    async with P.Worker([agent], mesh=mesh):
+        client = P.Client.connect(mesh)
+        try:
+            result = await client.agent("local").execute("say anything", timeout=120)
+            return {"output": result.output, "history": history(result)}
+        except P.exceptions.NodeFaultError as exc:
+            return {"error_type": exc.report.error_type, "message": exc.report.message}
+        finally:
+            await client.close()
+
+
+@pytest.mark.parametrize("point", ["tick", "dispatch"])
+async def test_engine_fault_ends_alike(weights, point, tmp_path, monkeypatch):
+    """An engine fault during an agent turn ends the same in both packages:
+    the engine finishes the request with what it streamed before the fault,
+    and the agent answers with that text (empty when the fault came before
+    the first token) — neither package raises a typed fault to the caller."""
+    monkeypatch.setenv("CALFKIT_FLIGHTREC_DIR", str(tmp_path))
+    clients = _clients(weights)
+    out = {}
+    try:
+        with virtual_clock():
+            for name in ("ref", "port"):
+                with seeded_ids():
+                    out[name] = await _faulted_turn(pkg(name), clients[name], point)
+    finally:
+        for client in clients.values():
+            await client.stop()
+    assert out["port"] == out["ref"]
+    assert out["port"]["output"] == ("" if point == "tick" else out["port"]["output"])
+    assert (out["port"]["output"] == "") == (point == "tick")

@@ -3,8 +3,10 @@
 nor ``pydantic``, ``pydantic_core``, ``httpx``, ``click``, ``safetensors``,
 ``ml_dtypes`` or ``transformers`` (the card's machine has none of them):
 the one exception is ``HFTokenizer``'s lazy import of ``transformers``
-when one is built.  Every module of the port, the agent mesh's and its wire
-transports' included, imports with those packages blocked.  The engine and the
+when one is built.  Every module of the port, the agent mesh's, its wire
+transports', the type adapter's, the MCP client's (on the port's own HTTP
+client) and the metrics endpoint's included, imports with those packages
+blocked, and a typed adapter validates with them blocked.  The engine and the
 model client refuse to fall back to the CPU when no card is present."""
 
 import ast
@@ -90,9 +92,30 @@ for name in ("calfkit_tpu_torch.inference.client", "calfkit_tpu_torch.inference.
              "calfkit_tpu_torch.worker.lifecycle", "calfkit_tpu_torch.worker.worker",
              "calfkit_tpu_torch.client", "calfkit_tpu_torch.client.events",
              "calfkit_tpu_torch.client.hub", "calfkit_tpu_torch.client.caller",
-             "calfkit_tpu_torch.client.mesh", "calfkit_tpu_torch.observability.runledger"):
+             "calfkit_tpu_torch.client.mesh", "calfkit_tpu_torch.observability.runledger",
+             # typed agents and the mesh's other node kinds
+             "calfkit_tpu_torch.models._adapter", "calfkit_tpu_torch._http",
+             "calfkit_tpu_torch.mcp", "calfkit_tpu_torch.mcp.transport",
+             "calfkit_tpu_torch.mcp.toolbox", "calfkit_tpu_torch.nodes.consumer",
+             "calfkit_tpu_torch.observability.http"):
     assert name in names, name
 from calfkit_tpu_torch import Agent, Client, Worker, agent_tool
+from calfkit_tpu_torch import MCPToolboxNode, MetricsServer, Toolbox, consumer
+import dataclasses, enum
+from calfkit_tpu_torch.models._adapter import Adapter
+
+class Kind(enum.Enum):
+    A = "a"
+
+@dataclasses.dataclass
+class Leg:
+    kind: Kind
+    km: "int | None" = None
+
+adapter = Adapter(tuple[Leg, ...])
+assert adapter.json_schema()["$defs"]["Leg"]["required"] == ["kind"]
+assert adapter.validate_python([{"kind": "a", "km": "3"}]) == (Leg(Kind.A, 3),)
+assert adapter.dump((Leg(Kind.A),)) == [{"kind": "a", "km": None}]
 from calfkit_tpu_torch.mesh import InMemoryMesh, KafkaWireMesh, TcpMesh
 from calfkit_tpu_torch.provisioning import ProvisioningConfig, provision
 from calfkit_tpu_torch.inference import TorchLocalModelClient
