@@ -27,6 +27,8 @@ from __future__ import annotations
 from importlib import import_module
 from typing import TYPE_CHECKING, Any
 
+__version__ = "0.1.0"
+
 _LAZY: dict[str, str] = {
     # caller surface + serving host
     "Client": "calfkit_tpu_torch.client",

@@ -784,7 +784,8 @@ class InferenceEngine:
             from calfkit_tpu_torch.inference.spec import build_drafter
 
             self._drafter = build_drafter(
-                self._spec, rt, dev, draft_params=draft_params, seed=seed + 3
+                self._spec, rt, dev, draft_params=draft_params, seed=seed + 3,
+                pool=self._graphs,
             )
             logger.info(
                 "speculative decoding on: %s drafter, k=%d",

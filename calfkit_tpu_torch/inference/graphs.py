@@ -147,6 +147,12 @@ class CapturedDispatch:
         self.calls = 0
         self.capture_s = 0.0  # its first call's seconds on a card (eager run + capture)
 
+    @property
+    def captured(self) -> bool:
+        """Whether the body is captured (a card's first call outside
+        :func:`eager`); every later call replays it."""
+        return self._graph is not None
+
     def __call__(self, *args: "np.ndarray | torch.Tensor") -> Any:
         if len(args) != len(self.inputs):
             raise ValueError(f"dispatch takes {len(self.inputs)} inputs, got {len(args)}")

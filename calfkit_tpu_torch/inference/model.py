@@ -290,8 +290,11 @@ def forward(
     attn_window: int | None = None,  # attend only cache[..., :W, :]
     attn_impl: str = "auto",  # "auto" | "plain"
     insert_at: torch.Tensor | None = None,  # [B] explicit per-row write offset
+    logits_at: torch.Tensor | None = None,  # [B] the one chunk position a row wants
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """Run the decoder over a token chunk → (logits [B, S, V], cache).
+    """Run the decoder over a token chunk → (logits [B, S, V], cache), or
+    [B, 1, V] at each row's ``logits_at`` position (the final norm and LM
+    head then run on those positions only).
 
     The chunk's K/V are written into ``kv_cache`` IN PLACE at ``insert_at``
     (default: the chunk ends at ``seq_lens``), which stands in for the JAX
@@ -313,6 +316,8 @@ def forward(
             attn_impl=attn_impl,
         )
         x = attn_out_mlp(x, attn, lp, eps)
+    if logits_at is not None:
+        x = x[torch.arange(x.shape[0], device=x.device), logits_at][:, None]
     return lm_logits(x, params, eps), (k_pages, v_pages)
 
 

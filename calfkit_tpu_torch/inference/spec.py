@@ -26,11 +26,13 @@ dispatch has landed.
 from __future__ import annotations
 
 import logging
+import weakref
 from typing import Any, Protocol
 
 import numpy as np
 import torch
 
+from calfkit_tpu_torch.inference import graphs
 from calfkit_tpu_torch.inference import model as M
 from calfkit_tpu_torch.inference.config import ModelConfig, RuntimeConfig, SpecConfig
 
@@ -121,9 +123,10 @@ class DraftModelDrafter:
     ``_dlen[slot]`` tokens of the request's history are in the draft cache.
     Each :meth:`propose` feeds the catch-up delta ``history[_dlen:]``
     (padded to a power-of-two width) through ``model.forward`` at per-row
-    offsets, then rolls ``k - 1`` more greedy single-token forwards.  Draft
-    K/V written during speculation sits past ``_dlen`` afterwards and the
-    next catch-up overwrites it."""
+    offsets, then rolls ``k - 1`` more greedy single-token forwards, as one
+    captured dispatch a width (``_graphs``, in the engine's ``pool``).
+    Draft K/V written during speculation sits past ``_dlen`` afterwards and
+    the next catch-up overwrites it."""
 
     def __init__(
         self,
@@ -132,6 +135,8 @@ class DraftModelDrafter:
         device: "torch.device | str",
         params: Any = None,
         seed: int = 17,
+        *,
+        pool: graphs.GraphPool,
     ):
         if spec.draft is None:
             raise ValueError("DraftModelDrafter needs SpecConfig.draft")
@@ -157,6 +162,8 @@ class DraftModelDrafter:
         B, S = runtime.max_batch_size, runtime.max_seq_len
         self._kc, self._vc = M.make_empty_cache(self.config, B, S, device=self.device)
         self._dlen = np.zeros((B,), np.int64)
+        self._pool = pool
+        self._graphs: dict[int, graphs.CapturedDispatch] = {}  # catch-up width ->
 
     def admit(self, slot: int, prompt: "list[int]") -> None:
         # lazy: the first propose's catch-up covers the whole prompt
@@ -165,35 +172,45 @@ class DraftModelDrafter:
     def retire(self, slot: int) -> None:
         self._dlen[slot] = 0
 
-    def _draft(
-        self, catchup: np.ndarray, base: np.ndarray, cat_len: np.ndarray
-    ) -> torch.Tensor:
-        """Forward the [B, width] catch-up chunk at per-row offsets ``base``
-        (``cat_len`` valid tokens a row), then ``k - 1`` greedy single-token
-        steps → drafts [B, k] on the device.  The draft cache is updated in
-        place."""
-        cfg, dev = self.config, self.device
-        width = catchup.shape[1]
-        base_t = torch.from_numpy(base).to(dev)
-        cat_t = torch.from_numpy(cat_len).to(dev)
-        pos = base_t[:, None] + torch.arange(width, dtype=torch.int32, device=dev)[None, :]
-        seq_lens = base_t + cat_t
-        cache = (self._kc, self._vc)
-        logits, _ = M.forward(
-            self.params, cfg, torch.from_numpy(catchup).to(dev), pos, cache, seq_lens,
-            insert_at=base_t,
-        )
-        idx = (cat_t.to(torch.int64) - 1).clamp(0, width - 1)
-        last = logits[torch.arange(logits.shape[0], device=dev), idx]
-        cur = torch.argmax(last, dim=-1).to(torch.int32)
-        outs = [cur]
-        lens = seq_lens
-        for _ in range(self.k - 1):
-            logits, _ = M.forward(self.params, cfg, cur[:, None], lens[:, None], cache, lens + 1)
-            cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-            outs.append(cur)
-            lens = lens + 1
-        return torch.stack(outs, dim=1)
+    def _propose_graph(self, width: int) -> graphs.CapturedDispatch:
+        """The proposer of one catch-up width, captured at its first call
+        (the JAX package's ``_propose_jit(width)``): fn(catchup [B, width],
+        base [B], cat_len [B]) forwards the catch-up chunk at per-row
+        offsets ``base`` (``cat_len`` valid tokens a row), then rolls
+        ``k - 1`` greedy single-token steps → drafts [B, k] on the device.
+        The draft cache is written in place at its fixed address, which
+        stands in for the reference's donation of it."""
+        fn = self._graphs.get(width)
+        if fn is not None:
+            return fn
+        # the graph must not hold the drafter (nor, through it, the engine)
+        drafter, cfg, dev, k_steps = weakref.proxy(self), self.config, self.device, self.k
+
+        def propose(catchup, base, cat_len):
+            pos = base[:, None] + torch.arange(width, dtype=torch.int32, device=dev)[None, :]
+            seq_lens = base + cat_len
+            cache = (drafter._kc, drafter._vc)
+            # logits at each row's last catch-up token only: the LM head
+            # over the whole [B, width] chunk would hold B x width x vocab
+            # values in the graph pool for nothing
+            idx = (cat_len.to(torch.int64) - 1).clamp(0, width - 1)
+            logits, _ = M.forward(drafter.params, cfg, catchup, pos, cache, seq_lens,
+                                  insert_at=base, logits_at=idx)
+            cur = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+            outs = [cur]
+            lens = seq_lens
+            for _ in range(k_steps - 1):
+                logits, _ = M.forward(drafter.params, cfg, cur[:, None], lens[:, None], cache,
+                                      lens + 1)
+                cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+                outs.append(cur)
+                lens = lens + 1
+            return torch.stack(outs, dim=1)
+
+        B = self._runtime.max_batch_size
+        specs = [((B, width), torch.int32), ((B,), torch.int32), ((B,), torch.int32)]
+        fn = self._graphs[width] = graphs.CapturedDispatch(self._pool, propose, specs)
+        return fn
 
     def propose(self, requests: "list[tuple[int, list[int]]]") -> "list[list[int]]":
         if not requests:
@@ -233,7 +250,7 @@ class DraftModelDrafter:
             live.append((slot, S - len(history) - 1))
         # the spec tick's second host sync (the first lands the previous
         # verify): the drafts must reach the host to form the verify wave
-        drafts = self._draft(catchup, base, cat_len).cpu().numpy()
+        drafts = self._propose_graph(width)(catchup, base, cat_len).cpu().numpy()
         by_slot = {
             slot: [int(t) for t in drafts[slot, : max(0, min(self.k, room))]]
             for slot, room in live
@@ -247,7 +264,13 @@ def build_drafter(
     device: "torch.device | str",
     draft_params: Any = None,
     seed: int = 17,
+    *,
+    pool: graphs.GraphPool,
 ) -> Drafter:
+    """The drafter ``spec`` asks for; a draft model's proposer is captured
+    into ``pool`` (the engine's, so its captures and replays count in the
+    engine's graph stats)."""
     if spec.draft is not None:
-        return DraftModelDrafter(spec, runtime, device, params=draft_params, seed=seed)
+        return DraftModelDrafter(spec, runtime, device, params=draft_params, seed=seed,
+                                 pool=pool)
     return NgramDrafter(spec)

@@ -252,6 +252,11 @@ serves the lockstep dense, paged, speculative paged and bf16 north-star
 drives under ``graphs.eager()`` and on graphs, one fresh engine each on one
 set of weights: the streams must be equal bit for bit, and graph serving's
 peak allocation at most 1.25 x eager's at the paged and north-star drives.
+The speculative drive's draft model proposes through one graph a catch-up
+width (the engine's pool): none captured under ``eager()``, every width on
+graphs, every proposal equal between the two runs; its streams equal the
+paged drive's (spec-on == spec-off) or leave them only at a bf16 tie
+(phase 13's law).
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 ``kernels`` JSON line precedes it; the last line is the ``ok`` JSON object.
@@ -997,19 +1002,34 @@ def graph_numbers(engine) -> dict:
     them; fails if a dispatch ran outside a graph while :func:`eager` is
     off (every call is a capture or a replay)."""
     out = dict(engine._graphs.stats)
-    tables = (engine._decode_graphs, engine._prefill_graphs, engine._long_graphs)
+    # a draft model's proposer captures into the engine's pool (its counts
+    # are in the stats above) and is reported apart as well
+    proposer = getattr(engine._drafter, "_graphs", {})
+    tables = (engine._decode_graphs, engine._prefill_graphs, engine._long_graphs, proposer)
     out["calls"] = sum(fn.calls for table in tables for fn in table.values())
     out["keys"] = sum(map(len, tables))
+    if proposer:
+        calls = sum(fn.calls for fn in proposer.values())
+        captures = sum(fn.captured for fn in proposer.values())
+        eager = graphs.eager_active()
+        on_card = engine.device.type == "cuda"  # (the CPU runs every body eagerly)
+        out["draft"] = dict(keys=sorted(proposer), calls=calls, captures=captures,
+                            replays=calls - captures if on_card and not eager else 0,
+                            eager=calls if on_card and eager else 0)
     if engine.device.type == "cuda" and not graphs.eager_active():
         assert out["eager"] == 0 and out["calls"] == out["captures"] + out["replays"], out
     return out
 
 
 def graph_note(numbers: dict, peak: int) -> str:
+    draft = numbers.get("draft")
     return (f"graphs: {numbers['captures']} captures ({numbers['capture_s']:.2f} s) + "
             f"{numbers['replays']} replays = {numbers['calls']} dispatches over "
-            f"{numbers['keys']} keys, {numbers['eager']} eager; max allocated "
-            f"{peak / 1e9:.3f} GB")
+            f"{numbers['keys']} keys, {numbers['eager']} eager"
+            + (f" (the draft model's proposer: {draft['captures']} captures + "
+               f"{draft['replays']} replays, {draft['eager']} eager, widths {draft['keys']})"
+               if draft else "")
+            + f"; max allocated {peak / 1e9:.3f} GB")
 
 
 def _shape_rows(tally) -> "list[dict]":
@@ -2173,14 +2193,22 @@ async def _graph_drive(cfg, rt, params, dev, jobs, eager: bool, draft: bool = Fa
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
+    proposals: list = []
     with graphs.eager() if eager else contextlib.nullcontext():
         engine = InferenceEngine(cfg, rt, params=params, device=dev,
                                  draft_params=params if draft else None)
+        if draft:  # every proposal of the run, in order
+            propose = engine._drafter.propose
+            engine._drafter.propose = lambda entries: proposals.append(
+                propose(entries)) or proposals[-1]
         await engine.start()
         try:
             streams, ttft, wall = await serve(engine, jobs)
         finally:
             await engine.stop()
+            if draft:  # the recorder holds the drafter: break that cycle, or
+                # the draft cache outlives the engine into the next drive's peak
+                del engine._drafter.propose
         numbers = graph_numbers(engine)
     peak = torch.cuda.max_memory_allocated(dev)
     stats = engine.stats
@@ -2190,6 +2218,7 @@ async def _graph_drive(cfg, rt, params, dev, jobs, eager: bool, draft: bool = Fa
         decode_tok_s=stats.tokens_per_second, decode_dispatches=stats.decode_dispatches,
         mean_dispatch_ms=stats.decode_time_s / max(stats.decode_dispatches, 1) * 1e3,
         max_memory_allocated=peak, engine_peak_bytes=peak - base, graphs=numbers,
+        proposals=proposals,
     )
     del engine
     return out
@@ -2206,7 +2235,11 @@ async def graph_phase(dev, card: str = "") -> dict:
     paged ones serve both of the paged phase's bursts at once, 16 new
     tokens each, the speculative one with ``SpecConfig(k=4)`` and the
     target as its draft; the north star is its 32 requests of 64 + 128
-    tokens."""
+    tokens.  The speculative drive's draft model proposes through one
+    graph a catch-up width: none is captured under ``eager()``, every width
+    is on graphs, and the two runs make the same proposals; its streams
+    equal the paged drive's (spec-on == spec-off), or leave them only at a
+    step where both runs chose a token at a bf16 tie (phase 13's law)."""
     cfg = preset("llama-3-8b")
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     burst_a, burst_b = paged_serving_jobs(cfg.vocab_size)
@@ -2222,21 +2255,30 @@ async def graph_phase(dev, card: str = "") -> dict:
         ("north-bf16", replace(cfg, max_seq_len=NORTH_STAR_RUNTIME.max_seq_len),
          replace(NORTH_STAR_RUNTIME, **lockstep), north_star_jobs(), False, True),
     )
-    result = {}
+    result, streams = {}, {}
     for name, drive_cfg, rt, jobs, draft, peak_law in drives:
         eager = await _graph_drive(drive_cfg, rt, params, dev, jobs, eager=True, draft=draft)
         graphed = await _graph_drive(drive_cfg, rt, params, dev, jobs, eager=False, draft=draft)
         if dev.type == "cuda":  # (a CPU rehearsal runs every body eagerly)
             assert eager["graphs"]["eager"] == eager["graphs"]["calls"] > 0, eager["graphs"]
             assert eager["graphs"]["captures"] == eager["graphs"]["replays"] == 0, eager["graphs"]
+            if draft:
+                e, g = eager["graphs"]["draft"], graphed["graphs"]["draft"]
+                assert e["captures"] == e["replays"] == 0 < e["eager"], e
+                assert 0 < g["captures"] == len(g["keys"]) and g["eager"] == 0, g
+                assert g["keys"] == e["keys"], (g, e)
         assert graphed["streams"] == eager["streams"], f"{name}: graph streams differ from eager"
+        assert graphed["proposals"] == eager["proposals"], f"{name}: graph drafts differ from eager"
+        assert bool(graphed["proposals"]) == draft, name
+        streams[name] = graphed["streams"]
         ratio = graphed["max_memory_allocated"] / eager["max_memory_allocated"]
         if peak_law:
             assert ratio <= GRAPH_PEAK_LAW, (name, ratio)
         result[name] = dict(
-            eager={k: v for k, v in eager.items() if k != "streams"},
-            graphs={k: v for k, v in graphed.items() if k != "streams"},
+            eager={k: v for k, v in eager.items() if k not in ("streams", "proposals")},
+            graphs={k: v for k, v in graphed.items() if k not in ("streams", "proposals")},
             peak_ratio=ratio, tokens=sum(map(len, graphed["streams"])),
+            proposals=len(graphed["proposals"]),
         )
         e, g = eager, graphed
         print(
@@ -2250,7 +2292,19 @@ async def graph_phase(dev, card: str = "") -> dict:
             f"(x{ratio:.3f}{f', law <= {GRAPH_PEAK_LAW}' if peak_law else ''}; above the "
             f"weights {e['engine_peak_bytes'] / 1e9:.3f} -> {g['engine_peak_bytes'] / 1e9:.3f} "
             f"GB); {graph_note(g['graphs'], g['max_memory_allocated'])}"
+            + (f"; {len(g['proposals'])} proposal rounds, drafts equal bit for bit"
+               if draft else "")
         )
+    # spec-on == spec-off: the speculative drive serves the paged drive's
+    # jobs; a stream may leave the other only at a step where both runs
+    # chose a token at a bf16 tie of the f32 witness
+    on, off = streams["spec-paged"], streams["paged"]
+    differ = [(f"job{i}", prompt, a, b)
+              for i, ((prompt, _, _), a, b) in enumerate(zip(paged_jobs, on, off)) if a != b]
+    law = tie_law(cfg, params, differ, dev, labels=("spec-on", "spec-off")) if differ else None
+    result["spec-paged"]["spec_on_off"] = dict(equal=len(on) - len(differ), law=law)
+    print(f"  graphs, spec-paged against paged: spec-on == spec-off in {len(on) - len(differ)} of "
+          f"{len(on)} streams" + (f"; the others differ at a bf16 tie: {law}" if law else ""))
     del params
     return result
 

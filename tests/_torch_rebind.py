@@ -5,17 +5,21 @@ imports from ``calfkit_tpu`` bound to the port's name of the same module,
 and its own functions and classes (the test classes among them) rebuilt
 over those globals; imports inside a rebuilt body resolve ``calfkit_tpu.*``
 to ``calfkit_tpu_torch.*`` (and ``pydantic``'s ``ValidationError`` to the
-port's wire codec's, which the port raises; its other names stay
-pydantic's), and string constants naming a
-``calfkit_tpu.`` module (a ``monkeypatch`` target, a logger) name the
-port's.  Names a suite takes from ``tests._chaos`` (the JAX package's
-chaos harness, re-exported) are bound to their port twins of the same
-module and qualified name in ``calfkit_tpu_torch.sim``, at module scope and
-inside test bodies alike.  A name whose port module or attribute does not
+port's wire codec's, which the port raises, ``click``'s ``ClickException``
+to the port's ``CliError``; their other names stay their own), and string
+constants naming a ``calfkit_tpu.`` module (a ``monkeypatch`` target, a
+logger) name the port's.  Names a suite takes from ``tests._chaos`` (the
+JAX package's chaos harness, re-exported) are bound to their port twins of
+the same module and qualified name in ``calfkit_tpu_torch.sim``, at module
+scope and inside test bodies alike.  A name whose port module or attribute does not
 exist yet is bound to a stand-in that raises when it is used, so a suite
 that imports an unported module still rebinds and its other cases run.
 ``overrides`` replace further module-scope names before the suite's own
-functions and classes are rebuilt (a ``variant`` keeps each set apart).
+functions and classes are rebuilt (a ``variant`` keeps each set apart);
+``sources`` rewrites ``calfkit_tpu`` to the port's name inside every string
+of the suite's code (the node files a suite writes and loads), and
+``constants`` swaps integer constants, and their digits inside strings, for
+others (a suite's fixed broker ports, which its own file binds beside it).
 The test files ``tests/test_torch_mesh.py``, ``tests/test_torch_transports.py``
 and ``tests/test_torch_fleet.py`` run the reference's suites through it.
 """
@@ -24,9 +28,11 @@ from __future__ import annotations
 
 import ast
 import builtins
+import dataclasses
 import functools
 import importlib
 import inspect
+import re
 import types
 
 REF, PORT = "calfkit_tpu", "calfkit_tpu_torch"
@@ -54,12 +60,36 @@ def _pydantic_twin() -> types.ModuleType:
     return twin
 
 
+@functools.cache
+def _click_twin() -> types.ModuleType:
+    """``click`` as a suite's body imports it: its ``ClickException`` is the
+    port's ``CliError`` (what the port's ``ck`` raises)."""
+    import click
+
+    twin = types.ModuleType("click")
+    twin.__getattr__ = lambda name: getattr(click, name)
+    twin.ClickException = importlib.import_module(f"{PORT}.cli._common").CliError
+    return twin
+
+
+@functools.cache
+def _tests_twin() -> types.ModuleType:
+    """The ``tests`` package as ``import tests._chaos`` binds it: its
+    ``_chaos`` is the twins, every other name the package's own."""
+    package = importlib.import_module("tests")
+    twin = types.ModuleType("tests")
+    twin.__getattr__ = lambda name: getattr(package, name)
+    twin._chaos = _chaos_twins()
+    return twin
+
+
 def _port_import(name, globals=None, locals=None, fromlist=(), level=0):
-    if name == CHAOS and level == 0 and fromlist:
-        return _chaos_twins()
-    if name == "pydantic" and level == 0:
+    if name == CHAOS and level == 0:
+        return _chaos_twins() if fromlist else _tests_twin()
+    twins = {"pydantic": _pydantic_twin, "click": _click_twin}
+    if name in twins and level == 0:
         try:
-            return _pydantic_twin()
+            return twins[name]()
         except ImportError:
             pass
     return builtins.__import__(_port_name(name) if level == 0 else name,
@@ -69,21 +99,37 @@ def _port_import(name, globals=None, locals=None, fromlist=(), level=0):
 _PORT_BUILTINS = {**vars(builtins), "__import__": _port_import}
 
 
-def _port_code(code: types.CodeType) -> types.CodeType:
+def _constant(c, sources: bool, constants: dict):
+    """A code constant as the rebound suite reads it."""
+    if isinstance(c, str):
+        if sources:
+            c = re.sub(rf"\b{REF}\b", PORT, c)
+        elif c.startswith(REF + "."):
+            c = _port_name(c)
+        for old, new in constants.items():
+            c = c.replace(str(old), str(new))
+        return c
+    if type(c) is int:
+        return constants.get(c, c)
+    return c
+
+
+def _port_code(code: types.CodeType, sources: bool = False,
+               constants: "dict | None" = None) -> types.CodeType:
     """``code`` with every string constant naming a ``calfkit_tpu.`` module
-    naming the port's, nested code objects included."""
+    naming the port's (with ``sources``: every ``calfkit_tpu`` in any
+    string), and ``constants`` swapped, nested code objects included."""
     consts = tuple(
-        _port_code(c) if isinstance(c, types.CodeType)
-        else _port_name(c) if isinstance(c, str) and c.startswith(REF + ".")
-        else c
+        _port_code(c, sources, constants) if isinstance(c, types.CodeType)
+        else _constant(c, sources, constants or {})
         for c in code.co_consts
     )
     return code.replace(co_consts=consts)
 
 
 def _rebind_function(fn: types.FunctionType, g: dict) -> types.FunctionType:
-    out = types.FunctionType(_port_code(fn.__code__), g, fn.__name__, fn.__defaults__,
-                             fn.__closure__)
+    out = types.FunctionType(_port_code(fn.__code__, *g.get(_REWRITE, (False, None))), g,
+                             fn.__name__, fn.__defaults__, fn.__closure__)
     out.__kwdefaults__ = fn.__kwdefaults__
     out.__qualname__ = fn.__qualname__
     out.__dict__.update(fn.__dict__)  # pytest marks
@@ -109,6 +155,22 @@ def _port_twin(obj):
     return module
 
 
+def port_data(value):
+    """``value`` with every instance of a JAX-package dataclass (nested in
+    tuples, lists and dicts too) rebuilt as its port twin, field by field:
+    a suite's module-scope data (a scenario, a config) as the port reads
+    it."""
+    cls = type(value)
+    if dataclasses.is_dataclass(value) and cls.__module__.split(".")[0] == REF:
+        return _port_twin(cls)(**{f.name: port_data(getattr(value, f.name))
+                                  for f in dataclasses.fields(value) if f.init})
+    if isinstance(value, (tuple, list)):
+        return cls(port_data(v) for v in value)
+    if isinstance(value, dict):
+        return {k: port_data(v) for k, v in value.items()}
+    return value
+
+
 class Absent:
     """Stands for a name whose port module or attribute does not exist yet:
     calling it, or reading an attribute off it, raises."""
@@ -131,7 +193,7 @@ class Absent:
 @functools.cache
 def _chaos_twins() -> types.ModuleType:
     """``tests._chaos`` with every name bound to its port twin."""
-    twins = types.ModuleType(CHAOS)
+    twins = types.ModuleType(CHAOS, importlib.import_module(CHAOS).__doc__)
     for name, obj in vars(importlib.import_module(CHAOS)).items():
         if getattr(obj, "__module__", "").split(".")[0] == REF:
             setattr(twins, name, _port_twin(obj))
@@ -196,19 +258,23 @@ def _imported_names(module) -> "dict[str, tuple[str, str | None]]":
 
 
 _PORTED: dict = {}
+_REWRITE = "__rebind_constants__"  # (sources, constants) of a rebound module
 
 
 def ported_module(module_name: str, *, variant: str = "",
-                  overrides: "dict | None" = None) -> dict:
+                  overrides: "dict | None" = None, sources: bool = False,
+                  constants: "dict | None" = None) -> dict:
     """The suite module's globals with its ``calfkit_tpu`` names bound to the
     port's, ``overrides`` applied, and its own functions and classes rebuilt
-    over them."""
+    over them (their string and integer constants rewritten as ``sources``
+    and ``constants`` say)."""
     key = (module_name, variant)
     if key in _PORTED:
         return _PORTED[key]
     module = importlib.import_module(module_name)
     g = dict(vars(module))
     g["__builtins__"] = _PORT_BUILTINS
+    g[_REWRITE] = (sources, constants)
     imported = _imported_names(module)
     assert imported, module_name
     for name, (source, attr) in imported.items():

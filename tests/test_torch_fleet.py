@@ -12,9 +12,9 @@ spawns on port 0) and the stub-backed cases of
 ``tests/_torch_rebind.py``: its ``calfkit_tpu`` names are the port's, and
 the harness it takes from ``tests._chaos`` (``FleetTopology``,
 ``ServingStubModel``, ``settle``, ``virtual_clock``, ...) is the port's
-``calfkit_tpu_torch.sim``.  Left out: the four cases that render through
-``calfkit_tpu.cli.obs`` (``render_fleet_table``, ``render_leases_table``),
-which the port does not have yet.
+``calfkit_tpu_torch.sim``; the four cases that render through ``cli.obs``
+(``render_fleet_table``, ``render_leases_table``) run on the port's
+``calfkit_tpu_torch.cli.obs``.
 
 **The engine-backed chaos cases** (drain handoff and shed retries of
 ``TestFleetChaos``, ``TestFailoverChaos::test_kill_mid_run_real_engines_no_leaks``
@@ -48,17 +48,13 @@ from tests._torch_rebind import Absent, ported_module
 SUITES = {
     "tests.test_fleet": {
         "TestSelectionPrimitives": 5, "TestPolicies": 12, "TestReplicaRegistry": 3,
-        "TestFleetRouter": 4, "TestFleetCli": 2, "TestFailureRecoveryLaws": 5,
-        "TestCallerLivenessLaws": 5},
+        "TestFleetRouter": 4, "TestFleetCli": 5, "TestFailureRecoveryLaws": 5,
+        "TestCallerLivenessLaws": 6},
     "tests.test_fleet_kafkad": {"TestFleetSoakOverKafka": 4},
     "tests.test_chaos": {"TestFailoverChaos": 5},
 }
-# the cases the port cannot run yet, and why
+# the cases run apart, and why
 LEFT_OUT = {
-    ("tests.test_fleet", "TestFleetCli", "test_render_fleet_table_verdicts"): "cli.obs",
-    ("tests.test_fleet", "TestFleetCli", "test_render_fleet_table_empty"): "cli.obs",
-    ("tests.test_fleet", "TestFleetCli", "test_fleet_command_reads_live_topology"): "cli.obs",
-    ("tests.test_fleet", "TestCallerLivenessLaws", "test_render_leases_table"): "cli.obs",
     # the engine-backed cases run below, on the port's CPU engines
     ("tests.test_chaos", "TestFailoverChaos", "test_kill_mid_run_real_engines_no_leaks"):
         "engine",
@@ -114,7 +110,7 @@ def test_the_contract_is_the_reference_suites():
         counts.setdefault(module_name, {}).setdefault(suite_name, 0)
         counts[module_name][suite_name] += 1
     assert counts == SUITES
-    assert len(CASES) == 45
+    assert len(CASES) == 49
     for module_name, suite_name, name in LEFT_OUT:
         assert name in vars(getattr(importlib.import_module(module_name), suite_name))
     # the rebound globals are the port's, the chaos harness included
@@ -125,9 +121,10 @@ def test_the_contract_is_the_reference_suites():
         assert g[name] is getattr(fleet, name), name
     for name in ("FleetTopology", "ServingStubModel", "settle", "virtual_clock"):
         assert g[name] is getattr(sim, name), name
-    assert isinstance(g["render_fleet_table"], Absent)
-    with pytest.raises(ModuleNotFoundError, match="calfkit_tpu_torch.cli.obs"):
-        g["render_fleet_table"]([])
+    from calfkit_tpu_torch.cli import obs
+
+    assert g["render_fleet_table"] is obs.render_fleet_table
+    assert not any(isinstance(value, Absent) for value in g.values())
 
 
 def test_chaos_imports_inside_a_test_body_resolve_to_the_port():

@@ -2,8 +2,10 @@
 
 - Key-set parity: after the same drive, the port engine's graph caches
   (``_decode_graphs``, ``_prefill_graphs``) hold exactly the keys of the JAX
-  engine's jit caches (``_decode_jits``, ``_prefill_jits``), in four
-  configurations; the JAX engine runs its Pallas kernels in interpret mode.
+  engine's jit caches (``_decode_jits``, ``_prefill_jits``), in six
+  configurations, and a draft model's proposer (``_drafter._graphs``, one
+  capture a catch-up width) the keys of the JAX drafter's ``_jits``; the
+  JAX engine runs its Pallas kernels in interpret mode.
 - Static buffers: a captured dispatch called again and again with changing
   inputs returns what fresh eager calls of its body return, exactly (on the
   CPU a call copies its inputs into the static buffers and runs the body
@@ -28,11 +30,12 @@ import torch
 jax = pytest.importorskip("jax")
 
 from calfkit_tpu.inference.config import RuntimeConfig as JaxRuntime  # noqa: E402
+from calfkit_tpu.inference.config import preset as jax_preset  # noqa: E402
 from calfkit_tpu.inference.config import SpecConfig as JaxSpec  # noqa: E402
 from calfkit_tpu.inference.engine import InferenceEngine as JaxEngine  # noqa: E402
 from calfkit_tpu.inference.sampler import SamplingParams as JaxSampling  # noqa: E402
 from calfkit_tpu_torch.inference import graphs  # noqa: E402
-from calfkit_tpu_torch.inference.config import RuntimeConfig, SpecConfig  # noqa: E402
+from calfkit_tpu_torch.inference.config import RuntimeConfig, SpecConfig, preset  # noqa: E402
 from calfkit_tpu_torch.inference.engine import InferenceEngine  # noqa: E402
 from calfkit_tpu_torch.inference.sampler import SamplingParams  # noqa: E402
 from tests._torch_port import JAX_CFG, TORCH_CFG, jax_params, torch_params  # noqa: E402
@@ -56,13 +59,21 @@ DRIVE = [
     [(PREFIX + _tail(7, 4), 8, False), (PREFIX + _tail(12, 5), 5, False),
      (_tail(5, 6), 9, False), (PREFIX + _tail(10, 1), 4, False)],
 ]
-# name → (runtime overrides, speculative k or None)
+# name → (runtime overrides, speculative k or None, draft model?)
 CONFIGS = {
-    "dense": (dict(window_buckets=(32, 64)), None),
-    "paged-chunked-prefix-ragged": (PAGED, None),
-    "dense-spec": (dict(), 4),
-    "paged-spec": (PAGED, 3),
+    "dense": (dict(window_buckets=(32, 64)), None, False),
+    "paged-chunked-prefix-ragged": (PAGED, None, False),
+    "dense-spec": (dict(), 4, False),
+    "paged-spec": (PAGED, 3, False),
+    "dense-draft": (dict(), 4, True),
+    "paged-draft": (PAGED, 3, True),
 }
+# The draft model: the target's own weights with an f32 draft cache, in
+# which both packages' drafters compute the same proposals (the catch-up
+# widths follow the acceptance, so equal keys need equal drafts; see
+# tests/test_torch_spec.py)
+JAX_DRAFT = jax_preset("debug", dtype="float32")
+TORCH_DRAFT = preset("debug", dtype="float32")
 
 
 @pytest.fixture(scope="module")
@@ -89,22 +100,42 @@ async def _drive(engine, sampling_cls, spec: bool):
         await engine.stop()
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
-async def test_graph_keys_equal_the_reference_jit_keys(weights, name):
-    over, k = CONFIGS[name]
+def _reference_engine(weights, name):
+    over, k, draft = CONFIGS[name]
     jax_rt = JaxRuntime(
         **BASE, **over, attention_impl="pallas_interpret",
-        speculative=JaxSpec(k=k) if k else None,
+        speculative=JaxSpec(k=k, draft=JAX_DRAFT if draft else None) if k else None,
     )
-    reference = JaxEngine(JAX_CFG, jax_rt, params=weights[0])
-    await _drive(reference, JaxSampling, spec=bool(k))
-    port_rt = RuntimeConfig(**BASE, **over, speculative=SpecConfig(k=k) if k else None)
-    port = InferenceEngine(TORCH_CFG, port_rt, params=weights[1], device="cpu")
-    await _drive(port, SamplingParams, spec=bool(k))
+    return JaxEngine(JAX_CFG, jax_rt, params=weights[0],
+                     draft_params=weights[0] if draft else None)
+
+
+def _port_engine(weights, name):
+    over, k, draft = CONFIGS[name]
+    port_rt = RuntimeConfig(
+        **BASE, **over,
+        speculative=SpecConfig(k=k, draft=TORCH_DRAFT if draft else None) if k else None,
+    )
+    return InferenceEngine(TORCH_CFG, port_rt, params=weights[1],
+                           draft_params=weights[1] if draft else None, device="cpu")
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+async def test_graph_keys_equal_the_reference_jit_keys(weights, name):
+    reference, port = _reference_engine(weights, name), _port_engine(weights, name)
+    spec = CONFIGS[name][1] is not None
+    await _drive(reference, JaxSampling, spec=spec)
+    await _drive(port, SamplingParams, spec=spec)
     assert set(port._decode_graphs) == set(reference._decode_jits)
     assert set(port._prefill_graphs) == set(reference._prefill_jits)
     # every dispatch went through the layer: each cache entry was called
     assert all(fn.calls for fn in (*port._decode_graphs.values(), *port._prefill_graphs.values()))
+    if CONFIGS[name][2]:  # the proposer: one graph a catch-up width, in the engine's pool
+        drafter = port._drafter
+        assert set(drafter._graphs) == set(reference._drafter._jits)
+        assert len(drafter._graphs) > 1 and all(fn.calls for fn in drafter._graphs.values())
+        assert drafter._pool is port._graphs
+        assert port.stats.spec_accepted == reference.stats.spec_accepted > 0
 
 
 # the long-context lane beside the short one: long prompts (>= max_seq_len
@@ -284,24 +315,26 @@ def test_done_prev_freezes_a_row_retired_in_the_previous_dispatch(weights):
     assert engine._lens[0] == lens_before[0] + steps  # without the chain it would advance
 
 
-async def test_graphs_do_not_keep_a_dropped_engine_alive(weights):
-    """The bodies reach the engine through a weak proxy: a stopped engine
-    whose graph caches are full is freed as soon as its last reference
-    goes, without the cycle collector (on a card its weights, caches and
-    graph pool go with it)."""
+@pytest.mark.parametrize("name", ["paged-chunked-prefix-ragged", "paged-draft"])
+async def test_graphs_do_not_keep_a_dropped_engine_alive(weights, name):
+    """The bodies reach the engine (and a draft model's proposer its
+    drafter) through a weak proxy: a stopped engine whose graph caches are
+    full is freed as soon as its last reference goes, without the cycle
+    collector (on a card its weights, caches and graph pool go with it)."""
     import gc
     import weakref
 
-    engine = InferenceEngine(
-        TORCH_CFG, RuntimeConfig(**BASE, **PAGED), params=weights[1], device="cpu"
-    )
-    await _drive(engine, SamplingParams, spec=False)
+    engine = _port_engine(weights, name)
+    await _drive(engine, SamplingParams, spec=CONFIGS[name][1] is not None)
     assert engine._decode_graphs and engine._prefill_graphs
-    ref = weakref.ref(engine)
+    refs = [weakref.ref(engine)]
+    if CONFIGS[name][2]:
+        assert engine._drafter._graphs
+        refs.append(weakref.ref(engine._drafter))
     gc.disable()
     try:
         del engine
-        assert ref() is None
+        assert all(ref() is None for ref in refs)
     finally:
         gc.enable()
 

@@ -5,9 +5,11 @@ nor ``pydantic``, ``pydantic_core``, ``httpx``, ``click``, ``safetensors``,
 the one exception is ``HFTokenizer``'s lazy import of ``transformers``
 when one is built.  Every module of the port, the agent mesh's, its wire
 transports', the type adapter's, the MCP client's (on the port's own HTTP
-client) and the metrics endpoint's included, imports with those packages
-blocked, and a typed adapter validates with them blocked.  The engine and the
-model client refuse to fall back to the CPU when no card is present."""
+client), the metrics endpoint's, the scenario runner's and the ``ck``
+command's included, imports with those packages blocked, a typed adapter
+validates with them blocked, and ``python -m calfkit_tpu_torch.cli`` answers
+``--help`` with them blocked.  The engine and the model client refuse to
+fall back to the CPU when no card is present."""
 
 import ast
 import subprocess
@@ -78,6 +80,15 @@ for name in ("calfkit_tpu_torch.inference.client", "calfkit_tpu_torch.inference.
              "calfkit_tpu_torch.sim.scenario", "calfkit_tpu_torch.sim.stubs",
              "calfkit_tpu_torch.sim.transport", "calfkit_tpu_torch.sim.topology",
              "calfkit_tpu_torch.sim.chaos",
+             # the scenario runner and the ck command
+             "calfkit_tpu_torch.sim.ids", "calfkit_tpu_torch.sim.report",
+             "calfkit_tpu_torch.sim.runner", "calfkit_tpu_torch.sim.suite",
+             "calfkit_tpu_torch.cli", "calfkit_tpu_torch.cli.__main__",
+             "calfkit_tpu_torch.cli._common", "calfkit_tpu_torch.cli.main",
+             "calfkit_tpu_torch.cli.obs", "calfkit_tpu_torch.cli.sim",
+             "calfkit_tpu_torch.cli.chat", "calfkit_tpu_torch.cli.run",
+             "calfkit_tpu_torch.cli.topics", "calfkit_tpu_torch.cli.dev",
+             "calfkit_tpu_torch.cli._dev_state", "calfkit_tpu_torch.cli._reload",
              "calfkit_tpu_torch.engine.schema", "calfkit_tpu_torch.engine.turn",
              "calfkit_tpu_torch.engine.testing", "calfkit_tpu_torch.nodes",
              "calfkit_tpu_torch.nodes.registry", "calfkit_tpu_torch.nodes.seams",
@@ -132,6 +143,40 @@ def test_port_imports_with_jax_and_reference_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
+
+
+_CK_HELP = """
+import runpy, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+BLOCKED = ("jax", "calfkit_tpu", "pydantic", "pydantic_core", "httpx", "click")
+sys.meta_path.insert(0, Block())
+for name in BLOCKED:
+    sys.modules[name] = None
+sys.argv = ["ck", *ARGS]
+runpy.run_module("calfkit_tpu_torch.cli", run_name="__main__")
+"""
+
+
+@pytest.mark.parametrize("args", [["--help"], ["sim", "--help"]], ids=" ".join)
+def test_ck_answers_help_with_click_and_the_reference_blocked(args):
+    """``python -m calfkit_tpu_torch.cli`` with ``click``, ``httpx``, ``jax``,
+    pydantic and the JAX package blocked: ``--help`` exits 0 and lists
+    the subcommands (or the subcommand's options)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _CK_HELP.replace("ARGS", repr(args))], cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    words = ("--path", "--checks", "--scenario") if args[0] == "sim" else (
+        "run", "dev", "chat", "topics", "trace", "stats", "fleet", "leases", "timeline",
+        "slo", "capacity", "sim")
+    assert all(word in proc.stdout for word in words), proc.stdout
 
 
 _DISPATCH_ONLY = """

@@ -827,6 +827,61 @@ def test_graph_replays_equal_eager_bitwise():
 
 @pytest.mark.cuda
 @cuda_only
+def test_draft_proposer_graphs_equal_eager_bitwise():
+    """The draft model's proposer, captured once a catch-up width: twelve
+    rounds (whole prompts, then 1-8 tokens a row) propose eager()'s drafts
+    and leave eager()'s draft cache bit for bit in bf16; every round counts
+    layers x k #5 launches, the replays through their capture's count."""
+    import contextlib
+
+    import numpy as np
+
+    from calfkit_tpu_torch.inference import graphs
+    from calfkit_tpu_torch.inference import model as M
+    from calfkit_tpu_torch.inference.config import RuntimeConfig, SpecConfig, preset
+    from calfkit_tpu_torch.inference.spec import DraftModelDrafter
+
+    dev = torch.device("cuda")
+    cfg = preset("debug", d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, dtype="bfloat16")
+    rt = RuntimeConfig(max_batch_size=4, max_seq_len=256)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(5))
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (40, 7, 90, 23)]
+    rounds = [[rng.integers(0, cfg.vocab_size, n).tolist() for n in rng.integers(1, hi, 4)]
+              for hi in (2, 3, 5, 9) * 3]
+    per_round = cfg.n_layers * 4  # the catch-up and k - 1 one-token forwards
+
+    def run(eager):
+        pool = graphs.GraphPool(dev)
+        drafter = DraftModelDrafter(SpecConfig(k=4, draft=cfg), rt, dev, params=params, pool=pool)
+        histories = [list(p) for p in prompts]
+        for slot, history in enumerate(histories):
+            drafter.admit(slot, history)
+        drafts = []
+        with graphs.eager() if eager else contextlib.nullcontext():
+            for extra in rounds:
+                A.reset_launch_counts()
+                drafts.append(drafter.propose([(s, list(h)) for s, h in enumerate(histories)]))
+                assert A.launch_counts["prefill_attention"] == per_round
+                for history, tokens in zip(histories, extra):
+                    history += tokens
+        torch.cuda.synchronize()
+        return drafter, pool, drafts
+
+    eager, eager_pool, want = run(True)
+    assert eager_pool.stats["eager"] == len(rounds) and eager_pool.stats["captures"] == 0
+    graphed, pool, got = run(False)
+    assert got == want
+    assert torch.equal(graphed._kc, eager._kc) and torch.equal(graphed._vc, eager._vc)
+    keys = set(graphed._graphs)
+    assert keys == {128, 1, 2, 4, 8}
+    assert pool.stats["captures"] == len(keys)
+    assert pool.stats["replays"] == len(rounds) - len(keys)
+    assert all(fn._launches == {"prefill_attention": per_round} for fn in graphed._graphs.values())
+
+
+@pytest.mark.cuda
+@cuda_only
 @pytest.mark.parametrize("chunked", [False, True], ids=["monolithic", "chunked"])
 def test_long_lane_graphs_equal_eager_bitwise(chunked):
     """A long-context drive (two long prompts of 300 and 140 tokens beside

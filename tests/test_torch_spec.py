@@ -258,6 +258,71 @@ def test_ngram_proposals_match_reference(seed):
         assert ours.propose(entries) == ref.propose(entries)
 
 
+@pytest.mark.parametrize("seed", range(3))
+def test_draft_model_proposals_match_reference(weights, seed):
+    """The port's proposer (one captured dispatch a catch-up width) against
+    the JAX drafter's ``_propose_jit`` on the same histories, in f32: each
+    round's drafts, and the widths each compiled (``_graphs`` == ``_jits``).
+    Three slots grow by 0-4 tokens a round, and a slot is now and then
+    retired and re-admitted with a new prompt, whose whole catch-up widens
+    the batch's bucket until a row near the cache's end is re-fed from
+    ``S - width``.
+
+    A row fed nothing in a round (``cat_len`` 0) proposes nothing in both,
+    but both packages still write its padded catch-up at ``base`` 0 over
+    the start of its draft cache, and the values written differ: the
+    query of a row with no valid position attends nothing, which the
+    port's prefill kernel answers with 0 and the JAX drafter's XLA
+    attention with the mean of v.  So a row's drafts are compared until
+    its first empty round, and again after its next admission."""
+    import torch
+
+    from calfkit_tpu.inference.sharding import make_mesh
+    from calfkit_tpu.inference.spec import DraftModelDrafter as JaxDrafter
+    from calfkit_tpu_torch.inference.graphs import GraphPool
+    from calfkit_tpu_torch.inference.spec import DraftModelDrafter
+
+    B, S, k = 3, 48, 3
+    ref = JaxDrafter(JaxSpec(k=k, draft=JAX_DRAFT), JaxRuntime(max_batch_size=B, max_seq_len=S),
+                     make_mesh(tp=1, dp=1), params=weights[0])
+    ours = DraftModelDrafter(SpecConfig(k=k, draft=TORCH_DRAFT),
+                             RuntimeConfig(max_batch_size=B, max_seq_len=S), "cpu",
+                             params=weights[1], pool=GraphPool(torch.device("cpu")))
+    rng = np.random.default_rng(seed)
+    histories: dict = {}
+    fed_nothing: set = set()  # slots whose draft cache start was overwritten
+    compared = 0
+
+    def admit(slot):
+        histories[slot] = rng.integers(1, 500, int(rng.integers(2, 24))).tolist()
+        fed_nothing.discard(slot)
+        for drafter in (ref, ours):
+            drafter.retire(slot)
+            drafter.admit(slot, histories[slot])
+
+    for slot in range(B):
+        admit(slot)
+    for _ in range(16):
+        entries = [(slot, list(h)) for slot, h in histories.items()]
+        empty = {slot for slot, h in entries if len(h) == ours._dlen[slot]}
+        got, want = ours.propose(entries), ref.propose(entries)
+        for (slot, _), a, b in zip(entries, got, want):
+            if slot in empty:
+                assert a == b == []
+            elif slot not in fed_nothing:
+                assert a == b, slot
+                compared += 1
+        fed_nothing |= empty
+        for slot, history in histories.items():
+            if len(history) > S - 6 or rng.random() < 0.1:
+                admit(slot)
+            else:
+                history += rng.integers(1, 500, int(rng.integers(0, 5))).tolist()
+    assert compared >= 20
+    assert set(ours._graphs) == set(ref._jits) and len(ours._graphs) > 2
+    assert all(fn.calls for fn in ours._graphs.values())
+
+
 @pytest.mark.parametrize(
     "kw,match",
     [
