@@ -19,7 +19,12 @@ Public API (lazy — importing :mod:`calfkit_tpu_torch` pulls in nothing):
 - ``InMemoryMesh`` / ``TcpMesh`` / ``KafkaWireMesh`` — the in-process mesh,
   the native ``meshd`` broker's and the Kafka wire protocol's transports;
 - ``ProvisioningConfig`` — the worker's topic provisioning;
-- ``TorchLocalModelClient`` — the local CUDA inference provider.
+- ``TorchLocalModelClient`` — the local CUDA inference provider;
+- ``OpenAIModelClient`` / ``OpenAIResponsesModelClient`` /
+  ``AnthropicModelClient`` / ``GeminiModelClient`` / ``MistralModelClient`` /
+  ``BedrockModelClient`` — remote model APIs, and ``FallbackModelClient``,
+  which tries its models in order (the local card first, a remote API as
+  the parachute).
 """
 
 from __future__ import annotations
@@ -89,10 +94,18 @@ _LAZY: dict[str, str] = {
     "MetricsRegistry": "calfkit_tpu_torch.observability.metrics",
     "metrics_text": "calfkit_tpu_torch.observability.metrics",
     "MetricsServer": "calfkit_tpu_torch.observability.http",
-    # model clients (the local CUDA path + deterministic test models)
+    # model clients (the local CUDA path, deterministic test models and the
+    # remote APIs over the port's own HTTP client)
     "TorchLocalModelClient": "calfkit_tpu_torch.inference",
     "EchoModelClient": "calfkit_tpu_torch.engine",
     "FunctionModelClient": "calfkit_tpu_torch.engine",
+    "OpenAIModelClient": "calfkit_tpu_torch.providers",
+    "OpenAIResponsesModelClient": "calfkit_tpu_torch.providers",
+    "AnthropicModelClient": "calfkit_tpu_torch.providers",
+    "GeminiModelClient": "calfkit_tpu_torch.providers",
+    "MistralModelClient": "calfkit_tpu_torch.providers",
+    "BedrockModelClient": "calfkit_tpu_torch.providers",
+    "FallbackModelClient": "calfkit_tpu_torch.providers",
 }
 
 if TYPE_CHECKING:  # pragma: no cover

@@ -194,13 +194,15 @@ def attn_qkv(
     cos: torch.Tensor,
     sin: torch.Tensor,
     eps: float,
+    q_tables: "tuple[torch.Tensor, torch.Tensor] | None" = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The block's attention front half: norm → QKV projections → rope."""
+    """The block's attention front half: norm → QKV projections → rope
+    (the queries by ``q_tables`` when given, else by cos/sin as the keys)."""
     h = rms_norm(x, lp["attn_norm"], eps)
     q = torch.einsum("bsd,dnh->bsnh", h, _w(lp["wq"], h.dtype))
     k = torch.einsum("bsd,dkh->bskh", h, _w(lp["wk"], h.dtype))
     v = torch.einsum("bsd,dkh->bskh", h, _w(lp["wv"], h.dtype))
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    return apply_rope(q, *(q_tables or (cos, sin))), apply_rope(k, cos, sin), v
 
 
 def attn_out_mlp(
@@ -291,6 +293,7 @@ def forward(
     attn_impl: str = "auto",  # "auto" | "plain"
     insert_at: torch.Tensor | None = None,  # [B] explicit per-row write offset
     logits_at: torch.Tensor | None = None,  # [B] the one chunk position a row wants
+    keyless_mean: torch.Tensor | None = None,  # [B] bool: rows that attend their window uniformly
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Run the decoder over a token chunk → (logits [B, S, V], cache), or
     [B, 1, V] at each row's ``logits_at`` position (the final norm and LM
@@ -298,7 +301,14 @@ def forward(
 
     The chunk's K/V are written into ``kv_cache`` IN PLACE at ``insert_at``
     (default: the chunk ends at ``seq_lens``), which stands in for the JAX
-    package's buffer donation; the returned cache is the same tensors."""
+    package's buffer donation; the returned cache is the same tensors.
+
+    A row with ``seq_lens`` 0 sees no key: the kernels answer its queries
+    with 0.  A row set in ``keyless_mean`` (one with ``seq_lens`` 0) gets
+    what the JAX package's XLA attention gives it instead (its ``-1e30``
+    mask makes the softmax uniform): the mean of v over the whole window,
+    computed by the same kernel as a zero query (its rope tables zeroed,
+    which costs no pass over q) that sees every position of the window."""
     eps = config.norm_eps
     x = params["embed"][tokens]  # [B, S, D] gather
     cos, sin = rope_tables(positions, config.head_dim, config.rope_theta)
@@ -306,13 +316,19 @@ def forward(
         insert_at = seq_lens - tokens.shape[1]  # where this chunk lands
     k_pages, v_pages = kv_cache
     W = attn_window or k_pages.shape[3]
+    attn_pos, attn_lens, q_tables = positions, seq_lens, None
+    if keyless_mean is not None:
+        keep = (~keyless_mean)[:, None, None].to(cos.dtype)  # [B, 1, 1]
+        q_tables = (cos * keep, sin * keep)
+        attn_pos = torch.where(keyless_mean[:, None], W - 1, positions)
+        attn_lens = torch.where(keyless_mean, W, seq_lens)
     for i in range(config.n_layers):
         lp = layer_params(params, i)
-        q, k, v = attn_qkv(x, lp, cos, sin, eps)
+        q, k, v = attn_qkv(x, lp, cos, sin, eps, q_tables)
         _insert_chunk(k_pages[i], k, insert_at)
         _insert_chunk(v_pages[i], v, insert_at)
         attn = prefill_attention(
-            q, k_pages[i, :, :, :W], v_pages[i, :, :, :W], positions, seq_lens,
+            q, k_pages[i, :, :, :W], v_pages[i, :, :, :W], attn_pos, attn_lens,
             attn_impl=attn_impl,
         )
         x = attn_out_mlp(x, attn, lp, eps)

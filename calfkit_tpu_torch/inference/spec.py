@@ -175,18 +175,27 @@ class DraftModelDrafter:
     def _propose_graph(self, width: int) -> graphs.CapturedDispatch:
         """The proposer of one catch-up width, captured at its first call
         (the JAX package's ``_propose_jit(width)``): fn(catchup [B, width],
-        base [B], cat_len [B]) forwards the catch-up chunk at per-row
-        offsets ``base`` (``cat_len`` valid tokens a row), then rolls
-        ``k - 1`` greedy single-token steps → drafts [B, k] on the device.
-        The draft cache is written in place at its fixed address, which
-        stands in for the reference's donation of it."""
+        base [B], cat_len [B], fed_nothing [B]) forwards the catch-up chunk
+        at per-row offsets ``base`` (``cat_len`` valid tokens a row), then
+        rolls ``k - 1`` greedy single-token steps → drafts [B, k] on the
+        device.  The draft cache is written in place at its fixed address,
+        which stands in for the reference's donation of it.
+
+        A request's row fed nothing this round (``fed_nothing``; its
+        ``cat_len`` and ``base`` are 0) still writes its padded catch-up at
+        position 0, as the JAX drafter's does, and keeps those K/V for
+        later rounds; its queries see no key, and the JAX drafter's XLA
+        attention gives them the mean of v, which ``M.forward``'s
+        ``keyless_mean`` reproduces.  A slot with no request is written
+        alike, but is re-fed from position 0 when a request arrives, so
+        its queries keep the kernel's cheaper answer."""
         fn = self._graphs.get(width)
         if fn is not None:
             return fn
         # the graph must not hold the drafter (nor, through it, the engine)
         drafter, cfg, dev, k_steps = weakref.proxy(self), self.config, self.device, self.k
 
-        def propose(catchup, base, cat_len):
+        def propose(catchup, base, cat_len, fed_nothing):
             pos = base[:, None] + torch.arange(width, dtype=torch.int32, device=dev)[None, :]
             seq_lens = base + cat_len
             cache = (drafter._kc, drafter._vc)
@@ -195,7 +204,7 @@ class DraftModelDrafter:
             # values in the graph pool for nothing
             idx = (cat_len.to(torch.int64) - 1).clamp(0, width - 1)
             logits, _ = M.forward(drafter.params, cfg, catchup, pos, cache, seq_lens,
-                                  insert_at=base, logits_at=idx)
+                                  insert_at=base, logits_at=idx, keyless_mean=fed_nothing)
             cur = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
             outs = [cur]
             lens = seq_lens
@@ -208,7 +217,8 @@ class DraftModelDrafter:
             return torch.stack(outs, dim=1)
 
         B = self._runtime.max_batch_size
-        specs = [((B, width), torch.int32), ((B,), torch.int32), ((B,), torch.int32)]
+        specs = [((B, width), torch.int32), ((B,), torch.int32), ((B,), torch.int32),
+                 ((B,), torch.bool)]
         fn = self._graphs[width] = graphs.CapturedDispatch(self._pool, propose, specs)
         return fn
 
@@ -227,9 +237,11 @@ class DraftModelDrafter:
         catchup = np.zeros((B, width), np.int32)
         base = np.zeros((B,), np.int32)
         cat_len = np.zeros((B,), np.int32)
+        fed_nothing = np.zeros((B,), np.bool_)
         live: list[tuple[int, int]] = []  # (slot, room) rows actually fed
         for (slot, history), delta in zip(requests, deltas):
             if delta <= 0:  # history never shrinks mid-request
+                fed_nothing[slot] = True
                 continue
             d = int(self._dlen[slot])
             if delta > width:
@@ -250,7 +262,7 @@ class DraftModelDrafter:
             live.append((slot, S - len(history) - 1))
         # the spec tick's second host sync (the first lands the previous
         # verify): the drafts must reach the host to form the verify wave
-        drafts = self._propose_graph(width)(catchup, base, cat_len).cpu().numpy()
+        drafts = self._propose_graph(width)(catchup, base, cat_len, fed_nothing).cpu().numpy()
         by_slot = {
             slot: [int(t) for t in drafts[slot, : max(0, min(self.k, room))]]
             for slot, room in live

@@ -148,7 +148,16 @@ the final ``ok`` line is never printed:
    after ``stop()`` every page is free or cached; it prints TTFT through
    the mesh and the engine's own per turn, the mesh's added ms (apart for
    conversations alone on their lane), the lanes' wait share, tok/s and
-   the records published by topic; then #5
+   the records published by topic; then its fallback step
+   (``fallback_step``) on the same warm engine: a ``FallbackModelClient``
+   with an ``OpenAIModelClient`` on a loopback HTTP server inside this
+   script (127.0.0.1, nothing leaves the machine) serves two turns through
+   ``Client.execute``: (a) remote first, the loopback answering 503, the
+   card serving the turn (one loopback request, #5 and #2 launched, the
+   turn's tokens and a direct request's under phase 13's law), (b) local
+   first with a prompt longer than ``max_seq_len``, which the engine
+   refuses and the loopback's scripted stream answers (the text is the
+   script, no page taken); no new graph key; then #5
    and #2 against their plain versions at the phase's most launched
    shapes; the ``kernels`` line reports its launches under
    ``agent_mesh``;
@@ -323,7 +332,7 @@ from calfkit_tpu_torch.inference.engine import EngineStats, InferenceEngine, _ca
 from calfkit_tpu_torch.inference.loader import config_from_hf, load_params
 from calfkit_tpu_torch.inference.sampler import SamplingParams
 from calfkit_tpu_torch.inference.tokenizer import ByteTokenizer
-from calfkit_tpu_torch.exceptions import NodeFaultError
+from calfkit_tpu_torch.exceptions import InferenceError, NodeFaultError
 from calfkit_tpu_torch.keying import partition_key
 from calfkit_tpu_torch.mcp import MCPServerSpec, MCPToolboxNode, Toolbox, mixed_tools
 from calfkit_tpu_torch.mesh import InMemoryMesh, _native
@@ -345,6 +354,7 @@ from calfkit_tpu_torch.observability import flightrec
 from calfkit_tpu_torch.observability.http import MetricsServer
 from calfkit_tpu_torch.observability.metrics import REGISTRY
 from calfkit_tpu_torch.observability.trace import current_context
+from calfkit_tpu_torch.providers import FallbackModelClient, ModelAPIError, OpenAIModelClient
 from calfkit_tpu_torch.sim import FleetTopology, settle
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -3516,6 +3526,7 @@ async def agent_mesh_phase(dev, params, card: str = "") -> dict:
         for turn in measured["turns"]:
             direct += await asyncio.gather(*[
                 local.request(c["messages"], c["settings"], c["params"]) for c in turn["calls"]])
+        fallback = await fallback_step(engine, local, tok, params, dev, card)
     finally:
         await local.stop()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -3544,6 +3555,7 @@ async def agent_mesh_phase(dev, params, card: str = "") -> dict:
         launches=launches, prefill_shapes=prefill_rows, decode_shapes=decode_rows,
         engine_turns=len(calls), streams=streams,
         measured_captures=captures, graphs=graphs_after, max_memory_allocated=peak,
+        fallback=fallback,
     )
 
     def lane_note(t: dict) -> str:
@@ -3585,7 +3597,213 @@ async def agent_mesh_phase(dev, params, card: str = "") -> dict:
         f"captures in the measured round {captures}; pages free {free_pages} + cached {cached} "
         f"of {rt.pool_pages() - 1}; {graph_note(graphs_after, peak)}"
     )
+    print(fallback["note"])
     return result
+
+
+# --------------------------------------------------------------------------- #
+# phase 15's fallback step: the remote providers over a loopback HTTP server
+# --------------------------------------------------------------------------- #
+
+PARACHUTE_TEXT = "The parachute opened: this answer came from the remote API, not the card."
+# turn (a)'s text: with the travel desk's instructions and tools its prompt
+# falls in the prefill bucket of the measured round's engine turns, whose
+# graph keys the warm engine holds
+PARACHUTE_TURN = (
+    "Fallback trip: weather in Lisbon on 2026-05-14, and a hotel for 3 nights? We land at "
+    "noon, travel with two children and one bag each, and would like a quiet room away from "
+    "the lifts. Breakfast should be included, the budget is 180 EUR a night, and we would "
+    "rather walk than take taxis, so somewhere central near a tram stop is best. If rain "
+    "is likely, suggest one museum for the afternoon; if it is sunny, suggest a viewpoint "
+    "and a place for dinner that opens early."
+)
+# longer than MESH_RUNTIME's max_seq_len in CharTokenizer's ids (one a character)
+PARACHUTE_PROMPT = "Plan every leg of this trip, one day at a time: " + " ".join(
+    f"day {i}: {city} to {AGENT_CITIES[(i + 1) % len(AGENT_CITIES)]}, a hotel for 2 nights;"
+    for i, city in enumerate(AGENT_CITIES * 12))
+
+
+class Parachute:
+    """The fallback step's remote API: an OpenAI-compatible chat-completions
+    endpoint on a loopback port, inside this script.  A path under
+    ``/down/`` answers 503; any other streams :data:`PARACHUTE_TEXT` as
+    server-sent events, a word a chunk.  ``requests`` records each
+    request's path."""
+
+    def __init__(self):
+        self.requests: "list[str]" = []
+
+    async def _serve(self, reader, writer) -> None:
+        try:
+            head = []
+            while line := (await reader.readline()).decode("latin-1").rstrip("\r\n"):
+                head.append(line)
+            length = next((int(h.split(":", 1)[1]) for h in head
+                           if h.lower().startswith("content-length:")), 0)
+            await reader.readexactly(length)
+            path = head[0].split(" ")[1]
+            self.requests.append(path)
+            if path.startswith("/down/"):
+                writer.write(b"HTTP/1.1 503 Service Unavailable\r\nContent-Type: text/plain\r\n"
+                             b"Content-Length: 11\r\n\r\noverloaded.")
+            else:
+                writer.write(b"HTTP/1.1 200 OK\r\nContent-Type: text/event-stream\r\n"
+                             b"Transfer-Encoding: chunked\r\n\r\n")
+                words = PARACHUTE_TEXT.split(" ")
+                events = [{"model": "parachute", "choices": [{"delta": {"content": w}}]}
+                          for w in [words[0], *(" " + w for w in words[1:])]]
+                events.append({"choices": [{"finish_reason": "stop", "delta": {}}],
+                               "usage": {"prompt_tokens": 0, "completion_tokens": len(words)}})
+                for data in [*map(json.dumps, events), "[DONE]"]:
+                    chunk = f"data: {data}\n\n".encode()
+                    writer.write(f"{len(chunk):x}\r\n".encode() + chunk + b"\r\n")
+                    await writer.drain()
+                writer.write(b"0\r\n\r\n")
+            await writer.drain()
+        finally:
+            writer.close()
+
+    async def __aenter__(self) -> "Parachute":
+        self.server = await asyncio.start_server(self._serve, "127.0.0.1", 0)
+        self.url = f"http://127.0.0.1:{self.server.sockets[0].getsockname()[1]}"
+        return self
+
+    async def __aexit__(self, *exc) -> None:
+        self.server.close()
+        await self.server.wait_closed()
+
+
+class FallbackTurnModel(MeshTurnModel):
+    """The fallback step's agent model: every step goes to ``model`` (a
+    ``FallbackModelClient``), recorded as :class:`MeshTurnModel` records
+    the engine's turns; the engine-stats advert is ``local``'s."""
+
+    def __init__(self, model: ModelClient, local: TorchLocalModelClient):
+        super().__init__(local)
+        self.local = model
+
+    def _scripted_first(self, messages) -> bool:
+        return False
+
+
+async def fallback_step(engine, local, tok, params, dev, card: str = "") -> dict:
+    """Phase 15's fallback step, on the phase's warm engine and weights:
+    :class:`Parachute` on a loopback port, and two agents on a fresh
+    ``InMemoryMesh`` with the travel desk's instructions and tools, each
+    one turn through ``Client.execute``:
+
+    (a) remote first: ``FallbackModelClient(OpenAIModelClient(<loopback
+        /down/, answering 503>), local)``; the card serves the turn, the
+        loopback saw exactly one request, #5 and #2 launched, and the
+        turn's tokens and a direct ``local.request`` on the same messages
+        hold phase 13's law (:func:`tie_law`);
+    (b) local first: ``FallbackModelClient(local, OpenAIModelClient(
+        <loopback, streaming PARACHUTE_TEXT>), fallback_on=(InferenceError,
+        ModelAPIError))`` on a prompt longer than ``max_seq_len`` (the long
+        lane is off): the engine refuses it, the turn's text is the
+        script, the loopback saw one request, and the engine admitted
+        nothing (its prefill tokens, free pages and free slots as before).
+
+    The step's two turns add no graph key and capture nothing, and the engine is
+    quiescent after each.  Returns both turns' TTFT (the fallback client's
+    ``request_stream`` call to its first ``TextDelta``) and execute times,
+    the loopback's request paths, the launches, the law's result, the
+    step's seconds and a line (``note``) that the phase prints."""
+    started = time.perf_counter()
+    cfg, rt = engine.config, engine.runtime
+    settings = ModelSettings(max_tokens=CLIENT_MAX_TOKENS)
+    async with Parachute() as parachute:
+        down = OpenAIModelClient("parachute", api_key="loopback", base_url=f"{parachute.url}/down/v1")
+        up = OpenAIModelClient("parachute", api_key="loopback", base_url=f"{parachute.url}/v1")
+        first = FallbackTurnModel(FallbackModelClient(down, local), local)
+        second = FallbackTurnModel(
+            FallbackModelClient(local, up, fallback_on=(InferenceError, ModelAPIError)), local)
+        tools = [agent_tool(fn) for fn in (get_weather, search_flights, book_hotel)]
+        agents = [Agent(name, model=model, instructions=AGENT_INSTRUCTIONS, tools=tools,
+                        model_settings=settings, stream_tokens=True)
+                  for name, model in (("parachute_remote_first", first),
+                                      ("parachute_local_first", second))]
+        graphs_before, launched = graph_numbers(engine), dict(A.launch_counts)
+        mesh = InMemoryMesh()
+        turns = {}
+        try:
+            async with Worker([*agents, *tools], mesh=mesh, max_workers=2):
+                client = Client.connect(mesh)
+                try:
+                    for label, agent, text in (
+                        ("remote_first", agents[0], PARACHUTE_TURN),
+                        ("local_first", agents[1], PARACHUTE_PROMPT),
+                    ):
+                        before = (engine.stats.prefill_tokens, engine._page_alloc.free_pages,
+                                  len(engine._free), len(parachute.requests))
+                        t = time.perf_counter()
+                        result = await client.agent(agent.name).execute(text, timeout=120)
+                        call = agent.model.calls[-1]
+                        await _settle(lambda: quiescent(engine), 30, f"the {label} turn")
+                        turns[label] = dict(
+                            output=result.output, call=call, before=before,
+                            execute_ms=(time.perf_counter() - t) * 1e3,
+                            ttft_ms=(call["first"] - call["submit"]) * 1e3,
+                            after=(engine.stats.prefill_tokens, engine._page_alloc.free_pages,
+                                   len(engine._free), len(parachute.requests)),
+                        )
+                finally:
+                    await client.close()
+            graphs_after = graph_numbers(engine)
+            new_keys = graphs_after["keys"] - graphs_before["keys"]
+            captures = graphs_after["captures"] - graphs_before["captures"]
+            launches = {k: v - launched.get(k, 0) for k, v in A.launch_counts.items()}
+            a = turns["remote_first"]["call"]
+            direct = await local.request(a["messages"], a["settings"], a["params"])
+        finally:
+            await down.aclose()
+            await up.aclose()
+    remote_first, local_first = turns["remote_first"], turns["local_first"]
+    law = tie_law(cfg, params, [(
+        a["corr"], [tok.bos_id, *tok.encode(render_messages(a["messages"], a["params"]))],
+        _stream_ids(tok, a["response"]), _stream_ids(tok, direct))], dev, labels=("mesh", "direct"))
+    # (a): one request to the loopback (answered 503), then the card's turn
+    assert parachute.requests[0].startswith("/down/"), parachute.requests
+    assert remote_first["after"][3] - remote_first["before"][3] == 1, parachute.requests
+    assert remote_first["after"][0] > remote_first["before"][0], "the card served no prefill"
+    assert a["response"].usage.output_tokens > 0 and remote_first["output"]
+    assert launches["prefill_attention"] > 0 and launches["paged_decode_attention"] > 0, launches
+    # (b): the engine refused the prompt, the loopback's script is the answer
+    b = local_first["call"]["response"]
+    assert len(tok.encode(PARACHUTE_PROMPT)) > rt.max_seq_len and not rt.long_context
+    assert local_first["output"] == b.text() == PARACHUTE_TEXT, local_first["output"]
+    assert local_first["after"][3] - local_first["before"][3] == 1, parachute.requests
+    assert parachute.requests[1] == "/v1/chat/completions", parachute.requests
+    assert local_first["after"][:3] == local_first["before"][:3], (
+        local_first["before"], local_first["after"])
+    assert len(engine._free) == rt.max_batch_size and not engine._active
+    assert new_keys == captures == 0, f"the fallback step added {new_keys} graph keys"
+    out = dict(
+        remote_first_ttft_ms=remote_first["ttft_ms"], remote_first_execute_ms=remote_first[
+            "execute_ms"], local_first_ttft_ms=local_first["ttft_ms"],
+        local_first_execute_ms=local_first["execute_ms"], loopback_requests=parachute.requests,
+        remote_first_tokens=a["response"].usage.output_tokens, launches=launches,
+        new_graph_keys=new_keys, captures=captures, law=law, prompt_tokens=len(tok.encode(PARACHUTE_PROMPT)),
+        seconds=time.perf_counter() - started,
+    )
+    out["note"] = (
+        f"  fallback step on phase 15's engine ({card}): (a) remote first: the loopback's "
+        f"503 to {remote_first['after'][3] - remote_first['before'][3]} request, then the card "
+        f"served the turn: TTFT (the fallback client's request_stream -> first TextDelta, "
+        f"the 503's round trip included) {out['remote_first_ttft_ms']:.1f} ms, execute "
+        f"{out['remote_first_execute_ms']:.1f} ms, {out['remote_first_tokens']} tokens, "
+        f"launches {launches}, the turn and its direct request within {TIE_SPACINGS} bf16 "
+        f"spacings of the f32 plain forward's top logit (max gap {law['max_gap']:.3f}, "
+        f"{'equal' if not law['diverged'] else 'parting at a tie'}); (b) local first, a "
+        f"{out['prompt_tokens']}-token prompt past max_seq_len {rt.max_seq_len}: refused by "
+        f"the engine, answered by the loopback's stream: TTFT "
+        f"{out['local_first_ttft_ms']:.1f} ms, execute {out['local_first_execute_ms']:.1f} ms, "
+        f"text == the script, no page or slot taken; loopback requests "
+        f"{len(parachute.requests)} {parachute.requests}; new graph keys {new_keys}, "
+        f"captures {captures}; "
+        f"step {out['seconds']:.2f} s"
+    )
+    return out
 
 
 # --------------------------------------------------------------------------- #

@@ -22,7 +22,9 @@ prints one JSON line: per
 turn the dispatch lanes, the TTFTs, the mesh's added ms (all, and for
 conversations alone on their lane), the lanes' wait share and tok/s (for a
 wire transport also the added ms over the in-memory phase, the boot
-seconds and the seconds to the first assignment); the launches; and for
+seconds and the seconds to the first assignment; for ``memory`` also the
+phase's fallback step: both turns' TTFT and execute ms, the loopback's
+requests, the step's launches, graph keys and seconds); the launches; and for
 each witness the gaps between the top logit and the chosen token, counted in
 bf16 spacings at the top logit's magnitude, and every token past the band
 of either witness with its gap under both and under the bf16 plain forward
@@ -214,7 +216,9 @@ def main() -> int:
     law, seen = chip_smoke.tie_law, {}
 
     def kept(cfg, params, cases, dev, labels=("overlapped", "lockstep")):
-        seen.update(cases=cases, labels=labels)
+        # the phase's own law over its 16 turns, not its fallback step's
+        if "cases" not in seen:
+            seen.update(cases=cases, labels=labels)
         return law(cfg, params, cases, dev, labels)
 
     chip_smoke.tie_law = kept
@@ -248,7 +252,10 @@ def main() -> int:
                     turns={t: {k: result[t][k] for k in TURN_KEYS} for t in ("turn1", "turn2")},
                     tok_s=result["tok_s"], records=result["records_total"],
                     launches=result["launches"], diverged=len(result["streams"]["diverged"]))
-                if mesh != "memory":
+                if mesh == "memory":
+                    line.update(fallback={k: v for k, v in result["fallback"].items()
+                                          if k not in ("note", "law")})
+                else:
                     line.update(over_in_memory=result["over_in_memory"],
                                 boot_s=result["boot_s"],
                                 first_assignment_s=result["first_assignment_s"])

@@ -6,7 +6,9 @@ and its own functions and classes (the test classes among them) rebuilt
 over those globals; imports inside a rebuilt body resolve ``calfkit_tpu.*``
 to ``calfkit_tpu_torch.*`` (and ``pydantic``'s ``ValidationError`` to the
 port's wire codec's, which the port raises, ``click``'s ``ClickException``
-to the port's ``CliError``; their other names stay their own), and string
+to the port's ``CliError``, ``httpx``'s client, transport, request, response
+and error to the port's HTTP client's, at module scope too; their other
+names stay their own), and string
 constants naming a ``calfkit_tpu.`` module (a ``monkeypatch`` target, a
 logger) name the port's.  Names a suite takes from ``tests._chaos`` (the
 JAX package's chaos harness, re-exported) are bound to their port twins of
@@ -73,6 +75,23 @@ def _click_twin() -> types.ModuleType:
 
 
 @functools.cache
+def _httpx_twin() -> types.ModuleType:
+    """``httpx`` as a suite imports it: ``AsyncClient``, ``MockTransport``,
+    ``Request``, ``Response`` and ``HTTPError`` are the port's HTTP client's
+    (``calfkit_tpu_torch._http``), so a suite's
+    ``httpx.AsyncClient(transport=httpx.MockTransport(handler))`` answers the
+    port's providers in-process; any other name is httpx's own, imported
+    only when a suite reads it."""
+    http = importlib.import_module(f"{PORT}._http")
+    twin = types.ModuleType("httpx")
+    twin.__getattr__ = lambda name: getattr(importlib.import_module("httpx"), name)
+    twin.AsyncClient = http.HTTPClient
+    for name in ("MockTransport", "Request", "Response", "HTTPError"):
+        setattr(twin, name, getattr(http, name))
+    return twin
+
+
+@functools.cache
 def _tests_twin() -> types.ModuleType:
     """The ``tests`` package as ``import tests._chaos`` binds it: its
     ``_chaos`` is the twins, every other name the package's own."""
@@ -86,7 +105,7 @@ def _tests_twin() -> types.ModuleType:
 def _port_import(name, globals=None, locals=None, fromlist=(), level=0):
     if name == CHAOS and level == 0:
         return _chaos_twins() if fromlist else _tests_twin()
-    twins = {"pydantic": _pydantic_twin, "click": _click_twin}
+    twins = {"pydantic": _pydantic_twin, "click": _click_twin, "httpx": _httpx_twin}
     if name in twins and level == 0:
         try:
             return twins[name]()
@@ -111,6 +130,8 @@ def _constant(c, sources: bool, constants: dict):
         return c
     if type(c) is int:
         return constants.get(c, c)
+    if type(c) is tuple:  # a literal tuple of constants
+        return tuple(_constant(x, sources, constants) for x in c)
     return c
 
 
@@ -156,14 +177,17 @@ def _port_twin(obj):
 
 
 def port_data(value):
-    """``value`` with every instance of a JAX-package dataclass (nested in
-    tuples, lists and dicts too) rebuilt as its port twin, field by field:
-    a suite's module-scope data (a scenario, a config) as the port reads
-    it."""
+    """``value`` with every instance of a JAX-package dataclass or pydantic
+    model (nested in tuples, lists and dicts too) rebuilt as its port twin,
+    field by field: a suite's module-scope data (a scenario, a config, a
+    message history) as the port reads it."""
     cls = type(value)
     if dataclasses.is_dataclass(value) and cls.__module__.split(".")[0] == REF:
         return _port_twin(cls)(**{f.name: port_data(getattr(value, f.name))
                                   for f in dataclasses.fields(value) if f.init})
+    if hasattr(cls, "model_fields") and cls.__module__.split(".")[0] == REF:
+        return _port_twin(cls)(**{name: port_data(getattr(value, name))
+                                  for name in cls.model_fields})
     if isinstance(value, (tuple, list)):
         return cls(port_data(v) for v in value)
     if isinstance(value, dict):
@@ -275,8 +299,10 @@ def ported_module(module_name: str, *, variant: str = "",
     g = dict(vars(module))
     g["__builtins__"] = _PORT_BUILTINS
     g[_REWRITE] = (sources, constants)
+    if getattr(g.get("httpx"), "__name__", None) == "httpx":  # a module-scope import
+        g["httpx"] = _httpx_twin()
     imported = _imported_names(module)
-    assert imported, module_name
+    assert imported or overrides or sources or constants, module_name
     for name, (source, attr) in imported.items():
         g[name] = _port_value(source, attr)
     g.update(overrides or {})

@@ -5,9 +5,11 @@ nor ``pydantic``, ``pydantic_core``, ``httpx``, ``click``, ``safetensors``,
 the one exception is ``HFTokenizer``'s lazy import of ``transformers``
 when one is built.  Every module of the port, the agent mesh's, its wire
 transports', the type adapter's, the MCP client's (on the port's own HTTP
-client), the metrics endpoint's, the scenario runner's and the ``ck``
-command's included, imports with those packages blocked, a typed adapter
-validates with them blocked, and ``python -m calfkit_tpu_torch.cli`` answers
+client), the metrics endpoint's, the scenario runner's, the ``ck``
+command's and the remote model providers' included, imports with those
+packages blocked, a typed adapter validates with them blocked, a remote
+provider behind ``FallbackModelClient`` answers over the port's
+``MockTransport`` with them blocked, and ``python -m calfkit_tpu_torch.cli`` answers
 ``--help`` with them blocked.  The engine and the model client refuse to
 fall back to the CPU when no card is present."""
 
@@ -108,7 +110,13 @@ for name in ("calfkit_tpu_torch.inference.client", "calfkit_tpu_torch.inference.
              "calfkit_tpu_torch.models._adapter", "calfkit_tpu_torch._http",
              "calfkit_tpu_torch.mcp", "calfkit_tpu_torch.mcp.transport",
              "calfkit_tpu_torch.mcp.toolbox", "calfkit_tpu_torch.nodes.consumer",
-             "calfkit_tpu_torch.observability.http"):
+             "calfkit_tpu_torch.observability.http",
+             # the remote model providers
+             "calfkit_tpu_torch.providers", "calfkit_tpu_torch.providers.http",
+             "calfkit_tpu_torch.providers.openai", "calfkit_tpu_torch.providers.mistral",
+             "calfkit_tpu_torch.providers.openai_responses",
+             "calfkit_tpu_torch.providers.anthropic", "calfkit_tpu_torch.providers.gemini",
+             "calfkit_tpu_torch.providers.bedrock", "calfkit_tpu_torch.providers.fallback"):
     assert name in names, name
 from calfkit_tpu_torch import Agent, Client, Worker, agent_tool
 from calfkit_tpu_torch import MCPToolboxNode, MetricsServer, Toolbox, consumer
@@ -130,6 +138,22 @@ assert adapter.dump((Leg(Kind.A),)) == [{"kind": "a", "km": None}]
 from calfkit_tpu_torch.mesh import InMemoryMesh, KafkaWireMesh, TcpMesh
 from calfkit_tpu_torch.provisioning import ProvisioningConfig, provision
 from calfkit_tpu_torch.inference import TorchLocalModelClient
+import asyncio
+from calfkit_tpu_torch import FallbackModelClient, OpenAIModelClient
+from calfkit_tpu_torch._http import HTTPClient, MockTransport, Response
+from calfkit_tpu_torch.models import user_message
+from calfkit_tpu_torch.providers import ModelAPIError
+
+def answer(request):
+    if "down" in request.url:
+        return Response(503, text="overloaded")
+    return Response(200, json={"choices": [{"message": {"content": "ok"}}]})
+
+http = HTTPClient(transport=MockTransport(answer))
+client = FallbackModelClient(
+    OpenAIModelClient("m", api_key="k", base_url="https://down.example/v1", http_client=http),
+    OpenAIModelClient("m", api_key="k", http_client=http))
+assert asyncio.run(client.request([user_message("hi")])).text() == "ok"
 import chip_smoke
 assert not any(m.split(".")[0] in BLOCKED for m, v in sys.modules.items() if v is not None)
 print("OK")
@@ -231,6 +255,17 @@ def test_no_jax_or_reference_import_in_source(path):
         and (where, scope, name.split(".")[0]) not in LAZY_ALLOWED
     ]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_the_scan_covers_every_module_of_the_port():
+    """The AST scan's files are every module of the package, the remote
+    providers' among them, and ``chip_smoke.py``."""
+    scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    providers = {f"calfkit_tpu_torch/providers/{name}.py" for name in (
+        "__init__", "http", "openai", "mistral", "openai_responses", "anthropic", "gemini",
+        "bedrock", "fallback")}
+    assert providers <= scanned and "calfkit_tpu_torch/_http.py" in scanned
+    assert "chip_smoke.py" in scanned
 
 
 def test_transformers_is_imported_only_inside_hf_tokenizer():

@@ -882,6 +882,45 @@ def test_draft_proposer_graphs_equal_eager_bitwise():
 
 @pytest.mark.cuda
 @cuda_only
+def test_keyless_rows_attend_their_window_uniformly():
+    """``model.forward(keyless_mean=)`` on the card, in f32: a marked row
+    with ``seq_lens`` 0 (a draft row fed nothing) gets, through #5, what
+    the plain attention's ``-1e30`` mask gives it, the mean of v over the
+    whole window; the other rows are #5's own.  Unmarked, the row sees no
+    key and #5 answers 0, so its logits differ."""
+    from calfkit_tpu_torch.inference import model as M
+    from calfkit_tpu_torch.inference.config import preset
+
+    dev = torch.device("cuda")
+    cfg = preset("debug", d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, dtype="float32")
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(3))
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, S, W = 3, 8, 64
+    cache = torch.randn((2, cfg.n_layers, B, cfg.n_kv_heads, W, cfg.head_dim), generator=g,
+                        device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    base = torch.tensor([0, 5, 0], dtype=torch.int32, device=dev)
+    cat_len = torch.tensor([0, 3, 8], dtype=torch.int32, device=dev)
+    pos = base[:, None] + torch.arange(S, dtype=torch.int32, device=dev)[None]
+    mark = torch.tensor([True, False, False], device=dev)
+
+    def run(**kw):
+        kv = cache.clone()
+        logits, _ = M.forward(params, cfg, tokens, pos, (kv[0], kv[1]), base + cat_len,
+                              insert_at=base, **kw)
+        return logits, kv
+
+    got, got_kv = run(keyless_mean=mark)
+    want, want_kv = run(attn_impl="plain")
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_kv, want_kv, atol=1e-4, rtol=1e-4)
+    unmarked, _ = run()
+    torch.testing.assert_close(unmarked[1:], want[1:], atol=1e-4, rtol=1e-4)
+    assert not torch.allclose(unmarked[0], want[0], atol=1e-3)
+
+
+@pytest.mark.cuda
+@cuda_only
 @pytest.mark.parametrize("chunked", [False, True], ids=["monolithic", "chunked"])
 def test_long_lane_graphs_equal_eager_bitwise(chunked):
     """A long-context drive (two long prompts of 300 and 140 tokens beside
