@@ -241,9 +241,15 @@ class TorchLocalModelClient(ModelClient):
             from calfkit_tpu_torch.inference.tokenizer import HFTokenizer
 
             config = config_from_hf(self._checkpoint)
-            params = load_params(
-                self._checkpoint, config, device=self._device, quantize=runtime.quantization
-            )
+            if runtime.tp * runtime.dp > 1:
+                from calfkit_tpu_torch.inference.loader import Checkpoint
+
+                # every rank reads its own shard through the shard tree
+                params: Any = Checkpoint(str(self._checkpoint))
+            else:
+                params = load_params(
+                    self._checkpoint, config, device=self._device, quantize=runtime.quantization
+                )
             if self._tokenizer is None:
                 self._tokenizer = HFTokenizer(self._checkpoint)
             return InferenceEngine(

@@ -60,20 +60,32 @@ and speculative decoding.
   (:mod:`~calfkit_tpu_torch.inference.ring_attention` at sp = 1), one
   long dispatch per scheduler pass between the short lane's.
 
-The multi-device parts of the reference engine (tp/dp, and the long lane's
-sequence sharding over several devices) are not ported: tp/dp raise
-``ValueError`` at construction.
+Tensor and data parallelism (``RuntimeConfig(tp=, dp=)``) run one process
+a rank (:mod:`.distributed`): rank 0 is this engine, with the scheduler
+and every entry point; every other rank runs the same dispatches on its
+shard (:meth:`InferenceEngine._serve_rank`).  Each dispatch rank 0 runs is
+mirrored to the other ranks as a descriptor (the graph's recipe: the method
+that built it and its key, then its host inputs), so every rank meets
+every collective of the model (:mod:`.model`) in the same order.  dp splits
+the decode and verify rows of the batch over the dp groups (the dense
+cache's rows with them; the page pool stays whole on every group, the
+dispatch's new K/V gathered before it is written); prefill waves run on
+every group.  The long lane's sequence sharding over several devices (sp
+> 1) is not ported: the long lane at tp·dp > 1 raises.
 """
 
 from __future__ import annotations
 
 import asyncio
+import functools
+import gc
 import heapq
 import itertools
 import logging
 import math
 import threading
 import time
+import traceback
 import weakref
 from collections import deque
 from dataclasses import dataclass, field
@@ -241,6 +253,7 @@ def _finalize_wave_math(
     tables: "torch.Tensor | None" = None,  # [B, Pmax] (paged, in place)
     page_rows: "torch.Tensor | None" = None,  # [R, Pmax] the wave's table rows
     scatter_ids: "torch.Tensor | None" = None,  # [R, P // page] destination pages
+    cache_rows: "tuple[int, int] | None" = None,  # dp: (first slot, rows) of a dense cache
 ) -> torch.Tensor:
     """The wave landing on the device, shared by single-shot and chunked
     prefill: copy the scratch K/V into the wave's cache rows (or scatter its
@@ -253,8 +266,14 @@ def _finalize_wave_math(
         tables[slots] = page_rows
     else:
         P = sk.shape[3]
-        k[:, slots, :, :P] = sk
-        v[:, slots, :, :P] = sv
+        rows = slots
+        if cache_rows is not None:
+            # a dp group's cache holds its own slots' rows: the other
+            # groups' slots land in its trash row (index ``rows``)
+            lo, n = cache_rows
+            rows = torch.where((slots >= lo) & (slots < lo + n), slots - lo, n)
+        k[:, rows, :, :P] = sk
+        v[:, rows, :, :P] = sv
     slot_seeds[slots] = seeds
     temp[slots] = w_temp
     top_k[slots] = w_top_k
@@ -475,12 +494,15 @@ class EngineStats:
 
 
 def _check_runtime(rt: RuntimeConfig) -> None:
-    """Refuse what this engine does not serve yet (the multi-device knobs),
-    and the configurations the reference refuses."""
-    if rt.tp > 1 or rt.dp > 1:
+    """Refuse what this engine does not serve yet (the long lane over
+    several ranks), and the configurations the reference refuses."""
+    if rt.tp < 1 or rt.dp < 1:
+        raise ValueError(f"tp and dp must be >= 1 (got tp={rt.tp}, dp={rt.dp})")
+    if rt.long_context and rt.tp * rt.dp > 1:
         raise ValueError(
-            "tp/dp > 1 is not served by the PyTorch engine yet "
-            "(a later slice of the port: multi-device)"
+            "the long-context lane at tp·dp > 1 shards the prompt over every rank "
+            "(sequence parallelism, sp > 1): that multi-device slice of the port, the "
+            "sp > 1 ring, is not served yet; serve the long lane at tp = dp = 1"
         )
     if rt.quantization is not None:
         bits_of(rt.quantization)
@@ -544,6 +566,28 @@ def _quantized(params: Any, quantization: str) -> Any:
     return params if matching else quantize_params(params, consume=True, bits=bits)
 
 
+def _replicated(method: Any) -> Any:
+    """A graph method of the engine: the dispatch it returns carries its
+    recipe (the method's name and arguments), by which every other rank of
+    a multi-rank engine builds the same dispatch (:meth:`InferenceEngine._serve_rank`)."""
+    name = method.__name__
+
+    @functools.wraps(method)
+    def build(self: "InferenceEngine", *args: Any) -> graphs.CapturedDispatch:
+        fn = method(self, *args)
+        if fn.recipe is None:
+            fn.recipe = ("engine", name, args)
+        return fn
+
+    return build
+
+
+def _is_rank_fault(exc: BaseException) -> bool:
+    from calfkit_tpu_torch.inference.distributed import RankFault
+
+    return isinstance(exc, RankFault)
+
+
 def _pow2_floor(n: int) -> int:
     keep = 1
     while keep * 2 <= n:
@@ -562,6 +606,7 @@ class InferenceEngine:
         seed: int = 0,
         device: "torch.device | str" = "cuda",
         draft_params: Any = None,  # the speculative draft model's weights
+        mesh: Any = None,  # a sharding.Mesh of tp x dp ranks (default: from runtime)
     ):
         self.config = config
         self.runtime = runtime or RuntimeConfig()
@@ -587,25 +632,32 @@ class InferenceEngine:
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device {device!r} (cuda | cpu)")
         dev = self.device
-        if params is None:
-            logger.info(
-                "initializing random %s params (%.2fB)", config.name,
-                config.param_count / 1e9,
-            )
-            generator = torch.Generator(device=dev)
-            generator.manual_seed(seed)
-            params = M.init_params(config, generator)
-        if rt.quantization is not None:
-            params = _quantized(params, rt.quantization)
-        self.model = M.Decoder(params, dev)
+        # the multi-rank state: this process's rank, the workers it spawned,
+        # the descriptor channel, this rank's layout (None on one device)
+        self.mesh = mesh
+        self._rank = 0
+        self._workers: Any = None
+        self._channel: Any = None
+        self._layout: Any = None
+        self._draft_local: Any = None
+        if rt.tp * rt.dp > 1 or (mesh is not None and mesh.size > 1):
+            params = self._join_group(params, draft_params, seed)
+        else:
+            params = self._single_params(params, seed)
+        self.model = M.Decoder(params, dev, self._layout)
         self.params = self.model.params()
+        self._kv_heads = M.kv_heads(self.params, config)
 
         B, S = rt.max_batch_size, rt.max_seq_len
+        # dp: the decode and verify rows this rank computes (None: all)
+        self._rows = None if self._layout is None else self._layout.batch_rows(B)
         self._paged = rt.kv_layout == "paged"
         self._prefix: "PrefixCache | None" = None
         if self._paged:
             n_pages = rt.pool_pages()
-            self._k, self._v = M.make_page_pool(config, n_pages, rt.page_size, device=dev)
+            self._k, self._v = M.make_page_pool(
+                config, n_pages, rt.page_size, device=dev, kv_heads=self._kv_heads
+            )
             self._tables = torch.zeros(
                 (B, rt.pages_per_seq()), dtype=torch.int32, device=dev
             )
@@ -619,8 +671,17 @@ class InferenceEngine:
                 "paged KV pool: %d pages x %d tokens (%.2f GB)", n_pages,
                 rt.page_size, 2 * self._k.numel() * self._k.element_size() / 1e9,
             )
+        elif self._rows is not None:
+            # dp: this group's rows of the dense cache, and one trash row
+            # that the wave landings of the other groups' slots write to
+            rows = self._rows[1]
+            self._k_rows, self._v_rows = M.make_empty_cache(
+                config, rows + 1, S, device=dev, kv_heads=self._kv_heads
+            )
+            self._k, self._v = self._k_rows[:, :rows], self._v_rows[:, :rows]
+            self._ledger = capacity.PageLedger(0)
         else:
-            self._k, self._v = M.make_empty_cache(config, B, S, device=dev)
+            self._k, self._v = M.make_empty_cache(config, B, S, device=dev, kv_heads=self._kv_heads)
             # a pool-less ledger: the snapshot's keys exist with zeros
             self._ledger = capacity.PageLedger(0)
         # the compiled-dispatch layer: every dispatch body captured once per
@@ -654,7 +715,7 @@ class InferenceEngine:
         # wave of R rows takes the [L, R, K, max_seq_len, hd] views
         rows = min(rt.max_prefill_wave, B)
         self._scratch_flat = torch.zeros(
-            2 * config.n_layers * rows * config.n_kv_heads * S * config.head_dim,
+            2 * config.n_layers * rows * self._kv_heads * S * config.head_dim,
             dtype=self._k.dtype, device=dev,
         )
         # the long-context lane's buffers, at fixed addresses too (its
@@ -783,14 +844,294 @@ class InferenceEngine:
         if self._spec is not None:
             from calfkit_tpu_torch.inference.spec import build_drafter
 
+            if self._draft_local is not None:  # this rank's shard of the draft model
+                draft_params, draft_layout = self._draft_local
+                self._draft_local = None
+            else:
+                draft_layout = None
             self._drafter = build_drafter(
                 self._spec, rt, dev, draft_params=draft_params, seed=seed + 3,
-                pool=self._graphs,
+                pool=self._graphs, layout=draft_layout,
             )
             logger.info(
                 "speculative decoding on: %s drafter, k=%d",
                 "draft-model" if self._spec.draft is not None else "ngram", self._spec.k,
             )
+
+        if self._channel is not None:
+            # every dispatch of every rank leaves its outputs here, where a
+            # later dispatch's descriptor names them; rank 0 mirrors each
+            # dispatch it runs to the other ranks before running it
+            self._graphs.latest = {}
+            if self._rank == 0:
+                self._graphs.mirror = weakref.WeakMethod(self._mirror)
+
+    # ------------------------------------------------------------- multi-rank
+    def _single_params(self, params: Any, seed: int) -> Any:
+        """The params of a one-device engine: given, read from a
+        checkpoint, or drawn from ``seed``; quantized at the runtime's
+        quantization."""
+        from calfkit_tpu_torch.inference.loader import Checkpoint, load_params
+
+        rt, config = self.runtime, self.config
+        if isinstance(params, Checkpoint):
+            return load_params(params.path, config, device=self.device, quantize=rt.quantization)
+        if params is None:
+            logger.info(
+                "initializing random %s params (%.2fB)", config.name,
+                config.param_count / 1e9,
+            )
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(seed)
+            params = M.init_params(config, generator)
+        if rt.quantization is not None:
+            params = _quantized(params, rt.quantization)
+        return params
+
+    def _shardings(self, config: ModelConfig) -> Any:
+        """The shard tree of ``config`` on this engine's mesh, at the
+        runtime's quantization."""
+        from calfkit_tpu_torch.inference import sharding as Sh
+        from calfkit_tpu_torch.inference.quant import (
+            align_quant_sharding_keys,
+            quantize_shardings,
+        )
+
+        shardings = Sh.param_shardings(config, self.mesh)
+        if self.runtime.quantization is None:
+            return shardings
+        bits = bits_of(self.runtime.quantization)
+        if bits == 4:
+            Sh.check_q4_alignment(config, self.mesh)
+        shardings = quantize_shardings(shardings, bits=bits)
+        if bits == 4:
+            shardings = align_quant_sharding_keys(shardings, Sh.q4_template(config))
+        return shardings
+
+    def _rank_shard(self, params: Any, seed: int, rank: int) -> Any:
+        """``rank``'s shard of the target model: ``params`` may be a rank's
+        :class:`sharding.RankShard` already, a :class:`loader.Checkpoint`
+        (read through the shard tree), a full tree, or ``None`` (drawn from
+        ``seed``; quantized params are drawn whole and quantized first, as
+        the reference quantizes before it places)."""
+        from calfkit_tpu_torch.inference import sharding as Sh
+        from calfkit_tpu_torch.inference.loader import Checkpoint, load_params
+
+        rt, config = self.runtime, self.config
+        if isinstance(params, Sh.RankShard):
+            return params
+        if isinstance(params, Checkpoint):
+            return load_params(
+                params.path, config, device=self.device, quantize=rt.quantization,
+                shardings=self._shardings(config),
+                rank=rank,
+            )
+        if params is None and rt.quantization is None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(seed)
+            return Sh.init_params_sharded(config, generator, self._shardings(config), rank)
+        params = self._single_params(params, seed)
+        return Sh.place_params(params, self._shardings(config), rank=rank)
+
+    def _join_group(self, params: Any, draft_params: Any, seed: int) -> Any:
+        """Join (or, on one host with no group yet, make: spawning ranks
+        1..n-1) the engine's process group → this rank's local params."""
+        import torch.distributed as dist
+
+        from calfkit_tpu_torch.inference import distributed as D
+        from calfkit_tpu_torch.inference import sharding as Sh
+        from calfkit_tpu_torch.inference.loader import Checkpoint
+
+        rt, config = self.runtime, self.config
+        if self.mesh is None:
+            self.mesh = Sh.make_mesh(tp=rt.tp, dp=rt.dp, device_type=self.device.type)
+        elif (self.mesh.shape["tp"], self.mesh.shape["dp"]) != (rt.tp, rt.dp):
+            raise ValueError(
+                f"mesh {self.mesh} does not match the runtime's tp={rt.tp} x dp={rt.dp}"
+            )
+        world = self.mesh.size
+        draft_cfg = self._spec.draft if self._spec is not None else None
+        if dist.is_initialized():
+            rank = dist.get_rank()
+            D.assert_engine_fits(D._info(), rt.tp, rt.dp)
+            if dist.get_world_size() != world:
+                raise ValueError(
+                    f"the process group has {dist.get_world_size()} ranks; the engine's "
+                    f"mesh needs exactly {world} (one engine spans the whole group)"
+                )
+            mine = self._rank_shard(params, seed, rank)
+        else:
+            # one host, no group yet: this process is rank 0 and spawns
+            # the rest, each given its shard (or drawing it from the seed)
+            rank = 0
+            full = None
+            if params is not None and not isinstance(params, Checkpoint):
+                full = self._single_params(params, seed)
+            elif params is None and rt.quantization is not None:
+                full = self._single_params(None, seed)
+            if full is not None:
+                shardings = self._shardings(config)
+                shards = [
+                    D.to_host(Sh.place_params(full, shardings, rank=r)) for r in range(1, world)
+                ]
+                mine = Sh.place_params(full, shardings, rank=0)
+                del full
+            else:
+                shards = [params] * (world - 1)  # None or the checkpoint
+                mine = self._rank_shard(params, seed, 0)
+            draft_shards = [draft_params] * (world - 1)
+            if draft_params is not None and draft_cfg is not None:
+                dsh = Sh.param_shardings(draft_cfg, self.mesh)
+                draft_shards = [
+                    D.to_host(Sh.place_params(draft_params, dsh, rank=r)) for r in range(1, world)
+                ]
+            self._workers = D.spawn_workers(
+                world, config, rt, shards, seed, str(self.device), draft_shards,
+            )
+        self._rank = rank
+        comm = D.Comm(self.mesh, rank)
+        self._layout = Sh.layout_of(config, self.mesh, rank, comm)
+        if draft_cfg is not None:
+            dlayout = Sh.layout_of(draft_cfg, self.mesh, rank, comm)
+            if draft_params is None:
+                generator = torch.Generator(device=self.device)
+                generator.manual_seed(seed + 3)
+                dmine = Sh.init_params_sharded(
+                    draft_cfg, generator, Sh.param_shardings(draft_cfg, self.mesh), rank
+                )
+            elif isinstance(draft_params, Sh.RankShard):
+                dmine = draft_params
+            else:
+                dmine = Sh.place_params(
+                    draft_params, Sh.param_shardings(draft_cfg, self.mesh), rank=rank
+                )
+            self._draft_local = (Sh.local_params(dmine, draft_cfg, dlayout), dlayout)
+        self._channel = D.engine_channel(rank, world)
+        logger.info(
+            "rank %d of %d (tp=%d x dp=%d, %s): kv heads %d, vocab %s", rank, world, rt.tp,
+            rt.dp, comm.backend, self._layout.kv_heads, self._layout.vocab,
+        )
+        return Sh.local_params(mine, config, self._layout)
+
+    def _encode_input(self, value: Any) -> Any:
+        """A dispatch input as the other ranks rebuild it: a host array as
+        it is; a tensor by name (an engine buffer) or as an output of an
+        earlier dispatch (which every rank ran alike)."""
+        if not isinstance(value, torch.Tensor):
+            return np.asarray(value)
+        for name in ("_done", "_done_zero"):
+            if value is getattr(self, name):
+                return ("attr", name)
+        for recipe, out in self._graphs.latest.items():
+            if out is value:
+                return ("out", recipe, None)
+            if isinstance(out, tuple):
+                for i, part in enumerate(out):
+                    if part is value:
+                        return ("out", recipe, i)
+        raise InferenceError(
+            "a dispatch input that is neither a host array, an engine buffer nor an "
+            "earlier dispatch's output cannot be mirrored to the other ranks"
+        )
+
+    def _decode_input(self, value: Any) -> Any:
+        if isinstance(value, tuple):
+            if value[0] == "attr":
+                return getattr(self, value[1])
+            out = self._graphs.latest[value[1]]
+            return out if value[2] is None else out[value[2]]
+        return value
+
+    def _mirror(self, fn: graphs.CapturedDispatch, args: tuple) -> None:
+        """Rank 0: describe the dispatch about to run to the other ranks."""
+        if fn.recipe is None:
+            raise InferenceError("a dispatch without a recipe cannot run on every rank")
+        enc = tuple(self._encode_input(a) for a in args)
+        self._channel.send(("call", fn.recipe, enc, graphs.eager_active()))
+
+    def _fill(self, name: str, value: np.ndarray) -> None:
+        """Copy a host array into the engine buffer ``name`` on every rank."""
+        if self._channel is not None and self._rank == 0:
+            self._channel.send(("fill", name, value))
+        graphs.fill(getattr(self, name), value)
+
+    def _serve_rank(self, alive: Any = None) -> None:
+        """Ranks 1..n-1: run every dispatch rank 0 describes, in its order,
+        until rank 0's engine stops."""
+        targets = {"engine": self, "drafter": self._drafter}
+        try:
+            while True:
+                message = self._channel.recv(alive)
+                kind = message[0]
+                if kind == "call":
+                    _, (target, name, margs), enc, eager = message
+                    fn = getattr(targets[target], name)(*margs)
+                    args = [self._decode_input(a) for a in enc]
+                    if eager:
+                        with graphs.eager():
+                            fn(*args)
+                    else:
+                        fn(*args)
+                elif kind == "fill":
+                    graphs.fill(getattr(self, message[1]), message[2])
+                elif kind == "rpc":
+                    _, tag, func, fargs = message
+                    try:
+                        reply = (True, func(self, *fargs))
+                    except Exception:  # noqa: BLE001 - handed to rank 0
+                        reply = (False, traceback.format_exc())
+                    self._channel.reply(tag, reply)
+                elif kind == "stop":
+                    break
+        finally:
+            self._release_graphs()
+
+    def on_ranks(self, func: Any, *args: Any) -> "list[Any]":
+        """Rank 0: ``func(engine, *args)`` on every rank → their results by
+        rank (``func`` must be importable by name, and must not run a
+        collective; rank 0 runs it after the others have answered).  The
+        tests and the chip smoke read each rank's launch counts and memory
+        through it."""
+        if self._channel is None:
+            return [func(self, *args)]
+        self._rpc_seq = getattr(self, "_rpc_seq", 0) + 1
+        tag = str(self._rpc_seq)
+        self._channel.send(("rpc", tag, func, args))
+        out = []
+        alive = self._workers.alive if self._workers is not None else None
+        for rank, (ok, value) in enumerate(self._channel.replies(tag, alive), start=1):
+            if not ok:
+                raise InferenceError(f"rank {rank} failed {func.__name__}:\n{value}")
+            out.append(value)
+        # after the others: a func that times work does not share the card
+        return [func(self, *args), *out]
+
+    def _release_graphs(self) -> None:
+        """Free every captured graph of a multi-rank engine whose group is
+        ending: a graph that captured NCCL collectives holds the group's
+        communicator, and the group's teardown waits for it."""
+        for table in (self._decode_graphs, self._prefill_graphs, self._long_graphs,
+                      getattr(self._drafter, "_graphs", {})):
+            table.clear()
+        self._graphs.latest = None
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _close_group(self) -> None:
+        """Rank 0: end the other ranks' loops; join the workers this engine
+        spawned and leave the group it made for them."""
+        channel, self._channel = self._channel, None
+        if channel is None or self._rank != 0:
+            return
+        self._release_graphs()
+        try:
+            channel.send(("stop",))
+        except Exception:  # noqa: BLE001 - a dead group has nothing to stop
+            logger.warning("could not tell the other ranks to stop", exc_info=True)
+        if self._workers is not None:
+            self._workers.close()
+            self._workers = None
 
     # ------------------------------------------------------------ lifecycle
     async def start(self) -> None:
@@ -825,6 +1166,7 @@ class InferenceEngine:
                 self._task.cancel()
             self._task = None
         self._finish_all()
+        self._close_group()
         # a stopped engine must not pin a stale count in the process gauge
         _drop_engine_active(id(self))
 
@@ -1499,6 +1841,10 @@ class InferenceEngine:
         except Exception as exc:  # noqa: BLE001 - the loop's crash rail
             logger.exception("inference engine scheduler crashed")
             self._running = False
+            if _is_rank_fault(exc):
+                # a rank of the group died or stopped answering: every owed
+                # request ends with the typed, retriable fault at once
+                self._trip_wedge(0.0)
             # the ring holds the decision sequence that led here: dump it
             # next to the traceback, never masking the fault itself
             try:
@@ -2184,7 +2530,7 @@ class InferenceEngine:
         K and V views of the engine's flat buffer, the same for every wave
         of that width (a wave of bucket P uses positions [0, P))."""
         cfg = self.config
-        shape = (cfg.n_layers, rows, cfg.n_kv_heads, self.runtime.max_seq_len, cfg.head_dim)
+        shape = (cfg.n_layers, rows, self._kv_heads, self.runtime.max_seq_len, cfg.head_dim)
         n = math.prod(shape)
         half = self._scratch_flat.numel() // 2
         return (
@@ -2230,19 +2576,25 @@ class InferenceEngine:
         positions → fn(last_logits [R, V], *wave inputs) → firsts [R]."""
         eng = weakref.proxy(self)
         sk, sv = (side[:, :, :, :bucket] for side in self._scratch(rows))
+        split = self._rows is not None and not self._paged
+        k, v = (self._k_rows, self._v_rows) if split else (self._k, self._v)
+        cache_rows = self._rows if split else None
 
         def land(last_logits, slots, true_lens, seeds, w_temp, w_top_k, w_top_p, *paged):
             if paged:  # (page_rows, scatter_ids)
                 paged = (eng._tables, *paged)
+            else:
+                paged = (None, None, None)
             return _finalize_wave_math(
-                sampled, eng._paged, eng._k, eng._v, sk, sv,
+                sampled, eng._paged, k, v, sk, sv,
                 eng._last, eng._lens, slots, true_lens, last_logits,
                 eng._slot_seeds, eng._temp, eng._top_k, eng._top_p,
-                seeds, w_temp, w_top_k, w_top_p, *paged,
+                seeds, w_temp, w_top_k, w_top_p, *paged, cache_rows=cache_rows,
             )
 
         return land
 
+    @_replicated
     def _prefill_graph(self, bucket: int, rows: int, sampled: bool) -> graphs.CapturedDispatch:
         """Single-shot prefill: R admissions run as one [R, bucket] forward
         on the scratch, then land in the slot rows (or reserved pages), in
@@ -2267,6 +2619,7 @@ class InferenceEngine:
 
         return self._cached(self._prefill_graphs, (bucket, rows, sampled), build)
 
+    @_replicated
     def _final_graph(self, bucket: int, rows: int, sampled: bool) -> graphs.CapturedDispatch:
         """The chunked wave's landing from its scratch and its final chunk's
         last-position logits → fn(last_logits, *wave inputs) → firsts [R]."""
@@ -2378,6 +2731,7 @@ class InferenceEngine:
             started=time.perf_counter(),
         )
 
+    @_replicated
     def _seed_graph(self, bucket: int, n_pages: int, rows: int) -> graphs.CapturedDispatch:
         """The prefix seed: the first ``n_pages`` pages of each scratch row
         copied from the pool → fn(ids [R, n_pages]).  The positions after
@@ -2392,7 +2746,7 @@ class InferenceEngine:
                 for side, pool in zip(scratch, (eng._k, eng._v)):
                     pages = pool[:, ids]  # [L, R, n, K, page, hd]
                     side[:, :, :, :span] = pages.permute(0, 1, 3, 2, 4, 5).reshape(
-                        cfg.n_layers, rows, cfg.n_kv_heads, span, cfg.head_dim
+                        cfg.n_layers, rows, eng._kv_heads, span, cfg.head_dim
                     )
 
             return seed, [((rows, n_pages), torch.int64)]
@@ -2420,6 +2774,7 @@ class InferenceEngine:
     def _chunk_specs(self, chunk: int, rows: int) -> list:
         return [((rows, chunk), torch.int32), ((1,), torch.int32), ((rows,), torch.int64)]
 
+    @_replicated
     def _chunk_graph(self, chunk: int, rows: int) -> graphs.CapturedDispatch:
         return self._cached(
             self._prefill_graphs, ("chunk", chunk, rows),
@@ -2617,23 +2972,30 @@ class InferenceEngine:
         ring's consolidation and ``retire_mask_slots``; ``last``, ``lens``
         and ``_done`` are updated in place.  Enqueues device work only — no
         host sync.  → fn(active [B], done_prev [B]) → (toks [steps, B],
-        n_valid, done)."""
+        n_valid, done).
+
+        With dp, a rank computes its group's rows ``mine`` of the batch and
+        the groups' token blocks are gathered; paged, so is the ring, which
+        every group writes into its whole copy of the pool."""
         eng, cfg, dev = weakref.proxy(self), self.config, self.device
         B = self.runtime.max_batch_size
-        ring_shape = (cfg.n_layers, steps, B, cfg.n_kv_heads, cfg.head_dim)
+        first, n_rows = self._rows or (0, B)
+        mine = slice(first, first + n_rows)
+        gather = None if self._rows is None else self._layout.comm.dp_gather
+        ring_shape = (cfg.n_layers, steps, n_rows, self._kv_heads, cfg.head_dim)
         if self._paged:
             wpages = -(-window // self.runtime.page_size)
 
-            def step(tokens, ring, t):
+            def step(tokens, ring, t, lens):
                 return M.decode_step_ring_paged(
-                    eng.params, cfg, tokens, (eng._k, eng._v), eng._tables, ring, t, eng._lens,
+                    eng.params, cfg, tokens, (eng._k, eng._v), eng._tables[mine], ring, t, lens,
                     wpages,
                 )
         else:
             window_kv = (self._k[:, :, :, :window], self._v[:, :, :, :window])
 
-            def step(tokens, ring, t):
-                return M.decode_step_ring(eng.params, cfg, tokens, window_kv, ring, t, eng._lens)
+            def step(tokens, ring, t, lens):
+                return M.decode_step_ring(eng.params, cfg, tokens, window_kv, ring, t, lens)
 
         def decode(active, done_prev):
             # ``done_prev`` is the PREVIOUS dispatch's device-side done
@@ -2641,38 +3003,46 @@ class InferenceEngine:
             # pure device dataflow, before the host has seen that block
             # (paged: its consolidation writes go to the trash page)
             active = active & torch.logical_not(done_prev)
-            last, lens = eng._last, eng._lens
+            lens = eng._lens
+            last, my_lens, my_active = eng._last[mine], lens[mine], active[mine]
             ring = (
                 torch.zeros(ring_shape, dtype=eng._k.dtype, device=dev),
                 torch.zeros(ring_shape, dtype=eng._v.dtype, device=dev),
             )
             toks = []
             for t in range(steps):
-                logits, ring = step(last[:, None], ring, t)
+                logits, ring = step(last[:, None], ring, t, my_lens)
                 if sampled:
                     # per-(request, position) streams: deterministic for a
                     # given seed regardless of batch composition / slot
                     # reuse (+1: position ``lens`` itself was the prefill's
                     # draw)
-                    keys = fold_in(eng._slot_seeds, lens + t + 1)
-                    nxt = sample_slots(logits[:, -1], keys, eng._temp, eng._top_k, eng._top_p)
+                    keys = fold_in(eng._slot_seeds[mine], my_lens + t + 1)
+                    nxt = sample_slots(
+                        logits[:, -1], keys, eng._temp[mine], eng._top_k[mine], eng._top_p[mine]
+                    )
                 else:
                     nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-                last = torch.where(active, nxt, last)
+                last = torch.where(my_active, nxt, last)
                 toks.append(last)
-            block = torch.stack(toks)  # [steps, B]
+            block = torch.stack(toks)  # [steps, rows]
+            if gather is not None:
+                block = gather(block, dim=1)  # [steps, B]
             if eng._paged:
+                if gather is not None:
+                    ring = (gather(ring[0], dim=2), gather(ring[1], dim=2))
                 M.consolidate_ring_paged((eng._k, eng._v), ring, eng._tables, lens, active)
             else:
-                M.consolidate_ring((eng._k, eng._v), ring, lens)
+                M.consolidate_ring((eng._k, eng._v), ring, my_lens)
             n_valid, done = retire_mask_slots(block.T, eng._stop_dev, eng._hard_dev - lens, active)
             eng._lens.copy_(torch.where(active, lens + steps, lens))
-            eng._last.copy_(last)
+            eng._last.copy_(block[-1])
             eng._done.copy_(done)
             return block, n_valid, eng._done
 
         return decode
 
+    @_replicated
     def _decode_graph(self, window: int, steps: int, sampled: bool) -> graphs.CapturedDispatch:
         if self._paged:
             key: tuple = (-(-window // self.runtime.page_size), steps, sampled, "paged")
@@ -2684,6 +3054,7 @@ class InferenceEngine:
             lambda: (self._decode_body(window, steps, sampled), [((B,), torch.bool)] * 2),
         )
 
+    @_replicated
     def _ragged_graph(
         self, window: int, steps: int, sampled: bool, chunk: int, rows: int
     ) -> graphs.CapturedDispatch:
@@ -2708,6 +3079,7 @@ class InferenceEngine:
         )
 
     # ---------------------------------------------------- speculative verify
+    @_replicated
     def _verify_graph(self, window: int, S: int, sampled: bool) -> graphs.CapturedDispatch:
         """The speculative verify dispatch: feed [last, d_0..d_{S-2}] per
         row, score all S positions in one forward against the cache window
@@ -2725,25 +3097,35 @@ class InferenceEngine:
         def build():
             eng, cfg = weakref.proxy(self), self.config
             window_kv = (self._k[:, :, :, :window], self._v[:, :, :, :window])
+            # dp: this group's rows (as the decode body's), gathered after
+            first, n_rows = self._rows or (0, self.runtime.max_batch_size)
+            mine = slice(first, first + n_rows)
+            gather = None if self._rows is None else self._layout.comm.dp_gather
 
             def verify(active, drafts, ndraft):
                 last, lens = eng._last, eng._lens
-                tokens = torch.cat([last[:, None], drafts], dim=1)
+                my_lens = lens[mine]
+                tokens = torch.cat([last[mine][:, None], drafts[mine]], dim=1)
                 if eng._paged:
                     logits, ring = M.verify_step_ring_paged(
-                        eng.params, cfg, tokens, (eng._k, eng._v), eng._tables, lens, wpages
+                        eng.params, cfg, tokens, (eng._k, eng._v), eng._tables[mine], my_lens,
+                        wpages,
                     )
                 else:
-                    logits, ring = M.verify_step_ring(eng.params, cfg, tokens, window_kv, lens)
+                    logits, ring = M.verify_step_ring(eng.params, cfg, tokens, window_kv, my_lens)
                 out_toks, emitted = spec_accept_slots(
-                    logits, drafts, ndraft, lens, eng._slot_seeds, eng._temp, eng._top_k,
-                    eng._top_p, sampled=sampled,
+                    logits, drafts[mine], ndraft[mine], my_lens, eng._slot_seeds[mine],
+                    eng._temp[mine], eng._top_k[mine], eng._top_p[mine], sampled=sampled,
                 )
+                if gather is not None:
+                    out_toks, emitted = gather(out_toks, dim=0), gather(emitted, dim=0)
                 emitted = torch.where(active, emitted, 0)
                 if eng._paged:
+                    if gather is not None:
+                        ring = (gather(ring[0], dim=2), gather(ring[1], dim=2))
                     M.consolidate_ring_paged((eng._k, eng._v), ring, eng._tables, lens, active)
                 else:
-                    M.consolidate_ring((eng._k, eng._v), ring, lens)
+                    M.consolidate_ring((eng._k, eng._v), ring, my_lens)
                 idx = (emitted - 1).clamp(0, S - 1).to(torch.int64)
                 new_last = torch.where(active, out_toks.gather(1, idx[:, None])[:, 0], last)
                 n_valid, done = retire_mask_slots(
@@ -2970,8 +3352,8 @@ class InferenceEngine:
         previous values)."""
         if self._retire_dirty:
             self._retire_dirty = False
-            graphs.fill(self._stop_dev, self._stop_np)
-            graphs.fill(self._hard_dev, self._hard_end)
+            self._fill("_stop_dev", self._stop_np)
+            self._fill("_hard_dev", self._hard_end)
 
     def _observe_gap(self) -> None:
         """The dispatch-gap bubble, observed just before each enqueue (after

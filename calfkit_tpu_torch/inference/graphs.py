@@ -29,7 +29,16 @@ before any other dispatch replays.  An output that must outlive other
 replays is an engine-owned buffer the body writes with ``copy_``.
 
 A capture or a replay that fails raises :class:`InferenceError`; nothing
-falls back to eager execution.  :func:`eager` (the counterpart of
+falls back to eager execution.
+
+A multi-rank engine (:mod:`.distributed`) sets two hooks on its pool: rank
+0's ``mirror`` describes each dispatch to the other ranks before it runs
+(by the dispatch's ``recipe``, the method and key that built it), and
+``latest`` keeps every dispatch's newest outputs by recipe, where a later
+dispatch's descriptor names its tensor inputs.  Every rank captures the
+same keys; with NCCL its collectives are captured with the rest, while a
+gloo collective met inside a capture raises (such an engine serves under
+:func:`eager`).  :func:`eager` (the counterpart of
 ``jax.disable_jit``) runs every body eagerly on the card, with the same
 kernels, while it is active: the tests and the chip smoke compare the two.
 """
@@ -123,6 +132,8 @@ class GraphPool:
         self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
         self.stream = torch.cuda.Stream(device) if self.cuda else None
         self.stats = dict(captures=0, replays=0, eager=0, capture_s=0.0)
+        self.mirror: Any = None  # rank 0 of a multi-rank engine: a WeakMethod
+        self.latest: "dict | None" = None  # a multi-rank engine's outputs by recipe
 
 
 class CapturedDispatch:
@@ -146,6 +157,7 @@ class CapturedDispatch:
         self._hooks: dict[Any, list] = {}  # on_replay's, by tag
         self.calls = 0
         self.capture_s = 0.0  # its first call's seconds on a card (eager run + capture)
+        self.recipe: Any = None  # how every rank builds this dispatch (multi-rank)
 
     @property
     def captured(self) -> bool:
@@ -156,6 +168,15 @@ class CapturedDispatch:
     def __call__(self, *args: "np.ndarray | torch.Tensor") -> Any:
         if len(args) != len(self.inputs):
             raise ValueError(f"dispatch takes {len(self.inputs)} inputs, got {len(args)}")
+        owner = self._owner
+        if owner.mirror is not None:
+            owner.mirror()(self, args)
+        out = self._call(args)
+        if owner.latest is not None:
+            owner.latest[self.recipe] = out
+        return out
+
+    def _call(self, args: tuple) -> Any:
         self.calls += 1
         for buf, value in zip(self.inputs, args):
             fill(buf, value)

@@ -1,11 +1,15 @@
-"""HF checkpoint → the port's params on one device.
+"""HF checkpoint → the port's params on one device, or one rank's shard.
 
 Loads a *local* Llama-family HF directory (``config.json`` + safetensors,
 one ``model.safetensors`` or shards listed in
 ``model.safetensors.index.json``) into the stacked-layer tree of
 :mod:`calfkit_tpu_torch.inference.model`: the port's copy of
-``calfkit_tpu.inference.loader`` on one device (placement across devices
-comes with the multi-device part of the port).  The safetensors files are
+``calfkit_tpu.inference.loader``.  With ``shardings=`` and ``rank=`` (a
+rank of a multi-rank engine, :mod:`.sharding`) each leaf is cut to the
+rank's shard on the host before it moves, so no card holds more than its
+shard; a leaf to quantize is quantized whole on the host first (its scales
+span the reduction axes a rank may hold only part of), as the reference
+quantizes before it places.  The safetensors files are
 read by the port's own reader (:mod:`._safetensors`), which needs neither
 the ``safetensors`` package nor a numpy bfloat16 type.
 
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import json
 import logging
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Callable
 
@@ -42,6 +47,15 @@ from calfkit_tpu_torch.inference.quant import (
 )
 
 logger = logging.getLogger(__name__)
+
+
+@dataclass(frozen=True)
+class Checkpoint:
+    """A local HF checkpoint directory as an engine's ``params``: every rank
+    of a multi-rank engine reads its own shard of it (:func:`load_params`
+    with the engine's shard tree)."""
+
+    path: str
 
 
 def config_from_hf(path: "str | Path") -> ModelConfig:
@@ -86,8 +100,13 @@ def load_params(
     *,
     device: "torch.device | str" = "cuda",
     quantize: "str | None" = None,
+    shardings: "dict[str, Any] | None" = None,
+    rank: int = 0,
 ) -> "dict[str, Any]":
-    """Load, transpose, stack and place the checkpoint on ``device``.
+    """Load, transpose, stack and place the checkpoint on ``device`` (with
+    ``shardings``, a :class:`sharding.Sharding` tree already expanded by
+    :func:`quant.quantize_shardings` when quantizing: ``rank``'s shard of
+    every leaf, a :class:`sharding.RankShard`).
 
     ``quantize="int8"``/``"int4"`` quantizes each matmul weight ON THE HOST
     (:func:`quant.quantize_tensor`/:func:`quant.quantize_tensor4` on the
@@ -100,7 +119,14 @@ def load_params(
     if device.type == "cuda" and not torch.cuda.is_available():
         raise InferenceError("no CUDA device: pass device='cpu' to load on the CPU")
     files = _tensor_files(Path(path))
-    return _build_params(config, lambda name: files[name].get_tensor(name), quantize, device)
+    params = _build_params(
+        config, lambda name: files[name].get_tensor(name), quantize, device, shardings, rank
+    )
+    if shardings is None:
+        return params
+    from calfkit_tpu_torch.inference.sharding import RankShard
+
+    return RankShard(params)
 
 
 def _build_params(
@@ -108,6 +134,8 @@ def _build_params(
     get: "Callable[[str], torch.Tensor]",
     quantize: "str | None",
     device: "torch.device | str",
+    shardings: "dict[str, Any] | None" = None,
+    rank: int = 0,
 ) -> "dict[str, Any]":
     D, H, K, hd = config.d_model, config.n_heads, config.n_kv_heads, config.head_dim
     L = config.n_layers
@@ -117,11 +145,24 @@ def _build_params(
         quant_axes = {**LAYER_REDUCTION_AXES, "lm_head": LM_HEAD_REDUCTION_AXES}
         qt = quantize_tensor if bits_of(quantize) == 8 else quantize_tensor4
 
-    def put(w: torch.Tensor, name: str = "") -> Any:
+    def cut(t: torch.Tensor, sharding: Any) -> torch.Tensor:
+        # the rank's shard, copied out on the host before it moves
+        return t if sharding is None else sharding.shard(t, rank)
+
+    def leaf_sharding(name: str) -> Any:
+        if shardings is None:
+            return None
+        return shardings["layers"][name] if name in shardings["layers"] else shardings[name]
+
+    def put(w: torch.Tensor, name: str = "", top: str = "") -> Any:
         axes = quant_axes.get(name)
-        if axes is not None:  # quantized here, on the host
-            return {key: t.contiguous().to(device) for key, t in qt(w, axes).items()}
-        return w.to(dtype).contiguous().to(device)
+        sh = leaf_sharding(name or top)
+        if axes is not None:  # quantized here, on the host, whole
+            return {
+                key: cut(t, None if sh is None else sh[key]).contiguous().to(device)
+                for key, t in qt(w, axes).items()
+            }
+        return cut(w, sh).to(dtype).contiguous().to(device)
 
     def stack(fmt: str, transform: "Callable[[torch.Tensor], torch.Tensor]") -> torch.Tensor:
         return torch.stack([transform(get(fmt.format(i))) for i in range(L)])
@@ -133,7 +174,7 @@ def _build_params(
     attn = "model.layers.{}.self_attn."
     mlp = "model.layers.{}.mlp."
     params: dict[str, Any] = {
-        "embed": put(get("model.embed_tokens.weight")),
+        "embed": put(get("model.embed_tokens.weight"), top="embed"),
         "layers": {
             "wq": proj("wq", attn + "q_proj.weight", (D, H, hd)),
             "wk": proj("wk", attn + "k_proj.weight", (D, K, hd)),
@@ -142,12 +183,15 @@ def _build_params(
             "w_gate": proj("w_gate", mlp + "gate_proj.weight", (D, -1)),
             "w_up": proj("w_up", mlp + "up_proj.weight", (D, -1)),
             "w_down": proj("w_down", mlp + "down_proj.weight", (-1, D)),
-            "attn_norm": put(stack("model.layers.{}.input_layernorm.weight", lambda w: w)),
+            "attn_norm": put(
+                stack("model.layers.{}.input_layernorm.weight", lambda w: w), top="attn_norm"
+            ),
             "mlp_norm": put(
-                stack("model.layers.{}.post_attention_layernorm.weight", lambda w: w)
+                stack("model.layers.{}.post_attention_layernorm.weight", lambda w: w),
+                top="mlp_norm",
             ),
         },
-        "final_norm": put(get("model.norm.weight")),
+        "final_norm": put(get("model.norm.weight"), top="final_norm"),
     }
     if not config.tie_embeddings:
         params["lm_head"] = put(get("lm_head.weight").T, "lm_head")

@@ -21,6 +21,15 @@ Weight layout (per layer, stacked on axis 0 across layers):
     top:   embed [V, D], final_norm [D], lm_head [D, V] (absent when tied)
 The projections and the LM head may be quantized leaves
 (:mod:`calfkit_tpu_torch.inference.quant`), read through :func:`_w`.
+
+Tensor parallelism: a rank's params (:class:`Decoder` over a rank's shard)
+carry its :class:`sharding.Layout` as ``params.layout``.  The functions
+here then run the collectives the reference leaves to GSPMD, and only
+where a dimension was actually split: the vocab-split embedding gather is
+summed over tp (:func:`embed_tokens`), the products by a head-split ``wo``
+and an ff-split ``w_down`` are summed over tp (:func:`attn_out_mlp`), and
+vocab-split logits are gathered (:func:`lm_logits`).  Without a layout
+(one device) nothing changes.
 """
 
 from __future__ import annotations
@@ -106,14 +115,28 @@ def init_params(
     return params
 
 
+class RankParams(dict):
+    """A rank's params tree, with the :class:`sharding.Layout` that tells
+    the functions of this module where its collectives are."""
+
+    layout: Any = None
+
+
+def layout_of(params: Params) -> Any:
+    """The params' :class:`sharding.Layout`, or ``None`` on one device."""
+    return getattr(params, "layout", None)
+
+
 class Decoder(torch.nn.Module):
     """Owns the decoder's parameter tensors on one device, for inference (no
     gradients).  A quantized leaf (``quant``'s integer payload and f32
     scale) is a nested dict of its two tensors.  :meth:`params` returns them
-    in the tree layout the functions of this module take."""
+    in the tree layout the functions of this module take (with ``layout``,
+    a rank's shard: a :class:`RankParams`)."""
 
-    def __init__(self, params: Params, device: "torch.device | str"):
+    def __init__(self, params: Params, device: "torch.device | str", layout: Any = None):
         super().__init__()
+        self.layout = layout
 
         def own(tree: Params) -> torch.nn.ParameterDict:
             return torch.nn.ParameterDict({
@@ -132,7 +155,12 @@ class Decoder(torch.nn.Module):
                 for name, w in owned.items()
             }
 
-        return {**tree(self.top), "layers": tree(self.layers)}
+        out = {**tree(self.top), "layers": tree(self.layers)}
+        if self.layout is None:
+            return out
+        ranked = RankParams(out)
+        ranked.layout = self.layout
+        return ranked
 
 
 def layer_params(params: Params, i: int) -> Params:
@@ -210,23 +238,59 @@ def attn_out_mlp(
     attn: torch.Tensor,  # [B, S, H, hd]
     lp: Params,
     eps: float,
+    layout: Any = None,
 ) -> torch.Tensor:
-    """The block's back half: output projection + residual + SwiGLU MLP."""
-    x = x + torch.einsum("bsnh,nhd->bsd", attn, _w(lp["wo"], attn.dtype))
+    """The block's back half: output projection + residual + SwiGLU MLP.
+    On a rank whose ``wo`` (``w_down``) is split over tp, the product is
+    this rank's partial sum: summed over tp before the residual add."""
+    out = torch.einsum("bsnh,nhd->bsd", attn, _w(lp["wo"], attn.dtype))
+    if layout is not None and layout.heads:
+        out = layout.comm.tp_sum(out)
+    x = x + out
     h = rms_norm(x, lp["mlp_norm"], eps)
     gate = torch.einsum("bsd,df->bsf", h, _w(lp["w_gate"], h.dtype))
     up = torch.einsum("bsd,df->bsf", h, _w(lp["w_up"], h.dtype))
     act = F.silu(gate) * up
-    return x + torch.einsum("bsf,fd->bsd", act, _w(lp["w_down"], act.dtype))
+    down = torch.einsum("bsf,fd->bsd", act, _w(lp["w_down"], act.dtype))
+    if layout is not None and layout.ff:
+        down = layout.comm.tp_sum(down)
+    return x + down
 
 
 def lm_logits(x: torch.Tensor, params: Params, eps: float) -> torch.Tensor:
-    """Final norm + (tied or untied) LM head."""
+    """Final norm + (tied or untied) LM head; a rank's vocab-split logits
+    are gathered over tp, in rank order (the whole vocabulary, so every
+    rank's argmax and sampling see what one device's see)."""
     x = rms_norm(x, params["final_norm"], eps)
     head = params.get("lm_head")
     if head is None:
-        return torch.einsum("bsd,vd->bsv", x, params["embed"])
-    return torch.einsum("bsd,dv->bsv", x, _w(head, x.dtype))
+        logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
+    else:
+        logits = torch.einsum("bsd,dv->bsv", x, _w(head, x.dtype))
+    layout = layout_of(params)
+    if layout is not None and layout.vocab is not None:
+        logits = layout.comm.tp_gather(logits, dim=-1)
+    return logits
+
+
+def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding gather; a rank holding a vocab slice looks up its own
+    rows, zeroes the rest, and the ranks' rows are summed over tp."""
+    table = params["embed"]
+    layout = layout_of(params)
+    if layout is None or layout.vocab is None:
+        return table[tokens]
+    lo, n = layout.vocab
+    local = tokens.to(torch.int64) - lo
+    mine = (local >= 0) & (local < n)
+    x = table[local.clamp(0, n - 1)] * mine[..., None].to(table.dtype)
+    return layout.comm.tp_sum(x)
+
+
+def kv_heads(params: Params, config: ModelConfig) -> int:
+    """The kv heads this rank's caches hold (all of them on one device)."""
+    layout = layout_of(params)
+    return config.n_kv_heads if layout is None else layout.kv_heads
 
 
 def _einsum_f32(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -310,7 +374,7 @@ def forward(
     computed by the same kernel as a zero query (its rope tables zeroed,
     which costs no pass over q) that sees every position of the window."""
     eps = config.norm_eps
-    x = params["embed"][tokens]  # [B, S, D] gather
+    x = embed_tokens(params, tokens)  # [B, S, D]
     cos, sin = rope_tables(positions, config.head_dim, config.rope_theta)
     if insert_at is None:
         insert_at = seq_lens - tokens.shape[1]  # where this chunk lands
@@ -331,7 +395,7 @@ def forward(
             q, k_pages[i, :, :, :W], v_pages[i, :, :, :W], attn_pos, attn_lens,
             attn_impl=attn_impl,
         )
-        x = attn_out_mlp(x, attn, lp, eps)
+        x = attn_out_mlp(x, attn, lp, eps, layout_of(params))
     if logits_at is not None:
         x = x[torch.arange(x.shape[0], device=x.device), logits_at][:, None]
     return lm_logits(x, params, eps), (k_pages, v_pages)
@@ -376,7 +440,7 @@ def _decode_step_with_ring(
     ``attn_source`` (the one thing a cache layout changes)."""
     eps = config.norm_eps
     positions = (base_lens + t)[:, None]  # [B, 1] absolute position
-    x = params["embed"][tokens]
+    x = embed_tokens(params, tokens)
     cos, sin = rope_tables(positions, config.head_dim, config.rope_theta)
     ring_k, ring_v = ring
     for i in range(config.n_layers):
@@ -385,7 +449,7 @@ def _decode_step_with_ring(
         ring_k[i, t] = k[:, 0].to(ring_k.dtype)
         ring_v[i, t] = v[:, 0].to(ring_v.dtype)
         attn = attn_source(i, q, ring_k[i], ring_v[i])
-        x = attn_out_mlp(x, attn, lp, eps)
+        x = attn_out_mlp(x, attn, lp, eps, layout_of(params))
     return lm_logits(x, params, eps), (ring_k, ring_v)
 
 
@@ -518,9 +582,9 @@ def _verify_step_with_ring(
     eps = config.norm_eps
     B, S = tokens.shape
     positions = base_lens[:, None] + torch.arange(S, device=tokens.device)[None, :]
-    x = params["embed"][tokens]
+    x = embed_tokens(params, tokens)
     cos, sin = rope_tables(positions, config.head_dim, config.rope_theta)
-    ring_shape = (config.n_layers, S, B, config.n_kv_heads, config.head_dim)
+    ring_shape = (config.n_layers, S, B, kv_heads(params, config), config.head_dim)
     ring_k = torch.zeros(ring_shape, dtype=ring_dtype, device=tokens.device)
     ring_v = torch.zeros(ring_shape, dtype=ring_dtype, device=tokens.device)
     for i in range(config.n_layers):
@@ -529,7 +593,7 @@ def _verify_step_with_ring(
         ring_k[i] = k.transpose(0, 1).to(ring_dtype)  # [B, S, K, hd] -> [S, B, K, hd]
         ring_v[i] = v.transpose(0, 1).to(ring_dtype)
         attn = attn_source(i, q, ring_k[i], ring_v[i])
-        x = attn_out_mlp(x, attn, lp, eps)
+        x = attn_out_mlp(x, attn, lp, eps, layout_of(params))
     return lm_logits(x, params, eps), (ring_k, ring_v)  # logits [B, S, V]
 
 
@@ -620,10 +684,12 @@ def _insert_chunk(
 
 def make_empty_cache(
     config: ModelConfig, batch: int, max_seq: int, dtype: Any = None,
-    device: "torch.device | str" = "cuda",
+    device: "torch.device | str" = "cuda", kv_heads: "int | None" = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A dense cache [L, batch, K, max_seq, hd] (a rank's: ``kv_heads``)."""
     dtype = torch_dtype(dtype or config.dtype)
-    shape = (config.n_layers, batch, config.n_kv_heads, max_seq, config.head_dim)
+    K = config.n_kv_heads if kv_heads is None else kv_heads
+    shape = (config.n_layers, batch, K, max_seq, config.head_dim)
     return (
         torch.zeros(shape, dtype=dtype, device=device),
         torch.zeros(shape, dtype=dtype, device=device),
@@ -637,13 +703,13 @@ def make_empty_cache(
 
 def make_page_pool(
     config: ModelConfig, num_pages: int, page_size: int, dtype: Any = None,
-    device: "torch.device | str" = "cuda",
+    device: "torch.device | str" = "cuda", kv_heads: "int | None" = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """KV page pool [L, N, K, page, hd]; page 0 is the trash page."""
+    """KV page pool [L, N, K, page, hd] (a rank's: ``kv_heads``); page 0 is
+    the trash page."""
     dtype = torch_dtype(dtype or config.dtype)
-    shape = (
-        config.n_layers, num_pages, config.n_kv_heads, page_size, config.head_dim
-    )
+    K = config.n_kv_heads if kv_heads is None else kv_heads
+    shape = (config.n_layers, num_pages, K, page_size, config.head_dim)
     return (
         torch.zeros(shape, dtype=dtype, device=device),
         torch.zeros(shape, dtype=dtype, device=device),

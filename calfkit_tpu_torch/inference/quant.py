@@ -215,6 +215,60 @@ def quantize_array_host(
     return {key: t.numpy() for key, t in q.items()}
 
 
+def quantize_shardings(shardings: Params, *, bits: int = 8) -> Params:
+    """Mirror a sharding tree (:func:`sharding.param_shardings`) onto the
+    quantized structure, as the reference does.
+
+    int8: q8 keeps the tensor's spec; the scale clears the spec at every
+    reduction axis (those dims are singletons after keepdims).
+
+    int4: the packed tensor keeps the spec (halving an axis keeps it
+    divisible); the scale clears the spec ONLY at the packing axis (its
+    dim becomes n_groups) and keeps it elsewhere.  A rank's shard of a
+    packed leaf whose packing axis is split takes the matching scale rows
+    (:func:`sharding.local_params`)."""
+    from calfkit_tpu_torch.inference.sharding import Sharding
+
+    def expand(ns: Any, reduction_axes: "tuple[int, ...]") -> Any:
+        spec = list(ns.spec) + [None] * 8  # pad: a spec may be shorter than the rank
+        cleared = reduction_axes if bits == 8 else reduction_axes[-1:]
+        for axis in cleared:
+            spec[axis] = None
+        scale_ns = Sharding(ns.mesh, tuple(spec[: len(ns.spec)]))
+        if bits == 8:
+            return {"q8": ns, "scale": scale_ns}
+        # the key's group is resolved at quantize time from the real axis
+        # size: :func:`align_quant_sharding_keys` renames it
+        return {"__q4__": ns, "scale": scale_ns}
+
+    out: Params = {"embed": shardings["embed"], "final_norm": shardings["final_norm"]}
+    out["layers"] = {
+        name: expand(ns, LAYER_REDUCTION_AXES[name]) if name in LAYER_REDUCTION_AXES else ns
+        for name, ns in shardings["layers"].items()
+    }
+    if "lm_head" in shardings:
+        out["lm_head"] = expand(shardings["lm_head"], LM_HEAD_REDUCTION_AXES)
+    return out
+
+
+def align_quant_sharding_keys(shardings: Params, params: Params) -> Params:
+    """Rename int4 placeholder keys (``__q4__``) in a sharding tree to the
+    concrete ``q4an<n>g<group>`` keys the params tree carries, so the two
+    trees have one structure."""
+
+    def walk(sh: Any, pr: Any) -> Any:
+        if isinstance(sh, dict) and "__q4__" in sh and isinstance(pr, dict):
+            found = q4_key_of(pr)
+            if found is None:
+                raise ValueError("params leaf is not int4 but shardings are")
+            return {found[0]: sh["__q4__"], "scale": sh["scale"]}
+        if isinstance(sh, dict):
+            return {k: walk(v, pr[k] if isinstance(pr, dict) else pr) for k, v in sh.items()}
+        return sh
+
+    return walk(shardings, params)
+
+
 def random_quantized_params_host(
     config: Any, seed: int = 0, dtype: Any = None, *, bits: int = 8
 ) -> Params:

@@ -137,6 +137,7 @@ class DraftModelDrafter:
         seed: int = 17,
         *,
         pool: graphs.GraphPool,
+        layout: Any = None,
     ):
         if spec.draft is None:
             raise ValueError("DraftModelDrafter needs SpecConfig.draft")
@@ -158,9 +159,13 @@ class DraftModelDrafter:
             params = M.init_params(self.config, generator)
         # tensors already on the device are wrapped, not copied: a draft
         # that shares the target's weights costs no second copy of them
-        self.params = M.Decoder(params, self.device).params()
+        # on a rank of a multi-rank engine: this rank's shard of the draft
+        # model (``layout``), whose proposer runs the model's collectives
+        self.params = M.Decoder(params, self.device, layout).params()
         B, S = runtime.max_batch_size, runtime.max_seq_len
-        self._kc, self._vc = M.make_empty_cache(self.config, B, S, device=self.device)
+        self._kc, self._vc = M.make_empty_cache(
+            self.config, B, S, device=self.device, kv_heads=M.kv_heads(self.params, self.config)
+        )
         self._dlen = np.zeros((B,), np.int64)
         self._pool = pool
         self._graphs: dict[int, graphs.CapturedDispatch] = {}  # catch-up width ->
@@ -220,6 +225,7 @@ class DraftModelDrafter:
         specs = [((B, width), torch.int32), ((B,), torch.int32), ((B,), torch.int32),
                  ((B,), torch.bool)]
         fn = self._graphs[width] = graphs.CapturedDispatch(self._pool, propose, specs)
+        fn.recipe = ("drafter", "_propose_graph", (width,))
         return fn
 
     def propose(self, requests: "list[tuple[int, list[int]]]") -> "list[list[int]]":
@@ -278,11 +284,12 @@ def build_drafter(
     seed: int = 17,
     *,
     pool: graphs.GraphPool,
+    layout: Any = None,
 ) -> Drafter:
     """The drafter ``spec`` asks for; a draft model's proposer is captured
     into ``pool`` (the engine's, so its captures and replays count in the
     engine's graph stats)."""
     if spec.draft is not None:
         return DraftModelDrafter(spec, runtime, device, params=draft_params, seed=seed,
-                                 pool=pool)
+                                 pool=pool, layout=layout)
     return NgramDrafter(spec)

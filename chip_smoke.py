@@ -235,6 +235,22 @@ the final ``ok`` line is never printed:
    trip, the scrape's ms and the round's wall; then #5 and #2 against
    their plain versions at the phase's most launched shapes; the
    ``kernels`` line reports its launches under ``typed_agent``.
+19. tensor parallelism (``tp_phase``): llama-3-8b bf16 at
+   ``RuntimeConfig(tp=2)`` (phase 15's runtime without the ragged lane) in
+   two processes on the one card, joined over gloo by
+   ``initialize_multihost`` on a ``file://`` store in a temporary
+   directory: rank 1 (a spawned process) runs ``serve_worker`` on its
+   shard of the seed's model, rank 0 serves phase 15's agent round (8
+   conversations x 2 turns) through ``TorchLocalModelClient`` under
+   ``graphs.eager()``; it holds the tie law on every engine turn and its
+   direct request against the f32 plain forward of the whole model, #5
+   and #2 launched on both ranks (equal counts), each rank's #5 and #2
+   against their plain versions at its own heads (H = 16, K = 4), no leak,
+   rank 1's exit; it prints tok/s beside phase 15's, the descriptor's host
+   ms, the ms of a gloo collective, each rank's peak and launches; the
+   ``kernels`` line reports each rank's launches under ``tp2``.  The NCCL
+   drive on CUDA graphs needs two cards: with one, a line says it did not
+   run.
 
 The kernel phase also holds the ragged multi-query kernels (speculative
 verify shapes S = 5, a mixed-row case with prefill-kind and fresh rows, page
@@ -5211,6 +5227,285 @@ async def _typed_round(client, prompts) -> dict:
     return dict(runs=list(runs), wall_s=time.perf_counter() - started)
 
 
+# --------------------------------------------------------------------------- #
+# phase 19: tensor parallelism across two processes
+# --------------------------------------------------------------------------- #
+
+# phase 15's runtime without the ragged lane, at tp = 2
+TP_RUNTIME = replace(MESH_RUNTIME, ragged_waves=False, tp=2)
+TP_SEED = 0  # both ranks draw the model from this seed, each its own shard
+TP_WORKER_TIMEOUT_S = 600.0
+
+
+def _tp_rank1(coordinator: str, cfg, rt, device: str) -> None:
+    """Phase 19's rank 1 (a spawned process): join the group over gloo and
+    run rank 0's dispatches on its shard of ``cfg`` drawn from the seed
+    until rank 0's engine stops."""
+    from calfkit_tpu_torch.inference import distributed as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    D.initialize_multihost(coordinator, 2, 1, backend="gloo")
+    try:
+        D.serve_worker(cfg, rt, seed=TP_SEED, device=device)
+    finally:
+        D.shutdown_group()
+
+
+def _rank_reset(engine) -> None:
+    A.reset_launch_counts()
+    if engine.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(engine.device)
+
+
+def _rank_numbers(engine) -> dict:
+    """One rank's launch counts, peak allocation and collective counts."""
+    peak = torch.cuda.max_memory_allocated(engine.device) if engine.device.type == "cuda" else 0
+    comm = engine._layout.comm
+    return dict(launches=dict(A.launch_counts), peak=peak, comm=dict(comm.stats),
+                kv_heads=engine._kv_heads, heads=engine.params["layers"]["wq"].shape[2])
+
+
+def _rank_cases(engine, prefill_rows: "list[dict]", decode_rows: "list[dict]") -> "list[dict]":
+    """#5 and #2 against their plain versions on this rank, at its own
+    heads (H/tp queries over its kv heads), at the shapes phase 19
+    launched most."""
+    dev, bf16 = engine.device, torch.bfloat16
+    if dev.type != "cuda":
+        return []  # the kernels run on a card only (a rehearsal on the CPU)
+    H, K = engine.params["layers"]["wq"].shape[2], engine._kv_heads
+    rt = TP_RUNTIME
+    p, d = prefill_rows[0], decode_rows[0]
+    label = f"tp=2 rank {engine._rank}, {d['launches']} launches"
+    return run_cases(dev, [
+        ("prefill_attention", prefill_case,
+         (bf16, p["B"], p["S"], H, K, 128, 44, 0, p["window"], p["last_kv_lens"])),
+        ("paged_decode_attention", paged_decode_case,
+         (bf16, d["B"], K, H // K, 128, rt.page_size, d["last_kv_lens"], d["window"], 41, 1,
+          bf16, label, rt.pool_pages())),
+    ])
+
+
+async def _tp_round(engine, eager: bool, cases: bool) -> dict:
+    """Phase 15's measured agent round on a multi-rank ``engine`` (rank 0),
+    through a ``TorchLocalModelClient`` over it: every rank's launch counts
+    reset just before the round and read just after (``on_ranks``), the
+    round's 16 engine turns replayed as direct requests, then (``cases``)
+    each rank's #5 and #2 against their plain versions at the round's most
+    launched shapes; ``stop()`` and the no-leak law last."""
+    tok = CharTokenizer()
+    tools = [agent_tool(fn) for fn in (get_weather, search_flights, book_hotel)]
+    local = TorchLocalModelClient(engine=engine, tokenizer=tok, max_new_tokens=CLIENT_MAX_TOKENS)
+    model = MeshTurnModel(local)
+    agent = Agent(
+        MESH_AGENT, model=model, instructions=AGENT_INSTRUCTIONS, tools=tools,
+        model_settings=ModelSettings(max_tokens=CLIENT_MAX_TOKENS), stream_tokens=True,
+    )
+    mesh = InMemoryMesh()
+    first_token: "dict[str, float]" = {}
+    out: dict = {}
+    with graphs.eager() if eager else contextlib.nullcontext():
+        await local.start()
+        try:
+            with seeded_client_ids(MESH_ID_SEED):
+                async with Worker([agent, *tools], mesh=mesh, max_workers=MESH_LANES):
+                    client = Client.connect(mesh)
+                    firehose = client.events()
+
+                    async def watch() -> None:
+                        async for event in firehose:
+                            if event.step.kind == "token":
+                                first_token.setdefault(event.correlation_id, time.perf_counter())
+
+                    watcher = asyncio.create_task(watch())
+                    try:
+                        engine.on_ranks(_rank_reset)
+                        comm_before = dict(engine._layout.comm.stats)
+                        channel = engine._channel
+                        sent_before = (channel.sent, channel.sent_s)
+                        with prefill_shapes() as prefills, decode_shapes() as decodes:
+                            out["measured"] = await _mesh_round(
+                                client, [engine], [model], _mesh_prompts("Trip desk"),
+                                first_token)
+                        out["ranks"] = engine.on_ranks(_rank_numbers)
+                        out["sent"] = (channel.sent - sent_before[0],
+                                       channel.sent_s - sent_before[1])
+                        out["comm"] = {k: out["ranks"][0]["comm"][k] - v
+                                       for k, v in comm_before.items()}
+                        out["graphs"] = graph_numbers(engine)
+                    finally:
+                        firehose.close()
+                        watcher.cancel()
+                        with contextlib.suppress(asyncio.CancelledError):
+                            await watcher
+                        await client.close()
+            out["direct"] = []
+            for turn in out["measured"]["turns"]:
+                out["direct"] += await asyncio.gather(*[
+                    local.request(c["messages"], c["settings"], c["params"])
+                    for c in turn["calls"]])
+            out["prefill_rows"] = _shape_rows(prefills)
+            out["decode_rows"] = _shape_rows(decodes)
+            out["rank_cases"] = engine.on_ranks(
+                _rank_cases, out["prefill_rows"], out["decode_rows"]) if cases else []
+        finally:
+            await local.stop()
+    rt = engine.runtime
+    out["free_pages"], out["cached"] = engine._page_alloc.free_pages, engine._prefix.size
+    assert out["free_pages"] + out["cached"] == rt.pool_pages() - 1, (
+        out["free_pages"], out["cached"])
+    assert len(engine._free) == rt.max_batch_size and not engine._active
+    return out
+
+
+def _tp_checks(cfg, params, r: dict, dev) -> dict:
+    """A tp = 2 round's law: the tie law on its engine turns and their
+    direct requests, #5 and #2 launched on both ranks alike, each rank at
+    half the heads → its numbers."""
+    tok = CharTokenizer()
+    calls = [c for turn in r["measured"]["turns"] for c in turn["calls"]]
+    streams = tie_law(cfg, params, [
+        (c["corr"], [tok.bos_id, *tok.encode(render_messages(c["messages"], c["params"]))],
+         _stream_ids(tok, c["response"]), _stream_ids(tok, d))
+        for c, d in zip(calls, r["direct"])
+    ], dev, labels=("mesh", "direct"))
+    ranks = r["ranks"]
+    for rank, numbers in enumerate(ranks):
+        launches = numbers["launches"]
+        assert launches["prefill_attention"] > 0 and launches["paged_decode_attention"] > 0, \
+            (rank, launches)
+        assert numbers["kv_heads"] == cfg.n_kv_heads // 2 and numbers["heads"] == cfg.n_heads // 2
+    assert ranks[0]["launches"] == ranks[1]["launches"], [n["launches"] for n in ranks]
+    t1, t2 = (_mesh_turn_numbers(t, MESH_LANES) for t in r["measured"]["turns"])
+    tokens = t1["output_tokens"] + t2["output_tokens"]
+    comm, sent = r["comm"], r["sent"]
+    collectives = comm["all_reduce"] + comm["all_gather"]
+    return dict(
+        turn1=t1, turn2=t2, output_tokens=tokens, tok_s=tokens / r["measured"]["wall_s"],
+        wall_s=r["measured"]["wall_s"], streams=streams, engine_turns=len(calls),
+        launches={rank: n["launches"] for rank, n in enumerate(ranks)},
+        peak={rank: n["peak"] for rank, n in enumerate(ranks)},
+        descriptors=sent[0], descriptor_ms=sent[1] * 1e3 / max(sent[0], 1),
+        collectives=comm, collective_ms=comm["seconds"] * 1e3 / max(collectives, 1),
+        prefill_shapes=r["prefill_rows"], decode_shapes=r["decode_rows"],
+        graphs=r["graphs"], free_pages=r["free_pages"], cached=r["cached"],
+        rank_cases=[[{k: c[k] for k in ("name", "shape", "max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms")} for c in cases]
+                    for cases in r["rank_cases"]],
+    )
+
+
+def _tp_note(name: str, res: dict, card: str) -> str:
+    t1, t2, comm, streams = res["turn1"], res["turn2"], res["collectives"], res["streams"]
+    ranks = res["launches"]
+    return (
+        f"  {name} ({card}): 8 conversations x 2 turns through Client.execute, "
+        f"{res['output_tokens']} tokens at {res['tok_s']:.1f} tok/s over the round's "
+        f"{res['wall_s']:.2f} s; TTFT turn 1 median {t1['engine_ttft_median_ms']:.1f} ms, turn "
+        f"2 {t2['engine_ttft_median_ms']:.1f} ms; {res['descriptors']} dispatch descriptors at "
+        f"{res['descriptor_ms']:.3f} host ms each; {comm['all_reduce'] + comm['all_gather']} "
+        f"collectives on rank 0 at {res['collective_ms']:.3f} host ms each "
+        f"({comm['all_reduce']} all-reduces, {comm['all_gather']} gathers); peak allocation "
+        f"rank 0 {res['peak'][0] / 1e9:.2f} GB, rank 1 {res['peak'][1] / 1e9:.2f} GB; launches "
+        f"rank 0 {ranks[0]}, rank 1 {ranks[1]}; prefill by (B, Sq, Skv) "
+        f"{[(r['B'], r['S'], r['window'], r['launches']) for r in res['prefill_shapes']]}, paged "
+        f"decode by (B, wpages) "
+        f"{[(r['B'], r['window'], r['launches']) for r in res['decode_shapes']]}; graphs "
+        f"captures {res['graphs']['captures']} replays {res['graphs']['replays']} eager "
+        f"{res['graphs']['eager']}; the {res['engine_turns']} engine turns and their direct "
+        f"requests within {TIE_SPACINGS} bf16 spacings of the f32 plain forward's top logit "
+        f"(max gap {streams['max_gap']:.3f}, {len(streams['diverged'])} parting at a tie); "
+        f"pages free {res['free_pages']} + cached {res['cached']}"
+    )
+
+
+async def tp_phase(dev, agent_mesh: "dict | None" = None, card: str = "") -> dict:
+    """Phase 19: llama-3-8b bf16 at ``RuntimeConfig(tp=2)`` in two processes
+    sharing the one card over gloo (``TP_RUNTIME``: phase 15's paged
+    runtime without the ragged lane).  Rank 1 is a spawned process running
+    ``distributed.serve_worker``; rank 0 (this process) builds the engine
+    on its shard of the seed's model and serves phase 15's agent round
+    (:func:`_tp_round`) under ``graphs.eager()`` (gloo collectives cannot
+    live in a CUDA graph).  Checks (:func:`_tp_checks`): every engine turn
+    and a direct request on its messages under phase 13's tie law against
+    the f32 plain forward of the whole model; #5 and #2 launched on BOTH
+    ranks, equally; each rank's #5 and #2 against their plain versions at
+    its own heads (H = 16, K = 4); no page or slot leaked after
+    ``stop()``; rank 1 exits 0.  Prints decode tok/s beside phase 15's
+    tp = 1 figure, the host ms a dispatch's descriptor adds, the host ms
+    of one gloo collective, each rank's peak allocation and launches, and
+    the phase's seconds.  With two or more cards the same round follows at
+    tp = 2 over NCCL (one card a rank, the engine spawning rank 1) on CUDA
+    graphs, under the same checks; with one card a line says it did not
+    run."""
+    import multiprocessing
+
+    from calfkit_tpu_torch.inference import distributed as D
+
+    started = time.perf_counter()
+    cfg, rt = preset("llama-3-8b"), TP_RUNTIME
+    tmp = tempfile.TemporaryDirectory(prefix="calfkit-tp-")
+    coordinator = "file://" + os.path.join(tmp.name, "store")
+    ctx = multiprocessing.get_context("spawn")
+    worker = ctx.Process(target=_tp_rank1, args=(coordinator, cfg, rt, str(dev)),
+                         name="calfkit-rank-1")
+    worker.start()
+    try:
+        info = D.initialize_multihost(coordinator, 2, 0, backend="gloo")
+        assert info.num_processes == 2 and info.process_id == 0, info
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(TP_SEED)
+        params = M.init_params(cfg, generator)  # the whole model: the tie law's witness
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        engine = InferenceEngine(cfg, rt, params=params, device=dev)
+        assert engine._kv_heads == cfg.n_kv_heads // 2 and engine._layout.comm.backend == "gloo"
+        r = await _tp_round(engine, eager=True, cases=True)
+        worker.join(120)
+        assert worker.exitcode == 0, f"rank 1 ended with {worker.exitcode}"
+    finally:
+        if worker.is_alive():
+            worker.kill()
+            worker.join(10)
+        D.shutdown_group()
+        tmp.cleanup()
+    del engine
+    result = _tp_checks(cfg, params, r, dev)
+    result["seconds"] = time.perf_counter() - started
+    tp1 = agent_mesh["tok_s"] if agent_mesh else None
+    print(_tp_note("tp=2 llama-3-8b bf16 in two processes on one card over gloo, under "
+                   "graphs.eager()", result, card)
+          + f"; phase 15's tp=1 on graphs: "
+          f"{'not measured' if tp1 is None else f'{tp1:.1f}'} tok/s; rank 1 joined; "
+          f"{result['seconds']:.1f} s for the drive")
+    for rank, cases in enumerate(result["rank_cases"]):
+        for c in cases:
+            print(f"    rank {rank} {c['name']} at {c['shape']}: max abs err "
+                  f"{c['max_abs_err']:.2e}, {c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, bound "
+                  f"{c['bound_ms']:.4f} by {c['bound_by']}, library {c['library_ms']})")
+    if dev.type == "cuda" and torch.cuda.device_count() >= 2:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        # no group in this process now: the engine spawns rank 1 on card 1
+        # and joins it over NCCL; both draw their shard from the seed
+        engine = InferenceEngine(cfg, rt, seed=TP_SEED, device=dev)
+        assert engine._layout.comm.backend == "nccl"
+        nccl = _tp_checks(cfg, params, await _tp_round(engine, eager=False, cases=False), dev)
+        assert nccl["graphs"]["captures"] > 0 and nccl["graphs"]["eager"] == 0, nccl["graphs"]
+        nccl["seconds"] = time.perf_counter() - t
+        result["nccl"] = nccl
+        print(_tp_note("tp=2 llama-3-8b bf16 over NCCL, one card a rank, on CUDA graphs", nccl,
+                       card) + f"; {nccl['seconds']:.1f} s for the drive")
+        del engine
+    else:
+        result["nccl"] = "not run: the machine has one card"
+        print(f"  tp=2 over NCCL on CUDA graphs: {result['nccl']}")
+    del params
+    result["seconds"] = time.perf_counter() - started
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -5354,6 +5649,10 @@ def main() -> int:
     stage("prefill and paged decode kernels at the typed agent phase's shapes")
     cases += [path_case(dev, "prefill_attention", typed["prefill_shapes"]),
               path_case(dev, "paged_decode_attention", typed["decode_shapes"], "typed agent")]
+    stage("tensor-parallel phase (tp=2, two processes)")
+    tp = asyncio.run(tp_phase(dev, agent_mesh, card))
+    release()
+    cases += [c for rank in tp["rank_cases"] for c in rank]
 
     # each kernel's launches from the path it serves, beside its case at a
     # shape of that path (MAIN_SHAPES, path_case): the dense decode kernel
@@ -5397,6 +5696,14 @@ def main() -> int:
         if typed["launches"].get(name):
             # the typed agent's path (phase 18's measured round)
             entry["typed_agent"] = dict(launches=typed["launches"][name])
+        if tp["launches"][0].get(name):
+            # the tp = 2 path (phase 19's round), each rank's launches and
+            # the kernel at that rank's heads
+            entry["tp2"] = dict(
+                launches={r: n[name] for r, n in tp["launches"].items()},
+                cases={r: next(c for c in cases_ if c["name"] == name)
+                       for r, cases_ in enumerate(tp["rank_cases"])},
+            )
         line["kernels"].append(entry)
     if args.out:
         with open(args.out, "w") as f:
@@ -5406,7 +5713,7 @@ def main() -> int:
                            checkpoint=ckpt, north_star=north, graphs=graph,
                            overload=overload, long_lane=long_lane,
                            agent_mesh=agent_mesh, wire_mesh=wire_mesh, fleet=fleet,
-                           typed_agent=typed, kernels=line["kernels"]),
+                           typed_agent=typed, tp=tp, kernels=line["kernels"]),
                       f, indent=1, default=str)
     print(f"all phases in {time.perf_counter() - t0:.0f} s")
     print(json.dumps(line))

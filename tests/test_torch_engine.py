@@ -170,18 +170,20 @@ async def test_sampled_stream_independent_of_batch(weights):
     [
         dict(kv_layout="paged"), dict(kv_layout="ring"),
         dict(speculative=SpecConfig(k=0)),
-        dict(quantization="fp8"), dict(tp=2), dict(prefix_cache=True),
+        dict(quantization="fp8"), dict(tp=2, long_context=True), dict(prefix_cache=True),
         dict(attention_impl="xla"),
     ],
     ids=[
         "paged-page64-does-not-divide-chunk16", "unknown-kv-layout",
-        "speculative", "unsupported-quantization", "tp2",
+        "speculative", "unsupported-quantization", "tp2-long-lane",
         "prefix-cache-without-paged", "attention-impl-xla",
     ],
 )
 def test_later_slices_raise(weights, over):
-    """Configurations of later slices, and the reference's own refusals
-    (speculation is served since the spec slice: k < 1 still raises)."""
+    """Configurations of later slices (the long lane over several ranks:
+    tp/dp themselves are served since the multi-device slice), and the
+    reference's own refusals (speculation is served since the spec slice:
+    k < 1 still raises)."""
     with pytest.raises(ValueError):
         _port(weights, **over)
 

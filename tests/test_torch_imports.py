@@ -300,3 +300,47 @@ def test_client_without_a_card_raises_instead_of_using_the_cpu():
     )
     with pytest.raises(InferenceError, match="no CUDA device"):
         asyncio.run(client.start())
+
+
+_WORKER_SCRIPT = """
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+BLOCKED = ("jax", "jaxlib", "calfkit_tpu", "pydantic", "pydantic_core", "httpx", "click",
+           "safetensors", "transformers", "ml_dtypes")
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, ROOT)
+
+
+def banned(engine):
+    return sorted(m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in BLOCKED)
+
+
+if __name__ == "__main__":
+    import asyncio
+    from calfkit_tpu_torch.inference.config import RuntimeConfig, preset
+    from calfkit_tpu_torch.inference.engine import InferenceEngine
+
+    engine = InferenceEngine(preset("debug"), RuntimeConfig(
+        max_batch_size=2, max_seq_len=64, prefill_chunk=16, tp=2), device="cpu")
+    found = engine.on_ranks(banned)
+    asyncio.run(engine.stop())
+    assert found == [[], []], found
+    print("OK")
+"""
+
+
+def test_spawned_worker_imports_no_banned_package(tmp_path):
+    """A tp = 2 engine's spawned worker process (rank 1) runs with the
+    banned packages blocked and has none of them loaded."""
+    script = tmp_path / "worker_law.py"
+    script.write_text(_WORKER_SCRIPT.replace("ROOT", repr(str(ROOT))))
+    proc = subprocess.run([sys.executable, str(script)], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().endswith("OK")

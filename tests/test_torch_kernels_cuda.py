@@ -1016,3 +1016,161 @@ def test_two_engines_capture_at_once():
         assert engine._graphs.stats["captures"] > 0 and engine._graphs.stats["eager"] == 0
         assert all(a.data_ptr() == b.data_ptr() for a, b in zip(
             engine.params["layers"].values(), params["layers"].values()))
+
+
+# llama-3-8b's heads on one rank of a tensor-parallel engine: (H, K) at tp
+RANK_HEADS = {2: (16, 4), 4: (8, 2), 8: (4, 1)}
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("tp", sorted(RANK_HEADS))
+def test_kernels_at_a_ranks_heads(tp):
+    """#2 and #5 at the heads one rank of llama-3-8b holds at tp = 2, 4, 8
+    (H/K = 16/4, 8/2, 4/1), bf16 caches and q, hd 128, page 64."""
+    dev = torch.device("cuda")
+    H, K = RANK_HEADS[tp]
+    G, hd, page = H // K, 128, 64
+    lens = [0, 1, 63, 64, 65, 700, 1023, 1024]
+    wpages = 1024 // page
+    q, pk, pv, tables, lens_t = _paged_case(
+        dev, torch.bfloat16, hd, G, page, lens, wpages, 90 + tp, K=K, q_dtype=torch.bfloat16)
+    out = A.paged_decode_attention(q, pk, pv, 1, tables, lens_t, wpages=wpages)
+    ref = A.paged_decode_attention_reference(q, pk, pv, 1, tables, lens_t, wpages=wpages)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, **DECODE_TOL)
+    Sq, Skv = 512, 1024
+    q_pos = [list(range(512, 1024))] * 2
+    args = _prefill_layer_case(dev, torch.bfloat16, hd, G, Sq, Skv, q_pos, [1024, 900], tp, K)
+    torch.testing.assert_close(
+        A.prefill_attention(*args).float(), A.prefill_attention_reference(*args).float(),
+        **PREFILL_TOL[torch.bfloat16],
+    )
+
+
+_TP_CHILD = '''
+import sys
+import torch
+sys.path.insert(0, {repo!r})
+from calfkit_tpu_torch.inference import distributed as D, model as M, sharding as S
+from calfkit_tpu_torch.inference.config import preset
+
+rank = int(sys.argv[1])
+D.initialize_multihost({coordinator!r}, 2, rank, backend="gloo")
+cfg = preset("llama-3-8b", n_layers=2, vocab_size=4096)
+generator = torch.Generator(device="cuda")
+generator.manual_seed(0)
+mesh = S.make_mesh(tp=2)
+shard = S.init_params_sharded(cfg, generator, S.param_shardings(cfg, mesh), rank)
+layout = S.layout_of(cfg, mesh, rank, D.Comm(mesh, rank))
+params = M.Decoder(S.local_params(shard, cfg, layout), "cuda", layout).params()
+tokens = torch.load({tokens!r}).cuda()
+B, T = tokens.shape
+cache = M.make_empty_cache(cfg, B, T, device="cuda", kv_heads=layout.kv_heads)
+pos = torch.arange(T, dtype=torch.int32, device="cuda").expand(B, T)
+logits, _ = M.forward(params, cfg, tokens, pos, cache,
+                      torch.full((B,), T, dtype=torch.int32, device="cuda"))
+torch.save(logits.cpu(), {out!r}.format(rank))
+# gloo work cannot live in a CUDA graph: a capture that meets a collective raises
+from calfkit_tpu_torch.exceptions import InferenceError
+graph = torch.cuda.CUDAGraph()
+try:
+    with torch.cuda.graph(graph):
+        M.forward(params, cfg, tokens, pos, cache,
+                  torch.full((B,), T, dtype=torch.int32, device="cuda"))
+except InferenceError as exc:
+    print("CAPTURE REFUSED", "gloo" in str(exc))
+D.shutdown_group()
+'''
+
+
+@pytest.mark.cuda
+@cuda_only
+def test_two_process_gloo_forward_on_one_card(tmp_path):
+    """A tp = 2 forward in two processes sharing the card over gloo (each
+    rank its shard of llama-3-8b's widths at 2 layers, drawn from one
+    seed; the kernels at 16 heads over 4 kv heads) equals the one-process
+    forward within the bf16 tie law: each position's tp = 2 argmax lies
+    within 3 bf16 spacings of the one-process top logit.  A CUDA-graph
+    capture of the same forward raises on each rank at its first gloo
+    collective."""
+    import os
+    import subprocess
+    import sys
+
+    from calfkit_tpu_torch.inference import model as M
+    from calfkit_tpu_torch.inference.config import preset
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = preset("llama-3-8b", n_layers=2, vocab_size=4096)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 96), generator=torch.Generator().manual_seed(3),
+                           dtype=torch.int32)
+    torch.save(tokens, tmp_path / "tokens.pt")
+    script = tmp_path / "rank.py"
+    script.write_text(_TP_CHILD.format(
+        repo=repo, coordinator="file://" + str(tmp_path / "store"),
+        tokens=str(tmp_path / "tokens.pt"), out=str(tmp_path / "logits{}.pt")))
+    procs = [subprocess.Popen([sys.executable, str(script), str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in (0, 1)]
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=300)
+            assert proc.returncode == 0, err[-2000:]
+            assert "CAPTURE REFUSED True" in out, (out, err[-2000:])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    tp2 = torch.load(tmp_path / "logits0.pt").float()
+    assert torch.equal(tp2, torch.load(tmp_path / "logits1.pt").float())
+    dev = torch.device("cuda")
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(0)
+    params = M.init_params(cfg, generator)
+    B, T = tokens.shape
+    one, _ = M.forward(params, cfg, tokens.to(dev), torch.arange(T, dtype=torch.int32, device=dev)
+                       .expand(B, T), M.make_empty_cache(cfg, B, T, device=dev),
+                       torch.full((B,), T, dtype=torch.int32, device=dev))
+    one = one.float().cpu()
+    top = one.max(dim=-1).values
+    chosen = one.gather(-1, tp2.argmax(dim=-1, keepdim=True))[..., 0]
+    spacing = torch.exp2(torch.floor(torch.log2(top.abs().clamp_min(2.0 ** -126))) - 7)
+    assert ((top - chosen) / spacing).max() <= 3, ((top - chosen) / spacing).max()
+    assert (tp2 - one).abs().mean() <= 0.02 * one.abs().mean()
+
+
+_NCCL_CHILD = '''
+import sys
+sys.path.insert(0, {repo!r})
+from calfkit_tpu_torch.inference import distributed as D
+try:
+    D.initialize_multihost({coordinator!r}, 2, int(sys.argv[1]), backend="nccl")
+except ValueError as exc:
+    print("REFUSED", "shared by 2 ranks" in str(exc))
+'''
+
+
+@pytest.mark.cuda
+@cuda_only
+def test_nccl_on_a_shared_card_raises(tmp_path):
+    """Two ranks asking for NCCL on one card (the children see card 0
+    only) both raise before any collective, as NCCL itself refuses."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "nccl.py"
+    script.write_text(_NCCL_CHILD.format(repo=repo, coordinator="file://" + str(tmp_path / "s")))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0")
+    procs = [subprocess.Popen([sys.executable, str(script), str(r)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in (0, 1)]
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=120)
+            assert proc.returncode == 0 and "REFUSED True" in out, (out, err[-2000:])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()

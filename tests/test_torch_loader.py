@@ -362,3 +362,33 @@ async def test_client_given_a_tokenizer_keeps_it(checkpoints):
         assert client._engine.config.name == "debug-llama"
     finally:
         await client.stop()
+
+
+@pytest.mark.parametrize("quantization", [None, "int8"])
+async def test_client_from_checkpoint_at_tp2_matches_reference(checkpoints, quantization):
+    """``TorchLocalModelClient(checkpoint=..., runtime=RuntimeConfig(tp=2))``:
+    each rank (rank 0 here, rank 1 a spawned process) reads its own shard
+    of the checkpoint through the shard tree; the event streams equal
+    ``JaxLocalModelClient``'s on a tp=2 mesh of the virtual devices, and
+    rank 0's leaves are its shard of the one-device load, bit for bit."""
+    from calfkit_tpu_torch.inference import sharding as S
+
+    dirs, _ = checkpoints
+    path = str(dirs["bf16"])
+    ref_client = JaxLocalModelClient(
+        checkpoint=path, runtime=JaxRuntime(**RT, tp=2, quantization=quantization),
+    )
+    ref = await _client_events(ref_client, JMsg.user_message, JaxSettings(max_tokens=12))
+    client = TorchLocalModelClient(
+        checkpoint=path, runtime=RuntimeConfig(**RT, tp=2, quantization=quantization),
+        device="cpu",
+    )
+    await client.start()
+    engine = client._engine
+    loaded = TL.load_params(path, engine.config, device="cpu", quantize=quantization)
+    shardings = engine._shardings(engine.config)
+    _assert_same_tree(S.local_params(S.place_params(loaded, shardings, rank=0), engine.config,
+                                     engine._layout), engine.params)
+    port = await _client_events(client, user_message, ModelSettings(max_tokens=12))
+    assert [[to_mesh(e) for e in events] for events in port] == ref
+    assert engine._workers is None  # stop() joined the worker
