@@ -29,6 +29,10 @@ Descriptors travel through the rendezvous store (:class:`Channel`), never
 through a collective, so an idle engine never runs a worker into the
 group's timeout; the collectives themselves have a finite timeout, and a
 peer that died ends rank 0's requests with a typed fault (:class:`RankFault`).
+The spawned group's store is a TCP store that rank 0 hosts on a loopback
+port, where the channel's deleted descriptors are freed; a ``file://``
+store only appends, so its file grows with every dispatch (serve long on a
+``host:port`` coordinator).
 """
 
 from __future__ import annotations
@@ -38,7 +42,6 @@ import multiprocessing
 import os
 import pickle
 import socket
-import tempfile
 import threading
 import time
 from dataclasses import dataclass
@@ -118,7 +121,6 @@ def initialize_multihost(
     process_id: int | None = None,
     *,
     backend: str | None = None,
-    timeout_s: float | None = None,
 ) -> MultihostInfo:
     """Join this process to the engine's process group; safe to call on one
     host.
@@ -166,10 +168,7 @@ def initialize_multihost(
         coordinator, num_processes, process_id = cluster
         given = dict.fromkeys(given, True)
     if all(given.values()) and not dist.is_initialized():
-        init_group(
-            coordinator, num_processes, process_id, backend=backend,
-            timeout_s=GROUP_TIMEOUT_S if timeout_s is None else timeout_s,
-        )
+        init_group(coordinator, num_processes, process_id, backend=backend)
         logger.info(
             "torch.distributed initialized: process %s of %s via %s (%s)",
             process_id, num_processes, coordinator, dist.get_backend(),
@@ -217,19 +216,43 @@ def _make_store(coordinator: str, world: int, rank: int, timeout: timedelta) -> 
     return dist.TCPStore(host, int(port), world, rank == 0, timeout, wait_for_workers=False)
 
 
-def _store_barrier(store: Any, name: str, world: int, timeout: timedelta) -> None:
+def _poll_keys(
+    store: Any, keys: "list[str]", alive: Any, timeout_s: float, what: str, every_s: float,
+) -> None:
+    """Wait until ``keys`` are all in ``store``, checking every ``every_s``
+    (a check never blocks, so a store's wait timing out logs nothing):
+    :class:`RankFault` after ``timeout_s``, or once ``alive()`` says the
+    other side is gone."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            if store.check(keys):
+                return
+        except RuntimeError as exc:  # the store's host is gone
+            raise RankFault(f"{what}: {exc}") from exc
+        if alive is not None and not alive():
+            raise RankFault(f"{what}: the other side is gone")
+        if time.monotonic() > deadline:
+            raise RankFault(f"{what}: nothing within {timeout_s:.0f} s")
+        time.sleep(every_s)
+
+
+def _store_barrier(store: Any, name: str, world: int, timeout_s: float, alive: Any) -> None:
     if store.add(name, 1) == world:
         store.set(name + "/all", b"1")
-    store.wait([name + "/all"], timeout)
+    _poll_keys(store, [name + "/all"], alive, timeout_s, f"the group's ranks at {name!r}", 0.02)
 
 
 def init_group(
     coordinator: str, world: int, rank: int, *, backend: str | None = None,
-    timeout_s: float = GROUP_TIMEOUT_S,
+    timeout_s: float = GROUP_TIMEOUT_S, store: Any = None, alive: Any = None,
 ) -> None:
     """``torch.distributed.init_process_group`` over a store made from
-    ``coordinator``, with a finite timeout.  On cards, rank r takes card
-    ``r % cards`` (``LOCAL_RANK`` when a launcher sets it)."""
+    ``coordinator`` (or ``store``, made already), with a finite timeout.
+    Every rank first meets the others at a barrier of the store, which
+    ends at once when ``alive()`` turns false (a peer that died while
+    starting).  On cards, rank r takes card ``r % cards`` (``LOCAL_RANK``
+    when a launcher sets it)."""
     global _STORE, _ENGINES
     import torch.distributed as dist
 
@@ -240,7 +263,9 @@ def init_group(
         raise ValueError(f"unsupported backend {backend!r} (nccl | gloo)")
     if backend == "nccl" and not torch.cuda.is_available():
         raise ValueError("backend='nccl' needs CUDA cards: use 'gloo' on the CPU")
-    store = _make_store(coordinator, world, rank, timeout)
+    if store is None:
+        store = _make_store(coordinator, world, rank, timeout)
+    _store_barrier(store, "calfkit/joined", world, timeout_s, alive)
     if torch.cuda.is_available():
         local = int(os.environ.get("LOCAL_RANK", rank))
         card = local % torch.cuda.device_count()
@@ -250,7 +275,7 @@ def init_group(
             # rank that shares it, before the first collective hangs on it
             key = f"calfkit/card/{socket.gethostname()}/{card}"
             store.add(key, 1)
-            _store_barrier(store, "calfkit/cards", world, timeout)
+            _store_barrier(store, "calfkit/cards", world, timeout_s, alive)
             if store.add(key, 0) > 1:
                 raise ValueError(
                     f"NCCL: card {card} of {socket.gethostname()} is shared by "
@@ -358,10 +383,12 @@ class Comm:
 
 class Channel:
     """Rank 0's descriptors to the other ranks, in order, through the store:
-    descriptor n is key ``<prefix>/n``.  A receiver polls in short waits, so
-    an idle engine costs nothing and a sender that died is noticed
-    (``alive``).  Replies (:meth:`reply` / :meth:`replies`) use keys of
-    their own."""
+    descriptor n is key ``<prefix>/n``, deleted ``KEEP`` descriptors later.
+    A receiver blocks in the store's wait, a while at a time, so an idle
+    engine costs nothing and a sender that died is noticed: at once on a
+    TCP store, which rank 0 hosts (the wait's connection breaks), else by
+    ``alive()`` between waits.  Replies (:meth:`reply` / :meth:`replies`)
+    use keys of their own."""
 
     KEEP = 256  # descriptors kept in the store behind the newest
 
@@ -370,6 +397,9 @@ class Channel:
 
         self._store = dist.PrefixStore(prefix, store)
         self.rank, self.world = rank, world
+        # a wait that times out logs a line on a TCP store, and a FileStore
+        # cannot tell that its writer died: wait long on the one, poll the other
+        self._wait_s = 1.0 if isinstance(store, dist.FileStore) else 60.0
         self._seq = 0
         self.sent_s = 0.0  # rank 0's seconds spent sending descriptors
         self.sent = 0
@@ -386,26 +416,18 @@ class Channel:
         self.sent += 1
         self.sent_s += time.perf_counter() - started
 
-    def _wait(self, keys: "list[str]", alive: Any, timeout_s: float, what: str) -> None:
-        """Wait for ``keys`` in waits of a second, until ``timeout_s`` or
-        until ``alive()`` says the other side is gone."""
-        deadline = time.monotonic() + timeout_s
-        while True:
-            try:
-                self._store.wait(keys, timedelta(seconds=1))
-                return
-            except RuntimeError as exc:  # DistStoreError is one
-                if "time" not in str(exc).lower():
-                    raise RankFault(f"{what}: {exc}") from exc
-            if alive is not None and not alive():
-                raise RankFault(f"{what}: the other rank is gone")
-            if time.monotonic() > deadline:
-                raise RankFault(f"{what}: nothing within {timeout_s:.0f} s")
-
     def recv(self, alive: Any = None) -> Any:
         self._seq += 1
         key = str(self._seq)
-        self._wait([key], alive, float("inf"), "descriptor channel")
+        while True:
+            try:
+                self._store.wait([key], timedelta(seconds=self._wait_s))
+                break
+            except RuntimeError as exc:  # DistStoreError is one
+                if "time" not in str(exc).lower():
+                    raise RankFault(f"descriptor channel: {exc}") from exc
+            if alive is not None and not alive():
+                raise RankFault("descriptor channel: rank 0 is gone")
         return pickle.loads(self._store.get(key))
 
     def reply(self, tag: str, value: Any) -> None:
@@ -413,7 +435,8 @@ class Channel:
 
     def replies(self, tag: str, alive: Any = None) -> "list[Any]":
         keys = [f"reply/{tag}/{r}" for r in range(1, self.world)]
-        self._wait(keys, alive, GROUP_TIMEOUT_S, f"the ranks' replies to {tag!r}")
+        _poll_keys(self._store, keys, alive, GROUP_TIMEOUT_S, f"the ranks' replies to {tag!r}",
+                   0.001)
         out = [pickle.loads(self._store.get(k)) for k in keys]
         for k in keys:
             self._store.delete_key(k)
@@ -438,15 +461,15 @@ def engine_channel(rank: int, world: int) -> Channel:
 
 def serve_worker(
     config: Any, runtime: Any, *, params: Any = None, seed: int = 0,
-    device: "torch.device | str | None" = None, draft_params: Any = None,
-    checkpoint: Any = None, alive: Any = None,
+    device: "torch.device | str | None" = None, draft_params: Any = None, alive: Any = None,
 ) -> None:
     """Run this rank's part of rank 0's engine until it stops: build the
-    engine's shard (from ``params``, full or already this rank's
-    :class:`sharding.RankShard`; from ``checkpoint``, a local HF directory
-    read through the shard tree; or random from ``seed``, as rank 0 builds
-    it), then run every dispatch rank 0 describes.  Call it on every rank
-    but 0, with what rank 0's engine was given."""
+    engine's shard (from ``params``: full, already this rank's
+    :class:`sharding.RankShard`, or a :class:`loader.Checkpoint`, which
+    this rank reads through the shard tree; or random from ``seed``, as
+    rank 0 builds it), then run every dispatch rank 0 describes.  Call it
+    on every rank but 0, with what rank 0's engine was given.  It runs on
+    this process's card unless ``device="cpu"``."""
     import torch.distributed as dist
 
     from calfkit_tpu_torch.inference.engine import InferenceEngine
@@ -454,12 +477,9 @@ def serve_worker(
     if not dist.is_initialized() or dist.get_rank() == 0:
         raise InferenceError("serve_worker runs on ranks 1..n-1 of an initialized group")
     if device is None:
-        device = (
-            torch.device("cuda", torch.cuda.current_device()) if torch.cuda.is_available()
-            else "cpu"
-        )
-    if checkpoint is not None:
-        params = ("checkpoint", str(checkpoint))
+        # no card: the engine raises, naming device="cpu"
+        device = torch.device("cuda", torch.cuda.current_device()) if torch.cuda.is_available() \
+            else "cuda"
     engine = InferenceEngine(
         config, runtime, params=params, seed=seed, device=device, draft_params=draft_params,
     )
@@ -467,19 +487,20 @@ def serve_worker(
 
 
 def _spawned_worker(
-    coordinator: str, world: int, rank: int, backend: str, timeout_s: float,
-    parent: int, config: Any, runtime: Any, params: Any, seed: int, device: str,
-    draft_params: Any,
+    coordinator: str, world: int, rank: int, backend: str, parent: int, config: Any,
+    runtime: Any, params: Any, seed: int, device: str, draft_params: Any,
 ) -> None:
-    global GROUP_TIMEOUT_S
-    GROUP_TIMEOUT_S = timeout_s
     if device == "cpu":
         torch.set_num_threads(1)  # a CPU rank a process: don't crowd the host
-    init_group(coordinator, world, rank, backend=backend, timeout_s=timeout_s)
+
+    def alive() -> bool:
+        return os.getppid() == parent
+
+    init_group(coordinator, world, rank, backend=backend, alive=alive)
     try:
         serve_worker(
             config, runtime, params=params, seed=seed, device=device,
-            draft_params=draft_params, alive=lambda: os.getppid() == parent,
+            draft_params=draft_params, alive=alive,
         )
     finally:
         shutdown_group()
@@ -489,35 +510,43 @@ class Workers:
     """The worker processes an engine spawned on its own host, and the
     process group it made for them (this process is its rank 0)."""
 
-    def __init__(self, procs: list, tmp: Any):
+    LEAVE_S = 10.0  # the group's teardown's bound
+
+    def __init__(self, procs: list):
         self.procs = procs
-        self._tmp = tmp
 
     def alive(self) -> bool:
         return all(proc.is_alive() for proc in self.procs)
 
     def close(self, timeout_s: float = 30.0) -> None:
-        """Join the workers (told to stop), leave the group, remove its
-        store.  A worker that does not exit in ``timeout_s`` is killed, and
-        the group, broken then, is left on a thread that may not return
-        (a collective of a dead peer can block its teardown)."""
+        """Leave the group while the workers (told to stop) leave it, and
+        join them: an NCCL rank's teardown waits for its peers', so rank 0
+        must not wait for the workers to exit first.  A worker that does
+        not exit in ``timeout_s`` is killed.  The teardown runs on a
+        thread, ``LEAVE_S`` at most past the workers' end (a collective of
+        a dead peer, or a communicator a graph still holds, can block it):
+        one that does not end is a :class:`RankFault`, its thread left
+        behind."""
+        global _STORE
+        store = _STORE  # hosts the workers' store until they are gone
+        leaving = threading.Thread(target=shutdown_group, name="calfkit-leave-group",
+                                   daemon=True)
+        leaving.start()
         deadline = time.monotonic() + timeout_s
         for proc in self.procs:
             proc.join(max(0.0, deadline - time.monotonic()))
-        killed = [proc for proc in self.procs if proc.is_alive()]
-        for proc in killed:
-            logger.warning("worker %s did not exit: killing it", proc.pid)
-            proc.kill()
-            proc.join(5.0)
-        if killed:
-            leaving = threading.Thread(target=shutdown_group, daemon=True)
-            leaving.start()
-            leaving.join(10.0)
-        else:
-            shutdown_group()
-        if self._tmp is not None:
-            self._tmp.cleanup()
-            self._tmp = None
+        for proc in self.procs:
+            if proc.is_alive():
+                logger.warning("worker %s did not exit: killing it", proc.pid)
+                proc.kill()
+                proc.join(5.0)
+        del store
+        leaving.join(self.LEAVE_S)
+        if leaving.is_alive():
+            _STORE = None
+            raise RankFault(
+                f"the process group's teardown did not end within {self.LEAVE_S:.0f} s"
+            )
 
 
 def spawn_workers(
@@ -537,29 +566,32 @@ def spawn_workers(
         )
     if backend is None:
         backend = "nccl" if device.startswith("cuda") else "gloo"
-    tmp = tempfile.TemporaryDirectory(prefix="calfkit-group-")
-    coordinator = "file://" + os.path.join(tmp.name, "store")
+    # this process hosts the group's store on a loopback port the system
+    # picks: no port to clash, and what the channel deletes is freed
+    store = dist.TCPStore("127.0.0.1", 0, world, True, timedelta(seconds=GROUP_TIMEOUT_S),
+                          wait_for_workers=False)
+    coordinator = f"127.0.0.1:{store.port}"
     ctx = multiprocessing.get_context("spawn")
     procs = []
     for rank in range(1, world):
         proc = ctx.Process(
             target=_spawned_worker, name=f"calfkit-rank-{rank}", daemon=True,
-            args=(coordinator, world, rank, backend, GROUP_TIMEOUT_S, os.getpid(), config,
-                  runtime, shards[rank - 1], seed, device if not device.startswith("cuda")
+            args=(coordinator, world, rank, backend, os.getpid(), config, runtime,
+                  shards[rank - 1], seed, device if not device.startswith("cuda")
                   else f"cuda:{rank % max(torch.cuda.device_count(), 1)}",
                   draft_shards[rank - 1]),
         )
         proc.start()
         procs.append(proc)
     try:
-        init_group(coordinator, world, 0, backend=backend, timeout_s=GROUP_TIMEOUT_S)
+        init_group(coordinator, world, 0, backend=backend, store=store,
+                   alive=lambda: all(proc.is_alive() for proc in procs))
     except BaseException:
         for proc in procs:
             proc.kill()
             proc.join(5.0)
-        tmp.cleanup()
         raise
-    return Workers(procs, tmp)
+    return Workers(procs)
 
 
 def to_host(tree: Any) -> Any:

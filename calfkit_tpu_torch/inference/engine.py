@@ -929,7 +929,9 @@ class InferenceEngine:
         if params is None and rt.quantization is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(seed)
-            return Sh.init_params_sharded(config, generator, self._shardings(config), rank)
+            return Sh.RankShard(
+                M.init_params(config, generator, shardings=self._shardings(config), rank=rank)
+            )
         params = self._single_params(params, seed)
         return Sh.place_params(params, self._shardings(config), rank=rank)
 
@@ -996,9 +998,10 @@ class InferenceEngine:
             if draft_params is None:
                 generator = torch.Generator(device=self.device)
                 generator.manual_seed(seed + 3)
-                dmine = Sh.init_params_sharded(
-                    draft_cfg, generator, Sh.param_shardings(draft_cfg, self.mesh), rank
-                )
+                dmine = Sh.RankShard(M.init_params(
+                    draft_cfg, generator, shardings=Sh.param_shardings(draft_cfg, self.mesh),
+                    rank=rank,
+                ))
             elif isinstance(draft_params, Sh.RankShard):
                 dmine = draft_params
             else:
@@ -1129,9 +1132,9 @@ class InferenceEngine:
             channel.send(("stop",))
         except Exception:  # noqa: BLE001 - a dead group has nothing to stop
             logger.warning("could not tell the other ranks to stop", exc_info=True)
-        if self._workers is not None:
-            self._workers.close()
-            self._workers = None
+        workers, self._workers = self._workers, None
+        if workers is not None:
+            workers.close()
 
     # ------------------------------------------------------------ lifecycle
     async def start(self) -> None:
@@ -1166,9 +1169,11 @@ class InferenceEngine:
                 self._task.cancel()
             self._task = None
         self._finish_all()
-        self._close_group()
-        # a stopped engine must not pin a stale count in the process gauge
-        _drop_engine_active(id(self))
+        try:
+            self._close_group()
+        finally:
+            # a stopped engine must not pin a stale count in the process gauge
+            _drop_engine_active(id(self))
 
     def _finish_all(self) -> None:
         """Terminate every waiter: active slots AND still-queued requests

@@ -68,50 +68,65 @@ def torch_dtype(name: "str | torch.dtype") -> torch.dtype:
 
 
 def init_params(
-    config: ModelConfig, generator: torch.Generator, dtype: Any = None
+    config: ModelConfig, generator: torch.Generator, dtype: Any = None, *,
+    shardings: "Params | None" = None, rank: int = 0,
 ) -> Params:
     """Random-init params (He-ish scaling) drawn from ``generator`` on the
     generator's device.  The draws differ from the JAX package's (another
     generator); convert JAX params with ``weights.params_from_numpy`` to
-    compute the same function."""
+    compute the same function.
+
+    With ``shardings`` (:func:`sharding.param_shardings`' tree), the result
+    is ``rank``'s shard of the same draws: each leaf is cut as it is drawn,
+    so a rank never holds more than one layer of a full leaf, and the ranks
+    of a mesh, seeded alike, hold the shards of one model."""
     dtype = torch_dtype(dtype or config.dtype)
     device = generator.device
     L, D, H, K, hd, Fd, V = (
         config.n_layers, config.d_model, config.n_heads, config.n_kv_heads,
         config.head_dim, config.d_ff, config.vocab_size,
     )
+    top = shardings or {}
+    layers = top.get("layers", {})
 
-    def norm_init(shape: tuple, fan_in: int) -> torch.Tensor:
+    def index(shape: tuple, sh: Any) -> tuple:
+        return (slice(None),) * len(shape) if sh is None else sh.slices(shape, rank)
+
+    def norm_init(shape: tuple, fan_in: int, sh: Any) -> torch.Tensor:
         scale = 1.0 / math.sqrt(fan_in)
+        cut = index(shape, sh)
         if len(shape) == 2:
             draw = torch.randn(shape, generator=generator, device=device)
-            return (draw * scale).to(dtype)
-        out = torch.empty(shape, dtype=dtype, device=device)
+            out = (draw * scale).to(dtype)
+            return out if sh is None else out[cut].clone()
+        local = torch.empty(shape, device="meta")[cut].shape
+        out = torch.empty(local, dtype=dtype, device=device)
         for i in range(shape[0]):  # layer by layer: the f32 draw stays small
             draw = torch.randn(shape[1:], generator=generator, device=device)
-            out[i] = draw * scale
+            out[i] = (draw * scale)[cut[1:]]
         return out
 
-    def ones(shape: tuple) -> torch.Tensor:
-        return torch.ones(shape, dtype=dtype, device=device)
+    def ones(shape: tuple, sh: Any) -> torch.Tensor:
+        local = torch.empty(shape, device="meta")[index(shape, sh)].shape
+        return torch.ones(local, dtype=dtype, device=device)
 
     params: Params = {
-        "embed": norm_init((V, D), D),
+        "embed": norm_init((V, D), D, top.get("embed")),
         "layers": {
-            "wq": norm_init((L, D, H, hd), D),
-            "wk": norm_init((L, D, K, hd), D),
-            "wv": norm_init((L, D, K, hd), D),
-            "wo": norm_init((L, H, hd, D), H * hd),
-            "w_gate": norm_init((L, D, Fd), D),
-            "w_up": norm_init((L, D, Fd), D),
-            "w_down": norm_init((L, Fd, D), Fd),
-            "attn_norm": ones((L, D)),
-            "mlp_norm": ones((L, D)),
+            "wq": norm_init((L, D, H, hd), D, layers.get("wq")),
+            "wk": norm_init((L, D, K, hd), D, layers.get("wk")),
+            "wv": norm_init((L, D, K, hd), D, layers.get("wv")),
+            "wo": norm_init((L, H, hd, D), H * hd, layers.get("wo")),
+            "w_gate": norm_init((L, D, Fd), D, layers.get("w_gate")),
+            "w_up": norm_init((L, D, Fd), D, layers.get("w_up")),
+            "w_down": norm_init((L, Fd, D), Fd, layers.get("w_down")),
+            "attn_norm": ones((L, D), layers.get("attn_norm")),
+            "mlp_norm": ones((L, D), layers.get("mlp_norm")),
         },
-        "final_norm": ones((D,)),
+        "final_norm": ones((D,), top.get("final_norm")),
     }
     if not config.tie_embeddings:
-        params["lm_head"] = norm_init((D, V), D)
+        params["lm_head"] = norm_init((D, V), D, top.get("lm_head"))
     return params
 
 

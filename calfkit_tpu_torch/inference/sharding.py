@@ -23,7 +23,6 @@ A :class:`Mesh` is a grid of process ranks, ``ranks[d, t]``; a
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Any
 
@@ -272,14 +271,21 @@ class Layout:
 
 
 def layout_of(config: ModelConfig, mesh: Mesh, rank: int, comm: Any = None) -> Layout:
-    """``rank``'s :class:`Layout` of ``config`` on ``mesh``, by the same
-    rule as :func:`param_shardings`."""
+    """``rank``'s :class:`Layout` of ``config`` on ``mesh``, read from
+    :func:`param_shardings`' specs: a product ends in a tp all-reduce only
+    where the spec split its reduction dimension."""
     coords = mesh.coords(rank)
     tp, t = mesh.shape["tp"], coords["tp"]
-    H, K, F, V = config.n_heads, config.n_kv_heads, config.d_ff, config.vocab_size
-    heads = H % tp == 0 and tp > 1
-    vocab = (t * (V // tp), V // tp) if V % tp == 0 and tp > 1 else None
-    if K % tp == 0:
+    specs = param_shardings(config, mesh)
+    sl = specs["layers"]
+
+    def split(sh: Sharding, dim: int) -> bool:
+        return tp > 1 and sh.spec[dim] == "tp"
+
+    H, K, V = config.n_heads, config.n_kv_heads, config.vocab_size
+    heads = split(sl["wo"], 1)  # [L, H, hd, D]
+    vocab = (t * (V // tp), V // tp) if split(specs["embed"], 0) else None
+    if split(sl["wk"], 2) or tp == 1:
         kv = (0, K // tp)  # the rank's own kv shard, whole
     elif heads:
         # kv replicated, queries split: the rank attends the kv heads its
@@ -296,7 +302,7 @@ def layout_of(config: ModelConfig, mesh: Mesh, rank: int, comm: Any = None) -> L
         kv = (0, K)
     return Layout(
         tp=tp, t=t, dp=mesh.shape["dp"], d=coords["dp"], vocab=vocab, heads=heads,
-        ff=F % tp == 0 and tp > 1, kv=kv, kv_heads=kv[1], comm=comm,
+        ff=split(sl["w_down"], 1), kv=kv, kv_heads=kv[1], comm=comm,
     )
 
 
@@ -389,57 +395,3 @@ def check_q4_alignment(config: ModelConfig, mesh: Mesh, group: int = DEFAULT_Q4_
             f"int4 at tp={tp}: d_ff/tp = {n} is neither a whole number of groups of "
             f"{g} nor inside one"
         )
-
-
-def init_params_sharded(
-    config: ModelConfig, generator: torch.Generator, shardings: Params, rank: int,
-) -> Params:
-    """``rank``'s shard of :func:`model.init_params`' draws: the same
-    generator sequence, each leaf cut as it is drawn, so a rank never holds
-    more than one full leaf (the ranks of a mesh, seeded alike, hold the
-    shards of one model)."""
-    from calfkit_tpu_torch.inference.model import torch_dtype
-
-    dtype = torch_dtype(config.dtype)
-    device = generator.device
-    L, D, H, K, hd, Fd, V = (
-        config.n_layers, config.d_model, config.n_heads, config.n_kv_heads,
-        config.head_dim, config.d_ff, config.vocab_size,
-    )
-
-    def norm_init(shape: tuple, fan_in: int, sh: Sharding) -> torch.Tensor:
-        scale = 1.0 / math.sqrt(fan_in)
-        if len(shape) == 2:
-            draw = torch.randn(shape, generator=generator, device=device)
-            return sh.shard((draw * scale).to(dtype), rank).clone()
-        index = sh.slices(shape, rank)
-        out = torch.empty(torch.empty(shape, device="meta")[index].shape, dtype=dtype,
-                          device=device)
-        for i in range(shape[0]):
-            draw = torch.randn(shape[1:], generator=generator, device=device)
-            out[i] = (draw * scale)[index[1:]]
-        return out
-
-    def ones(shape: tuple, sh: Sharding) -> torch.Tensor:
-        return torch.ones(torch.empty(shape, device="meta")[sh.slices(shape, rank)].shape,
-                          dtype=dtype, device=device)
-
-    s, sl = shardings, shardings["layers"]
-    params: Params = {
-        "embed": norm_init((V, D), D, s["embed"]),
-        "layers": {
-            "wq": norm_init((L, D, H, hd), D, sl["wq"]),
-            "wk": norm_init((L, D, K, hd), D, sl["wk"]),
-            "wv": norm_init((L, D, K, hd), D, sl["wv"]),
-            "wo": norm_init((L, H, hd, D), H * hd, sl["wo"]),
-            "w_gate": norm_init((L, D, Fd), D, sl["w_gate"]),
-            "w_up": norm_init((L, D, Fd), D, sl["w_up"]),
-            "w_down": norm_init((L, Fd, D), Fd, sl["w_down"]),
-            "attn_norm": ones((L, D), sl["attn_norm"]),
-            "mlp_norm": ones((L, D), sl["mlp_norm"]),
-        },
-        "final_norm": ones((D,), s["final_norm"]),
-    }
-    if not config.tie_embeddings:
-        params["lm_head"] = norm_init((D, V), D, s["lm_head"])
-    return RankShard(params)

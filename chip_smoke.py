@@ -5419,6 +5419,32 @@ def _tp_note(name: str, res: dict, card: str) -> str:
     )
 
 
+async def tp_nccl_drive(dev, cfg, params, card: str = "") -> dict:
+    """Phase 19's round at tp = 2 over NCCL on CUDA graphs (two or more
+    cards): the engine spawns rank 1 on card 1 and joins it over NCCL,
+    both drawing their shard of ``cfg`` from the seed (``params`` is the
+    whole model the seed draws, the tie law's witness).  The checks of
+    :func:`_tp_checks`, every dispatch captured (none eager), and rank 1
+    exits 0 once ``stop()`` (graphs freed first, then the group left
+    within ``Workers.LEAVE_S``) returns."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    engine = InferenceEngine(cfg, TP_RUNTIME, seed=TP_SEED, device=dev)
+    assert engine._layout.comm.backend == "nccl"
+    procs = list(engine._workers.procs)
+    nccl = _tp_checks(cfg, params, await _tp_round(engine, eager=False, cases=False), dev)
+    nccl["seconds"] = time.perf_counter() - t
+    exits = [p.exitcode for p in procs]
+    print(_tp_note(f"tp=2 {cfg.name} ({cfg.n_layers} layers) bf16 over NCCL, one card a rank, "
+                   "on CUDA graphs", nccl, card) + f"; rank 1 exit code {exits[0]}; "
+          f"{nccl['seconds']:.1f} s for the drive")
+    assert nccl["graphs"]["captures"] > 0 and nccl["graphs"]["eager"] == 0, nccl["graphs"]
+    assert engine._workers is None and exits == [0], exits
+    del engine
+    return nccl
+
+
 async def tp_phase(dev, agent_mesh: "dict | None" = None, card: str = "") -> dict:
     """Phase 19: llama-3-8b bf16 at ``RuntimeConfig(tp=2)`` in two processes
     sharing the one card over gloo (``TP_RUNTIME``: phase 15's paged
@@ -5484,20 +5510,7 @@ async def tp_phase(dev, agent_mesh: "dict | None" = None, card: str = "") -> dic
                   f"{c['max_abs_err']:.2e}, {c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, bound "
                   f"{c['bound_ms']:.4f} by {c['bound_by']}, library {c['library_ms']})")
     if dev.type == "cuda" and torch.cuda.device_count() >= 2:
-        gc.collect()
-        torch.cuda.empty_cache()
-        t = time.perf_counter()
-        # no group in this process now: the engine spawns rank 1 on card 1
-        # and joins it over NCCL; both draw their shard from the seed
-        engine = InferenceEngine(cfg, rt, seed=TP_SEED, device=dev)
-        assert engine._layout.comm.backend == "nccl"
-        nccl = _tp_checks(cfg, params, await _tp_round(engine, eager=False, cases=False), dev)
-        assert nccl["graphs"]["captures"] > 0 and nccl["graphs"]["eager"] == 0, nccl["graphs"]
-        nccl["seconds"] = time.perf_counter() - t
-        result["nccl"] = nccl
-        print(_tp_note("tp=2 llama-3-8b bf16 over NCCL, one card a rank, on CUDA graphs", nccl,
-                       card) + f"; {nccl['seconds']:.1f} s for the drive")
-        del engine
+        result["nccl"] = await tp_nccl_drive(dev, cfg, params, card)
     else:
         result["nccl"] = "not run: the machine has one card"
         print(f"  tp=2 over NCCL on CUDA graphs: {result['nccl']}")

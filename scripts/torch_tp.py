@@ -2,6 +2,7 @@
 """``chip_smoke.py``'s tensor-parallel phase alone, on one CUDA card.
 
     python3 scripts/torch_tp.py [--runs N] [--out PATH] [--device cuda|cpu]
+                                [--nccl-layers L]
 
 Builds the kernels and runs phase 19 (``chip_smoke.tp_phase``: llama-3-8b
 bf16 at ``RuntimeConfig(tp=2)`` in two processes sharing the card over
@@ -10,6 +11,10 @@ printing one JSON line a run: tok/s, TTFT, the descriptors' host ms, the
 gloo collectives' ms, each rank's launches and peak allocation, each
 rank's #5 and #2 against their plain versions, the tie law's gaps and the
 phase's seconds.  Every check of the phase holds or the script fails.
+
+``--nccl-layers L`` (two or more cards) runs only the phase's drive over
+NCCL on CUDA graphs (``chip_smoke.tp_nccl_drive``), one card a rank, on
+llama-3-8b's widths cut to L layers.
 
 ``--device cpu`` rehearses it on the CPU with the patches of
 ``scripts/torch_fleet.py`` (rank 0 only: rank 1, a spawned process, runs
@@ -44,6 +49,8 @@ def main() -> int:
     parser.add_argument("--runs", type=int, default=1)
     parser.add_argument("--out")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--nccl-layers", type=int,
+                        help="run only the NCCL drive, at llama-3-8b cut to this depth")
     args = parser.parse_args()
     if args.device == "cuda" and not torch.cuda.is_available():
         print("torch_tp: no CUDA device", file=sys.stderr)
@@ -63,11 +70,21 @@ def main() -> int:
     lines = []
     for run in range(args.runs):
         started = time.perf_counter()
-        result = asyncio.run(chip_smoke.tp_phase(dev, None, card))
+        if args.nccl_layers:
+            cfg = chip_smoke.preset("llama-3-8b", n_layers=args.nccl_layers)
+            generator = torch.Generator(device=dev)
+            generator.manual_seed(chip_smoke.TP_SEED)
+            params = chip_smoke.M.init_params(cfg, generator)
+            result = asyncio.run(chip_smoke.tp_nccl_drive(dev, cfg, params, card))
+            del params
+            keys = [k for k in KEYS if k in result]
+        else:
+            result = asyncio.run(chip_smoke.tp_phase(dev, None, card))
+            keys = KEYS
         gc.collect()
         torch.cuda.empty_cache()
         line = dict(run=run, seconds_run=time.perf_counter() - started, card=card,
-                    **{k: result[k] for k in KEYS})
+                    **{k: result[k] for k in keys})
         lines.append(line)
         print(json.dumps(line, default=str), flush=True)
     if args.out:

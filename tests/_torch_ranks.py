@@ -97,3 +97,15 @@ def sharded_forwards(rank: int, meshes: list, params_np: dict, tokens: Any) -> l
         )
         out.append(logits.numpy())
     return out
+
+
+def _refuse_to_load() -> None:
+    raise RuntimeError("this argument cannot be loaded in the spawned rank")
+
+
+class Unloadable:
+    """An argument a spawned rank fails to unpickle: the rank dies while
+    starting, before it joins its group."""
+
+    def __reduce__(self) -> tuple:
+        return _refuse_to_load, ()

@@ -1061,7 +1061,7 @@ cfg = preset("llama-3-8b", n_layers=2, vocab_size=4096)
 generator = torch.Generator(device="cuda")
 generator.manual_seed(0)
 mesh = S.make_mesh(tp=2)
-shard = S.init_params_sharded(cfg, generator, S.param_shardings(cfg, mesh), rank)
+shard = M.init_params(cfg, generator, shardings=S.param_shardings(cfg, mesh), rank=rank)
 layout = S.layout_of(cfg, mesh, rank, D.Comm(mesh, rank))
 params = M.Decoder(S.local_params(shard, cfg, layout), "cuda", layout).params()
 tokens = torch.load({tokens!r}).cuda()

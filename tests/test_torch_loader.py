@@ -14,6 +14,10 @@ built from the same directory must be equal.
 
 import dataclasses
 import json
+import os
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -40,6 +44,7 @@ from calfkit_tpu_torch.inference import TorchLocalModelClient  # noqa: E402
 from calfkit_tpu_torch.inference import loader as TL  # noqa: E402
 from calfkit_tpu_torch.inference._safetensors import SafetensorsFile  # noqa: E402
 from calfkit_tpu_torch.inference.config import RuntimeConfig, SpecConfig  # noqa: E402
+from calfkit_tpu_torch.inference.engine import InferenceEngine  # noqa: E402
 from calfkit_tpu_torch.inference.tokenizer import HFTokenizer  # noqa: E402
 from calfkit_tpu_torch.models import user_message  # noqa: E402
 from tests._torch_port import JAX_CFG, TORCH_CFG, to_mesh  # noqa: E402
@@ -392,3 +397,86 @@ async def test_client_from_checkpoint_at_tp2_matches_reference(checkpoints, quan
     port = await _client_events(client, user_message, ModelSettings(max_tokens=12))
     assert [[to_mesh(e) for e in events] for events in port] == ref
     assert engine._workers is None  # stop() joined the worker
+
+
+_RANK = textwrap.dedent("""
+    import asyncio, json, sys
+    sys.path.insert(0, {repo!r})
+    import torch
+    torch.set_num_threads(1)
+    from calfkit_tpu_torch.inference import distributed, initialize_multihost
+    from calfkit_tpu_torch.inference.config import RuntimeConfig
+    from calfkit_tpu_torch.inference.engine import InferenceEngine
+    from calfkit_tpu_torch.inference.loader import Checkpoint, config_from_hf
+
+    path, runtime, prompts = sys.argv[1], RuntimeConfig(**json.loads(sys.argv[2])), \\
+        json.loads(sys.argv[3])
+    info = initialize_multihost()
+    config, weights = config_from_hf(path), Checkpoint(path)
+
+    async def serve():
+        engine = InferenceEngine(config, runtime, params=weights, device="cpu")
+        await engine.start()
+        try:
+            return await asyncio.gather(*[
+                _collect(engine.generate(p, max_new_tokens=n)) for p, n in prompts])
+        finally:
+            await engine.stop()
+
+    async def _collect(stream):
+        return [tok async for tok in stream]
+
+    if info.process_id == 0:
+        print("STREAMS", json.dumps(asyncio.run(serve())))
+    else:
+        distributed.serve_worker(config, runtime, params=weights, device="cpu")
+        print("SERVED")
+    distributed.shutdown_group()
+""")
+
+
+async def test_serve_worker_across_processes_matches_the_spawned_engine(checkpoints, tmp_path):
+    """The across-hosts entry points: two processes join through the
+    environment's coordinates (a ``file://`` store under ``tmp_path``);
+    rank 0 builds the engine over a checkpoint at tp=2 and rank 1 serves
+    it with ``serve_worker(params=Checkpoint(path))``, each reading its
+    own shard.  Rank 0's streams equal those of the engine that spawns its
+    own worker, and rank 1 returns once rank 0's engine stops."""
+    dirs, _ = checkpoints
+    path = str(dirs["bf16"])
+    runtime = dict(RT, tp=2)
+    prompts = [([(7 * i + s) % 500 + 1 for i in range(n)], 6) for s, n in ((1, 21), (2, 9))]
+    script = tmp_path / "rank.py"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script.write_text(_RANK.format(repo=repo))
+    procs = [
+        subprocess.Popen(
+            [sys.executable, str(script), path, json.dumps(runtime), json.dumps(prompts)],
+            env=dict(os.environ, CALFKIT_COORDINATOR="file://" + str(tmp_path / "store"),
+                     CALFKIT_NUM_PROCESSES="2", CALFKIT_PROCESS_ID=str(rank)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in (0, 1)
+    ]
+    try:
+        engine = InferenceEngine(TL.config_from_hf(path), RuntimeConfig(**runtime),
+                                 params=TL.Checkpoint(path), device="cpu")
+        await engine.start()
+        try:
+            spawned = [[tok async for tok in engine.generate(p, max_new_tokens=n)]
+                       for p, n in prompts]
+        finally:
+            await engine.stop()
+        outs = []
+        for proc in procs:
+            out, err = proc.communicate(timeout=120)
+            assert proc.returncode == 0, err[-1500:]
+            outs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    streams = [json.loads(line.split(" ", 1)[1]) for line in outs[0].splitlines()
+               if line.startswith("STREAMS")]
+    assert streams == [spawned]
+    assert "SERVED" in outs[1].splitlines()

@@ -19,8 +19,11 @@ import subprocess
 import sys
 import textwrap
 
+from datetime import timedelta
+
 import numpy as np
 import pytest
+import torch
 
 jax = pytest.importorskip("jax")
 
@@ -115,6 +118,44 @@ def test_rank_shards_are_the_references_addressable_shards(kind, tp, dp):
         for path, arr in placed.items():
             shard = next(s for s in arr.addressable_shards if s.device == device)
             np.testing.assert_array_equal(n(mine[path]), n(shard.data), err_msg=path)
+
+
+@pytest.mark.parametrize("tie", [False, True])
+@pytest.mark.parametrize("tp,dp", [(2, 1), (4, 1), (8, 1), (2, 2)])
+def test_seeded_rank_shards_cut_one_model(tp, dp, tie):
+    """``model.init_params(shardings=, rank=)``: each rank, seeded alike,
+    draws bit for bit its :func:`place_params` shard of the whole model
+    the same seed draws."""
+    from calfkit_tpu_torch.inference import model as M
+
+    cfg = preset("debug", dtype="float32", tie_embeddings=tie)
+    mesh = S.make_mesh(tp=tp, dp=dp, device_type="cpu")
+    shardings = S.param_shardings(cfg, mesh)
+    full = M.init_params(cfg, torch.Generator().manual_seed(7))
+    for rank in range(mesh.size):
+        mine = _flat(M.init_params(cfg, torch.Generator().manual_seed(7), shardings=shardings,
+                                   rank=rank))
+        want = _flat(S.place_params(full, shardings, rank=rank))
+        assert mine.keys() == want.keys()
+        for path, leaf in want.items():
+            assert torch.equal(mine[path], leaf), (rank, path)
+
+
+def test_layout_reads_the_shard_tree():
+    """A rank's layout splits a product's reduction only where the specs
+    split it: llama-3-8b at tp=8 splits heads (wo), ff (w_down) and vocab;
+    debug at tp=8 (H = 4) replicates the attention, splits the MLP and
+    vocab; a vocab that does not divide stays whole."""
+    for name, tp, want in [("llama-3-8b", 8, (True, True, True, (0, 1))),
+                           ("debug", 8, (False, True, True, (0, 2))),
+                           ("debug", 2, (True, True, True, (0, 1)))]:
+        cfg = preset(name)
+        lay = S.layout_of(cfg, S.make_mesh(tp=tp, device_type="cpu"), 0)
+        specs = S.param_shardings(cfg, S.make_mesh(tp=tp, device_type="cpu"))["layers"]
+        assert (lay.heads, lay.ff, lay.vocab is not None, lay.kv) == want, name
+        assert lay.heads == (specs["wo"].spec[1] == "tp")
+    odd = S.layout_of(preset("debug", vocab_size=510), S.make_mesh(tp=4, device_type="cpu"), 1)
+    assert odd.vocab is None and odd.ff
 
 
 def test_int4_alignment_refused_where_a_rank_cuts_a_group():
@@ -220,6 +261,21 @@ _CHILD = textwrap.dedent("""
     print(f"RESULT {{info.process_id}} {{info.global_devices}} {{float(x.sum())}}")
     dist.destroy_process_group()
 """)
+
+
+def test_descriptor_channel_frees_what_it_deletes():
+    """The spawned group's store is a TCP store that rank 0 hosts, where
+    the channel's deletes free the keys: over three times ``KEEP``
+    descriptors, each received as it is sent, the store holds ``KEEP``."""
+    import torch.distributed as dist
+
+    store = dist.TCPStore("127.0.0.1", 0, 1, True, timedelta(seconds=30),
+                          wait_for_workers=False)
+    sender, receiver = D.Channel(store, "engine", 0, 2), D.Channel(store, "engine", 1, 2)
+    for i in range(3 * D.Channel.KEEP):
+        sender.send(("fill", "x", np.full(64, i)))
+        assert receiver.recv()[2][0] == i
+    assert store.num_keys() == D.Channel.KEEP
 
 
 def test_two_processes_through_env_coordinates(tmp_path):

@@ -138,9 +138,16 @@ def _assert_no_leak(engine):
 @pytest.mark.parametrize("name", list(CONFIGS))
 async def test_streams_and_counters_match_reference(weights, name):
     ref_streams, ref_counters = await _reference(weights, name)
+    import torch.distributed as dist
+
+    from calfkit_tpu_torch.inference import distributed as D
+
     engine = _port(weights, name)
     workers = list(engine._workers.procs)
     assert engine._layout is not None and engine._rank == 0
+    # the group's store is a TCP store this process hosts: the descriptors
+    # the channel deletes are freed (a FileStore would grow for ever)
+    assert isinstance(D._STORE, dist.TCPStore)
     streams, counters = await _serve(engine)
     assert streams == ref_streams
     assert counters == ref_counters
@@ -189,6 +196,38 @@ async def test_dead_worker_ends_requests_with_the_typed_fault(weights):
     finally:
         await engine.stop()
     assert engine._workers is None
+
+
+def test_a_rank_that_dies_while_starting_fails_the_spawn_at_once():
+    """Rank 1 dies before it joins (it cannot load its arguments): rank 0
+    stops waiting at the group's barrier as soon as it sees the process
+    gone, long before the group's timeout, and joins no group."""
+    import time
+
+    import torch.distributed as dist
+
+    from calfkit_tpu_torch.inference import distributed as D
+    from tests._torch_ranks import Unloadable
+
+    started = time.monotonic()
+    with pytest.raises(D.RankFault, match="gone"):
+        D.spawn_workers(2, TORCH_CFG, RuntimeConfig(**BASE, tp=2), [Unloadable()], 0, "cpu",
+                        [None])
+    assert time.monotonic() - started < 60 < D.GROUP_TIMEOUT_S
+    assert not dist.is_initialized()
+
+
+def test_a_teardown_that_does_not_end_is_a_rank_fault(monkeypatch):
+    """Leaving the group runs on a thread with a bound: a teardown that
+    blocks (a communicator still held) is reported, never waited for."""
+    import time
+
+    from calfkit_tpu_torch.inference import distributed as D
+
+    monkeypatch.setattr(D, "shutdown_group", lambda: time.sleep(5))
+    monkeypatch.setattr(D.Workers, "LEAVE_S", 0.2)
+    with pytest.raises(D.RankFault, match="teardown did not end"):
+        D.Workers([]).close()
 
 
 def test_long_lane_over_ranks_names_the_sp_slice(weights):
