@@ -298,8 +298,10 @@ def shutdown_group() -> None:
 
 class Comm:
     """The collectives of one rank of an engine's mesh: the tp sub-group
-    (all-reduce, gather) and the dp sub-group (gather).  Every rank builds
-    every sub-group, in the same order (``new_group`` is collective).
+    (all-reduce, gather), the dp sub-group (gather) and the sp group of
+    the long-context lane (every rank of the mesh in its rank order: the
+    ring exchange, all-reduce max and sum).  Every rank builds every
+    sub-group, in the same order (``new_group`` is collective).
 
     With gloo, a tensor on a card is staged through the host, and a
     collective met while a CUDA graph is being captured raises: gloo work
@@ -325,8 +327,12 @@ class Comm:
                 group = dist.new_group(mesh.dp_ranks(t), timeout=timeout)
                 if t == coords["tp"]:
                     self.dp_group = group
+        # the sp ring: rank ranks[d, t] is its position d * tp + t
+        self.sp_ranks = [int(r) for r in mesh.ranks.reshape(-1)]
+        self.sp, self.sp_index = len(self.sp_ranks), self.sp_ranks.index(rank)
+        self.sp_group = dist.new_group(self.sp_ranks, timeout=timeout) if self.sp > 1 else None
         self.gloo = self.backend == "gloo"
-        self.stats = dict(all_reduce=0, all_gather=0, seconds=0.0)
+        self.stats = dict(all_reduce=0, all_gather=0, ring=0, seconds=0.0)
 
     def _host(self, x: torch.Tensor) -> torch.Tensor:
         if x.device.type == "cuda" and self.gloo:
@@ -348,15 +354,54 @@ class Comm:
         finally:
             self.stats["seconds"] += time.perf_counter() - started
 
-    def tp_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the tp group, in ``x``'s dtype (``x`` is a
-        product's fresh output: it is summed in place)."""
+    def _reduce(self, x: torch.Tensor, group: Any, op: Any = None) -> torch.Tensor:
         import torch.distributed as dist
 
         self.stats["all_reduce"] += 1
-        y = self._host(x)
-        self._run(lambda: dist.all_reduce(y, group=self.tp_group))
+        y = self._host(x).contiguous()
+        op = dist.ReduceOp.SUM if op is None else op
+        self._run(lambda: dist.all_reduce(y, op=op, group=group))
         return y.to(x.device)
+
+    def tp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the tp group, in ``x``'s dtype (``x`` is a
+        product's fresh output: it is summed in place)."""
+        return self._reduce(x, self.tp_group)
+
+    def sp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the sp group (every rank), in ``x``'s dtype;
+        ``x`` is summed in place: pass a tensor nothing else reads."""
+        return self._reduce(x, self.sp_group)
+
+    def sp_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of ``x`` over the sp group, in place as
+        :meth:`sp_sum`."""
+        import torch.distributed as dist
+
+        return self._reduce(x, self.sp_group, dist.ReduceOp.MAX)
+
+    def sp_ring(self, *tensors: torch.Tensor) -> "tuple[torch.Tensor, ...]":
+        """One hop of the sp ring: each tensor sent to the next rank, (i + 1)
+        mod sp, and its counterpart received from the previous one, (i - 1)
+        mod sp, in one batch of point-to-point operations (at sp = 2 both
+        are the one other rank) → the received tensors, on ``tensors``'
+        device."""
+        import torch.distributed as dist
+
+        self.stats["ring"] += 1
+        n, i = self.sp, self.sp_index
+        nxt, prev = self.sp_ranks[(i + 1) % n], self.sp_ranks[(i - 1) % n]
+        sends = [self._host(t).contiguous() for t in tensors]
+        recvs = [torch.empty_like(t) for t in sends]
+        ops = [dist.P2POp(dist.isend, t, nxt, group=self.sp_group) for t in sends]
+        ops += [dist.P2POp(dist.irecv, t, prev, group=self.sp_group) for t in recvs]
+
+        def exchange() -> None:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+
+        self._run(exchange)
+        return tuple(r.to(t.device) for r, t in zip(recvs, tensors))
 
     def _gather(self, x: torch.Tensor, dim: int, group: Any, n: int) -> torch.Tensor:
         import torch.distributed as dist

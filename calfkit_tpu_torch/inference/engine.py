@@ -57,8 +57,8 @@ and speculative decoding.
   prefill over the whole padded prompt (monolithic, or a chunk per
   scheduler pass) into a scratch of its own and its decode against that
   prefix merged with a fresh-token cache
-  (:mod:`~calfkit_tpu_torch.inference.ring_attention` at sp = 1), one
-  long dispatch per scheduler pass between the short lane's.
+  (:mod:`~calfkit_tpu_torch.inference.ring_attention`), one long dispatch
+  per scheduler pass between the short lane's.
 
 Tensor and data parallelism (``RuntimeConfig(tp=, dp=)``) run one process
 a rank (:mod:`.distributed`): rank 0 is this engine, with the scheduler
@@ -70,8 +70,11 @@ every collective of the model (:mod:`.model`) in the same order.  dp splits
 the decode and verify rows of the batch over the dp groups (the dense
 cache's rows with them; the page pool stays whole on every group, the
 dispatch's new K/V gathered before it is written); prefill waves run on
-every group.  The long lane's sequence sharding over several devices (sp
-> 1) is not ported: the long lane at tp·dp > 1 raises.
+every group.  The long lane shards its prompt's sequence over every rank
+(sp = tp·dp, the reference's layout): rank i holds positions [i·P/sp,
+(i+1)·P/sp) of a prompt padded to P, with every kv head, in a prefix
+scratch of 1/sp the one-device size; its fresh-token cache follows the
+rank's tp shard.
 """
 
 from __future__ import annotations
@@ -494,16 +497,9 @@ class EngineStats:
 
 
 def _check_runtime(rt: RuntimeConfig) -> None:
-    """Refuse what this engine does not serve yet (the long lane over
-    several ranks), and the configurations the reference refuses."""
+    """Refuse the configurations the reference refuses."""
     if rt.tp < 1 or rt.dp < 1:
         raise ValueError(f"tp and dp must be >= 1 (got tp={rt.tp}, dp={rt.dp})")
-    if rt.long_context and rt.tp * rt.dp > 1:
-        raise ValueError(
-            "the long-context lane at tp·dp > 1 shards the prompt over every rank "
-            "(sequence parallelism, sp > 1): that multi-device slice of the port, the "
-            "sp > 1 ring, is not served yet; serve the long lane at tp = dp = 1"
-        )
     if rt.quantization is not None:
         bits_of(rt.quantization)
     if rt.chunked_prefill and rt.max_seq_len % rt.prefill_chunk:
@@ -647,6 +643,10 @@ class InferenceEngine:
         self.model = M.Decoder(params, dev, self._layout)
         self.params = self.model.params()
         self._kv_heads = M.kv_heads(self.params, config)
+        # the long lane's sequence axis: every rank of the mesh (its ring's
+        # collectives), or this one device
+        self._comm = None if self._layout is None else self._layout.comm
+        self._sp = 1 if self._comm is None else self._comm.sp
 
         B, S = rt.max_batch_size, rt.max_seq_len
         # dp: the decode and verify rows this rank computes (None: all)
@@ -720,15 +720,17 @@ class InferenceEngine:
         )
         # the long-context lane's buffers, at fixed addresses too (its
         # graphs, in ``_long_graphs``, replay them): the prefix scratch
-        # [L, 1, K, P, hd] in the KV dtype for the longest padded prompt P,
-        # of which a prompt padded to p takes the [..., :p, :] views; the
-        # fresh-token cache [L, 1, K, cap, hd] in f32, as the JAX engine's;
-        # and the token that enters the lane's next decode dispatch
+        # [L, 1, K, P/sp, hd] in the KV dtype, this rank's block of the
+        # longest padded prompt P with every kv head, of which a prompt
+        # padded to p takes the [..., :p/sp, :] views; the fresh-token cache
+        # [L, 1, kv, cap, hd] in f32, as the JAX engine's, with the kv heads
+        # of this rank's shard; and the token that enters the lane's next
+        # decode dispatch
         self._long_graphs: dict[tuple, graphs.CapturedDispatch] = {}
         if rt.long_context:
             L, K, hd = config.n_layers, config.n_kv_heads, config.head_dim
-            prefix = (L, 1, K, self._long_padded(self._long_max_prompt()), hd)
-            fresh = (L, 1, K, self._long_fresh_cap(), hd)
+            prefix = (L, 1, K, self._long_padded(self._long_max_prompt()) // self._sp, hd)
+            fresh = (L, 1, self._kv_heads, self._long_fresh_cap(), hd)
             self._long_scratch = tuple(
                 torch.zeros(prefix, dtype=self._k.dtype, device=dev) for _ in range(2)
             )
@@ -2203,10 +2205,10 @@ class InferenceEngine:
         return -(-self.runtime.long_new_cap // steps) * steps
 
     def _long_padded(self, n: int) -> int:
-        """Pad to a power-of-two multiple of the prefill chunk (the JAX
-        engine's lcm(sp, prefill_chunk) at sp = 1): power-of-two bucketing
-        bounds the lane's graphs at log(range) prefix lengths."""
-        g = self.runtime.prefill_chunk
+        """Pad to a power-of-two multiple of lcm(sp, prefill_chunk): the
+        sequence must divide over sp, and power-of-two bucketing bounds the
+        lane's graphs at log(range) prefix lengths."""
+        g = math.lcm(self._sp, self.runtime.prefill_chunk)
         units = -(-n // g)
         p2 = 1
         while p2 < units:
@@ -2214,8 +2216,9 @@ class InferenceEngine:
         return g * p2
 
     def _long_prefix(self, padded: int) -> "tuple[torch.Tensor, torch.Tensor]":
-        """The [L, 1, K, padded, hd] views of the lane's prefix scratch."""
-        return tuple(side[:, :, :, :padded] for side in self._long_scratch)
+        """The [L, 1, K, padded/sp, hd] views of the lane's prefix scratch:
+        this rank's block of a prompt padded to ``padded``."""
+        return tuple(side[:, :, :, :padded // self._sp] for side in self._long_scratch)
 
     async def _advance_long(self) -> bool:
         if not self.runtime.long_context:
@@ -2276,18 +2279,21 @@ class InferenceEngine:
             request=request, padded=padded, prefix_len=n, t=0, cap=self._long_fresh_cap()
         )
 
+    @_replicated
     def _long_prefill_graph(self, padded: int) -> graphs.CapturedDispatch:
         """The monolithic long prefill: the whole padded prompt through
-        ``prefill_sequence_parallel``, its K/V written into the prefix
-        scratch, the first token (greedy) into ``_long_last`` →
-        fn(tokens [1, padded], n [1]) → ``_long_last``."""
+        ``prefill_sequence_parallel``, this rank's block of its K/V written
+        into the prefix scratch, the first token (greedy) into
+        ``_long_last`` → fn(tokens [1, padded], n [1]) → ``_long_last``."""
 
         def build():
-            eng, cfg = weakref.proxy(self), self.config
+            eng, cfg, comm = weakref.proxy(self), self.config, self._comm
             prefix = self._long_prefix(padded)
 
             def prefill(tokens, n):
-                logits, _ = RA.prefill_sequence_parallel(eng.params, cfg, tokens, n, prefix)
+                logits, _ = RA.prefill_sequence_parallel(
+                    eng.params, cfg, tokens, n, prefix, comm=comm
+                )
                 eng._long_last.copy_(torch.argmax(logits, dim=-1))
                 return eng._long_last
 
@@ -2305,15 +2311,24 @@ class InferenceEngine:
         (first,) = self._sync_host(self._stage_host((first,)))
         self._install_long_state(request, padded, n, int(first[0]), started)
 
+    @_replicated
     def _long_chunk_graph(self, chunk: int, padded: int) -> graphs.CapturedDispatch:
         """One chunk of the chunked long prefill: the short lane's chunk
-        body over the prefix scratch's first ``padded`` positions, and the
-        greedy token at ``last_idx`` into ``_long_last`` → fn(tokens [1,
-        chunk], offset [1], last_idx [1]) → ``_long_last``."""
+        body over the prefix scratch's first ``padded`` positions (at sp >
+        1, ``prefill_chunk_sequence_parallel`` over this rank's block of
+        them), and the greedy token at ``last_idx`` into ``_long_last`` →
+        fn(tokens [1, chunk], offset [1], last_idx [1]) → ``_long_last``."""
 
         def build():
-            eng = weakref.proxy(self)
-            chunk_step = self._chunk_body(chunk, 1, self._long_prefix(padded))
+            eng, cfg, comm = weakref.proxy(self), self.config, self._comm
+            prefix = self._long_prefix(padded)
+            if self._sp == 1:
+                chunk_step = self._chunk_body(chunk, 1, prefix)
+            else:
+                def chunk_step(tokens, offset, last_idx):
+                    return RA.prefill_chunk_sequence_parallel(
+                        eng.params, cfg, tokens, offset, last_idx, prefix, comm=comm
+                    )
 
             def long_chunk(tokens, offset, last_idx):
                 logits = chunk_step(tokens, offset, last_idx)
@@ -2362,6 +2377,7 @@ class InferenceEngine:
         self._long_inflight = None
         self._install_long_state(request, inf["padded"], n, int(first[0]), inf["started"])
 
+    @_replicated
     def _long_decode_graph(self, steps: int, padded: int) -> graphs.CapturedDispatch:
         """The long lane's decode dispatch: ``steps`` greedy tokens from
         ``_long_last`` against the prefix's first ``padded`` positions and
@@ -2370,12 +2386,13 @@ class InferenceEngine:
         cap = self._long_fresh_cap()
 
         def build():
-            eng, cfg = weakref.proxy(self), self.config
+            eng, cfg, comm = weakref.proxy(self), self.config, self._comm
             prefix, fresh = self._long_prefix(padded), self._long_fresh
 
             def decode(t0, prefix_len):
                 toks, last, _ = RA.decode_sp_dispatch(
-                    eng.params, cfg, eng._long_last, prefix, prefix_len, fresh, t0, steps
+                    eng.params, cfg, eng._long_last, prefix, prefix_len, fresh, t0, steps,
+                    comm=comm,
                 )
                 eng._long_last.copy_(last)
                 return toks

@@ -282,28 +282,37 @@ def layout_of(config: ModelConfig, mesh: Mesh, rank: int, comm: Any = None) -> L
     def split(sh: Sharding, dim: int) -> bool:
         return tp > 1 and sh.spec[dim] == "tp"
 
-    H, K, V = config.n_heads, config.n_kv_heads, config.vocab_size
+    V = config.vocab_size
     heads = split(sl["wo"], 1)  # [L, H, hd, D]
     vocab = (t * (V // tp), V // tp) if split(specs["embed"], 0) else None
     if split(sl["wk"], 2) or tp == 1:
-        kv = (0, K // tp)  # the rank's own kv shard, whole
-    elif heads:
-        # kv replicated, queries split: the rank attends the kv heads its
-        # query heads read (global head h reads kv head h // G)
-        Hl, G = H // tp, H // K
-        lo, hi = t * Hl // G, ((t + 1) * Hl - 1) // G + 1
-        if Hl % G and G % Hl:
-            raise ValueError(
-                f"tp={tp} splits {H} query heads into {Hl} a rank, which neither "
-                f"holds whole kv groups of {G} nor lies inside one"
-            )
-        kv = (lo, hi - lo)
+        kv = (0, config.n_kv_heads // tp)  # the rank's own kv shard, whole
     else:
-        kv = (0, K)
+        kv = kv_span(config, tp, t)
     return Layout(
         tp=tp, t=t, dp=mesh.shape["dp"], d=coords["dp"], vocab=vocab, heads=heads,
         ff=split(sl["w_down"], 1), kv=kv, kv_heads=kv[1], comm=comm,
     )
+
+
+def kv_span(config: ModelConfig, tp: int, t: int) -> "tuple[int, int]":
+    """(first, count) of the kv heads, of all of them, that the queries of
+    rank ``t`` of a tp group read: its own shard where wk/wv split over tp;
+    where they are replicated and the query heads split, the kv heads its
+    query heads read (global head h reads kv head h // G); else all."""
+    H, K = config.n_heads, config.n_kv_heads
+    if tp == 1 or K % tp == 0:
+        return t * (K // tp), K // tp
+    if H % tp:
+        return 0, K  # attention replicated over tp
+    Hl, G = H // tp, H // K
+    if Hl % G and G % Hl:
+        raise ValueError(
+            f"tp={tp} splits {H} query heads into {Hl} a rank, which neither "
+            f"holds whole kv groups of {G} nor lies inside one"
+        )
+    lo, hi = t * Hl // G, ((t + 1) * Hl - 1) // G + 1
+    return lo, hi - lo
 
 
 def _q4_scale_rows(leaf: Params, axis: int, rank_rows: "tuple[int, int]") -> Params:

@@ -5231,10 +5231,14 @@ async def _typed_round(client, prompts) -> dict:
 # phase 19: tensor parallelism across two processes
 # --------------------------------------------------------------------------- #
 
-# phase 15's runtime without the ragged lane, at tp = 2
-TP_RUNTIME = replace(MESH_RUNTIME, ragged_waves=False, tp=2)
+# phase 15's runtime without the ragged lane, at tp = 2, with the long lane
+# on: prompts of up to 8,192 positions, sharded over both ranks (sp = 2)
+TP_RUNTIME = replace(MESH_RUNTIME, ragged_waves=False, tp=2, long_context=True,
+                     long_max_prompt=8192)
 TP_SEED = 0  # both ranks draw the model from this seed, each its own shard
 TP_WORKER_TIMEOUT_S = 600.0
+TP_LONG_LEN = 6000  # the sp step's prompt, past max_seq_len 4,096: padded to 8,192
+TP_LONG_NEW = 16
 
 
 def _tp_rank1(coordinator: str, cfg, rt, device: str) -> None:
@@ -5286,13 +5290,91 @@ def _rank_cases(engine, prefill_rows: "list[dict]", decode_rows: "list[dict]") -
     ])
 
 
-async def _tp_round(engine, eager: bool, cases: bool) -> dict:
+def _rank_long(engine) -> dict:
+    """One rank's long-lane numbers: its sp position, its prefix scratch
+    (shape and bytes) and fresh cache (shape), its launch counts and
+    collective counts."""
+    return dict(sp_index=engine._comm.sp_index, scratch=list(engine._long_scratch[0].shape),
+                scratch_bytes=_nbytes(*engine._long_scratch),
+                fresh=list(engine._long_fresh[0].shape), launches=dict(A.launch_counts),
+                comm=dict(engine._comm.stats))
+
+
+def _rank_sp_cases(engine, prefix_len: int, offset: int) -> "list[dict]":
+    """#1 and #3 against their plain versions on this rank, at its block of
+    the sp step's prompt (W = P/sp positions, every kv head, bf16): #1 at
+    the decode's valid length in the block, #3 at the chunk of queries at
+    ``offset`` (its start shifted by the block's first position)."""
+    dev, bf16 = engine.device, torch.bfloat16
+    if dev.type != "cuda":
+        return []  # the kernels run on a card only (a rehearsal on the CPU)
+    cfg = engine.config
+    K, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    blk = engine._long_padded(prefix_len) // engine._sp
+    lo = engine._comm.sp_index * blk
+    chunk = engine.runtime.prefill_chunk
+    return run_cases(dev, [
+        ("decode_attention", decode_case,
+         (bf16, 1, K, G, hd, blk, [min(max(prefix_len - lo, 0), blk)], 43 + engine._rank, bf16)),
+        ("ragged_attention", ragged_case,
+         (bf16, 1, K, chunk, G, hd, blk, [offset - lo], [blk], 47 + engine._rank,
+          f"sp=2 rank {engine._rank}, chunk at {offset}", bf16)),
+    ])
+
+
+async def _tp_long_step(engine) -> dict:
+    """Phase 19's sp step on the round's warm two-rank engine (a
+    :class:`LaneEngine`, rank 0): one prompt of ``TP_LONG_LEN`` tokens
+    through the long lane, sharded over both ranks (4,096 positions a
+    rank), chunked and then monolithic, ``TP_LONG_NEW`` tokens each.  Rank 0
+    picks the prefill's path at admission (its runtime's
+    ``chunked_prefill``, set for each request); the other rank runs the
+    dispatches its descriptors name.  Every rank's launch and collective
+    counts are read around each request (``on_ranks``); then each rank's
+    #1 and #3 against their plain versions at its block's shapes."""
+    prompt = np.random.default_rng(19).integers(0, engine.config.vocab_size,
+                                                TP_LONG_LEN).tolist()
+    rt = engine.runtime
+    out: dict = {}
+    try:
+        for mode in ("chunked", "monolithic"):
+            engine.runtime = replace(rt, chunked_prefill=mode == "chunked")
+            engine.on_ranks(_rank_reset)
+            engine.long_prefills.clear()
+            engine.long_walls.clear()
+            before = engine.on_ranks(_rank_long)
+            arrivals: list = []
+            stream = await _timed_stream(engine, prompt, TP_LONG_NEW, arrivals)
+            ranks = engine.on_ranks(_rank_long)
+            ((_, start, end),) = engine.long_prefills
+            out[mode] = dict(
+                stream=stream, ttft_ms=(arrivals[1] - arrivals[0]) * 1e3, prefill_s=end - start,
+                decode_tok_s=(len(stream) - 1) / sum(engine.long_walls),
+                dispatches=len(engine.long_walls),
+                launches={r: x["launches"] for r, x in enumerate(ranks)},
+                collectives={r: {k: x["comm"][k] - b["comm"][k] for k in b["comm"]}
+                             for r, (x, b) in enumerate(zip(ranks, before))},
+                scratch={r: (x["scratch"], x["scratch_bytes"]) for r, x in enumerate(ranks)},
+                sp_index=[x["sp_index"] for x in ranks],
+            )
+    finally:
+        engine.runtime = rt
+    chunk = rt.prefill_chunk
+    out["prompt"] = prompt
+    out["long_graphs"] = _lane_graphs(engine)
+    out["n_chunks"] = -(-TP_LONG_LEN // chunk)
+    out["cases"] = engine.on_ranks(_rank_sp_cases, TP_LONG_LEN, (out["n_chunks"] - 1) * chunk)
+    return out
+
+
+async def _tp_round(engine, eager: bool, cases: bool, long: bool = False) -> dict:
     """Phase 15's measured agent round on a multi-rank ``engine`` (rank 0),
     through a ``TorchLocalModelClient`` over it: every rank's launch counts
     reset just before the round and read just after (``on_ranks``), the
     round's 16 engine turns replayed as direct requests, then (``cases``)
     each rank's #5 and #2 against their plain versions at the round's most
-    launched shapes; ``stop()`` and the no-leak law last."""
+    launched shapes, and (``long``) the sp step (:func:`_tp_long_step`);
+    ``stop()`` and the no-leak law last."""
     tok = CharTokenizer()
     tools = [agent_tool(fn) for fn in (get_weather, search_flights, book_hotel)]
     local = TorchLocalModelClient(engine=engine, tokenizer=tok, max_new_tokens=CLIENT_MAX_TOKENS)
@@ -5348,6 +5430,8 @@ async def _tp_round(engine, eager: bool, cases: bool) -> dict:
             out["decode_rows"] = _shape_rows(decodes)
             out["rank_cases"] = engine.on_ranks(
                 _rank_cases, out["prefill_rows"], out["decode_rows"]) if cases else []
+            if long:
+                out["long"] = await _tp_long_step(engine)
         finally:
             await local.stop()
     rt = engine.runtime
@@ -5395,6 +5479,67 @@ def _tp_checks(cfg, params, r: dict, dev) -> dict:
     )
 
 
+def _tp_long_checks(cfg, params, r: dict, dev) -> dict:
+    """The sp step's law: the chunked and the monolithic stream under phase
+    13's tie law against the f32 plain forward of the whole model; on both
+    ranks #1 launched equally, #3 launched once a chunk and layer on each
+    (chunked) and once a layer and visible block on rank r, r + 1 of them
+    (monolithic: the ring skips a later block), #5 and #2 never; each rank's
+    scratch its 4,096-position half with every kv head → its numbers."""
+    chunked, mono = r["chunked"], r["monolithic"]
+    streams = tie_law(cfg, params, [("sp2", r["prompt"], chunked["stream"], mono["stream"])],
+                      dev, labels=("chunked", "monolithic"))
+    L = cfg.n_layers
+    for mode, folds in (("chunked", lambda rank: r["n_chunks"]),
+                        ("monolithic", lambda rank: rank + 1)):
+        launches = r[mode]["launches"]
+        assert r[mode]["sp_index"] == [0, 1], r[mode]["sp_index"]
+        assert launches[0]["decode_attention"] == launches[1]["decode_attention"] > 0, launches
+        for rank, n in launches.items():
+            assert n["ragged_attention"] == folds(rank) * L, (mode, rank, n)
+            assert n["prefill_attention"] == n["paged_decode_attention"] == 0, (mode, rank, n)
+        for shape, _ in r[mode]["scratch"].values():
+            assert shape == [L, 1, cfg.n_kv_heads, TP_RUNTIME.long_max_prompt // 2,
+                             cfg.head_dim], shape
+    assert len(chunked["stream"]) == len(mono["stream"]) == TP_LONG_NEW
+    return dict(
+        streams=streams,
+        **{mode: {k: r[mode][k] for k in ("ttft_ms", "prefill_s", "decode_tok_s", "dispatches",
+                                          "launches", "collectives", "scratch")}
+           for mode in ("chunked", "monolithic")},
+        cases=[[{k: c[k] for k in ("name", "shape", "max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")} for c in cases]
+               for cases in r["cases"]],
+    )
+
+
+def _tp_long_note(res: dict, card: str) -> str:
+    parts = []
+    for mode in ("chunked", "monolithic"):
+        m = res[mode]
+        comm = m["collectives"]
+        parts.append(
+            f"{mode}: TTFT {m['ttft_ms']:.0f} ms, prefill {m['prefill_s']:.2f} s, decode "
+            f"{m['decode_tok_s']:.1f} tok/s over {m['dispatches']} dispatches; collectives "
+            + ", ".join(f"rank {rk} {c['all_reduce']} all-reduces, {c['all_gather']} gathers, "
+                        f"{c['ring']} ring hops in {c['seconds']:.2f} s"
+                        for rk, c in comm.items())
+            + "; launches " + ", ".join(
+                f"rank {rk} #1 {n['decode_attention']} #3 {n['ragged_attention']}"
+                for rk, n in m["launches"].items()))
+    scratch = res["chunked"]["scratch"]
+    return (
+        f"  sp step ({card}): a {TP_LONG_LEN}-token prompt through the long lane at sp = 2 "
+        f"(tp = 2 over gloo, under graphs.eager()), {TP_LONG_NEW} new tokens; "
+        + "; ".join(parts)
+        + "; prefix scratch " + ", ".join(f"rank {rk} {b / 1e9:.3f} GB {shape}"
+                                          for rk, (shape, b) in scratch.items())
+        + f"; chunked and monolithic streams within {TIE_SPACINGS} bf16 spacings of the f32 "
+        f"plain forward's top logit (max gap {res['streams']['max_gap']:.3f}, "
+        f"{len(res['streams']['diverged'])} parting at a tie)"
+    )
+
+
 def _tp_note(name: str, res: dict, card: str) -> str:
     t1, t2, comm, streams = res["turn1"], res["turn2"], res["collectives"], res["streams"]
     ranks = res["launches"]
@@ -5419,21 +5564,30 @@ def _tp_note(name: str, res: dict, card: str) -> str:
     )
 
 
-async def tp_nccl_drive(dev, cfg, params, card: str = "") -> dict:
+async def tp_nccl_drive(dev, cfg, params, card: str = "", long: bool = False) -> dict:
     """Phase 19's round at tp = 2 over NCCL on CUDA graphs (two or more
     cards): the engine spawns rank 1 on card 1 and joins it over NCCL,
     both drawing their shard of ``cfg`` from the seed (``params`` is the
     whole model the seed draws, the tie law's witness).  The checks of
-    :func:`_tp_checks`, every dispatch captured (none eager), and rank 1
-    exits 0 once ``stop()`` (graphs freed first, then the group left
-    within ``Workers.LEAVE_S``) returns."""
+    :func:`_tp_checks` (and with ``long``, the sp step's, its ring and
+    merges captured with the rest), every dispatch captured (none eager),
+    and rank 1 exits 0 once ``stop()`` (graphs freed first, then the group
+    left within ``Workers.LEAVE_S``) returns."""
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    engine = InferenceEngine(cfg, TP_RUNTIME, seed=TP_SEED, device=dev)
+    engine = LaneEngine(cfg, TP_RUNTIME, seed=TP_SEED, device=dev)
     assert engine._layout.comm.backend == "nccl"
     procs = list(engine._workers.procs)
-    nccl = _tp_checks(cfg, params, await _tp_round(engine, eager=False, cases=False), dev)
+    r = await _tp_round(engine, eager=False, cases=False, long=long)
+    nccl = _tp_checks(cfg, params, r, dev)
+    if long:
+        nccl["long"] = _tp_long_checks(cfg, params, r["long"], dev)
+        lane = nccl["long"]["long_graphs"] = r["long"]["long_graphs"]
+        print(_tp_long_note(nccl["long"], card) + f" [over NCCL on CUDA graphs: the lane's "
+              f"graphs {lane['keys']}, {lane['captures']} captures, {lane['replays']} replays]")
+        # every key of the lane captured (its ring hops and merges inside)
+        assert lane["captures"] == len(lane["keys"]) and lane["replays"] > 0, lane
     nccl["seconds"] = time.perf_counter() - t
     exits = [p.exitcode for p in procs]
     print(_tp_note(f"tp=2 {cfg.name} ({cfg.n_layers} layers) bf16 over NCCL, one card a rank, "
@@ -5484,9 +5638,9 @@ async def tp_phase(dev, agent_mesh: "dict | None" = None, card: str = "") -> dic
         params = M.init_params(cfg, generator)  # the whole model: the tie law's witness
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        engine = InferenceEngine(cfg, rt, params=params, device=dev)
+        engine = LaneEngine(cfg, rt, params=params, device=dev)
         assert engine._kv_heads == cfg.n_kv_heads // 2 and engine._layout.comm.backend == "gloo"
-        r = await _tp_round(engine, eager=True, cases=True)
+        r = await _tp_round(engine, eager=True, cases=True, long=True)
         worker.join(120)
         assert worker.exitcode == 0, f"rank 1 ended with {worker.exitcode}"
     finally:
@@ -5497,6 +5651,7 @@ async def tp_phase(dev, agent_mesh: "dict | None" = None, card: str = "") -> dic
         tmp.cleanup()
     del engine
     result = _tp_checks(cfg, params, r, dev)
+    result["long"] = _tp_long_checks(cfg, params, r["long"], dev)
     result["seconds"] = time.perf_counter() - started
     tp1 = agent_mesh["tok_s"] if agent_mesh else None
     print(_tp_note("tp=2 llama-3-8b bf16 in two processes on one card over gloo, under "
@@ -5504,7 +5659,8 @@ async def tp_phase(dev, agent_mesh: "dict | None" = None, card: str = "") -> dic
           + f"; phase 15's tp=1 on graphs: "
           f"{'not measured' if tp1 is None else f'{tp1:.1f}'} tok/s; rank 1 joined; "
           f"{result['seconds']:.1f} s for the drive")
-    for rank, cases in enumerate(result["rank_cases"]):
+    print(_tp_long_note(result["long"], card))
+    for rank, cases in [*enumerate(result["rank_cases"]), *enumerate(result["long"]["cases"])]:
         for c in cases:
             print(f"    rank {rank} {c['name']} at {c['shape']}: max abs err "
                   f"{c['max_abs_err']:.2e}, {c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, bound "
@@ -5665,7 +5821,7 @@ def main() -> int:
     stage("tensor-parallel phase (tp=2, two processes)")
     tp = asyncio.run(tp_phase(dev, agent_mesh, card))
     release()
-    cases += [c for rank in tp["rank_cases"] for c in rank]
+    cases += [c for rank in tp["rank_cases"] + tp["long"]["cases"] for c in rank]
 
     # each kernel's launches from the path it serves, beside its case at a
     # shape of that path (MAIN_SHAPES, path_case): the dense decode kernel
@@ -5716,6 +5872,17 @@ def main() -> int:
                 launches={r: n[name] for r, n in tp["launches"].items()},
                 cases={r: next(c for c in cases_ if c["name"] == name)
                        for r, cases_ in enumerate(tp["rank_cases"])},
+            )
+        if name in ("decode_attention", "ragged_attention"):
+            # the long lane's path at sp = 2 (phase 19's sp step), each
+            # rank's launches by prefill path and the kernel at that rank's
+            # block shapes
+            long = tp["long"]
+            entry["sp2"] = dict(
+                launches={mode: {r: n[name] for r, n in long[mode]["launches"].items()}
+                          for mode in ("chunked", "monolithic")},
+                cases={r: next(c for c in cases_ if c["name"] == name)
+                       for r, cases_ in enumerate(long["cases"])},
             )
         line["kernels"].append(entry)
     if args.out:

@@ -2,19 +2,24 @@
 """``chip_smoke.py``'s tensor-parallel phase alone, on one CUDA card.
 
     python3 scripts/torch_tp.py [--runs N] [--out PATH] [--device cuda|cpu]
-                                [--nccl-layers L]
+                                [--nccl-layers L [--long]]
 
 Builds the kernels and runs phase 19 (``chip_smoke.tp_phase``: llama-3-8b
 bf16 at ``RuntimeConfig(tp=2)`` in two processes sharing the card over
-gloo, phase 15's agent round under ``graphs.eager()``) N times (default 1),
-printing one JSON line a run: tok/s, TTFT, the descriptors' host ms, the
-gloo collectives' ms, each rank's launches and peak allocation, each
-rank's #5 and #2 against their plain versions, the tie law's gaps and the
-phase's seconds.  Every check of the phase holds or the script fails.
+gloo, phase 15's agent round and then the sp step, a 6,000-token prompt
+through the long lane sharded over both ranks, under ``graphs.eager()``)
+N times (default 1), printing one JSON line a run: tok/s, TTFT, the
+descriptors' host ms, the gloo collectives' ms, each rank's launches and
+peak allocation, each rank's #5 and #2 against their plain versions, the
+tie law's gaps, the sp step's numbers (``long``: TTFT, prefill seconds,
+decode tok/s, collectives, launches and scratch by rank, #1 and #3 against
+their plain versions at each rank's block) and the phase's seconds.  Every
+check of the phase holds or the script fails.
 
 ``--nccl-layers L`` (two or more cards) runs only the phase's drive over
 NCCL on CUDA graphs (``chip_smoke.tp_nccl_drive``), one card a rank, on
-llama-3-8b's widths cut to L layers.
+llama-3-8b's widths cut to L layers; ``--long`` adds the sp step to it
+(the ring's point-to-point hops and the merges captured in the graphs).
 
 ``--device cpu`` rehearses it on the CPU with the patches of
 ``scripts/torch_fleet.py`` (rank 0 only: rank 1, a spawned process, runs
@@ -41,7 +46,7 @@ import chip_smoke  # noqa: E402
 from calfkit_tpu_torch import kernels  # noqa: E402
 
 KEYS = ("tok_s", "output_tokens", "wall_s", "descriptors", "descriptor_ms", "collectives",
-        "collective_ms", "launches", "peak", "rank_cases", "streams", "seconds", "nccl")
+        "collective_ms", "launches", "peak", "rank_cases", "streams", "long", "seconds", "nccl")
 
 
 def main() -> int:
@@ -51,6 +56,8 @@ def main() -> int:
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--nccl-layers", type=int,
                         help="run only the NCCL drive, at llama-3-8b cut to this depth")
+    parser.add_argument("--long", action="store_true",
+                        help="with --nccl-layers: add the sp step to the NCCL drive")
     args = parser.parse_args()
     if args.device == "cuda" and not torch.cuda.is_available():
         print("torch_tp: no CUDA device", file=sys.stderr)
@@ -75,7 +82,7 @@ def main() -> int:
             generator = torch.Generator(device=dev)
             generator.manual_seed(chip_smoke.TP_SEED)
             params = chip_smoke.M.init_params(cfg, generator)
-            result = asyncio.run(chip_smoke.tp_nccl_drive(dev, cfg, params, card))
+            result = asyncio.run(chip_smoke.tp_nccl_drive(dev, cfg, params, card, args.long))
             del params
             keys = [k for k in KEYS if k in result]
         else:

@@ -1174,3 +1174,116 @@ def test_nccl_on_a_shared_card_raises(tmp_path):
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_ragged_kernel_at_sp_block_offsets(dtype, q_dtype):
+    """#3 as the long lane at sp > 1 calls it on a rank's block of W
+    positions (every kv head of llama-3-8b, K = 8, G = 4): a chunk of S
+    queries whose start, shifted by the block's first position, lies
+    wholly before the block (negative: nothing seen), across its start
+    (the first queries see nothing), inside it, and at or past its end (a
+    ring fold over an earlier rank's block: every valid position seen),
+    with kv_len the block or a prompt ending in it."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(71)
+    K, G, hd, S, W = 8, 4, 128, 64, 256
+    starts = [-200, -64, -20, 0, 100, 192, 256, 256, 1000]
+    lens = [W, W, W, W, W, W, W, 150, W]
+    B = len(starts)
+    q = torch.randn((B, K, S, G, hd), generator=g, device=dev).to(q_dtype)
+    cache = torch.randn((2, B, K, 2 * W, hd), generator=g, device=dev).to(dtype)
+    k, v = cache[0, :, :, :W], cache[1, :, :, :W]
+    st, ln = (torch.tensor(x, dtype=torch.int32, device=dev) for x in (starts, lens))
+    out = A.ragged_attention(q, k, v, st, ln)
+    ref = A.ragged_attention_reference(q, k, v, st, ln)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, **DECODE_TOL)
+    # the rows before the block see nothing: o = 0, m = -1e29, z = 0
+    assert torch.all(out[0][:2] == 0) and torch.all(out[1][:2] == -1e29)
+    assert torch.all(out[2][:2] == 0)
+    assert torch.all(out[2][2, :, :20] == 0) and torch.all(out[2][2, :, 20:] > 0)
+
+
+_SP_CHILD = '''
+import sys
+import torch
+sys.path.insert(0, {repo!r})
+from calfkit_tpu_torch.inference import attention as A
+from calfkit_tpu_torch.inference import distributed as D, ring_attention as RA, sharding as S
+
+rank = int(sys.argv[1])
+D.initialize_multihost({coordinator!r}, 2, rank, backend="gloo")
+comm = D.Comm(S.make_mesh(tp=2), rank)
+q, k, v, lens, qd, kp, vp, plens = (x.cuda() for x in torch.load({inputs!r}))
+blk, pblk = q.shape[1] // 2, kp.shape[2] // 2
+A.reset_launch_counts()
+out = RA.ring_attention(q[:, rank * blk:(rank + 1) * blk], k[:, rank * blk:(rank + 1) * blk],
+                        v[:, rank * blk:(rank + 1) * blk], lens, comm=comm)
+source = RA.context_parallel_attention(qd, kp[:, :, rank * pblk:(rank + 1) * pblk],
+                                       vp[:, :, rank * pblk:(rank + 1) * pblk], plens, comm=comm)
+torch.save((out.cpu(), [s.cpu() for s in source], dict(A.launch_counts), dict(comm.stats)),
+           {out!r}.format(rank))
+D.shutdown_group()
+'''
+
+
+@pytest.mark.cuda
+@cuda_only
+def test_sp_ring_and_merge_in_two_processes_on_one_card(tmp_path):
+    """The long lane's attention at sp = 2 in two processes sharing the
+    card over gloo, each on its block, bf16 at llama-3-8b's heads (H = 32,
+    K = 8): the ring (#3 a fold, K/V handed through the host) joined in
+    rank order equals the plain causal attention over the whole sequence,
+    and the context-parallel (o, m, z) (#1 on each block, merged with
+    ``sp_max`` / ``sp_sum``) equals the plain decode source over the whole
+    prefix on both ranks.  Rank 0 folds its own block, rank 1 two."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    g = torch.Generator().manual_seed(5)
+    B, T, H, K, hd, P = 2, 512, 32, 8, 128, 1024
+    bf = torch.bfloat16
+    q, k, v = (torch.randn((B, T, n, hd), generator=g).to(bf) for n in (H, K, K))
+    lens = torch.tensor([T, 300], dtype=torch.int32)
+    qd = torch.randn((B, 1, H, hd), generator=g).to(bf)
+    kp, vp = (torch.randn((B, K, P, hd), generator=g).to(bf) for _ in range(2))
+    plens = torch.tensor([P, 700], dtype=torch.int32)
+    torch.save((q, k, v, lens, qd, kp, vp, plens), tmp_path / "inputs.pt")
+    script = tmp_path / "rank.py"
+    script.write_text(_SP_CHILD.format(
+        repo=repo, coordinator="file://" + str(tmp_path / "store"),
+        inputs=str(tmp_path / "inputs.pt"), out=str(tmp_path / "out{}.pt")))
+    procs = [subprocess.Popen([sys.executable, str(script), str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in (0, 1)]
+    try:
+        for proc in procs:
+            _, err = proc.communicate(timeout=300)
+            assert proc.returncode == 0, err[-2000:]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    ranks = [torch.load(tmp_path / f"out{r}.pt") for r in (0, 1)]
+    dev = torch.device("cuda")
+    pos = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+    want = A.prefill_attention_reference(
+        q.to(dev), k.to(dev).transpose(1, 2), v.to(dev).transpose(1, 2), pos, lens.to(dev)).cpu()
+    got = torch.cat([r[0] for r in ranks], dim=1)
+    keep = torch.arange(T)[None, :] < lens[:, None]
+    torch.testing.assert_close(got[keep].float(), want[keep].float(), **PREFILL_TOL[bf])
+    o, m, z = A.decode_attention_reference(
+        qd.to(dev).reshape(B, K, H // K, hd), kp.to(dev), vp.to(dev), plens.to(dev))
+    for r in ranks:
+        go, gm, gz = r[1]
+        torch.testing.assert_close(go, o.cpu(), **DECODE_TOL)
+        torch.testing.assert_close(gm[..., 0], m.cpu(), **DECODE_TOL)
+        torch.testing.assert_close(gz[..., 0], z.cpu(), **DECODE_TOL)
+    assert [r[2]["ragged_attention"] for r in ranks] == [1, 2]
+    assert [r[2]["decode_attention"] for r in ranks] == [1, 1]
+    assert [r[3]["ring"] for r in ranks] == [1, 1]

@@ -36,7 +36,7 @@ from calfkit_tpu.models import messages as JM  # noqa: E402
 from calfkit_tpu_torch.exceptions import InferenceError  # noqa: E402
 from calfkit_tpu_torch.inference import TorchLocalModelClient  # noqa: E402
 from calfkit_tpu_torch.inference.config import RuntimeConfig, preset  # noqa: E402
-from calfkit_tpu_torch.inference.engine import InferenceEngine  # noqa: E402
+from calfkit_tpu_torch.inference.engine import InferenceEngine, _check_runtime  # noqa: E402
 from calfkit_tpu_torch.inference.tokenizer import ByteTokenizer  # noqa: E402
 from calfkit_tpu_torch.models import user_message  # noqa: E402
 from tests._torch_port import (  # noqa: E402
@@ -204,7 +204,8 @@ async def test_long_budget_clamped_only_with_opt_in(weights):
 def test_long_context_constructs_and_multi_device_refuses(weights):
     """``long_context=True`` builds the lane's buffers at construction (the
     prefix scratch for the padded ceiling, the f32 fresh cache); tp/dp > 1
-    is still the multi-device slice."""
+    is no longer refused (the lane over several ranks:
+    ``tests/test_torch_sp_engine.py``)."""
     engine = InferenceEngine(TORCH_F32, RuntimeConfig(**LONG_BASE), params=weights[1],
                              device="cpu")
     cfg = TORCH_F32
@@ -215,9 +216,7 @@ def test_long_context_constructs_and_multi_device_refuses(weights):
         cfg.n_layers, 1, cfg.n_kv_heads, 24, cfg.head_dim)
     assert [engine._long_padded(n) for n in (64, 65, 100, 128, 129)] == [64, 128, 128, 128, 256]
     for over in (dict(tp=2), dict(dp=2)):
-        with pytest.raises(ValueError, match="multi-device"):
-            InferenceEngine(TORCH_F32, RuntimeConfig(**LONG_BASE, **over), params=weights[1],
-                            device="cpu")
+        _check_runtime(RuntimeConfig(**LONG_BASE, **over))  # served: nothing raises
 
 
 # --------------------------------------------------------------------------- #

@@ -230,12 +230,6 @@ def test_a_teardown_that_does_not_end_is_a_rank_fault(monkeypatch):
         D.Workers([]).close()
 
 
-def test_long_lane_over_ranks_names_the_sp_slice(weights):
-    with pytest.raises(ValueError, match="sp > 1"):
-        InferenceEngine(TORCH_CFG, RuntimeConfig(**BASE, tp=2, long_context=True),
-                        params=weights["f32"][1], device="cpu")
-
-
 def test_fresh_engine_stats_are_zero():
     """The counters compared above start from zero on both sides."""
     assert all(v == 0 for k, v in EngineStats().counters().items() if k != "occupancy_hist")
