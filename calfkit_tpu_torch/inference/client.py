@@ -611,6 +611,7 @@ class TorchLocalModelClient(ModelClient):
             priority=qos.current_priority.get(),
         )
         stream_exc: BaseException | None = None
+        timing: dict = {}  # the engine's spans of this request, once landed
         try:
             async for token in token_stream:
                 generated.append(token)
@@ -619,7 +620,14 @@ class TorchLocalModelClient(ModelClient):
                     # the decode phase starts here
                     ttft_ms = (time.perf_counter() - started) * 1000.0
                     if prefill_span is not None:
-                        prefill_span.end(ttft_ms=round(ttft_ms, 3))
+                        # the engine's queue wait, prefill span and reused
+                        # tokens: its first token has landed
+                        timing = self._engine.request_timing(trace_parent.trace_id) or {}
+                        prefill_span.end(
+                            ttft_ms=round(ttft_ms, 3),
+                            **{k: timing[k] for k in ("queue_wait_ms", "prefill_span_ms")
+                               if k in timing},
+                        )
                         prefill_span = None
                         decode_span = TRACER.start_span(
                             "engine.decode", parent=gen_span.context,
@@ -668,6 +676,7 @@ class TorchLocalModelClient(ModelClient):
             if gen_span is not None:
                 gen_span.end(
                     status=status, generated_tokens=len(generated), ttft_ms=round(ttft_ms, 3),
+                    **{k: timing[k] for k in ("reused_tokens",) if k in timing},
                 )
 
         full_text = tokenizer.decode(resume_tokens + generated)

@@ -45,7 +45,11 @@ and speculative decoding.
 - telemetry: the flight recorder (a ring journal of every scheduling
   decision), the page ledger (who holds which KV page), the occupancy
   sampler (``capacity_samples``) and the ``/metrics`` instruments,
-  observed per dispatch or per admission, never per token;
+  observed per dispatch or per admission, never per token; the dispatch
+  timeline (:mod:`~calfkit_tpu_torch.inference.timeline`): each
+  dispatch's device time, the device's idle between dispatches put down
+  to the host's phase, and each request's queue wait and prefill span, as
+  :class:`EngineStats` counters;
 - compiled dispatch: on a card every dispatch body (decode, verify, the
   ragged wave, a chunk, a single-shot prefill, the landing, the prefix
   seed) is captured once per key as a CUDA graph and replayed
@@ -131,6 +135,7 @@ from calfkit_tpu_torch.inference.sampler import (
     sample_slots,
     spec_accept_slots,
 )
+from calfkit_tpu_torch.inference.timeline import DispatchTimeline, EventClock, HostClock
 from calfkit_tpu_torch.observability import capacity, flightrec
 from calfkit_tpu_torch.observability.metrics import (
     INTER_TOKEN_BUCKETS_MS,
@@ -141,6 +146,8 @@ from calfkit_tpu_torch.observability.metrics import (
 logger = logging.getLogger(__name__)
 
 _DONE = object()
+# the landed requests' timings kept by corr for request_timing
+_TIMING_KEPT = 1024
 
 # process-wide active-request aggregation: the shared gauge reports the
 # SUM across live engines, not the last dispatching engine's count; the
@@ -191,8 +198,8 @@ def _engine_metrics(
         ),
         "dispatch_gap_ms": reg.histogram(
             "calfkit_engine_dispatch_gap_ms",
-            "device-idle bubble: previous dispatch landing to next launch, "
-            "zero while a dispatch is already in flight (ms)",
+            "device idle before a decode, ragged or verify dispatch, on the "
+            "device's clock: previous dispatch's end to this one's start (ms)",
             buckets=INTER_TOKEN_BUCKETS_MS,
         ),
     }
@@ -232,7 +239,12 @@ def _call_weak(method: "weakref.WeakMethod", *args: Any) -> Any:
     fn = method()
     if fn is None:
         raise InferenceError("the engine was dropped before its dispatch ran")
-    return fn(*args)
+    timeline = fn.__self__._timeline
+    timeline.phase("prep")
+    try:
+        return fn(*args)
+    finally:
+        timeline.phase("loop")
 
 
 def _deliver_batch(deliveries: "list[tuple[asyncio.Queue, list]]") -> None:
@@ -336,6 +348,7 @@ class GenRequest:
     corr: "str | None" = None
     run: "str | None" = None
     started_at: float = field(default_factory=time.perf_counter)
+    formed_at: float = 0.0  # the formation of the wave that admits it
     # the live _retire_heap entry ([bound, seq, request]); cleared at
     # retirement so the heap stops pinning this request's memory
     heap_entry: Any = None
@@ -349,7 +362,6 @@ class GenRequest:
 class EngineStats:
     prefill_tokens: int = 0
     prefill_waves: int = 0
-    prefill_time_s: float = 0.0  # summed wall of prefill waves, launch to landing
     decode_tokens: int = 0
     decode_dispatches: int = 0
     decode_time_s: float = 0.0
@@ -398,6 +410,27 @@ class EngineStats:
     batch_shed: int = 0
     interactive_expired: int = 0
     batch_expired: int = 0
+    # per admitted request (both lanes, at its first token's landing):
+    # submit → the formation of its wave, and that formation → the landing
+    admitted_requests: int = 0
+    queue_wait_s: float = 0.0
+    prefill_span_s: float = 0.0
+    # steps of every landed decode-kind or mixed dispatch (a verify is one)
+    decode_steps: int = 0
+    # the dispatch timeline (inference/timeline.py), on the device's clock:
+    # dispatch time by kind, the idle between dispatches while the engine
+    # held work, that idle split by the host phase it overlapped (the five
+    # sum to device_gap_s), and its part that followed a draining sync
+    device_decode_s: float = 0.0
+    device_mixed_s: float = 0.0
+    device_prefill_s: float = 0.0
+    device_gap_s: float = 0.0
+    gap_schedule_s: float = 0.0
+    gap_loop_s: float = 0.0
+    gap_prep_s: float = 0.0
+    gap_launch_s: float = 0.0
+    gap_land_s: float = 0.0
+    gap_drained_s: float = 0.0
     # EWMA of decode-dispatch latency (ms), the fleet router's tiebreak: a
     # fold, not a counter (never in _COUNTER_FIELDS or window deltas)
     dispatch_ewma_ms: float = 0.0
@@ -405,6 +438,11 @@ class EngineStats:
     # timestamp.  Single-consumer by design (the heartbeat advert): two
     # delta readers would steal each other's intervals
     _window: Any = field(default=None, repr=False, compare=False)
+    # the engine's graph pool's counts (graphs.GraphPool.stats), mirrored
+    # as graph_captures and graph_capture_s
+    _graph_stats: dict = field(
+        default_factory=lambda: dict(captures=0, capture_s=0.0), repr=False, compare=False,
+    )
 
     _COUNTER_FIELDS = (
         "prefill_tokens", "decode_tokens", "decode_dispatches",
@@ -419,6 +457,10 @@ class EngineStats:
         "prefix_evictions", "alloc_stalls",
         "interactive_shed", "batch_shed",
         "interactive_expired", "batch_expired",
+        "admitted_requests", "queue_wait_s", "prefill_span_s", "decode_steps",
+        "device_decode_s", "device_mixed_s", "device_prefill_s", "device_gap_s",
+        "gap_schedule_s", "gap_loop_s", "gap_prep_s", "gap_launch_s", "gap_land_s",
+        "gap_drained_s", "graph_captures", "graph_capture_s",
     )
 
     # EWMA smoothing for dispatch_ewma_ms: about five dispatches of memory
@@ -461,6 +503,16 @@ class EngineStats:
         delta["mean_occupancy"] = round(delta["occupancy_sum"] / dd, 4) if dd else 0.0
         self._window = (cur, now)
         return cur, delta
+
+    @property
+    def graph_captures(self) -> int:
+        """CUDA graph captures of the engine's dispatches (each shape's first call on a card)."""
+        return self._graph_stats["captures"]
+
+    @property
+    def graph_capture_s(self) -> float:
+        """Seconds of those first calls: the eager run and the capture."""
+        return self._graph_stats["capture_s"]
 
     @property
     def tokens_per_second(self) -> float:
@@ -813,7 +865,16 @@ class InferenceEngine:
         self._wedged_at = 0.0
         self._progress_at = cancellation.wall_clock()
         self._watchdog_task: asyncio.Task[None] | None = None
-        self.stats = EngineStats()
+        self.stats = EngineStats(_graph_stats=self._graphs.stats)
+        # the dispatch timeline: every dispatch of the pool is timed on
+        # rank 0 (the other ranks follow its dispatches and land none)
+        clock = EventClock(dev) if dev.type == "cuda" else HostClock()
+        self._timeline = DispatchTimeline(clock, self.stats)
+        if self._rank == 0:
+            self._graphs.timeline = self._timeline
+        # each landed request's queue wait, prefill span and reused tokens
+        # by its corr, until request_timing reads them
+        self._request_timing: dict = {}
         # the flight recorder: O(1) lock-free appends at every scheduling
         # decision; flightrec_events=0 makes an append one attribute check
         self._journal = flightrec.FlightRecorder(rt.flightrec_events, label=config.name)
@@ -1144,6 +1205,7 @@ class InferenceEngine:
             return
         self._running = True
         self._loop = asyncio.get_running_loop()
+        self._timeline.idle()  # nothing before a start is held work
         # SIGUSR2 dumps every live journal (best-effort: skipped off the
         # main thread)
         flightrec.install_sigusr2()
@@ -1185,6 +1247,7 @@ class InferenceEngine:
             # still run or the slots/pages leak into the next start()
             self._free_deferred(self._pend)
             self._pend = None
+        self._timeline.reset()  # no sync will read what is in flight
         for request in list(self._active.values()):
             request.out.put_nowait(_DONE)
         self._active.clear()
@@ -1825,7 +1888,7 @@ class InferenceEngine:
                     if not progressed:
                         self._wake.clear()
                         if not self._queued_work():
-                            await self._wake.wait()
+                            await self._idle_wait()
                     continue
                 if self.runtime.chunked_prefill:
                     progressed = await self._admit_chunked()
@@ -1844,7 +1907,7 @@ class InferenceEngine:
                 elif not progressed and self._inflight is None:
                     self._wake.clear()
                     if not self._queued_work():
-                        await self._wake.wait()
+                        await self._idle_wait()
         except Exception as exc:  # noqa: BLE001 - the loop's crash rail
             logger.exception("inference engine scheduler crashed")
             self._running = False
@@ -1869,8 +1932,20 @@ class InferenceEngine:
     async def _on_worker(self, method: Any, *args: Any) -> Any:
         """Every dispatch of the engine runs on an ``asyncio.to_thread``
         worker through :func:`_call_weak`, so no worker thread holds the
-        engine once the call has returned."""
-        return await asyncio.to_thread(_call_weak, weakref.WeakMethod(method), *args)
+        engine once the call has returned.  The hop there and back is the
+        timeline's ``loop`` phase; the pass resumes in ``schedule``."""
+        self._timeline.phase("loop")
+        try:
+            return await asyncio.to_thread(_call_weak, weakref.WeakMethod(method), *args)
+        finally:
+            self._timeline.phase("schedule")
+
+    async def _idle_wait(self) -> None:
+        """Wait for a submit or a stop holding no work: an idle boundary of
+        the timeline (the device's idle until the next dispatch is no gap)."""
+        self._timeline.idle()
+        await self._wake.wait()
+        self._timeline.phase("schedule")
 
     def _drain_deferred_cancels(self) -> None:
         if not self._deferred_cancels:
@@ -2099,7 +2174,7 @@ class InferenceEngine:
             for request in wave:
                 request.slot = self._free.pop()
             self._journal.append(flightrec.EV_WAVE_FORM, None, -1, len(wave), wave_bucket)
-            return wave, wave_bucket
+            return self._formed(wave), wave_bucket
         # the tail of an unservable wave waits at the queue front
         granted: list[GenRequest] = []
         for i, request in enumerate(wave):
@@ -2138,7 +2213,15 @@ class InferenceEngine:
             self._drop_reuse_plan(request)
         self._carry = granted[keep:] + self._carry
         self._journal.append(flightrec.EV_WAVE_FORM, None, -1, keep, wave_bucket)
-        return granted[:keep], wave_bucket
+        return self._formed(granted[:keep]), wave_bucket
+
+    @staticmethod
+    def _formed(wave: "list[GenRequest]") -> "list[GenRequest]":
+        """Stamp the formation of ``wave``: its members' queue wait ends."""
+        now = time.perf_counter()
+        for request in wave:
+            request.formed_at = now
+        return wave
 
     def _activate_wave(self, wave: list[GenRequest]) -> None:
         for request in wave:
@@ -2241,6 +2324,7 @@ class InferenceEngine:
         if request is None:
             return False
         self._journal.append(flightrec.EV_ADMIT_LONG, request.corr, -1, len(request.prompt))
+        self._formed([request])
         if self.runtime.chunked_prefill:
             # resumable: one chunk per scheduler pass, the short lane's
             # ticks run between chunks
@@ -2273,6 +2357,7 @@ class InferenceEngine:
         self._observe("ttft_ms", ttft_ms)
         # the long lane's wait is everything before its prefill started
         self._observe("queue_wait_ms", max(0.0, ttft_ms - request.prefill_ms))
+        self._note_admitted(request, time.perf_counter())
         if self._emit_long(request, first):
             return
         self._long = dict(
@@ -2399,7 +2484,9 @@ class InferenceEngine:
 
             return decode, [((1,), torch.int32), ((1,), torch.int32)]
 
-        return self._cached(self._long_graphs, ("decode_sp", steps, 1, cap, padded), build)
+        return self._cached(
+            self._long_graphs, ("decode_sp", steps, 1, cap, padded), build, kind="decode"
+        )
 
     def _long_decode_tick(self) -> None:
         """One long-lane pass.  Overlap mode launches the next dispatch
@@ -2441,6 +2528,7 @@ class InferenceEngine:
         # and a long dispatch holds no slot
         self._note_progress()
         self.stats.long_dispatches += 1
+        self.stats.decode_steps += landing["steps"]
         self.stats.decode_time_s += now - start
         done = False
         for token in block[0]:
@@ -2479,21 +2567,28 @@ class InferenceEngine:
         dispatch that wrote them, before any other dispatch replays over
         them (graph outputs live until the next replay; ``_done`` until the
         next decode dispatch)."""
+        mark = self._timeline.mark()
         if self.device.type == "cpu":
-            return tuple(t.clone() for t in tensors), None
+            return tuple(t.clone() for t in tensors), None, mark
         hosts = tuple(
             torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
             for t in tensors
         )
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
-        return hosts, event
+        return hosts, event, mark
 
     def _sync_host(self, staged: tuple) -> "tuple[np.ndarray, ...]":
-        """THE designated device→host sync point of the dispatch loop."""
-        hosts, event = staged
+        """THE designated device→host sync point of the dispatch loop.  The
+        landing begins at its call; once it returns, the timeline reads the
+        marks of every dispatch enqueued before the staged event, and the
+        dispatch-gap histogram observes the flagged ones."""
+        hosts, event, mark = staged
+        self._timeline.phase("land")
         if event is not None:
             event.synchronize()
+        for gap in self._timeline.sync(mark):
+            self._observe("dispatch_gap_ms", gap * 1000.0)
         return tuple(t.numpy() for t in hosts)
 
     def _effective_sampling(self, request: GenRequest) -> SamplingParams:
@@ -2582,15 +2677,18 @@ class InferenceEngine:
             inputs += self._paged_wave_args(wave, bucket)
         return inputs
 
-    def _cached(self, table: dict, key: tuple, build: Any) -> graphs.CapturedDispatch:
+    def _cached(
+        self, table: dict, key: tuple, build: Any, kind: str = "prefill",
+    ) -> graphs.CapturedDispatch:
         """The dispatch of ``key`` in ``table``, made at the key's first use
-        from ``build()`` → (body, static input specs).  A body reaches the
-        engine through a weak proxy: the graphs the engine holds must not
-        hold the engine, or a dropped engine's weights, caches and graph
-        pool would wait for the cycle collector."""
+        from ``build()`` → (body, static input specs), timed as ``kind``
+        (decode, mixed or prefill).  A body reaches the engine through a
+        weak proxy: the graphs the engine holds must not hold the engine,
+        or a dropped engine's weights, caches and graph pool would wait for
+        the cycle collector."""
         fn = table.get(key)
         if fn is None:
-            fn = table[key] = graphs.CapturedDispatch(self._graphs, *build())
+            fn = table[key] = graphs.CapturedDispatch(self._graphs, *build(), kind=kind)
         return fn
 
     def _land_body(self, bucket: int, rows: int, sampled: bool) -> Any:
@@ -2670,7 +2768,6 @@ class InferenceEngine:
         host-mirror lens, and the first-token emission, marshalled to the
         event loop in ONE batch."""
         self.stats.prefill_waves += 1
-        self.stats.prefill_time_s += elapsed
         elapsed_ms = elapsed * 1000.0
         deliveries: list[tuple[asyncio.Queue, list]] = []
         self._note_progress()  # a wave landing is watchdog progress
@@ -2688,6 +2785,7 @@ class InferenceEngine:
             ttft_ms = (now - request.started_at) * 1000.0
             self._observe("ttft_ms", ttft_ms)
             self._observe("queue_wait_ms", max(0.0, ttft_ms - elapsed_ms))
+            self._note_admitted(request, now)
             # the prompt occupies [0, true_len); decode inserts from true_len
             self._host_lens[request.slot] = int(true_lens[r])
             items: list = []
@@ -2696,6 +2794,34 @@ class InferenceEngine:
                 deliveries.append((request.out, items))
         if deliveries:
             self._loop.call_soon_threadsafe(_deliver_batch, deliveries)
+
+    def _note_admitted(self, request: GenRequest, landed: float) -> None:
+        """A request's first token landed at ``landed``: its queue wait
+        (submit → its wave's formation) and prefill span (formation →
+        landing) into the counters, and by its corr for
+        :meth:`request_timing`."""
+        wait = request.formed_at - request.started_at
+        span = landed - request.formed_at
+        stats = self.stats
+        stats.admitted_requests += 1
+        stats.queue_wait_s += wait
+        stats.prefill_span_s += span
+        if request.corr is not None:
+            timing = self._request_timing
+            timing[request.corr] = dict(
+                queue_wait_ms=round(wait * 1e3, 3), prefill_span_ms=round(span * 1e3, 3),
+                reused_tokens=request.reuse_len,
+            )
+            if len(timing) > _TIMING_KEPT:  # corrs nobody reads: oldest out
+                del timing[next(iter(timing))]
+
+    def request_timing(self, corr: str) -> "dict | None":
+        """The newest landed request tagged ``corr``: ``queue_wait_ms``
+        (submit → the formation of the wave that admitted it),
+        ``prefill_span_ms`` (that formation → its first token's landing)
+        and ``reused_tokens`` (prompt tokens the prefix cache served) →
+        None before its landing.  Reading it forgets it."""
+        return self._request_timing.pop(corr, None)
 
     def _prefill_wave(self, wave: list[GenRequest], bucket: int) -> None:
         arrays = self._wave_arrays(wave, bucket)
@@ -3074,6 +3200,7 @@ class InferenceEngine:
         return self._cached(
             self._decode_graphs, key,
             lambda: (self._decode_body(window, steps, sampled), [((B,), torch.bool)] * 2),
+            kind="decode",
         )
 
     @_replicated
@@ -3097,7 +3224,7 @@ class InferenceEngine:
 
         wkey = -(-window // self.runtime.page_size) if self._paged else window
         return self._cached(
-            self._decode_graphs, ("ragged", wkey, steps, sampled, chunk, rows), build
+            self._decode_graphs, ("ragged", wkey, steps, sampled, chunk, rows), build, kind="mixed"
         )
 
     # ---------------------------------------------------- speculative verify
@@ -3164,7 +3291,7 @@ class InferenceEngine:
             key: tuple = ("verify", wpages, S, sampled, "paged")
         else:
             key = ("verify", window, S, sampled)
-        return self._cached(self._decode_graphs, key, build)
+        return self._cached(self._decode_graphs, key, build, kind="decode")
 
     def _spec_decode_tick(self) -> None:
         """One speculative wave: draft up to k tokens per active request,
@@ -3378,14 +3505,14 @@ class InferenceEngine:
             self._fill("_hard_dev", self._hard_end)
 
     def _observe_gap(self) -> None:
-        """The dispatch-gap bubble, observed just before each enqueue (after
-        the host's argument prep, through which the device idles too): zero
-        while a dispatch is already in flight, else the host-side span since
-        the previous landing.  Reset across idle periods."""
-        if self._pend is not None:
-            self._observe("dispatch_gap_ms", 0.0)
-        elif self._last_sync_t is not None:
-            self._observe("dispatch_gap_ms", (time.perf_counter() - self._last_sync_t) * 1000.0)
+        """Just before a decode, ragged or verify enqueue: the dispatch is
+        flagged for the dispatch-gap histogram, which observes the device's
+        idle before it (previous dispatch's end to its start, on the
+        device's clock) once a landing sync has passed it.  Flagged while a
+        dispatch is in flight or since a landing that left rows active; not
+        across idle periods."""
+        if self._pend is not None or self._last_sync_t is not None:
+            self._timeline.flag_next()
 
     def _dispatch(
         self, active: np.ndarray, window: int, steps: int, sampled: bool,
@@ -3559,6 +3686,7 @@ class InferenceEngine:
         observation here is O(1): per dispatch, never per token."""
         with self._retire_lock:
             self._decode_clock += clock_steps
+        self.stats.decode_steps += clock_steps
         self._note_progress()  # every landed dispatch is watchdog progress
         self.stats.decode_dispatches += 1
         self.stats.decode_time_s += elapsed

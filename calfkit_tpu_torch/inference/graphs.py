@@ -28,6 +28,11 @@ caller copies an output (to the host, or into another dispatch's inputs)
 before any other dispatch replays.  An output that must outlive other
 replays is an engine-owned buffer the body writes with ``copy_``.
 
+Every call is timed on the device's clock when the pool has a
+``timeline`` (:mod:`.timeline`; the engine's, on its rank 0): a mark on
+the engine's stream before the input fills and another after the replay,
+the dispatch tagged with its ``kind`` (decode, mixed or prefill).
+
 A capture or a replay that fails raises :class:`InferenceError`; nothing
 falls back to eager execution.
 
@@ -124,7 +129,8 @@ class GraphPool:
     captured on, and their counts (``captures`` = first calls, each captured
     after its eager run; ``replays`` = later calls; ``eager`` = calls run
     eagerly on the card under :func:`eager`; ``capture_s`` = seconds spent
-    in first calls)."""
+    in first calls), and the timeline its calls are timed on (None: not
+    timed)."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -134,19 +140,25 @@ class GraphPool:
         self.stats = dict(captures=0, replays=0, eager=0, capture_s=0.0)
         self.mirror: Any = None  # rank 0 of a multi-rank engine: a WeakMethod
         self.latest: "dict | None" = None  # a multi-rank engine's outputs by recipe
+        self.timeline: Any = None  # a timeline.DispatchTimeline
 
 
 class CapturedDispatch:
     """A dispatch body over static inputs of the given (shape, dtype)
     ``specs``: called with one array or tensor per spec, it returns the
-    body's outputs (see the module's docstring for their lifetime)."""
+    body's outputs (see the module's docstring for their lifetime).
+    ``kind`` is what the pool's timeline counts its device time as:
+    ``decode`` (decode, verify, the long lane's decode, the draft model),
+    ``mixed`` (a ragged wave: decode rows and a prefill chunk) or
+    ``prefill``."""
 
     def __init__(
         self, owner: GraphPool, body: Callable[..., Any],
-        specs: "Sequence[tuple[tuple[int, ...], torch.dtype]]",
+        specs: "Sequence[tuple[tuple[int, ...], torch.dtype]]", kind: str = "decode",
     ):
         self._owner = owner
         self._body = body
+        self.kind = kind
         # allocated here, outside any capture: never in the graph pool
         self.inputs = tuple(
             torch.zeros(shape, dtype=dtype, device=owner.device) for shape, dtype in specs
@@ -177,9 +189,20 @@ class CapturedDispatch:
         return out
 
     def _call(self, args: tuple) -> Any:
+        timeline = self._owner.timeline
+        if timeline is None:
+            return self._run(args)
+        rec = timeline.begin()
+        out = self._run(args, timeline)
+        timeline.end(rec, self.kind)
+        return out
+
+    def _run(self, args: tuple, timeline: Any = None) -> Any:
         self.calls += 1
         for buf, value in zip(self.inputs, args):
             fill(buf, value)
+        if timeline is not None:
+            timeline.phase("launch")
         owner = self._owner
         if not owner.cuda:
             return self._body(*self.inputs)

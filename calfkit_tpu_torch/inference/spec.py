@@ -224,7 +224,8 @@ class DraftModelDrafter:
         B = self._runtime.max_batch_size
         specs = [((B, width), torch.int32), ((B,), torch.int32), ((B,), torch.int32),
                  ((B,), torch.bool)]
-        fn = self._graphs[width] = graphs.CapturedDispatch(self._pool, propose, specs)
+        fn = self._graphs[width] = graphs.CapturedDispatch(self._pool, propose, specs,
+                                                          kind="decode")
         fn.recipe = ("drafter", "_propose_graph", (width,))
         return fn
 
@@ -269,6 +270,8 @@ class DraftModelDrafter:
         # the spec tick's second host sync (the first lands the previous
         # verify): the drafts must reach the host to form the verify wave
         drafts = self._propose_graph(width)(catchup, base, cat_len, fed_nothing).cpu().numpy()
+        if self._pool.timeline is not None:
+            self._pool.timeline.drained()  # that sync left nothing queued
         by_slot = {
             slot: [int(t) for t in drafts[slot, : max(0, min(self.k, room))]]
             for slot, room in live

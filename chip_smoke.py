@@ -1272,7 +1272,7 @@ async def serving_phase(dev) -> dict:
             decode_tokens=stats.decode_tokens, decode_time_s=stats.decode_time_s,
             decode_tok_s=stats.tokens_per_second, decode_dispatches=stats.decode_dispatches,
             mean_occupancy=stats.mean_occupancy, prefill_waves=stats.prefill_waves,
-            prefill_time_s=stats.prefill_time_s,
+            prefill_device_s=stats.device_prefill_s + stats.device_mixed_s,
         )
         assert [len(s) for s in streams] == [32] * 6, [len(s) for s in streams]
         assert launches["decode_attention"] > 0 and launches["prefill_attention"] > 0, launches
@@ -1420,7 +1420,8 @@ async def paged_serving_phase(dev, speculative: bool = False) -> dict:
         decode_tokens=stats.decode_tokens, decode_time_s=stats.decode_time_s,
         decode_tok_s=stats.tokens_per_second, decode_dispatches=stats.decode_dispatches,
         mean_occupancy=stats.mean_occupancy, prefill_waves=stats.prefill_waves,
-        prefill_time_s=stats.prefill_time_s, prefix_hits=stats.prefix_hits,
+        prefill_device_s=stats.device_prefill_s + stats.device_mixed_s,
+        prefix_hits=stats.prefix_hits,
         prefix_reused_tokens=stats.prefix_reused_tokens,
         prefix_evictions=stats.prefix_evictions, alloc_stalls=stats.alloc_stalls,
         prefill_absorbed_tokens=stats.prefill_absorbed_tokens,

@@ -176,7 +176,8 @@ async def run(args) -> dict:
         decode_dispatches=stats.decode_dispatches, decode_steps=steps,
         decode_time_s=stats.decode_time_s, decode_tokens=stats.decode_tokens,
         decode_tok_s=stats.tokens_per_second, prefill_waves=stats.prefill_waves,
-        prefill_time_s=stats.prefill_time_s, prefix_hits=stats.prefix_hits,
+        prefill_device_s=stats.device_prefill_s + stats.device_mixed_s,
+        prefix_hits=stats.prefix_hits,
         unified_dispatches=stats.unified_dispatches, spec_rows=stats.spec_rows,
         acceptance_rate=stats.acceptance_rate, tokens_per_dispatch=stats.tokens_per_dispatch,
         # the compiled-dispatch layer's counts over both rounds (absent

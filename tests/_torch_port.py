@@ -56,6 +56,17 @@ from chip_smoke import Pace, quiescent  # the chip smoke's overload phase drives
 JAX_CFG = jax_preset("debug")
 TORCH_CFG = torch_preset("debug")
 
+# EngineStats counters the port keeps and the reference has not: the
+# dispatch timeline's device times and host phases, the per-request queue
+# wait and prefill span, decode steps and graph captures.  A comparison of
+# counters() or snapshot_and_delta() windows with the reference drops them
+PORT_ONLY_COUNTERS = (
+    "admitted_requests", "queue_wait_s", "prefill_span_s", "decode_steps",
+    "device_decode_s", "device_mixed_s", "device_prefill_s", "device_gap_s",
+    "gap_schedule_s", "gap_loop_s", "gap_prep_s", "gap_launch_s", "gap_land_s",
+    "gap_drained_s", "graph_captures", "graph_capture_s",
+)
+
 # the suite runs in several worker processes on few cores: one thread per
 # worker for these tiny tensors keeps torch from crowding out the others
 torch.set_num_threads(1)
@@ -404,7 +415,8 @@ async def robustness_drill(engine, pkg, clock, tag: str) -> dict:
     finally:
         await engine.stop()
     counters = engine.stats.counters()
-    counters.pop("decode_time_s")
+    for name in ("decode_time_s", *PORT_ONLY_COUNTERS):  # the reference has none of these
+        counters.pop(name, None)
     return dict(
         outcomes=outcomes,
         counters=counters,
@@ -603,7 +615,8 @@ async def long_lane_drill(engine, pkg, clock, tag: str) -> dict:
     finally:
         await engine.stop()
     counters = engine.stats.counters()
-    counters.pop("decode_time_s")
+    for name in ("decode_time_s", *PORT_ONLY_COUNTERS):  # the reference has none of these
+        counters.pop(name, None)
     return dict(
         outcomes=outcomes, counters=counters, during_prefill=during[0],
         journal=journal_rows(engine, pkg.flightrec.EVENT_NAMES),

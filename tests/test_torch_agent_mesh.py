@@ -64,6 +64,10 @@ MASKED = frozenset({
     "duration_ms", "traceback", "prefill_ms", "decode_ms", "tokens_per_second",
     "queue_wait_s", "device_time_s", "ttft_ms",
 })
+# span attributes only the port's model client sets (the engine's timing of
+# the request, two of them host wall-clock spans): the reference's spans
+# carry none, so they are left out of the comparison
+PORT_ONLY = frozenset({"queue_wait_ms", "prefill_span_ms", "reused_tokens"})
 
 
 def pkg(name: str) -> SimpleNamespace:
@@ -103,7 +107,8 @@ def seeded_ids(seed: int = 0):
 
 def _masked(value):
     if isinstance(value, dict):
-        return {k: "<masked>" if k in MASKED else _masked(v) for k, v in value.items()}
+        return {k: "<masked>" if k in MASKED else _masked(v)
+                for k, v in value.items() if k not in PORT_ONLY}
     if isinstance(value, list):
         return [_masked(v) for v in value]
     return value

@@ -1287,3 +1287,30 @@ def test_sp_ring_and_merge_in_two_processes_on_one_card(tmp_path):
     assert [r[2]["ragged_attention"] for r in ranks] == [1, 2]
     assert [r[2]["decode_attention"] for r in ranks] == [1, 1]
     assert [r[3]["ring"] for r in ranks] == [1, 1]
+
+
+@pytest.mark.cuda
+@cuda_only
+def test_event_clock_times_the_stream_as_torch_events_do():
+    """The dispatch timeline's event clock, recorded and read through the
+    CUDA runtime's library, times a matmul as torch's own events around it
+    do, and reuses its events once released."""
+    from calfkit_tpu_torch.inference.timeline import EventClock
+
+    dev = torch.device("cuda")
+    clock = EventClock(dev)
+    assert clock._rt is not None
+    x = torch.randn(4096, 4096, device=dev)
+    for _ in range(3):  # the first round makes the events, later ones reuse them
+        a = clock.record()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        x @ x
+        t1.record()
+        b = clock.record()
+        torch.cuda.synchronize()
+        ours, theirs = clock.seconds(a, b), t0.elapsed_time(t1) / 1e3
+        assert theirs > 0 and ours >= theirs and ours == pytest.approx(theirs, rel=0.05, abs=2e-5)
+        clock.release(a)
+        clock.release(b)
+    assert len(clock._free) == 2

@@ -35,6 +35,7 @@ from calfkit_tpu_torch.inference.config import RuntimeConfig, preset  # noqa: E4
 from calfkit_tpu_torch.inference.engine import InferenceEngine  # noqa: E402
 from calfkit_tpu_torch.observability import flightrec as port_flightrec  # noqa: E402
 from tests._torch_port import (  # noqa: E402
+    PORT_ONLY_COUNTERS,
     jax_params,
     journal_rows,
     long_idle,
@@ -105,7 +106,8 @@ async def _drive(engine, names, ranks: bool) -> dict:
     finally:
         await engine.stop()
     counters = engine.stats.counters()
-    counters.pop("decode_time_s")
+    for name in ("decode_time_s", *PORT_ONLY_COUNTERS):  # the reference has none of these
+        counters.pop(name, None)
     return dict(streams=streams, counters=counters, journal=journal_rows(engine, names),
                 buffers=buffers)
 

@@ -27,7 +27,12 @@ from calfkit_tpu.inference.sharding import make_mesh as jax_mesh  # noqa: E402
 from calfkit_tpu_torch.inference.config import RuntimeConfig, SpecConfig, preset  # noqa: E402
 from calfkit_tpu_torch.inference.engine import InferenceEngine  # noqa: E402
 from calfkit_tpu_torch.inference.engine import EngineStats  # noqa: E402
-from tests._torch_port import jax_params, quantized_params, torch_params  # noqa: E402
+from tests._torch_port import (  # noqa: E402
+    PORT_ONLY_COUNTERS,
+    jax_params,
+    quantized_params,
+    torch_params,
+)
 
 JAX_CFG = jax_preset("debug", dtype="float32")
 TORCH_CFG = preset("debug", dtype="float32")
@@ -89,8 +94,8 @@ async def _serve(engine):
         ]
         streams += await asyncio.gather(*[_gen(engine, p, n) for p, n in second])
         counters = engine.stats.counters()
-        for name in TIMINGS:
-            counters.pop(name)
+        for name in TIMINGS + PORT_ONLY_COUNTERS:
+            counters.pop(name, None)
         return streams, counters
     finally:
         await engine.stop()
