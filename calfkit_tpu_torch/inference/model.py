@@ -20,7 +20,10 @@ Weight layout (per layer, stacked on axis 0 across layers):
     norms: attn_norm/mlp_norm [L, D]
     top:   embed [V, D], final_norm [D], lm_head [D, V] (absent when tied)
 The projections and the LM head may be quantized leaves
-(:mod:`calfkit_tpu_torch.inference.quant`), read through :func:`_w`.
+(:mod:`calfkit_tpu_torch.inference.quant`), multiplied through
+:func:`_project`: an int8 leaf times bf16 activations by
+``quant.int8_matmul`` (the int8 kernel on the card), any other leaf read
+through :func:`_w`.
 
 Tensor parallelism: a rank's params (:class:`Decoder` over a rank's shard)
 carry its :class:`sharding.Layout` as ``params.layout``.  The functions
@@ -48,7 +51,7 @@ from calfkit_tpu_torch.inference.attention import (
     verify_attention_paged,
 )
 from calfkit_tpu_torch.inference.config import ModelConfig
-from calfkit_tpu_torch.inference.quant import dequant
+from calfkit_tpu_torch.inference.quant import dequant, int8_matmul, is_quantized
 
 Params = dict[str, Any]
 
@@ -197,6 +200,18 @@ def _w(leaf: Any, dtype: torch.dtype) -> torch.Tensor:
     return leaf
 
 
+def _project(spec: str, x: torch.Tensor, leaf: Any) -> torch.Tensor:
+    """``einsum(spec, x, weight)`` of a projection, whose weight's leading
+    axes are the contracted ones and whose output is x's leading axes, then
+    the weight's others.  An int8 leaf times bf16 activations goes to
+    ``quant.int8_matmul`` (the kernel on a CUDA tensor, the same einsum over
+    the dequantized weight on a CPU tensor); any other leaf (plain, int4, or
+    int8 under f32 activations) is read through :func:`_w`."""
+    if is_quantized(leaf) and x.dtype == torch.bfloat16:
+        return int8_matmul(spec, x, leaf)
+    return torch.einsum(spec, x, _w(leaf, x.dtype))
+
+
 # --------------------------------------------------------------------------- #
 # building blocks
 # --------------------------------------------------------------------------- #
@@ -242,9 +257,9 @@ def attn_qkv(
     """The block's attention front half: norm → QKV projections → rope
     (the queries by ``q_tables`` when given, else by cos/sin as the keys)."""
     h = rms_norm(x, lp["attn_norm"], eps)
-    q = torch.einsum("bsd,dnh->bsnh", h, _w(lp["wq"], h.dtype))
-    k = torch.einsum("bsd,dkh->bskh", h, _w(lp["wk"], h.dtype))
-    v = torch.einsum("bsd,dkh->bskh", h, _w(lp["wv"], h.dtype))
+    q = _project("bsd,dnh->bsnh", h, lp["wq"])
+    k = _project("bsd,dkh->bskh", h, lp["wk"])
+    v = _project("bsd,dkh->bskh", h, lp["wv"])
     return apply_rope(q, *(q_tables or (cos, sin))), apply_rope(k, cos, sin), v
 
 
@@ -258,15 +273,15 @@ def attn_out_mlp(
     """The block's back half: output projection + residual + SwiGLU MLP.
     On a rank whose ``wo`` (``w_down``) is split over tp, the product is
     this rank's partial sum: summed over tp before the residual add."""
-    out = torch.einsum("bsnh,nhd->bsd", attn, _w(lp["wo"], attn.dtype))
+    out = _project("bsnh,nhd->bsd", attn, lp["wo"])
     if layout is not None and layout.heads:
         out = layout.comm.tp_sum(out)
     x = x + out
     h = rms_norm(x, lp["mlp_norm"], eps)
-    gate = torch.einsum("bsd,df->bsf", h, _w(lp["w_gate"], h.dtype))
-    up = torch.einsum("bsd,df->bsf", h, _w(lp["w_up"], h.dtype))
+    gate = _project("bsd,df->bsf", h, lp["w_gate"])
+    up = _project("bsd,df->bsf", h, lp["w_up"])
     act = F.silu(gate) * up
-    down = torch.einsum("bsf,fd->bsd", act, _w(lp["w_down"], act.dtype))
+    down = _project("bsf,fd->bsd", act, lp["w_down"])
     if layout is not None and layout.ff:
         down = layout.comm.tp_sum(down)
     return x + down
@@ -281,7 +296,7 @@ def lm_logits(x: torch.Tensor, params: Params, eps: float) -> torch.Tensor:
     if head is None:
         logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
     else:
-        logits = torch.einsum("bsd,dv->bsv", x, _w(head, x.dtype))
+        logits = _project("bsd,dv->bsv", x, head)
     layout = layout_of(params)
     if layout is not None and layout.vocab is not None:
         logits = layout.comm.tp_gather(logits, dim=-1)

@@ -4,24 +4,41 @@ The port's copy of ``calfkit_tpu.inference.quant``, on torch tensors (and
 numpy in and out on the host, :func:`quantize_array_host`).  A quantized
 tensor is the leaf-pair ``{"q8": int8[...], "scale": f32 broadcastable}`` (int8,
 per-output-channel scales) or ``{"q4an<n>g<group>": uint8[...], "scale":
-f32}`` (int4, two values a byte, group-wise scales);
-:func:`dequant` is the single read-side seam (identity for plain tensors),
-applied at every weight use in :mod:`calfkit_tpu_torch.inference.model`.
+f32}`` (int4, two values a byte, group-wise scales).
 
-Unlike XLA, which fuses the dequant into the consuming matmul's operand
-load, eager PyTorch writes the dequantized bf16 weight to device memory at
-every use and the product reads it back: the weights' bytes at rest halve
-(int8) or quarter (int4), their traffic a step does not.
+Two read-side seams serve :mod:`calfkit_tpu_torch.inference.model`'s
+projections:
+
+- :func:`int8_matmul`: an int8 leaf times bf16 activations, the serving
+  path's product.  On a CUDA tensor it runs the hand-written kernel
+  ``csrc/w8a16_gemm.cu``, which reads the int8 bytes and converts each
+  weight to bf16 inside the product, on its way to the tensor cores (as XLA
+  fuses the JAX package's dequant into the product's operand load): no bf16
+  weight is written to device memory.  On a CPU tensor it runs
+  :func:`int8_matmul_reference`, the einsum over :func:`dequant`'s weight.
+- :func:`dequant` (identity for plain tensors): every other quantized read,
+  the int4 leaves and f32 activations.  On a CUDA tensor it writes the whole
+  dequantized weight to device memory at every use, and the product reads
+  it back.  ``read_counts["int8_dequant_cuda"]`` counts the int8 leaves it
+  reads on a CUDA tensor: none on the served path.
+
+``launch_counts`` counts the kernel's launches; a launch captured in a
+:class:`graphs.CapturedDispatch` counts at each of its replays.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 import re
+import threading
 from typing import Any
 
 import numpy as np
 import torch
+
+from calfkit_tpu_torch import kernels
+from calfkit_tpu_torch.inference import attention as _attention
 
 Params = dict[str, Any]
 
@@ -100,6 +117,8 @@ def dequant(leaf: Any, dtype: torch.dtype = torch.bfloat16) -> Any:
     f32 (the scale's storage precision) and casts once, rounding to nearest
     even: bit for bit the JAX package's dequant."""
     if is_quantized(leaf):
+        if leaf["q8"].device.type == "cuda":
+            _count(read_counts, "int8_dequant_cuda")
         return (leaf["q8"].to(torch.float32) * leaf["scale"]).to(dtype)
     if isinstance(leaf, dict) and "scale" in leaf:
         found = q4_key_of(leaf)
@@ -130,6 +149,152 @@ def _dequant4(
     else:
         w = w.to(torch.float32) * scale
     return w.to(dtype)
+
+
+# --------------------------------------------------------------------------- #
+# the int8 weight GEMM (csrc/w8a16_gemm.cu) and its plain version
+# --------------------------------------------------------------------------- #
+
+launch_counts: dict[str, int] = {"int8_matmul": 0}
+read_counts: dict[str, int] = {"int8_dequant_cuda": 0}
+_count_lock = threading.Lock()
+
+
+def reset_counts() -> None:
+    with _count_lock:
+        for counts in (launch_counts, read_counts):
+            for name in counts:
+                counts[name] = 0
+
+
+def _count(counts: dict[str, int], name: str, n: int = 1) -> None:
+    with _count_lock:
+        counts[name] += n
+
+
+def _launched() -> None:
+    """Count one launch; inside a graph capture, count it at each replay."""
+    from calfkit_tpu_torch.inference import graphs
+
+    if not graphs.on_replay("int8_matmul", lambda: lambda n: _count(launch_counts, "int8_matmul", n)):
+        _count(launch_counts, "int8_matmul")
+
+
+def _contracted(spec: str) -> int:
+    """The number of leading weight axes the einsum ``spec`` contracts with
+    x's trailing ones; its output must be x's other axes, then the
+    weight's."""
+    inputs, out = spec.split("->")
+    a, b = inputs.split(",")
+    dims = sum(ax not in out for ax in b)
+    if a[len(a) - dims:] != b[:dims] or out != a[: len(a) - dims] + b[dims:]:
+        raise ValueError(f"int8_matmul: {spec!r} is no projection of x by a weight's leading axes")
+    return dims
+
+
+def int8_matmul_reference(spec: str, x: torch.Tensor, leaf: dict) -> torch.Tensor:
+    """The plain version of :func:`int8_matmul`: the einsum over the
+    dequantized weight in ``x``'s dtype, as the projections computed it
+    before the kernel (bit for bit on the CPU)."""
+    return torch.einsum(spec, x, dequant(leaf).to(x.dtype))
+
+
+_BK = 64  # reduction depth of a pipeline step
+_BN = 128  # weight columns a block
+_MIN_SPLIT_STEPS = 16  # a split shorter than this timed slower than fewer splits
+
+
+def int8_matmul_plan(M: int, N: int, K: int, sms: int) -> tuple[int, int, int]:
+    """The kernel's tiles for a product of shape (M, N, K) on a card of
+    ``sms`` SMs → (rows of x a block, splits of K, steps of 64 a split).
+
+    A block takes 128 weight columns.  Where M fills 256 rows a block and
+    the tiles still fill three quarters of a wave (a wave's chunk), blocks
+    take 256 rows, the products' widest instruction, so each converted
+    weight serves twice the rows.  Else (decode: one row tile) they take
+    128, and where that leaves SMs idle, K is split, as far as a wave holds
+    and each split keeps 16 steps (on the card, shorter splits cost more in
+    partials than they gain)."""
+    k_steps = -(-K // _BK)
+    n_tiles = -(-N // _BN)
+    if M >= 256 and 4 * -(-M // 256) * n_tiles >= 3 * sms:
+        return 256, 1, k_steps
+    tiles = -(-M // 128) * n_tiles
+    splits = max(1, min(sms // tiles, k_steps // _MIN_SPLIT_STEPS))
+    per = -(-k_steps // splits)
+    return 128, -(-k_steps // per), per
+
+
+# a weight's TMA tensor map (128 bytes) by (device, address, K, N): weights
+# never move, so each is encoded once
+_w_maps: dict[tuple, ctypes.Array] = {}
+_MAX_W_MAPS = 4096
+
+
+def _w_map(q8: torch.Tensor, K: int, N: int) -> int:
+    key = (q8.device.index, q8.data_ptr(), K, N)
+    buf = _w_maps.get(key)
+    if buf is None:
+        if len(_w_maps) >= _MAX_W_MAPS:
+            _w_maps.clear()
+        buf = ctypes.create_string_buffer(128)
+        _attention._check_status("int8_matmul", kernels.function("w8_tensor_map")(
+            ctypes.addressof(buf), q8.data_ptr(), K, N))
+        _w_maps[key] = buf
+    return ctypes.addressof(buf)
+
+
+def int8_matmul(spec: str, x: torch.Tensor, leaf: dict) -> torch.Tensor:
+    """``einsum(spec, x, dequant(leaf))`` for an int8 leaf whose leading
+    axes ``spec`` contracts with x's trailing ones (the output: x's other
+    axes, then the weight's), in ``x``'s dtype, f32 accumulation.
+
+    On a CUDA tensor: the kernel, for bf16 ``x``, a contiguous ``q8`` whose
+    trailing axes hold N (a multiple of 16) columns with one f32 scale each,
+    and K (a multiple of 8) contracted elements; anything else raises.  On
+    a CPU tensor: :func:`int8_matmul_reference`."""
+    q8, scale = leaf["q8"], leaf["scale"]
+    dims = _contracted(spec)
+    if _attention._on_cpu(x, q8, scale):
+        return int8_matmul_reference(spec, x, leaf)
+    if x.dtype != torch.bfloat16 or q8.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(
+            f"int8_matmul: needs bf16 x, an int8 payload and f32 scales "
+            f"(got {x.dtype}, {q8.dtype}, {scale.dtype})"
+        )
+    if tuple(x.shape[x.dim() - dims:]) != tuple(q8.shape[:dims]):
+        raise ValueError(f"int8_matmul: x {tuple(x.shape)} does not meet q8 {tuple(q8.shape)}")
+    K = math.prod(q8.shape[:dims])
+    N = q8.numel() // max(K, 1)
+    M = x.numel() // max(K, 1)
+    if not (q8.is_contiguous() and scale.is_contiguous() and scale.numel() == N):
+        raise ValueError("int8_matmul: q8 must be contiguous with one scale a column")
+    if N % 16 or K % 8 or q8.data_ptr() % 16:
+        raise ValueError(
+            f"int8_matmul: takes N % 16 == 0, K % 8 == 0 and a 16-byte-aligned q8 (got N={N}, K={K})"
+        )
+    out_shape = (*x.shape[: x.dim() - dims], *q8.shape[dims:])
+    x2 = x.reshape(M, K)
+    if not x2.is_contiguous() or x2.data_ptr() % 16:
+        x2 = x2.clone(memory_format=torch.contiguous_format)
+    y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    if M == 0:
+        return y.reshape(out_shape)
+    rows, splits, per = int8_matmul_plan(M, N, K, _attention._sm_count(x.device.index or 0))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    partials = tickets = None
+    if splits > 1:
+        partials = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+        tickets = _attention._ticket_buffer(x.device, stream, -(-M // rows) * -(-N // _BN))
+    status = kernels.function("w8a16_gemm")(
+        x2.data_ptr(), _w_map(q8, K, N), scale.data_ptr(), y.data_ptr(),
+        None if partials is None else partials.data_ptr(),
+        None if tickets is None else tickets.data_ptr(),
+        M, N, K, rows, splits, per, stream,
+    )
+    _attention._check_status("int8_matmul", status)
+    _launched()
+    return y.reshape(out_shape)
 
 
 DEFAULT_Q4_GROUP = 128

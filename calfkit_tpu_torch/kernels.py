@@ -82,6 +82,13 @@ SIGNATURES: dict[str, tuple[str, str, list]] = {
     "ragged_attention_paged_blocks": (
         "ragged_attention", "calfkit_ragged_paged_blocks", [_I, _I, _I],
     ),
+    # the int8 weight GEMM: x, W's tensor map, scale, y, partials, tickets;
+    # M, N, K, rows of x a block, splits, steps a split; the stream
+    "w8a16_gemm": (
+        "w8a16_gemm", "calfkit_w8a16_gemm", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    # the tensor map of an int8 weight [K, N] (out, base, K, N)
+    "w8_tensor_map": ("w8a16_gemm", "calfkit_w8_tensor_map", [_P, _P, _I, _I]),
 }
 
 _lock = threading.Lock()

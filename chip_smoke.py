@@ -396,6 +396,10 @@ SOURCES = {
         "calfkit_tpu_torch/csrc/ragged_attention.cu",
         "calfkit_tpu/inference/pallas_attention.py:467",
     ),
+    "int8_matmul": (
+        "calfkit_tpu_torch/csrc/w8a16_gemm.cu",
+        "none: XLA fuses the JAX package's dequant into the matmul",
+    ),
 }
 # kernel vs plain version: both accumulate in f32 from the same inputs; the
 # tolerances cover the sum order over up to 2048 positions, and for a bf16
@@ -404,6 +408,10 @@ SOURCES = {
 # (2**-8 relative)
 DECODE_TOL = dict(atol=1e-4, rtol=1e-4)
 PREFILL_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4), torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
+# the int8 GEMM against the float64 product of the same bf16 weights: its
+# f32 sum order (atol) and one rounding to bf16 (half an ulp, 2**-8
+# relative at most)
+INT8_TOL = dict(atol=1e-4, rtol=2 ** -8)
 
 
 def card_line() -> str:
@@ -806,7 +814,40 @@ MAIN_SHAPES = {
                              q_dtype="torch.bfloat16"),
     "prefill_attention": dict(R=4, S=512, q_pos0=1024, Skv=1536, H=32, K=8, hd=128,
                               dtype="torch.bfloat16"),
+    "int8_matmul": dict(weight="w_gate", M=128, K=4096, N=14336),
 }
+
+
+def int8_matmul_case(dev, weight: str, K: int, N: int, M: int, seed: int) -> dict:
+    """The int8 GEMM (``quant.int8_matmul``) on M rows of bf16 activations
+    and a random int8 weight [K, N] with the quantizer's per-column scales,
+    against the float64 product of the same bf16 weights.  Its plain
+    version is today's path before the kernel (``dequant``, then cuBLAS's
+    einsum); ``library_ms`` is cuBLAS's einsum alone on the bf16 weight.
+    The bound: the int8 bytes (and X, Y) at 3.35 TB/s, or the operations at
+    989 TFLOP/s, whichever is longer."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q8 = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+    scale = (1 + torch.rand((1, N), generator=g, device=dev)) / (127 * math.sqrt(K))
+    x = torch.randn((1, M, K), generator=g, device=dev).to(torch.bfloat16)
+    leaf = {"q8": q8, "scale": scale}
+    spec = "bsd,df->bsf"
+    out = Q.int8_matmul(spec, x, leaf)
+    w = Q.dequant(leaf)
+    ref = torch.einsum(spec, x.double(), w.double())
+    torch.cuda.synchronize()
+    err = float((out.double() - ref).abs().max())
+    torch.testing.assert_close(out.double(), ref, **INT8_TOL)
+    bytes_ms = (K * N + _nbytes(x, scale, out)) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * M * N * K / PEAK_OPS[torch.bfloat16] * 1e3
+    return dict(
+        name="int8_matmul", shape=dict(weight=weight, M=M, K=K, N=N),
+        max_abs_err=err, tol=INT8_TOL,
+        ms=time_ms(lambda: Q.int8_matmul(spec, x, leaf)),
+        plain_ms=time_ms(lambda: Q.int8_matmul_reference(spec, x, leaf), iters=5),
+        library_ms=time_ms(lambda: torch.einsum(spec, x, w)),
+        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+    )
 
 
 def kernel_plan() -> "list[tuple[str, object, tuple]]":
@@ -897,6 +938,11 @@ def kernel_plan() -> "list[tuple[str, object, tuple]]":
         plan.append(("ragged_attention_paged", ragged_paged_case,
                      (torch.bfloat16, len(lens), 8, 5, 4, 128, 64, lens, 32, 60 + i, 1, label,
                       torch.bfloat16)))
+    # the int8 GEMM at Mistral-7B-v0.3's w_gate and w_down, as the chat
+    # cells run them: a decode step's 128 rows and a wave's chunk of 4,096
+    for weight, K, N in (("w_gate", 4096, 14336), ("w_down", 14336, 4096)):
+        for M in (128, 4096):
+            plan.append(("int8_matmul", int8_matmul_case, (weight, K, N, M, 70 + M % 7)))
     return plan
 
 
@@ -2155,9 +2201,11 @@ async def north_star_phase(
         await serve(engine, [([5, *range(6, 5 + NORTH_STAR_PROMPT)], 40, {})])  # warm-up
         engine.stats = EngineStats()
         A.reset_launch_counts()
+        Q.reset_counts()
         with prefill_shapes() as prefills, decode_shapes() as decodes:
             streams, ttft, wall = await serve(engine, jobs)
-            launches = dict(A.launch_counts)
+            launches = {**A.launch_counts, **Q.launch_counts}
+        dequant_reads = Q.read_counts["int8_dequant_cuda"]
         stats = engine.stats
     finally:
         await engine.stop()
@@ -2167,6 +2215,10 @@ async def north_star_phase(
     assert all(0 <= t < cfg.vocab_size for s in streams for t in s)
     assert launches["prefill_attention"] > 0 and launches["paged_decode_attention"] > 0, launches
     assert launches["decode_attention"] == 0, launches
+    # int8: every product of an int8 weight goes through the int8 GEMM, none
+    # through dequant's bf16 copy
+    assert quantization != "int8" or (launches["int8_matmul"] > 0 and dequant_reads == 0), (
+        launches, dequant_reads)
     prefill_rows, decode_rows = _shape_rows(prefills), _shape_rows(decodes)
     assert sum(r["launches"] for r in prefill_rows) == launches["prefill_attention"]
     assert sum(r["launches"] for r in decode_rows) == launches["paged_decode_attention"]
@@ -2185,6 +2237,7 @@ async def north_star_phase(
         unified_dispatches=stats.unified_dispatches, prefill_waves=stats.prefill_waves,
         requests=requests, tok_s_wall=requests * NORTH_STAR_NEW / wall,
         weight_bytes=weight_bytes, max_memory_allocated=peak, launches=launches,
+        int8_dequant_reads=dequant_reads,
         prefill_shapes=prefill_rows, decode_shapes=decode_rows, graphs=numbers,
     )
     print(
@@ -5831,7 +5884,7 @@ def main() -> int:
     # phases
     launch_source = {"decode_attention": serving, "paged_decode_attention": paged,
                      "prefill_attention": paged, "ragged_attention": spec_dense,
-                     "ragged_attention_paged": spec_paged}
+                     "ragged_attention_paged": spec_paged, "int8_matmul": north["int8"]}
     line = {"kernels": []}
     for name, c in main_cases.items():
         source, replaces = SOURCES[name]

@@ -7,8 +7,9 @@ Imports ``calfkit_tpu_torch`` from ``DIR`` (default: this checkout), builds
 its kernels, and runs THIS checkout's ``chip_smoke.py`` kernel phase against
 them, for the kernels the tree has (or those ``--kernel`` names): every
 kernel against its plain version,
-timed with CUDA events beside the plain version,
-``scaled_dot_product_attention`` and the bound.
+timed with CUDA events beside the plain version, the library's call
+(``scaled_dot_product_attention``; cuBLAS's einsum for the int8 GEMM) and
+the bound.
 Two trees (e.g. a parent commit unpacked with ``git archive`` into a
 git-ignored directory) are thus timed by the same code: run parent, change,
 change, parent in one call to compare them on one card.  Prints one JSON
@@ -42,6 +43,7 @@ def main() -> int:
 
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = smoke  # its dataclasses look their module up there
     spec.loader.exec_module(smoke)
     if not torch.cuda.is_available():
         print("torch_kernel_times: no CUDA device", file=sys.stderr)
@@ -50,7 +52,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smoke.kernels.build_all()
     # a tree of an earlier slice lacks the later kernels: time what it has
-    plan = [case for case in smoke.kernel_plan() if hasattr(smoke.A, case[0])
+    plan = [case for case in smoke.kernel_plan()
+            if (hasattr(smoke.A, case[0]) or hasattr(smoke.Q, case[0]))
             and (not args.kernel or case[0] in args.kernel)]
     with contextlib.redirect_stdout(sys.stderr):  # the per-case lines; stdout keeps the JSON
         cases = smoke.run_cases(torch.device("cuda", 0), plan)

@@ -1314,3 +1314,182 @@ def test_event_clock_times_the_stream_as_torch_events_do():
         clock.release(a)
         clock.release(b)
     assert len(clock._free) == 2
+
+
+# --------------------------------------------------------------------------- #
+# the int8 weight GEMM (csrc/w8a16_gemm.cu)
+# --------------------------------------------------------------------------- #
+
+# (einsum spec, weight shape of one layer, its reduction axes): Mistral-7B-
+# v0.3's projections (wv has wk's shape, w_up w_gate's), then a tp = 2 rank's
+# shards of them (wo and w_down split along K, the others along N)
+W8_LEAVES = {
+    "wq": ("bsd,dnh->bsnh", (4096, 32, 128), (0,)),
+    "wk": ("bsd,dkh->bskh", (4096, 8, 128), (0,)),
+    "wo": ("bsnh,nhd->bsd", (32, 128, 4096), (0, 1)),
+    "w_gate": ("bsd,df->bsf", (4096, 14336), (0,)),
+    "w_down": ("bsf,fd->bsd", (14336, 4096), (0,)),
+    "lm_head": ("bsd,dv->bsv", (4096, 32768), (0,)),
+    "wq/tp2": ("bsd,dnh->bsnh", (4096, 16, 128), (0,)),
+    "wk/tp2": ("bsd,dkh->bskh", (4096, 4, 128), (0,)),
+    "wo/tp2": ("bsnh,nhd->bsd", (16, 128, 4096), (0, 1)),
+    "w_gate/tp2": ("bsd,df->bsf", (4096, 7168), (0,)),
+    "w_down/tp2": ("bsf,fd->bsd", (7168, 4096), (0,)),
+    "lm_head/tp2": ("bsd,dv->bsv", (4096, 16384), (0,)),
+}
+# a draft or lone row, a few rows, a ragged count, a decode step of 128 rows,
+# a mixed dispatch, a wave's chunk of 8 x 512 with the decode rows beside it
+W8_ROWS = [1, 8, 66, 128, 640, 4096 + 128]
+
+
+def _w8_case(name, M, seed):
+    """A random int8 leaf of ``name``'s shape (payload over [-127, 127],
+    per-column scales as the quantizer's, spread over 2x) and bf16
+    activations of M rows, on the card."""
+    from calfkit_tpu_torch.inference import quant as Q
+
+    spec, shape, axes = W8_LEAVES[name]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    K = math.prod(shape[a] for a in axes)
+    q8 = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+    scale_shape = tuple(1 if i in axes else n for i, n in enumerate(shape))
+    scale = (1 + torch.rand(scale_shape, generator=g, device=dev)) / (127 * math.sqrt(K))
+    x = torch.randn((1, M, *shape[: len(axes)]), generator=g, device=dev).to(torch.bfloat16)
+    return spec, x, {"q8": q8, "scale": scale}, Q
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("M", W8_ROWS)
+@pytest.mark.parametrize("name", list(W8_LEAVES))
+def test_int8_kernel_matches_the_einsum_over_dequant(name, M):
+    """The kernel against ``einsum(x, dequant(leaf))`` in float64 at every
+    projection shape and row count (split over K at decode rows, 256
+    columns a block at chunk rows): both multiply the same bf16 weights, so
+    they differ by the kernel's f32 sum order (K terms at 2**-24 relative
+    each, ~1e-5 of an output here: ``atol``) and its one rounding to bf16
+    (half an ulp of 8 significant bits, 2**-8 relative at most: ``rtol``)."""
+    spec, x, leaf, Q = _w8_case(name, M, M + len(name))
+    Q.reset_counts()
+    got = Q.int8_matmul(spec, x, leaf)
+    want = torch.einsum(spec, x.double(), Q.dequant(leaf).double())
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert Q.launch_counts == {"int8_matmul": 1}
+    torch.testing.assert_close(got.double(), want, rtol=2 ** -8, atol=1e-4)
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("name", ["wk", "wo", "w_down/tp2", "lm_head"])
+def test_int8_kernel_feeds_dequant_bits_to_the_tensor_cores(name):
+    """Rows of the identity as x read the converted weights back out: each
+    output is one weight times 1 plus zeros, so the kernel's bf16 weights
+    equal ``dequant``'s bit for bit, through the split launch (128 rows) and
+    the wide one (every row of K)."""
+    spec, _, leaf, Q = _w8_case(name, 1, len(name))
+    lead = leaf["q8"].shape[: Q._contracted(spec)]
+    K = math.prod(lead)
+    want = Q.dequant(leaf).reshape(K, -1)
+    for first, rows in ((K - 128, 128), (0, min(K, 4096))):
+        eye = torch.eye(K, dtype=torch.bfloat16, device="cuda")[first:first + rows]
+        got = Q.int8_matmul(spec, eye.reshape(1, rows, *lead), leaf)
+        assert torch.equal(got.reshape(rows, -1), want[first:first + rows])
+
+
+@pytest.mark.cuda
+@cuda_only
+@pytest.mark.parametrize("M", [128, 4096 + 128])
+def test_int8_kernel_replays_in_a_cuda_graph(M):
+    """A capture of the kernel (a split launch at 128 rows, a wide one at
+    4,224), replayed on new activations, gives the eager launch's bits; the
+    split launch leaves its tickets at zero."""
+    spec, x, leaf, Q = _w8_case("wq", M, 3)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # the first launch on this stream makes its tickets
+        Q.int8_matmul(spec, x, leaf)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = Q.int8_matmul(spec, x, leaf)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for _ in range(4):
+        fresh = torch.randn(x.shape, generator=g, device="cuda").to(torch.bfloat16)
+        x.copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, Q.int8_matmul(spec, fresh, leaf))
+    assert all(int(buf.count_nonzero()) == 0 for buf in A._tickets.values())
+
+
+@pytest.mark.cuda
+@cuda_only
+def test_int4_and_f32_activations_still_take_dequant():
+    """Only an int8 leaf under bf16 activations reaches the kernel: f32
+    activations read the int8 leaf through ``dequant`` (counted), int4
+    leaves and plain weights launch nothing, each bit for bit the einsum
+    over ``dequant``'s weight."""
+    from calfkit_tpu_torch.inference import model as M
+
+    spec, x, leaf, Q = _w8_case("w_gate/tp2", 66, 9)
+    w = Q.dequant(leaf).float()
+    leaf4 = Q.quantize_tensor4(w, (0,))
+    want = torch.einsum(spec, x.float(), w)
+    Q.reset_counts()
+    assert torch.equal(M._project(spec, x.float(), leaf), want)
+    assert Q.read_counts == {"int8_dequant_cuda": 1} and Q.launch_counts == {"int8_matmul": 0}
+    assert torch.equal(M._project(spec, x, leaf4), torch.einsum(spec, x, Q.dequant(leaf4)))
+    assert torch.equal(M._project(spec, x, w.to(torch.bfloat16)),
+                       torch.einsum(spec, x, w.to(torch.bfloat16)))
+    assert Q.read_counts == {"int8_dequant_cuda": 1} and Q.launch_counts == {"int8_matmul": 0}
+    M._project(spec, x, leaf)
+    assert Q.read_counts == {"int8_dequant_cuda": 1} and Q.launch_counts == {"int8_matmul": 1}
+
+
+@pytest.mark.cuda
+@cuda_only
+def test_w8_engine_reads_no_int8_leaf_through_dequant():
+    """A bf16 engine with int8 weights (paged, chunked, ragged waves) serves
+    the same streams on its CUDA graphs as under ``graphs.eager()``; every
+    dispatch it captured multiplied its int8 leaves by the kernel (launches
+    counted at each replay) and none read one through ``dequant``."""
+    import asyncio
+    import contextlib
+
+    from calfkit_tpu_torch.inference import graphs
+    from calfkit_tpu_torch.inference import quant as Q
+    from calfkit_tpu_torch.inference.config import RuntimeConfig, preset
+    from calfkit_tpu_torch.inference.engine import InferenceEngine
+
+    dev = torch.device("cuda")
+    cfg = preset("debug", d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, dtype="bfloat16")
+    rt = RuntimeConfig(
+        max_batch_size=4, max_seq_len=512, prefill_chunk=32, decode_steps_per_dispatch=4,
+        kv_layout="paged", page_size=16, chunked_prefill=True, max_prefill_wave=2,
+        quantization="int8",
+    )
+    V = cfg.vocab_size
+    jobs = [([(7 * i + 3) % V for i in range(90)], 20), ([(3 * i + 1) % V for i in range(40)], 16),
+            ([5, 6, 7], 12), ([(11 * i) % V for i in range(70)], 18)]
+
+    async def drive(eager):
+        with graphs.eager() if eager else contextlib.nullcontext():
+            engine = InferenceEngine(cfg, rt, seed=5, device=dev)
+            await engine.start()
+            try:
+                streams = await asyncio.gather(*[collect(engine, p, n) for p, n in jobs])
+            finally:
+                await engine.stop()
+        return streams, engine
+
+    async def collect(engine, prompt, n):
+        return [tok async for tok in engine.generate(prompt, max_new_tokens=n)]
+
+    want, _ = asyncio.run(drive(True))
+    Q.reset_counts()
+    got, engine = asyncio.run(drive(False))
+    assert got == want and [len(s) for s in got] == [n for _, n in jobs]
+    assert engine._graphs.stats["replays"] > 0
+    assert Q.read_counts == {"int8_dequant_cuda": 0}
+    assert Q.launch_counts["int8_matmul"] > 0
